@@ -12,9 +12,10 @@ Phases, in order; any failed check raises and the script exits non-zero:
 3. kernels — every kernel against its plain PyTorch version at the
    serving shapes (B=8, H=32, D=128, page 16, 128 pages per row,
    contexts over 1..2048; the ragged kernel at C=512 with decode, chunk
-   and inactive rows), fp32, bf16 and int8 pages, each timed with CUDA
-   events (median of 25 after warm-up) beside its plain version and its
-   bound;
+   and inactive rows; the verify kernel at W=5 with lane lengths
+   ctx + j + 1, every lane also EQUAL to the decode kernel at its
+   length), fp32, bf16 and int8 pages, each timed with CUDA events
+   (median of 25 after warm-up) beside its plain version and its bound;
 4. serve — LLaMA-7B at full width and depth (random bf16 weights from a
    seeded on-device generator) behind ``EngineCore``: 8 requests with
    prompts of 1536..1 tokens, 32 new tokens each, 6 greedy and 2
@@ -22,7 +23,17 @@ Phases, in order; any failed check raises and the script exits non-zero:
    and read just after; then the paged forward against the dense one on
    a small input, and the ragged kernel's own entry point
    (``ragged_paged_attention(use_kernel=True)``) at the serving shapes;
-5. the kernels line (one JSON object), the card line, and last
+5. spec — the same LLaMA-7B core shape with ``num_draft_tokens=4``: 8
+   greedy requests plain (a), then ``speculate=True`` with an oracle
+   draft source proposing run (a)'s streams (b: streams equal to (a),
+   every draft accepted), then ``speculate=True`` with ngram drafts on
+   tiled prompts, 2 of 8 requests sampled (c: greedy streams equal to a
+   plain run of the same prompts); the verify kernel launches at least
+   once per layer per step in (b) and (c);
+6. gpt — the LLaMA model freed, ``gpt3-6.7b`` at full width and depth
+   (random bf16 weights) serves 8 requests with ngram speculation, then
+   its paged forward against its dense one;
+7. the kernels line (one JSON object), the card line, and last
    ``{"ok": true, "device": {...}}``.
 
 Without a card, or without the repository beside it, it exits non-zero
@@ -30,7 +41,9 @@ before printing any result.  It imports nothing of JAX.
 """
 from __future__ import annotations
 
+import gc
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -44,6 +57,9 @@ TOL = {"fp32": 1e-4, "bf16": 2e-2, "int8": 2e-2}
 PROMPT_LENS = (1536, 1024, 700, 512, 257, 128, 33, 1)
 SAMPLED = (2, 5)                       # request indices that sample
 MAX_NEW = 32
+# spec phase: shorter prompts, so decode steps dominate the run
+SPEC_PROMPT_LENS = (512, 384, 256, 200, 128, 64, 33, 8)
+NUM_DRAFT = 4
 
 
 def card_line() -> str:
@@ -77,10 +93,11 @@ def time_ms(fn, reps=25, warmup=3):
 # ---------------------------------------------------------------- phase 3
 
 def make_case(device, B=8, H=32, D=128, page=16, max_pages=128, C=512,
-              seed=1):
+              W=NUM_DRAFT + 1, seed=1):
     """Serving-shaped inputs: one fp32 pool, per-row page tables over
-    distinct pages, decode contexts spread over 1..max_len and a ragged
-    batch mixing chunk, decode and inactive rows."""
+    distinct pages, decode contexts spread over 1..max_len, a ragged
+    batch mixing chunk, decode and inactive rows, and W-lane verify
+    queries with lane lengths ctx + j + 1 over ctx in 1..max_len-W."""
     import torch
 
     g = torch.Generator(device=device)
@@ -106,28 +123,32 @@ def make_case(device, B=8, H=32, D=128, page=16, max_pages=128, C=512,
     qlens = torch.tensor([min(r[1], C) for r in rows], dtype=torch.int32,
                          device=device)
     qc = torch.randn(B, C, H, D, generator=g, device=device)
-    return dict(kp=kp, vp=vp, tables=tables, q=q, qc=qc, ctx=ctx,
+    qv = torch.randn(B, W, H, D, generator=g, device=device)
+    vctx = np.round(np.linspace(1, max_len - W, B)).astype(np.int32)
+    vlens = vctx[:, None] + np.arange(W, dtype=np.int32)[None] + 1
+    return dict(kp=kp, vp=vp, tables=tables, q=q, qc=qc, qv=qv, ctx=ctx,
                 qlens=qlens, lengths=torch.tensor(lengths, device=device),
+                vlens=torch.tensor(vlens, device=device).contiguous(),
                 H=H, D=D, page=page)
 
 
 def _cast(case, kind):
-    """(q, qc, k_pages, v_pages, plain k, plain v) for one page type;
-    the plain version gets float32 copies of the SAME stored pages."""
+    """(q, qc, qv, k_pages, v_pages, plain k, plain v) for one page
+    type; the plain version gets float32 copies of the SAME stored
+    pages."""
     import torch
 
     from paddle_infer_tpu_torch.ops import paged_attention as PA
 
     if kind == "fp32":
-        return case["q"], case["qc"], case["kp"], case["vp"], \
+        return case["q"], case["qc"], case["qv"], case["kp"], case["vp"], \
             case["kp"], case["vp"]
-    q = case["q"].to(torch.bfloat16)
-    qc = case["qc"].to(torch.bfloat16)
+    q, qc, qv = (case[n].to(torch.bfloat16) for n in ("q", "qc", "qv"))
     if kind == "bf16":
         kp, vp = case["kp"].to(torch.bfloat16), case["vp"].to(torch.bfloat16)
-        return q, qc, kp, vp, kp.float(), vp.float()
+        return q, qc, qv, kp, vp, kp.float(), vp.float()
     kq, vq = PA.quantize_pages(case["kp"]), PA.quantize_pages(case["vp"])
-    return q, qc, kq, vq, kq, vq
+    return q, qc, qv, kq, vq, kq, vq
 
 
 def _bytes_decode(case, kind, lengths):
@@ -140,6 +161,22 @@ def _bytes_decode(case, kind, lengths):
         pages = int(np.ceil(lengths / case["page"]).sum())
         byts += 2 * pages * H * 4
     flops = 4 * toks * H * D
+    return byts, flops
+
+
+def _bytes_verify(case, kind, vlens):
+    """The longest lane's pages of K and V once (every lane reads a
+    prefix of them), their scales, q and out; 4 FLOPs per (lane, slot,
+    head, dim)."""
+    itemsize = {"fp32": 4, "bf16": 2, "int8": 1}[kind]
+    qsize = 4 if kind == "fp32" else 2
+    H, D = case["H"], case["D"]
+    last = vlens[:, -1]
+    byts = 2 * int(last.sum()) * H * D * itemsize + 2 * vlens.size * H * D \
+        * qsize
+    if kind == "int8":
+        byts += 2 * int(np.ceil(last / case["page"]).sum()) * H * 4
+    flops = 4 * H * D * int(vlens.sum())
     return byts, flops
 
 
@@ -166,6 +203,57 @@ def _bound(byts, flops, kind):
     return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
 
 
+def check_verify(case, kinds=("fp32", "bf16", "int8"), timed=True):
+    """The verify kernel: every lane EQUAL to the decode kernel at its
+    length (the greedy-parity invariant), and allclose to the plain
+    version.  Returns ``{kind: record}``; raises on a disagreement."""
+    import torch
+
+    from paddle_infer_tpu_torch.ops import paged_attention as PA
+
+    tables, vlens = case["tables"], case["vlens"]
+    vl = vlens.cpu().numpy().astype(np.int64)
+    out = {}
+    for kind in kinds:
+        _, _, qv, kp, vp, kp_ref, vp_ref = _cast(case, kind)
+        tol = TOL[kind]
+        ver = PA.paged_attention_verify(qv, kp, vp, tables, vlens)
+        lanes = [(qv[:, w].contiguous(), vlens[:, w].contiguous())
+                 for w in range(qv.shape[1])]
+        lanes_equal = all(
+            torch.equal(ver[:, w], PA.paged_attention_decode(
+                ql, kp, vp, tables, ll)) for w, (ql, ll) in enumerate(lanes))
+        ref = PA._verify_plain(qv.float(), kp_ref, vp_ref, tables, vlens)
+        err = float((ver.float() - ref).abs().max())
+        ok = lanes_equal and bool(torch.allclose(ver.float(), ref, atol=tol,
+                                                 rtol=tol))
+        rec = {"max_abs_err": err, "lanes_equal_decode": lanes_equal,
+               "tol": tol, "ok": ok}
+        if timed:
+            rec["ms"] = time_ms(lambda: PA.paged_attention_verify(
+                qv, kp, vp, tables, vlens))
+            rec["plain_ms"] = time_ms(lambda: PA._verify_plain(
+                qv, kp, vp, tables, vlens), reps=10)
+            # the W separate decode launches the kernel stands in for
+            rec["decode_x_w_ms"] = time_ms(lambda: [
+                PA.paged_attention_decode(ql, kp, vp, tables, ll)
+                for ql, ll in lanes])
+            rec["bound_ms"], rec["bound_by"] = _bound(
+                *_bytes_verify(case, kind, vl), kind)
+        out[kind] = rec
+        print(f"[kernels] paged_verify {kind} W={qv.shape[1]}: "
+              f"max_abs_err={err:.3e} lanes_equal_decode={lanes_equal} "
+              f"tol={tol} ok={ok} " + " ".join(
+                  f"{k}={v:.4f}" for k, v in rec.items()
+                  if k in ("ms", "plain_ms", "decode_x_w_ms", "bound_ms")),
+              flush=True)
+    bad = [k for k, v in out.items() if not v["ok"]]
+    if bad:
+        raise AssertionError(f"paged_verify disagrees (lanes vs decode or "
+                             f"vs plain) for {bad}")
+    return out
+
+
 def check_kernels(case, kinds=("fp32", "bf16", "int8"), timed=True):
     """Each kernel against its plain version on the same inputs.
     Returns ``{kernel: {kind: record}}``; raises on a disagreement."""
@@ -184,7 +272,7 @@ def check_kernels(case, kinds=("fp32", "bf16", "int8"), timed=True):
              < qlens[:, None].long())
     results = {"paged_decode": {}, "ragged_paged_attention": {}}
     for kind in kinds:
-        q, qc, kp, vp, kp_ref, vp_ref = _cast(case, kind)
+        q, qc, _, kp, vp, kp_ref, vp_ref = _cast(case, kind)
         tol = TOL[kind]
 
         dec = PA.paged_attention_decode(q, kp, vp, tables, lengths)
@@ -238,6 +326,7 @@ def check_kernels(case, kinds=("fp32", "bf16", "int8"), timed=True):
     if bad:
         raise AssertionError(f"kernels disagree with their plain "
                              f"versions: {bad}")
+    results["paged_verify"] = check_verify(case, kinds, timed)
     return results
 
 
@@ -254,9 +343,12 @@ def build_llama(device, config=None, dtype=None, seed=0):
 
 
 def serve(model, device, prompt_lens=PROMPT_LENS, max_new=MAX_NEW,
-          max_model_len=2048, token_budget=512, page_size=16, max_batch=8):
-    """Serve one request per prompt length through EngineCore; returns
-    the run's numbers.  Raises if a request fails or a stream is off."""
+          max_model_len=2048, token_budget=512, page_size=16, max_batch=8,
+          prompts=None, sampled=SAMPLED, **core_kw):
+    """Serve one request per prompt length (or per given prompt) through
+    EngineCore, the requests in ``sampled`` sampling and the rest
+    greedy; ``core_kw`` goes to EngineCore (speculation).  Returns the
+    run's numbers.  Raises if a request fails or a stream is off."""
     import torch
 
     from paddle_infer_tpu_torch.inference.generation import (
@@ -269,7 +361,7 @@ def serve(model, device, prompt_lens=PROMPT_LENS, max_new=MAX_NEW,
     core = EngineCore(engine, max_batch=max_batch,
                       max_model_len=max_model_len,
                       token_budget=token_budget, prefill_chunk=token_budget,
-                      device=device)
+                      device=device, **core_kw)
     finite = []
     step = engine._model_step
 
@@ -282,9 +374,10 @@ def serve(model, device, prompt_lens=PROMPT_LENS, max_new=MAX_NEW,
         return logits, new
 
     engine._model_step = checked_step
-    rs = np.random.RandomState(0)
-    prompts = [rs.randint(0, vocab, (n,)).astype(np.int32)
-               for n in prompt_lens]
+    if prompts is None:
+        rs = np.random.RandomState(0)
+        prompts = [rs.randint(0, vocab, (n,)).astype(np.int32)
+                   for n in prompt_lens]
     reqs = []
     try:
         t0 = time.perf_counter()
@@ -292,7 +385,7 @@ def serve(model, device, prompt_lens=PROMPT_LENS, max_new=MAX_NEW,
             g = (GenerationConfig(max_new_tokens=max_new, do_sample=True,
                                   temperature=0.8, top_k=50, top_p=0.95,
                                   seed=1234)
-                 if i in SAMPLED else GenerationConfig(max_new_tokens=max_new))
+                 if i in sampled else GenerationConfig(max_new_tokens=max_new))
             reqs += core.submit(p, g)
         for _ in range(2000):
             if all(r.done for r in reqs):
@@ -314,11 +407,14 @@ def serve(model, device, prompt_lens=PROMPT_LENS, max_new=MAX_NEW,
     if not all(finite):
         raise AssertionError("non-finite last-position logits in a step")
     gen = sum(len(r.tokens) for r in reqs)
+    spec = core.metrics_snapshot()["speculation"]
     return {"steps": core._step_idx, "wall_s": wall,
             "generated_tokens": gen, "tokens_per_s": gen / wall,
             "ttft_s": [r.first_token_at - r.arrival for r in reqs],
             "step_ms": [t["wall_s"] * 1e3 for t in core.step_trace],
-            "streams": [list(r.tokens) for r in reqs]}
+            "drafts_proposed": spec["drafts_proposed"],
+            "drafts_accepted": spec["drafts_accepted"],
+            "prompts": prompts, "streams": [list(r.tokens) for r in reqs]}
 
 
 def reference_check(model, device, n_prompt=33, n_decode=4, page=16,
@@ -369,7 +465,7 @@ def reference_check(model, device, n_prompt=33, n_decode=4, page=16,
 
 
 def profile_serving(model, device, prompt_lens=(512, 1), max_new=4,
-                    top=12):
+                    top=12, tag="plain", **serve_kw):
     """Where a serving step's device time goes: a short run (one chunk
     step, then decode steps) under ``torch.profiler``; prints the device
     busy share of the run's wall and the top kernels by self device
@@ -380,7 +476,7 @@ def profile_serving(model, device, prompt_lens=(512, 1), max_new=4,
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         stats = serve(model, device, prompt_lens=prompt_lens,
-                      max_new=max_new)
+                      max_new=max_new, **serve_kw)
     rows = []
     for e in prof.key_averages():
         # device-side events only: host ops report their kernels' time
@@ -394,17 +490,21 @@ def profile_serving(model, device, prompt_lens=(512, 1), max_new=4,
             rows.append((t / 1e3, e.count, e.key))
     busy_ms = sum(r[0] for r in rows)
     wall_ms = stats["wall_s"] * 1e3
-    groups = {"matmul": 0.0, "paged_decode_kernel": 0.0, "other": 0.0}
+    groups = {"matmul": 0.0, "paged_decode_kernel": 0.0,
+              "paged_verify_kernel": 0.0, "other": 0.0}
     for ms, _, name in rows:
         low = name.lower()
         if "paged_decode_kernel" in name:
             groups["paged_decode_kernel"] += ms
+        elif "paged_verify_kernel" in name:
+            groups["paged_verify_kernel"] += ms
         elif any(s in low for s in ("gemm", "xmma", "cutlass", "nvjet",
                                     "matmul", "mm_")):
             groups["matmul"] += ms
         else:
             groups["other"] += ms
-    print(f"[profile] {len(prompt_lens)} requests, {stats['steps']} steps: "
+    print(f"[profile] {tag}: {len(stats['prompts'])} requests, "
+          f"{stats['steps']} steps: "
           f"wall_ms={wall_ms:.1f} device_busy_ms={busy_ms:.1f} "
           f"idle_share={max(0.0, 1 - busy_ms / wall_ms):.3f} groups_ms="
           + json.dumps({k: round(v, 3) for k, v in groups.items()}),
@@ -412,6 +512,136 @@ def profile_serving(model, device, prompt_lens=(512, 1), max_new=4,
     for ms, n, name in sorted(rows, reverse=True)[:top]:
         print(f"[profile] {ms:10.3f} ms {n:6d} calls  {name[:110]}",
               flush=True)
+
+
+# ---------------------------------------------------------------- phase 5
+
+class OracleDrafts:
+    """Draft source proposing each request's continuation from a known
+    stream (found by its prompt), so every greedy draft is accepted."""
+
+    name = "oracle"
+    deterministic = True
+
+    def __init__(self, prompts, streams):
+        self._pairs = [(np.asarray(p), list(t))
+                       for p, t in zip(prompts, streams)]
+
+    def propose(self, history, k, salt=None, deterministic_only=False):
+        h = np.asarray(history)
+        for p, t in self._pairs:
+            if h.size >= p.size and np.array_equal(h[:p.size], p):
+                return t[h.size - p.size:h.size - p.size + k]
+        return []
+
+
+def tiled_prompts(vocab, lens, seed):
+    """Prompts that repeat a short random pattern, so ngram drafts fire."""
+    rs = np.random.RandomState(seed)
+    return [np.tile(rs.randint(0, vocab, (m,)), -(-n // m))[:n]
+            .astype(np.int32) for n, m in zip(lens, (4, 5, 6, 7, 3, 4, 5, 2))]
+
+
+def serve_counted(model, device, tag, **kw):
+    """``serve`` with every launch count zeroed just before and read just
+    after; prints the run's line."""
+    from paddle_infer_tpu_torch.ops import _build
+
+    for k in _build.KERNELS.values():
+        k.launches = 0
+    st = serve(model, device, **kw)
+    st["launches"] = {n: k.launches for n, k in _build.KERNELS.items()}
+    steps = np.asarray(st["step_ms"])
+    print(f"[{tag}] steps={st['steps']} wall_s={st['wall_s']:.3f} "
+          f"generated={st['generated_tokens']} "
+          f"tokens_per_s={st['tokens_per_s']:.2f} "
+          f"step_ms_p50={np.median(steps):.1f} "
+          f"drafts_proposed={st['drafts_proposed']} "
+          f"drafts_accepted={st['drafts_accepted']} "
+          f"launches={st['launches']}", flush=True)
+    return st
+
+
+def _check_verify_launches(st, L, tag):
+    n = st["launches"]["paged_verify"]
+    if n < L * st["steps"]:
+        raise AssertionError(f"{tag}: paged_verify launched {n} times in "
+                             f"{st['steps']} steps (< {L} per step)")
+
+
+def spec_phase(model, device):
+    """Runs (a) plain, (b) oracle speculation, (c) ngram speculation on
+    tiled prompts with 2 sampled rows and its plain twin; raises unless
+    (b) equals (a) with every draft accepted and (c)'s greedy streams
+    equal its plain twin's."""
+    L = model.config.num_hidden_layers
+    vocab = model.config.vocab_size
+    rs = np.random.RandomState(3)
+    prompts = [rs.randint(0, vocab, (n,)).astype(np.int32)
+               for n in SPEC_PROMPT_LENS]
+    spec = dict(speculate=True, num_draft_tokens=NUM_DRAFT)
+    runs = {"a": serve_counted(model, device, "spec a plain",
+                               prompts=prompts, sampled=())}
+    runs["b"] = serve_counted(
+        model, device, "spec b oracle", prompts=prompts, sampled=(),
+        draft_source=OracleDrafts(prompts, runs["a"]["streams"]), **spec)
+    if runs["b"]["streams"] != runs["a"]["streams"]:
+        raise AssertionError("oracle-speculative greedy streams differ "
+                             "from plain ones")
+    if not (runs["b"]["drafts_accepted"] == runs["b"]["drafts_proposed"]
+            > 0):
+        raise AssertionError(f"oracle drafts: {runs['b']['drafts_accepted']}"
+                             f" of {runs['b']['drafts_proposed']} accepted")
+    tiled = tiled_prompts(vocab, SPEC_PROMPT_LENS, seed=4)
+    runs["c_plain"] = serve_counted(model, device, "spec c plain",
+                                    prompts=tiled)
+    runs["c"] = serve_counted(model, device, "spec c ngram", prompts=tiled,
+                              draft_source="ngram", **spec)
+    greedy = [i for i in range(len(tiled)) if i not in SAMPLED]
+    if any(runs["c"]["streams"][i] != runs["c_plain"]["streams"][i]
+           for i in greedy):
+        raise AssertionError("ngram-speculative greedy streams differ from "
+                             "plain ones")
+    for tag in ("b", "c"):
+        _check_verify_launches(runs[tag], L, f"spec {tag}")
+    return runs
+
+
+# ---------------------------------------------------------------- phase 6
+
+def gpt_phase(device, config=None, dtype=None):
+    """gpt3-6.7b (or ``config``) at full width and depth: ngram-speculative
+    serving of 8 requests, then paged vs dense logits."""
+    import torch
+
+    from paddle_infer_tpu_torch.models import GPTConfig, GPTForCausalLM
+
+    cuda = device.type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cfg = config or GPTConfig.from_preset("gpt3-6.7b")
+    model = GPTForCausalLM(cfg, device=device, dtype=dtype or torch.bfloat16,
+                           seed=0)
+    if cuda:
+        torch.cuda.synchronize()
+    print(f"[gpt] {'gpt3-6.7b' if config is None else 'gpt'} built in "
+          f"{time.perf_counter() - t0:.1f}s: hidden {cfg.hidden_size}, "
+          f"layers {cfg.num_hidden_layers}, ffn {cfg.intermediate_size}, "
+          f"vocab {cfg.vocab_size}, params "
+          f"{sum(p.numel() for p in model.parameters()) / 1e9:.2f}B "
+          f"{str(next(model.parameters()).dtype)[6:]}", flush=True)
+    prompts = tiled_prompts(cfg.vocab_size, SPEC_PROMPT_LENS, seed=5)
+    st = serve_counted(model, device, "gpt ngram", prompts=prompts,
+                       max_model_len=cfg.max_position_embeddings,
+                       speculate=True, num_draft_tokens=NUM_DRAFT,
+                       draft_source="ngram")
+    if cuda:
+        print(f"[gpt] peak_mem_gb="
+              f"{torch.cuda.max_memory_allocated() / 1e9:.1f}", flush=True)
+    _check_verify_launches(st, cfg.num_hidden_layers, "gpt")
+    reference_check(model, device)
+    return st
 
 
 # ------------------------------------------------------------------ main
@@ -450,9 +680,13 @@ def main() -> int:
     print(f"[build] kernels {nvcc_s:.1f}s, total "
           f"{time.perf_counter() - t0:.1f}s", flush=True)
     for src, log in _build.BUILD_LOG.items():
+        fn = "?"
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"[build] {src}: {line.strip()}", flush=True)
+            m = re.search(r"([a-z]+_[a-z]+_kernel)I(\w+?)EEv", line)
+            if "Compiling entry" in line and m:
+                fn = f"{m.group(1)}<{m.group(2)}>"
+            elif "registers" in line or "spill" in line:
+                print(f"[build] {src} {fn}: {line.strip()}", flush=True)
 
     # phase 3: kernels against their plain versions
     case = make_case(device)
@@ -492,7 +726,7 @@ def main() -> int:
     profile_serving(model, device)
 
     # the ragged kernel's own path: its entry point at the serving shapes
-    q, qc, kp, vp, _, _ = _cast(case, "bf16")
+    q, qc, _, kp, vp, _, _ = _cast(case, "bf16")
     for k in _build.KERNELS.values():
         k.launches = 0
     RPA.ragged_paged_attention(qc, kp, vp, case["tables"], case["ctx"],
@@ -503,7 +737,24 @@ def main() -> int:
     if launches["ragged_paged_attention"] < 1:
         raise AssertionError("ragged kernel entry point launched nothing")
 
-    # phase 5: the kernels line, the card line, the result line
+    # phase 5: speculation on the same model; counts zeroed per run
+    runs = spec_phase(model, device)
+    tiled = tiled_prompts(model.config.vocab_size, (512, 8), seed=6)
+    profile_serving(model, device, prompts=tiled, max_new=8, tag="spec",
+                    speculate=True, num_draft_tokens=NUM_DRAFT,
+                    draft_source="ngram", sampled=())
+    by_run = {f"llama {t}": runs[t]["launches"]["paged_verify"]
+              for t in ("b", "c")}
+
+    # phase 6: GPT, with the LLaMA model freed first
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    gst = gpt_phase(device)
+    by_run["gpt"] = gst["launches"]["paged_verify"]
+    launches["paged_verify"] = sum(by_run.values())
+
+    # phase 7: the kernels line, the card line, the result line
     line = []
     for name, k in _build.KERNELS.items():
         rec = kres[name]["bf16"]
@@ -516,7 +767,9 @@ def main() -> int:
             "bound_by": rec["bound_by"], "library_ms": None,
             "dtype": "bf16",
             "all": {kind: {kk: v for kk, v in r.items()}
-                    for kind, r in kres[name].items()}})
+                    for kind, r in kres[name].items()},
+            **({"launches_by_run": by_run} if name == "paged_verify"
+               else {})})
     print(json.dumps({"kernels": line}), flush=True)
     print(f"[card] {card}", flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,13 +1,18 @@
-"""Self-attention block of the serving path.
+"""Transformer blocks of the serving path.
 
-Port of ``paddle_infer_tpu/models/transformer_block.py``
-``ParallelSelfAttention``: QKV split, RoPE, GQA expansion, and the
-six-element-cache ragged branch of ``_forward_paged`` that
-``serving/programs.build_mixed_step`` drives.  With no cache the block
-runs plain causal attention (the dense reference the tests and
-``chip_smoke.py`` compare the paged path with).  The legacy 4-, 5- and
-7-element paged caches of the reference are not ported yet
-(ROADMAP.md) and raise.
+Port of ``paddle_infer_tpu/models/transformer_block.py``:
+
+* ``ParallelSelfAttention``: QKV split, RoPE, GQA expansion, and the
+  six- and seven-element-cache ragged branch of ``_forward_paged`` that
+  ``serving/programs.build_mixed_step`` drives (the seventh element is
+  the speculative-verify flag).  With no cache the block runs plain
+  causal attention (the dense reference the tests and ``chip_smoke.py``
+  compare the paged path with).  The legacy 4- and 5-element paged
+  caches of the reference are not ported yet (ROADMAP.md) and raise.
+* ``ParallelMLP`` and ``ParallelTransformerLayer``: the pre-LN GPT
+  block (the post-LN ERNIE/BERT form waits for the training slice, MoE
+  FFNs for their own slice and raise).  Parameter names follow
+  the JAX package so ``weights.from_jax_state_dict`` maps them.
 """
 from __future__ import annotations
 
@@ -16,7 +21,9 @@ import math
 import torch
 from torch import nn
 
-from ..nn.layers import ColumnParallelLinear, RowParallelLinear
+import torch.nn.functional as F
+
+from ..nn.layers import ColumnParallelLinear, LayerNorm, RowParallelLinear
 from ..ops import ragged_paged_attention as RPA
 from ..ops.attention import rope
 
@@ -85,19 +92,72 @@ class ParallelSelfAttention(nn.Module):
         ``(k_pages [P,h,page,d], v_pages, tables [b,max_pages],
         positions [b], query_lens [b], scratch_page)``: row ``b``'s
         tokens sit at ``positions[b] + i`` for ``i < query_lens[b]``,
-        pad positions write to the scratch page.  The pools are updated
-        in place; returns ``(out, new_cache)`` with positions advanced."""
-        if len(cache) != 6:
+        pad positions write to the scratch page.  A seventh element
+        ``spec2d [b, W] bool`` (the verify flag broadcast over the draft
+        window, whose width is W) routes flagged rows' first W positions
+        through the verify kernel.  The pools are updated in place;
+        returns ``(out, new_cache)`` with positions advanced."""
+        if len(cache) not in (6, 7):
             raise NotImplementedError(
-                f"{len(cache)}-element paged caches (legacy prefill, "
-                "prefix-cache windowed and speculative verify) are not "
-                "ported yet; see ROADMAP.md")
-        k_pages, v_pages, tables, positions, qlens, scratch = cache
+                f"{len(cache)}-element paged caches (legacy prefill and "
+                "prefix-cache windowed) are not ported yet; see ROADMAP.md")
+        k_pages, v_pages, tables, positions, qlens, scratch = cache[:6]
+        verify = cache[6] if len(cache) == 7 else None
         b, s = q.shape[0], q.shape[1]
         RPA.write_ragged_pages(k_pages, tables, k, positions, qlens, scratch)
         RPA.write_ragged_pages(v_pages, tables, v, positions, qlens, scratch)
-        out = RPA.ragged_paged_attention(q, k_pages, v_pages, tables,
-                                         positions, qlens)
+        out = RPA.ragged_paged_attention(
+            q, k_pages, v_pages, tables, positions, qlens,
+            verify_rows=None if verify is None else verify[:, 0],
+            verify_window=None if verify is None else verify.shape[1])
         out = self.out_proj(out.reshape(b, s, self.hidden))
         return out, (k_pages, v_pages, tables, positions + qlens, qlens,
-                     scratch)
+                     scratch) + tuple(cache[6:])
+
+
+class ParallelMLP(nn.Module):
+    """``fc2(act(fc1(x)))`` (Megatron column→row split; one device
+    here).  ``gelu`` is the exact erf form, the reference's default."""
+
+    _ACT = {"gelu": F.gelu, "silu": F.silu}
+
+    def __init__(self, hidden, ffn_hidden, activation="gelu", device=None,
+                 dtype=torch.float32):
+        super().__init__()
+        if activation not in self._ACT:
+            raise ValueError(f"activation {activation!r} not ported")
+        self.fc1 = ColumnParallelLinear(hidden, ffn_hidden, device=device,
+                                        dtype=dtype)
+        self.fc2 = RowParallelLinear(ffn_hidden, hidden, device=device,
+                                     dtype=dtype)
+        self.activation = self._ACT[activation]
+
+    def forward(self, x):
+        return self.fc2(self.activation(self.fc1(x)))
+
+
+class ParallelTransformerLayer(nn.Module):
+    """Pre-LN causal block (GPT): ``x + attn(norm1(x))``, then
+    ``x + mlp(norm2(x))``.  Dropout is an identity at inference."""
+
+    def __init__(self, hidden, num_heads, ffn_hidden, activation="gelu",
+                 layer_norm_eps=1e-12, num_experts=1, device=None,
+                 dtype=torch.float32):
+        super().__init__()
+        if int(num_experts) > 1:
+            raise NotImplementedError(
+                "MoE FFNs are not ported yet; see ROADMAP.md slice B")
+        kw = dict(device=device, dtype=dtype)
+        self.self_attn = ParallelSelfAttention(hidden, num_heads, **kw)
+        self.mlp = ParallelMLP(hidden, ffn_hidden, activation, **kw)
+        self.norm1 = LayerNorm(hidden, epsilon=layer_norm_eps, **kw)
+        self.norm2 = LayerNorm(hidden, epsilon=layer_norm_eps, **kw)
+
+    def forward(self, x, cache=None, position_ids=None):
+        h = self.self_attn(self.norm1(x), cache=cache,
+                           position_ids=position_ids)
+        if cache is not None:
+            h, new_cache = h
+        x = x + h
+        x = x + self.mlp(self.norm2(x))
+        return (x, new_cache) if cache is not None else x

@@ -2,8 +2,8 @@
 
 Ports of ``paddle_infer_tpu/parallel/mp_layers.py``
 (``ColumnParallelLinear``, ``RowParallelLinear``,
-``VocabParallelEmbedding``) and ``nn/layers_common.py`` (``RMSNorm``,
-``LayerNorm``).  The tensor-parallel layers keep their names and their
+``VocabParallelEmbedding``) and ``nn/layers_common.py`` (``Embedding``,
+``RMSNorm``, ``LayerNorm``).  The tensor-parallel layers keep their names and their
 Paddle weight layout ``[in, out]`` so state dicts carry over one to one;
 their mesh sharding is a later slice (ROADMAP.md slice B), so here they
 are plain matmuls.
@@ -60,8 +60,9 @@ class RowParallelLinear(ColumnParallelLinear):
     layer)."""
 
 
-class VocabParallelEmbedding(nn.Module):
-    """Token embedding, table ``[num_embeddings, embedding_dim]``."""
+class Embedding(nn.Module):
+    """Lookup table ``[num_embeddings, embedding_dim]`` (GPT's learned
+    positions); initialised N(0, 1) as the reference's."""
 
     def __init__(self, num_embeddings, embedding_dim, device=None,
                  dtype=torch.float32):
@@ -71,11 +72,19 @@ class VocabParallelEmbedding(nn.Module):
             requires_grad=False)
 
     def reset_parameters(self, generator=None):
-        std = math.sqrt(2.0 / sum(self.weight.shape))
-        self.weight.normal_(0.0, std, generator=generator)
+        self.weight.normal_(0.0, 1.0, generator=generator)
 
     def forward(self, ids):
         return F.embedding(ids.long(), self.weight)
+
+
+class VocabParallelEmbedding(Embedding):
+    """Token embedding (vocab sharded under a mesh in the reference;
+    single device here), Xavier-normal initialised."""
+
+    def reset_parameters(self, generator=None):
+        std = math.sqrt(2.0 / sum(self.weight.shape))
+        self.weight.normal_(0.0, std, generator=generator)
 
 
 class RMSNorm(nn.Module):

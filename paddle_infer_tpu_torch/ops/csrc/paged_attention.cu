@@ -1,5 +1,5 @@
 // Paged attention over a head-major KV page pool [P, H, page, D] for
-// Hopper (sm_90a).  Two kernels, one source:
+// Hopper (sm_90a).  Three kernels, one source:
 //
 // paged_decode_kernel — replaces the Pallas kernel
 //   paddle_infer_tpu/ops/pallas/paged_attention.py:140 `_decode_kernel`
@@ -18,6 +18,19 @@
 //   partials are summed once at the end.  One __syncthreads per page
 //   (double-buffered score row).
 //
+// paged_verify_kernel — replaces the Pallas kernel
+//   paddle_infer_tpu/ops/pallas/paged_attention.py:317 `_verify_kernel`
+//   (launched by `_verify_local`, :476).  W query lanes per row (the last
+//   emitted token and W-1 drafts), lane w masked at lengths[b, w]; lane
+//   (b, w) must equal the decode kernel at lengths[b, w] bit for bit,
+//   which is what keeps greedy speculative streams equal to plain ones.
+//   Bound: bytes, as decode — each K/V byte of the longest lane's pages
+//   once.  Design: the decode kernel's block per (row, head) and thread
+//   mapping, one page walk for up to 8 lanes (a further z-block walks
+//   again for lanes 8..15, and so on), the decode kernel's two per-query
+//   device functions called per lane unchanged; a lane skips the pages
+//   past its own length, as the decode kernel's shorter walk does.
+//
 // ragged_paged_kernel — replaces the Pallas kernel
 //   paddle_infer_tpu/ops/pallas/ragged_paged_attention.py:132
 //   `_ragged_kernel` (launched by `_ragged_kernel_call`, :239).  Row b
@@ -32,7 +45,7 @@
 //   and every thread accumulates p*V for its own head dimensions.  Plain
 //   CUDA cores; wgmma/TMA tiles are a later step.
 //
-// Numerics shared by both: NEG_INF = -1e30 (not -inf, so exp(m_prev -
+// Numerics shared by all three: NEG_INF = -1e30 (not -inf, so exp(m_prev -
 // m_new) is 0, never NaN, on the first page), masked slots score NEG_INF
 // and weigh exactly 0, out = acc / max(l, 1e-20), written in q's dtype.
 //
@@ -49,6 +62,7 @@ constexpr float kNegInf = -1e30f;
 constexpr int kThreads = 128;
 constexpr int kTQ = 16;     // queries per ragged tile
 constexpr int kMaxDPT = 2;  // head dims per thread in the ragged PV loop
+constexpr int kVerifyLanes = 8;  // verify lanes sharing one page walk
 
 enum DType { kF32 = 0, kBF16 = 1, kF16 = 2, kI8 = 3 };
 
@@ -215,6 +229,113 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
   }
 }
 
+// ---------------------------------------------------------------- verify
+// W query lanes per row, lane w masked at its own lengths[b, w]; lane
+// (b, w) is bit for bit paged_decode_kernel at lengths[b, w].  Same
+// thread mapping as the decode kernel; the lanes of one group share one
+// page walk and call decode_page_scores / decode_page_update per lane.
+// A lane skips every page at or past its own length, exactly as the
+// decode kernel's shorter walk never reaches them, so its (m, l, acc)
+// sees the decode kernel's sequence of updates and nothing else.
+template <typename QT, typename KT>
+__global__ void __launch_bounds__(kThreads) paged_verify_kernel(
+    const QT* __restrict__ q, const KT* __restrict__ kp,
+    const KT* __restrict__ vp, const float* __restrict__ ksc,
+    const float* __restrict__ vsc, const int* __restrict__ tables,
+    const int* __restrict__ lengths, QT* __restrict__ out, int P, int W,
+    int H, int D, int page, int max_pages, float scale) {
+  constexpr int VEC = 16 / sizeof(KT);
+  constexpr int QPL = VEC > 8 ? VEC : 8;
+  extern __shared__ float smem[];
+  const int b = blockIdx.x, h = blockIdx.y, tid = threadIdx.x;
+  const int w0 = blockIdx.z * kVerifyLanes;
+  const int nl = (W - w0) < kVerifyLanes ? (W - w0) : kVerifyLanes;
+  const int nvec = D / VEC;
+  const int G = nvec < 32 ? nvec : 32;
+  const int vpl = nvec / G;
+  const int ngroups = kThreads / G;
+  const int gid = tid / G, lig = tid % G;
+  const int vi = tid % nvec, sg = tid / nvec;
+  const int nsg = kThreads / nvec;
+  float* sbuf = smem;                          // [2][lanes][page]
+  float* qs = sbuf + 2 * kVerifyLanes * page;  // [lanes][G][QPL]
+  float* red = qs + kVerifyLanes * G * QPL;    // [nsg][D]
+
+  // each lane's query slice, laid out per (lane, lig) as the decode
+  // kernel holds it in registers (16 int8 lanes would not fit there)
+  for (int idx = tid; idx < nl * G * QPL; idx += kThreads) {
+    const int w = idx / (G * QPL), r = idx % (G * QPL);
+    const int li = r / QPL, i = r % QPL, v = i / VEC, e = i % VEC;
+    const QT* qrow =
+        q + ((static_cast<size_t>(b) * W + w0 + w) * H + h) * D;
+    qs[idx] = v < vpl ? to_f(qrow[(li + v * G) * VEC + e]) : 0.f;
+  }
+
+  int len[kVerifyLanes];
+  int maxlen = 0;
+#pragma unroll
+  for (int w = 0; w < kVerifyLanes; ++w) {
+    len[w] = w < nl ? lengths[static_cast<size_t>(b) * W + w0 + w] : 0;
+    maxlen = len[w] > maxlen ? len[w] : maxlen;
+  }
+  // the longest lane gates the walk (the last one: lengths do not
+  // decrease over w), clamped to the table width as in decode
+  int npages = maxlen > 0 ? (maxlen + page - 1) / page : 0;
+  if (npages > max_pages) npages = max_pages;
+  const int* trow = tables + static_cast<size_t>(b) * max_pages;
+  float m[kVerifyLanes], l[kVerifyLanes], acc[kVerifyLanes][VEC];
+#pragma unroll
+  for (int w = 0; w < kVerifyLanes; ++w) {
+    m[w] = kNegInf;
+    l[w] = 0.f;
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) acc[w][e] = 0.f;
+  }
+  __syncthreads();                             // qs filled
+
+  for (int j = 0; j < npages; ++j) {
+    int phys = trow[j];
+    phys = phys < 0 ? 0 : (phys >= P ? P - 1 : phys);
+    const size_t ph = static_cast<size_t>(phys) * H + h;
+    const size_t base = ph * page * D;
+    const float kscale = ksc ? ksc[ph] : 1.f;
+    const float vscale = vsc ? vsc[ph] : 1.f;
+    float* sc = sbuf + (j & 1) * kVerifyLanes * page;
+    // lane conditions are block-uniform, so the shuffles inside
+    // decode_page_scores see every thread of the warp
+#pragma unroll
+    for (int w = 0; w < kVerifyLanes; ++w)
+      if (w < nl && j * page < len[w])
+        decode_page_scores<KT>(qs + (w * G + lig) * QPL, kp + base, kscale,
+                               sc + w * page, page, D, j, len[w], scale, G,
+                               vpl, gid, lig, ngroups);
+    __syncthreads();
+#pragma unroll
+    for (int w = 0; w < kVerifyLanes; ++w)
+      if (w < nl && j * page < len[w])
+        decode_page_update<KT>(sc + w * page, vp + base, vscale, page, D,
+                               m[w], l[w], acc[w], vi, sg, nsg);
+  }
+
+  // per lane, the decode kernel's cross-group sum and division
+#pragma unroll
+  for (int w = 0; w < kVerifyLanes; ++w) {
+    if (w < nl) {
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) red[sg * D + vi * VEC + e] = acc[w][e];
+      __syncthreads();
+      const float denom = fmaxf(l[w], 1e-20f);
+      QT* orow = out + ((static_cast<size_t>(b) * W + w0 + w) * H + h) * D;
+      for (int d = tid; d < D; d += kThreads) {
+        float s = 0.f;
+        for (int g = 0; g < nsg; ++g) s += red[g * D + d];
+        orow[d] = from_f<QT>(s / denom);
+      }
+      __syncthreads();
+    }
+  }
+}
+
 // ---------------------------------------------------------------- ragged
 template <typename QT, typename KT>
 __global__ void __launch_bounds__(kThreads) ragged_paged_kernel(
@@ -356,6 +477,16 @@ size_t decode_smem(int D, int page) {
   return (2 * page + (kThreads / nvec) * D) * sizeof(float);
 }
 
+template <typename KT>
+size_t verify_smem(int D, int page) {
+  constexpr int VEC = 16 / static_cast<int>(sizeof(KT));
+  constexpr int QPL = VEC > 8 ? VEC : 8;
+  const int nvec = D / VEC;
+  const int G = nvec < 32 ? nvec : 32;
+  return (2 * kVerifyLanes * page + kVerifyLanes * G * QPL +
+          (kThreads / nvec) * D) * sizeof(float);
+}
+
 size_t ragged_smem(int D, int page) {
   return (kTQ * (D + 1) + page * (D + 1) + page * D + kTQ * page +
           3 * kTQ) * sizeof(float);
@@ -384,6 +515,25 @@ int launch_decode(const void* q, const void* k, const void* v,
       static_cast<const KT*>(v), static_cast<const float*>(ks),
       static_cast<const float*>(vs), static_cast<const int*>(tables),
       static_cast<const int*>(lengths), static_cast<QT*>(out), P, H, D,
+      page, max_pages, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename QT, typename KT>
+int launch_verify(const void* q, const void* k, const void* v,
+                  const void* ks, const void* vs, const void* tables,
+                  const void* lengths, void* out, int B, int W, int P,
+                  int H, int D, int page, int max_pages, float scale,
+                  cudaStream_t stream) {
+  auto kernel = paged_verify_kernel<QT, KT>;
+  const size_t smem = verify_smem<KT>(D, page);
+  if (int rc = set_smem(kernel, smem)) return rc;
+  const int groups = (W + kVerifyLanes - 1) / kVerifyLanes;
+  kernel<<<dim3(B, H, groups), kThreads, smem, stream>>>(
+      static_cast<const QT*>(q), static_cast<const KT*>(k),
+      static_cast<const KT*>(v), static_cast<const float*>(ks),
+      static_cast<const float*>(vs), static_cast<const int*>(tables),
+      static_cast<const int*>(lengths), static_cast<QT*>(out), P, W, H, D,
       page, max_pages, scale);
   return static_cast<int>(cudaGetLastError());
 }
@@ -432,6 +582,16 @@ int pit_paged_decode(int qdt, int kvdt, const void* q, const void* k,
                      float scale, void* stream) {
   PIT_DISPATCH(launch_decode, q, k, v, ks, vs, tables, lengths, out, B, P,
                H, D, page, max_pages, scale,
+               static_cast<cudaStream_t>(stream))
+}
+
+int pit_paged_verify(int qdt, int kvdt, const void* q, const void* k,
+                     const void* v, const void* ks, const void* vs,
+                     const void* tables, const void* lengths, void* out,
+                     int B, int W, int P, int H, int D, int page,
+                     int max_pages, float scale, void* stream) {
+  PIT_DISPATCH(launch_verify, q, k, v, ks, vs, tables, lengths, out, B, W,
+               P, H, D, page, max_pages, scale,
                static_cast<cudaStream_t>(stream))
 }
 

@@ -6,9 +6,12 @@ page tables from the native allocator (``native.py``).
 
 ``paged_attention_decode`` is the wrapper of the hand-written CUDA
 kernel ``paged_decode_kernel`` (``csrc/paged_attention.cu``), which
-replaces the Pallas ``_decode_kernel``.  On a CPU tensor the wrapper
-runs ``_decode_plain``, the kernel's plain PyTorch version; on a CUDA
-tensor it launches the kernel or raises.
+replaces the Pallas ``_decode_kernel``; ``paged_attention_verify`` wraps
+``paged_verify_kernel``, which replaces ``_verify_kernel`` (W query
+lanes per row, lane ``w`` bit for bit the decode kernel at its own
+length).  On a CPU tensor a wrapper runs the kernel's plain PyTorch
+version (``_decode_plain``, ``_verify_plain``); on a CUDA tensor it
+launches the kernel or raises.
 
 Quantized pools are ``(int8 payload [P, H, page, D], float32 scales
 [P, H])`` pairs, one scale per (page, head); ``quantize_pages`` builds
@@ -39,6 +42,11 @@ _DECODE = _build.register(_build.CudaKernel(
     [_c.c_int, _c.c_int] + [_c.c_void_p] * 8
     + [_c.c_int] * 6 + [_c.c_float, _c.c_void_p],
     replaces="paddle_infer_tpu/ops/pallas/paged_attention.py:140"))
+_VERIFY = _build.register(_build.CudaKernel(
+    "paged_verify", "paged_attention.cu", "pit_paged_verify",
+    [_c.c_int, _c.c_int] + [_c.c_void_p] * 8
+    + [_c.c_int] * 7 + [_c.c_float, _c.c_void_p],
+    replaces="paddle_infer_tpu/ops/pallas/paged_attention.py:317"))
 
 
 def is_quantized(pages) -> bool:
@@ -112,9 +120,12 @@ def _decode_plain(q, k_pages, v_pages, block_tables, lengths, scale=None):
     return out.to(q.dtype)
 
 
-def _check_kernel_args(q, k_pages, v_pages, block_tables, int_vecs):
+def _check_kernel_args(q, k_pages, v_pages, block_tables, int_vecs,
+                       int_shape=None):
     """Device, dtype, shape, contiguity and alignment checks shared by
-    both kernels' wrappers; returns ``(kv_dtype_code, k, v, ks, vs)``."""
+    the kernels' wrappers; the int32 length arrays must have
+    ``int_shape`` (default ``[B]``).  Returns ``(kv_dtype_code, k, v,
+    ks, vs)``."""
     dev = q.device
     if q.dtype not in (torch.float32, torch.bfloat16, torch.float16):
         raise TypeError(f"q dtype {q.dtype} not supported by the kernel")
@@ -151,9 +162,11 @@ def _check_kernel_args(q, k_pages, v_pages, block_tables, int_vecs):
             raise ValueError("page pools must be 16-byte aligned")
     if block_tables.dtype != torch.int32 or block_tables.dim() != 2:
         raise TypeError("block_tables must be int32 [B, max_pages]")
+    int_shape = tuple(int_shape or (q.shape[0],))
     for t in int_vecs:
-        if t.dtype != torch.int32 or tuple(t.shape) != (q.shape[0],):
-            raise TypeError("per-row lengths must be int32 [B]")
+        if t.dtype != torch.int32 or tuple(t.shape) != int_shape:
+            raise TypeError(f"lengths must be int32 {list(int_shape)}, got "
+                            f"{t.dtype} {list(t.shape)}")
     for t in (q, k, v, block_tables, *int_vecs):
         if t.device != dev:
             raise ValueError(f"tensor on {t.device}, expected {dev}")
@@ -200,6 +213,62 @@ def paged_attention_decode(q, k_pages, v_pages, block_tables, lengths,
     if q.device.type != "cuda":
         raise ValueError(f"no kernel for device {q.device}")
     return _decode_cuda(q, k_pages, v_pages, block_tables, lengths, scale)
+
+
+# ------------------------------------------------------------------ verify
+
+def _verify_plain(q, k_pages, v_pages, block_tables, lengths, scale=None):
+    """Plain PyTorch version of the verify kernel: lane ``w`` is
+    ``_decode_plain(q[:, w], ..., lengths[:, w])``, so each lane is the
+    plain decode exactly."""
+    return torch.stack([
+        _decode_plain(q[:, w], k_pages, v_pages, block_tables,
+                      lengths[:, w], scale) for w in range(q.shape[1])],
+        dim=1)
+
+
+def _verify_cuda(q, k_pages, v_pages, block_tables, lengths, scale=None):
+    _build.require_cuda()
+    b, w, h, d = q.shape
+    kvdt, k, v, ks, vs = _check_kernel_args(q, k_pages, v_pages,
+                                            block_tables, (lengths,),
+                                            int_shape=(b, w))
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    out = torch.empty_like(q)
+    p = _build.ptr
+    _VERIFY(DTYPE_CODES[q.dtype], kvdt, p(q), p(k), p(v),
+            p(ks) if ks is not None else None,
+            p(vs) if vs is not None else None,
+            p(block_tables), p(lengths), p(out),
+            b, w, k.shape[0], h, d, k.shape[2], block_tables.shape[1],
+            float(scale), _build.stream_ptr())
+    return out
+
+
+def paged_attention_verify(q, k_pages, v_pages, block_tables, lengths,
+                           scale=None):
+    """Batched draft/verify decode attention over paged KV.
+
+    q            [B, W, H, D]   — W query positions per row (last
+                                  emitted token + W-1 drafts)
+    k_pages      [P, H, page, D] (or an int8 (payload, scales) pair)
+    v_pages      [P, H, page, D]
+    block_tables [B, max_pages] int32
+    lengths      [B, W] int32   — per-position window, nondecreasing
+                                  over W (position j sees ctx + j + 1)
+    → [B, W, H, D] in q's dtype
+
+    Lane ``(b, w)`` is ``paged_attention_decode(q[:, w], ...,
+    lengths[:, w])[b]`` bit for bit, in one page walk per row.  A CPU
+    ``q`` runs the plain version; a CUDA ``q`` launches the
+    ``paged_verify`` kernel (contiguous int32 tables/lengths required)
+    or raises."""
+    if q.device.type == "cpu":
+        return _verify_plain(q, k_pages, v_pages, block_tables, lengths,
+                             scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"no kernel for device {q.device}")
+    return _verify_cuda(q, k_pages, v_pages, block_tables, lengths, scale)
 
 
 # --------------------------------------------------------- page utilities

@@ -11,7 +11,10 @@ package:
 * ``_ragged_reference`` (the default) — the composition the serving
   engine runs: every position through ``prefix_prefill_attention`` and
   every row's first position also through the decode kernel
-  (``paged_attention_decode``), kept for rows with ``query_len == 1``.
+  (``paged_attention_decode``), kept for rows with ``query_len == 1``;
+  speculative verify rows take their first ``verify_window`` positions
+  from the verify kernel (``paged_attention_verify``), each position at
+  its own length, so they equal sequential decode steps bit for bit.
 * ``use_kernel=True`` — the hand-written CUDA kernel
   ``ragged_paged_kernel`` (``csrc/paged_attention.cu``), which replaces
   the Pallas ``_ragged_kernel``: one launch for every row type.  On a
@@ -33,6 +36,7 @@ from . import _build
 from .paged_attention import (DTYPE_CODES, NEG_INF, _check_kernel_args,
                               _gather_window, _no_quantized_writer,
                               _page_size, paged_attention_decode,
+                              paged_attention_verify,
                               prefix_prefill_attention)
 
 _c = ctypes
@@ -69,11 +73,19 @@ def write_ragged_pages(pages, block_tables, kv, context_lens, query_lens,
 
 
 def _ragged_reference(q, k_pages, v_pages, block_tables, context_lens,
-                      query_lens, scale=None):
+                      query_lens, scale=None, verify_rows=None,
+                      verify_window=None):
     """Per-row-type composition (see module docstring).  The decode
     kernel runs for ALL rows at ``context_lens + 1`` — chunk and inactive
     rows' results are discarded — exactly as the JAX reference does.
-    Positions ``i >= query_lens`` hold garbage the caller never reads."""
+    Positions ``i >= query_lens`` hold garbage the caller never reads.
+
+    ``verify_rows [B] bool`` marks speculative verify rows (``query_lens
+    = k + 1``: last emitted token + ``k`` drafts).  The verify kernel
+    runs for ALL rows over the first ``verify_window`` positions, lane
+    ``j`` at ``min(ctx + j + 1, ctx + max(qlen, 1))`` (the clamp keeps
+    short and non-verify rows inside their valid KV; their lanes are
+    discarded), and flagged rows take those lanes."""
     out = prefix_prefill_attention(q, k_pages, v_pages, block_tables,
                                    context_lens, scale=scale)
     dec = paged_attention_decode(q[:, 0].contiguous(), k_pages, v_pages,
@@ -81,6 +93,17 @@ def _ragged_reference(q, k_pages, v_pages, block_tables, context_lens,
                                  scale=scale)
     is_decode = (query_lens == 1)[:, None, None]
     out[:, 0] = torch.where(is_decode, dec, out[:, 0])
+    if verify_rows is None:
+        return out
+    w = int(verify_window)
+    j = torch.arange(w, dtype=torch.int32, device=q.device)[None]   # [1, W]
+    ctxv = context_lens[:, None] + j + 1                            # [B, W]
+    ctxv = torch.minimum(ctxv, (context_lens + torch.clamp(
+        query_lens, min=1))[:, None]).int().contiguous()
+    decv = paged_attention_verify(q[:, :w].contiguous(), k_pages, v_pages,
+                                  block_tables, ctxv, scale=scale)
+    sel = verify_rows[:, None, None, None]
+    out[:, :w] = torch.where(sel, decv, out[:, :w])
     return out
 
 
@@ -150,18 +173,24 @@ def ragged_paged_attention(q, k_pages, v_pages, block_tables,
     block_tables [B, max_pages] int32
     context_lens [B] int32       — tokens already cached per row
     query_lens   [B] int32       — 1 decode, >1 prefill chunk, 0 inactive
+
+    verify_rows  [B] bool       — optional: speculative verify rows
+                                  whose first ``verify_window`` (int)
+                                  positions take per-position
+                                  decode-kernel math (``_ragged_reference``)
     → [B, C, H, D]; positions past ``query_lens`` hold garbage.
 
     ``use_kernel=False`` (default) runs the reference composition the
     serving engine relies on; ``use_kernel=True`` the single-launch
-    kernel (allclose to the reference).  Speculative ``verify_rows``
-    are not ported yet (ROADMAP.md queue 2: the verify kernel)."""
-    if verify_rows is not None or verify_window is not None:
-        raise NotImplementedError(
-            "speculative verify rows are not ported yet; see ROADMAP.md "
-            "(verify kernel with speculation)")
+    kernel (allclose to the reference), which takes no verify rows."""
     if use_kernel:
+        if verify_rows is not None:
+            raise NotImplementedError(
+                "speculative verify rows require the reference "
+                "composition (per-position decode-kernel parity)")
         return ragged_kernel(q, k_pages, v_pages, block_tables,
                              context_lens, query_lens, scale=scale)
     return _ragged_reference(q, k_pages, v_pages, block_tables,
-                             context_lens, query_lens, scale=scale)
+                             context_lens, query_lens, scale=scale,
+                             verify_rows=verify_rows,
+                             verify_window=verify_window)

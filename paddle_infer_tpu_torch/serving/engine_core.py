@@ -16,13 +16,19 @@ the default ``ragged=True`` scheduler.  Each ``run_once()`` iteration
   4. emit tokens, evict finished rows, free their pages; freed slots are
      backfilled at the next iteration.
 
+With ``speculate=True`` a decode row may also pack up to
+``num_draft_tokens`` proposed continuation tokens (from
+``serving/speculation.py``) into the SAME step as a ``query_len = k + 1``
+verify row, using only budget left over after decode and prompt
+packing; the step then emits each row's accepted window.
+
 Slot/pool layout: slot ``s`` reserves native-pool sequence id ``s``; a
 one-page scratch reservation (sequence id ``max_batch``) backs every
 table entry of inactive rows, so their writes land where no live row's
 attention reads.
 
 Not ported yet, rejected at construction (ROADMAP.md): the legacy
-``ragged=False`` programs, speculation, prefix caching, int8 KV,
+``ragged=False`` programs, prefix caching (and its draft source), int8 KV,
 adapters, grammars, sharded serving, the host KV tier, non-fifo
 scheduling and fault injection; also tracing, journeys and the step log.
 """
@@ -43,6 +49,7 @@ from .metrics import ServingMetrics
 from .programs import build_mixed_step
 from .request import (DeadlineExceededError, QueueFullError, RejectedError,
                       Request, RequestQueue, RequestState)
+from .speculation import resolve_draft_source
 
 _log = logging.getLogger(__name__)
 
@@ -64,6 +71,8 @@ class EngineCore:
                  token_budget: Optional[int] = None,
                  ragged: bool = True,
                  speculate: bool = False,
+                 num_draft_tokens: int = 4,
+                 draft_source="auto",
                  enable_prefix_cache: bool = False,
                  kv_dtype: Optional[str] = None,
                  adapter_store=None,
@@ -75,7 +84,6 @@ class EngineCore:
                  device=None):
         unported = {
             "ragged=False": not ragged,
-            "speculate": bool(speculate),
             "enable_prefix_cache": bool(enable_prefix_cache),
             "kv_dtype": kv_dtype is not None,
             "adapter_store": adapter_store is not None,
@@ -113,6 +121,20 @@ class EngineCore:
         self._token_budget = budget
         chunk = int(prefill_chunk or budget)
         self._prefill_chunk = max(1, min(chunk, budget))
+
+        # in-engine speculative decoding: drafts ride the mixed step as
+        # verify rows under leftover budget; the static window W joins
+        # the program key, so one program serves every composition
+        self._speculate = bool(speculate)
+        if self._speculate:
+            if int(num_draft_tokens) < 1:
+                raise ValueError("num_draft_tokens must be >= 1")
+            self._spec_window = max(
+                2, min(int(num_draft_tokens) + 1, self._token_budget))
+            self._draft_source = resolve_draft_source(draft_source)
+        else:
+            self._spec_window = 1
+            self._draft_source = None
 
         engine.refresh_params()
         self._pool = engine.serving_pool(self._max_batch * self._max_pages
@@ -305,7 +327,10 @@ class EngineCore:
         decode_rows = [s for s in active if s["pending"].size == 0]
         chunk_rows = [s for s in active if s["pending"].size > 0]
         eng = self._engine
+        W = self._spec_window
         mkey = ("serve-step", b, C, self._max_pages, self._pool.num_blocks)
+        if W > 1:
+            mkey = mkey + (W,)
         budget = C
         chunk_taken = {}
         for s in decode_rows:
@@ -336,13 +361,25 @@ class EngineCore:
             cfgs[i] = s["g"]
             budget -= n
             chunk_taken[i] = n
+        spec, drafted = self._pack_drafts(decode_rows, ids, qlens, budget)
         t0 = time.monotonic()
+        n_emit = None
         try:
-            tok, fin_out = eng.run_paged_program(
-                mkey, lambda: build_mixed_step(eng, b, C, self._max_pages),
-                ids, qlens, ctx, steps0, sample_now, tables,
-                self._samp_arrays(cfgs), keys,
-                np.asarray(self._scratch, np.int32))
+            scratch = np.asarray(self._scratch, np.int32)
+            if W > 1:
+                tok, n_emit, fin_out = eng.run_paged_program(
+                    mkey, lambda: build_mixed_step(eng, b, C,
+                                                   self._max_pages,
+                                                   spec_window=W),
+                    ids, qlens, ctx, steps0, sample_now, spec, tables,
+                    self._samp_arrays(cfgs), keys, scratch)
+                n_emit = _host(n_emit)
+            else:
+                tok, fin_out = eng.run_paged_program(
+                    mkey, lambda: build_mixed_step(eng, b, C,
+                                                   self._max_pages),
+                    ids, qlens, ctx, steps0, sample_now, tables,
+                    self._samp_arrays(cfgs), keys, scratch)
             # the one designed sync per step
             tok, fin_out = _host(tok), _host(fin_out)
         except Exception as e:
@@ -358,6 +395,7 @@ class EngineCore:
         wall = time.monotonic() - t0
         self._step_idx += 1
         emitted_decode = 0
+        draft_accepted = 0
         evicted = []
         now = time.monotonic()
         for s in active:
@@ -370,27 +408,76 @@ class EngineCore:
                 s["ctx"] += chunk_taken[i]
             if not sample_now[i]:
                 continue            # mid-prompt chunk: nothing to emit
+            # a speculative step emits the row's accepted window (at
+            # least one token when it sampled)
+            t_row = (tok[i:i + 1] if n_emit is None
+                     else tok[i, :int(n_emit[i])])
             if i in chunk_taken:
                 # prefill complete: this chunk held the prompt's last
                 # token and sampled the row's first token
                 self._metrics.on_prefill(now - req.arrival)
-                self._metrics.on_tokens(1)
+                self._metrics.on_tokens(int(t_row.size))
             else:
-                emitted_decode += 1
-            req._emit(tok[i:i + 1])
-            s["emitted"] += 1
-            s["last_tok"] = int(tok[i])
+                emitted_decode += int(t_row.size)
+                if i in drafted:
+                    draft_accepted += max(int(t_row.size) - 1, 0)
+            req._emit(t_row)
+            s["emitted"] += int(t_row.size)
+            s["last_tok"] = int(t_row[-1])
             if bool(fin_out[i]) or s["emitted"] >= s["g"].max_new_tokens:
                 self._evict(s, RequestState.DONE)
                 evicted.append(req.rid)
         if emitted_decode:
             self._metrics.on_tokens(emitted_decode, itl_s=wall)
+        if drafted:
+            self._metrics.on_spec(rows=len(drafted),
+                                  proposed=sum(drafted.values()),
+                                  accepted=draft_accepted)
         self._metrics.on_step(wall * 1e3, len(active), b)
         self.step_trace.append({
             "step": self._step_idx, "active": [s["req"].rid for s in active],
             "decode_rows": len(decode_rows),
             "prefill_tokens": sum(chunk_taken.values()),
+            "draft_tokens": sum(drafted.values()),
+            "draft_accepted": draft_accepted,
             "evicted": evicted, "wall_s": wall})
+
+    def _pack_drafts(self, decode_rows, ids, qlens, budget):
+        """Speculative drafts, from leftover budget only, so decode
+        packing and prefill pacing are those of ``speculate=False``.  A
+        row's drafts stay inside its pool reservation (``k <= remaining
+        - 1``) and the window (``k <= W - 1``); sampled rows take
+        history-deterministic proposals only.  Writes the drafts into
+        ``ids``/``qlens`` in place; returns ``(spec[b] bool, {slot:
+        k})``."""
+        spec = np.zeros((self._max_batch,), bool)
+        drafted = {}
+        if not self._speculate:
+            return spec, drafted
+        W = self._spec_window
+        for s in decode_rows:
+            if budget <= 0:
+                break
+            i = s["sid"]
+            req = s["req"]
+            k_cap = min(W - 1, s["g"].max_new_tokens - s["emitted"] - 1,
+                        budget)
+            if k_cap <= 0:
+                continue
+            history = np.concatenate(
+                [req.prompt, np.asarray(req.tokens, np.int32)])
+            proposal = self._draft_source.propose(
+                history, k_cap, salt=None,
+                deterministic_only=bool(s["g"].do_sample))
+            k_row = min(len(proposal), k_cap)
+            if k_row <= 0:
+                continue
+            ids[i, 1:1 + k_row] = np.asarray(proposal[:k_row], np.int32)
+            qlens[i] = 1 + k_row
+            spec[i] = True
+            budget -= k_row
+            drafted[i] = k_row
+        return spec, drafted
 
     # ---------------------------------------------------------- eviction
     def _evict(self, slot: dict, state: RequestState,

@@ -2,7 +2,9 @@
 
 Port of the ``ServingMetrics`` counters the ragged path records in
 ``paddle_infer_tpu/serving/metrics.py``: submitted / rejected, queue
-wait, time to first token, inter-token latency, step wall, finished.
+wait, time to first token, inter-token latency, step wall, finished,
+and the speculative draft counters (``on_spec``, the ``speculation``
+section of ``snapshot``).
 Prometheus exposition and the per-tenant families wait (ROADMAP.md
 slice B).
 """
@@ -62,6 +64,10 @@ class ServingMetrics:
         self.tokens_generated = 0
         self.prefills = 0
         self.decode_steps = 0
+        # in-engine speculative decoding (EngineCore speculate=True)
+        self.spec_rows = 0              # row-steps that carried drafts
+        self.spec_drafts_proposed = 0
+        self.spec_drafts_accepted = 0
         self.ttft = _Series()
         self.itl = _Series()            # inter-token latency (s)
         self.e2e = _Series()
@@ -115,6 +121,14 @@ class ServingMetrics:
             if max_batch > 0:
                 self.occupancy.add(active / max_batch)
 
+    def on_spec(self, rows: int, proposed: int, accepted: int):
+        """One mixed step verified ``proposed`` draft tokens across
+        ``rows`` speculating rows and accepted ``accepted`` of them."""
+        with self._lock:
+            self.spec_rows += rows
+            self.spec_drafts_proposed += proposed
+            self.spec_drafts_accepted += accepted
+
     def on_completed(self, e2e_s: float):
         with self._lock:
             self.completed += 1
@@ -133,6 +147,23 @@ class ServingMetrics:
                 "tokens_generated": self.tokens_generated,
                 "prefills": self.prefills,
                 "decode_steps": self.decode_steps,
+                "spec_rows": self.spec_rows,
+                "spec_drafts_proposed": self.spec_drafts_proposed,
+                "spec_drafts_accepted": self.spec_drafts_accepted,
+                "speculation": {
+                    "rows": self.spec_rows,
+                    "drafts_proposed": self.spec_drafts_proposed,
+                    "drafts_accepted": self.spec_drafts_accepted,
+                    "acceptance_rate": (
+                        self.spec_drafts_accepted
+                        / self.spec_drafts_proposed
+                        if self.spec_drafts_proposed else 0.0),
+                    "wasted_ratio": (
+                        (self.spec_drafts_proposed
+                         - self.spec_drafts_accepted)
+                        / self.spec_drafts_proposed
+                        if self.spec_drafts_proposed else 0.0),
+                },
                 "ttft_s": self.ttft.summary(),
                 "itl_s": self.itl.summary(),
                 "e2e_s": self.e2e.summary(),

@@ -1,9 +1,10 @@
 """The ragged serving step.
 
 Port of ``paddle_infer_tpu/serving/programs.py``: ``_process_rows``,
-``_pick_rows`` and ``build_mixed_step`` for ``spec_window == 1``.
-Sampling knobs ride as per-row tensors (the ``samp`` dict), so one
-program serves every batch composition; greedy rows stay argmax-exact.
+``_pick_rows`` and ``build_mixed_step``, plain (``spec_window == 1``)
+and speculative draft/verify (``spec_window = W > 1``).  Sampling knobs
+ride as per-row tensors (the ``samp`` dict), so one program serves
+every batch composition; greedy rows stay argmax-exact.
 
 Per-row RNG: each request owns a base key ``fold_in(PRNGKey(seed),
 rid)``; step ``s`` draws from ``fold_in(base, s)`` with the threefry
@@ -19,6 +20,7 @@ from __future__ import annotations
 import torch
 
 from ..core import random as prng
+from ..inference import spec_accept
 from ..inference.sampling import NEG_INF
 
 # samp dict fields (all shaped [batch]):
@@ -88,13 +90,32 @@ def build_mixed_step(engine, max_batch, token_budget, max_pages,
     ``sample_now`` is False for non-final prefill chunks (the pad id is
     returned and ignored); ``steps0`` is the sampled token's
     generation-step index, which keys the ``fold_in`` stream and the
-    min-length window."""
-    if int(spec_window) != 1:
-        raise NotImplementedError(
-            "speculative mixed steps (spec_window > 1) are not ported yet; "
-            "see ROADMAP.md (verify kernel with speculation)")
+    min-length window.
+
+    ``spec_window = W > 1`` builds the speculative variant (``EngineCore
+    speculate=True``).  A speculating decode row packs ``[last_tok,
+    d_1..d_k]`` (``k <= W - 1``, ``qlens = k + 1``) and its ``spec`` flag
+    routes its first W positions through the verify kernel (the
+    seven-element cache), so position ``j``'s logits are bit for bit
+    what sequential step ``steps0 + j`` computes.  Greedy rows accept
+    the longest draft prefix matching the per-position argmax chain;
+    sampled rows accept ``d_j`` with probability ``p_j(d_j)`` (drawn
+    from ``fold_in(fold_in(key, step), 1)``) and resample the first
+    rejection from the draft-masked residual
+    (``fold_in(fold_in(key, step), 2)``).  Accepted positions use the
+    same ``fold_in(key, steps0 + j)`` stream as sequential decode.  The
+    per-lane work runs over ``[b * W]`` rows at once.
+
+    Spec signature: ``run(params, ids, qlens, ctx, steps0, sample_now,
+    spec[b] bool, tables, samp, keys, scratch, k_pages, v_pages)`` →
+    ``(out[b, W], n_emit[b], fin[b], k_pages, v_pages)``: row ``i``
+    emits ``out[i, :n_emit[i]]`` (cut at its first eos; 0 when
+    ``sample_now`` is off).  Rejected drafts' KV stays in the row's
+    reservation past its length, never attended, and is overwritten
+    before it becomes visible."""
     L = engine._num_layers
     C = int(token_budget)
+    W = int(spec_window)
 
     def run(params, ids, qlens, ctx, steps0, sample_now, tables, samp,
             keys, scratch, k_pages, v_pages):
@@ -116,4 +137,92 @@ def build_mixed_step(engine, max_batch, token_budget, max_pages,
         fin = sample_now & (samp["eos"] >= 0) & (tok == samp["eos"])
         return (tok, fin, [c[0] for c in caches], [c[1] for c in caches])
 
-    return run
+    if W <= 1:
+        return run
+
+    def run_spec(params, ids, qlens, ctx, steps0, sample_now, spec, tables,
+                 samp, keys, scratch, k_pages, v_pages):
+        b = ids.shape[0]
+        dev = ids.device
+        spec2d = spec[:, None].expand(b, W)
+        caches = [(k_pages[i], v_pages[i], tables, ctx, qlens, scratch,
+                   spec2d) for i in range(L)]
+        i2d = torch.arange(C, dtype=torch.int32, device=dev)[None].expand(
+            b, C)
+        pos2d = torch.where(i2d < qlens[:, None], ctx[:, None] + i2d,
+                            torch.zeros_like(i2d))
+        logits, caches = engine._model_step(params, ids, pos2d, caches)
+
+        # per-window-position logits: spec rows read positions 0..W-1
+        # (clamped to their qlen), plain rows replicate qlens-1 so their
+        # lane 0 is exactly the non-spec gather
+        base = torch.clamp(qlens.long() - 1, min=0)                 # [b]
+        j = torch.arange(W, device=dev)[None]                       # [1, W]
+        gidx = torch.where(spec[:, None], torch.minimum(j, base[:, None]),
+                           base[:, None])                           # [b, W]
+        lg_w = logits[torch.arange(b, device=dev)[:, None], gidx]
+        steps_w = steps0.long()[:, None] + torch.where(
+            spec[:, None], j, torch.zeros_like(j))                  # [b, W]
+        vocab = lg_w.shape[-1]
+        samp_w = {k: v.repeat_interleave(W, dim=0) for k, v in samp.items()}
+        proc_w = _process_rows(lg_w.reshape(b * W, vocab), samp_w,
+                               steps_w.reshape(-1))
+        chosen_w = _pick_rows(proc_w, samp_w, steps_w.reshape(-1),
+                              keys.repeat_interleave(W, dim=0)
+                              ).reshape(b, W)
+        proc_w = proc_w.reshape(b, W, vocab)
+
+        # drafts ride at ids[:, 1 + j]; lane j carries one only on spec
+        # rows with j < qlens - 1
+        jd = j[:, :W - 1]
+        drafts = torch.gather(ids, 1, torch.clamp(jd + 1, max=C - 1)
+                              .expand(b, W - 1)).to(torch.int32)
+        has_draft = spec[:, None] & (jd < base[:, None])
+
+        # greedy accept: the draft matches the per-position argmax chain;
+        # sampled accept (point-mass proposal): u < p_j(d_j), u from the
+        # disjoint fold_in(fold_in(key, step), 1) stream
+        greedy_acc = drafts == chosen_w[:, :W - 1]
+        p_w = torch.softmax(proc_w[:, :W - 1], dim=-1)
+        p_draft = torch.gather(p_w, 2, drafts.long()[:, :, None])[..., 0]
+        u = prng.uniform(prng.fold_in(prng.fold_in(
+            keys[:, None, :], steps_w[:, :W - 1]), 1))
+        samp_acc = spec_accept.rejection_accept(u, p_draft,
+                                                torch.ones_like(p_draft))
+        do_sample = samp["do_sample"]
+        acc = torch.where(do_sample[:, None], samp_acc, greedy_acc)
+        a = spec_accept.accepted_prefix_len(acc & has_draft).long()  # [b]
+
+        # the token at the cut: the chain's own choice at position a,
+        # except that a sampled rejection resamples from the residual
+        # (processed logits with the draft masked)
+        rows = torch.arange(b, device=dev)
+        draft_a = drafts[rows, torch.clamp(a, max=W - 2)]
+        resid = spec_accept.residual_logits_point_mass(proc_w[rows, a],
+                                                       draft_a)
+        rkeys = prng.fold_in(prng.fold_in(keys, steps0.long() + a), 2)
+        resample = prng.categorical(rkeys, resid).to(torch.int32)
+        rejected = do_sample & spec & (a < base)
+        pick = torch.where(rejected, resample, chosen_w[rows, a])
+
+        # window emit: accepted drafts, then the cut token, truncated at
+        # the row's first eos
+        drafts_full = torch.nn.functional.pad(drafts, (0, 1))       # [b, W]
+        pad = samp["pad"].to(torch.int32)[:, None].expand(b, W)
+        out = torch.where(j < a[:, None], drafts_full,
+                          torch.where(j == a[:, None], pick[:, None], pad))
+        r = a + 1
+        eos = samp["eos"][:, None]
+        is_eos = (eos >= 0) & (out == eos) & (j < r[:, None])
+        any_eos = is_eos.any(dim=1)
+        r = torch.where(any_eos, torch.argmax(is_eos.to(torch.int32), dim=1)
+                        + 1, r)
+        out = torch.where(sample_now[:, None] & (j < r[:, None]), out,
+                          pad).to(torch.int32)
+        n_emit = torch.where(sample_now, r, torch.zeros_like(r)).to(
+            torch.int32)
+        fin = sample_now & any_eos
+        return (out, n_emit, fin, [c[0] for c in caches],
+                [c[1] for c in caches])
+
+    return run_spec

@@ -104,6 +104,17 @@ def test_ragged_wrapper_raises_on_cuda_without_a_card(monkeypatch):
         RPA.ragged_kernel(q, k, v, t, c, ql)
 
 
+def test_verify_wrapper_raises_on_cuda_without_a_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    q, k, v, t, ln = _fake_cuda(
+        [(2, 5, 4, 32), (5, 4, 8, 32), (5, 4, 8, 32), (2, 3), (2, 5)],
+        [torch.float32] * 3 + [torch.int32] * 2)
+    before = PA._VERIFY.launches
+    with pytest.raises(RuntimeError, match="CUDA"):
+        PA.paged_attention_verify(q, k, v, t, ln)
+    assert PA._VERIFY.launches == before
+
+
 def test_default_device_raises_without_a_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
@@ -125,3 +136,17 @@ def test_kernels_match_plain_on_card(cuda_device, monkeypatch):
     case = chip_smoke.make_case(cuda_device, B=4, H=4, D=128, page=16,
                                 max_pages=8, C=32)
     chip_smoke.check_kernels(case, timed=False)
+
+
+@pytest.mark.gpu
+def test_verify_kernel_lanes_equal_decode_on_card(cuda_device, monkeypatch):
+    """Each verify lane EQUAL to the decode kernel at its length, and
+    allclose to the plain version, for W = 5 and W = 11 (two lane
+    groups)."""
+    monkeypatch.syspath_prepend(ROOT)
+    import chip_smoke
+
+    for w in (5, 11):
+        case = chip_smoke.make_case(cuda_device, B=4, H=4, D=128, page=16,
+                                    max_pages=8, C=32, W=w)
+        chip_smoke.check_verify(case, timed=False)

@@ -151,6 +151,8 @@ def test_ragged_decode_row_matches_decode():
 
 
 def test_verify_rows_not_ported():
+    """Verify rows ride the reference composition only: the single-launch
+    ragged kernel refuses them, as the JAX package's does."""
     k, v = _pools(0)
     q, ctx, qlens = _ragged_inputs(0)
     with pytest.raises(NotImplementedError):
@@ -158,7 +160,7 @@ def test_verify_rows_not_ported():
             torch.tensor(q), torch.tensor(k), torch.tensor(v),
             torch.tensor(_tables(0, len(ctx))), torch.tensor(ctx),
             torch.tensor(qlens), verify_rows=torch.ones(len(ctx), dtype=bool),
-            verify_window=2)
+            verify_window=2, use_kernel=True)
 
 
 def test_write_ragged_pages_bitwise_with_scratch_routing():

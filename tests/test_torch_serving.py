@@ -137,7 +137,9 @@ def test_metrics_counted(streams):
 
 
 @pytest.mark.parametrize("knob", [
-    dict(ragged=False), dict(speculate=True),
+    dict(ragged=False),
+    dict(speculate=True, draft_source="prefix_cache",
+         enable_prefix_cache=True),
     dict(enable_prefix_cache=True), dict(kv_dtype="int8"),
     dict(adapter_store=object()), dict(grammar_vocab=["a"]),
     dict(serving_mesh=object()), dict(kv_host_pages=4),
