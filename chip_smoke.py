@@ -33,7 +33,19 @@ Phases, in order; any failed check raises and the script exits non-zero:
 6. gpt — the LLaMA model freed, ``gpt3-6.7b`` at full width and depth
    (random bf16 weights) serves 8 requests with ngram speculation, then
    its paged forward against its dense one;
-7. the kernels line (one JSON object), the card line, and last
+7. train — GPT freed: (1) the flash kernels (forward, dK/dV, dQ) against
+   their plain versions at (a) the ERNIE shape B=32, H=12, S=512, D=64
+   with 10 % trailing padding as segment ids, dropout 0.1 and 0, fp32
+   and bf16, (b) B=2, H=32, S=4096, D=128 causal bf16, (c) Sq=256 <
+   Sk=512 causal, timed at (a) and (b) beside the plain version, the
+   bound and SDPA, and ``hybrid_attention`` against ``flash_attention``
+   at (a); (2) ERNIE-3.0-base pretraining at full width and depth
+   through ``FleetTrainStep`` (batch 32 x 512, dropout 0.1, AMP O2 bf16,
+   AdamW lr 1e-4): 2 warm-up and 20 timed steps, the loss falling and
+   each flash kernel launched once per layer per step; (3) one step at
+   depth 2, batch 8 with the kernels against the same step with plain
+   attention, fp32 and O2; (4) a profiled train step;
+8. the kernels line (one JSON object), the card line, and last
    ``{"ok": true, "device": {...}}``.
 
 Without a card, or without the repository beside it, it exits non-zero
@@ -644,6 +656,462 @@ def gpt_phase(device, config=None, dtype=None):
     return st
 
 
+# ---------------------------------------------------------------- phase 7
+
+# (a) ERNIE-3.0-base attention with 10 % trailing padding as segment
+# ids, (b) long causal (where the reference itself picks flash), (c)
+# Sq < Sk causal, which exercises the offset Sk - Sq
+FLASH_SHAPES = {
+    "a": dict(B=32, H=12, Sq=512, Sk=512, D=64, causal=False, pad=51),
+    "b": dict(B=2, H=32, Sq=4096, Sk=4096, D=128, causal=True, pad=0),
+    "c": dict(B=2, H=4, Sq=256, Sk=512, D=64, causal=True, pad=0),
+}
+FLASH_RUNS = (("a", "fp32", 0.1), ("a", "bf16", 0.1), ("a", "fp32", 0.0),
+              ("a", "bf16", 0.0), ("b", "bf16", 0.0), ("c", "fp32", 0.1),
+              ("c", "bf16", 0.1), ("c", "bf16", 0.0))
+FLASH_TIMED = (("a", "bf16", 0.1), ("a", "bf16", 0.0), ("b", "bf16", 0.0))
+FLASH_SEED = 0x5EED1234
+
+
+def make_flash_case(device, B, H, Sq, Sk, D, causal, pad, seed=2):
+    """Folded ``[B*H, S, D]`` float32 q, k, v, dO (N(0, 1)) and, when
+    ``pad``, ``[B, S]`` segment ids: 1 for real tokens, 0 for the
+    trailing ``pad`` (self-attention: the same ids on both sides)."""
+    import torch
+
+    g = torch.Generator(device=device)
+    g.manual_seed(seed)
+    mk = lambda s: torch.randn(B * H, s, D, generator=g, device=device)
+    seg = None
+    if pad:
+        seg = torch.ones(B, Sq, dtype=torch.int32, device=device)
+        seg[:, Sq - pad:] = 0
+    return dict(q=mk(Sq), k=mk(Sk), v=mk(Sk), do=mk(Sq), seg=seg, B=B, H=H,
+                Sq=Sq, Sk=Sk, D=D, causal=causal,
+                scale=1.0 / float(np.sqrt(D)))
+
+
+def _plain_chunks(fn, case, tensors, chunk_bytes=2 ** 31):
+    """Run a plain version over slices of whole batch rows (heads of one
+    row stay together), so its ``[bh, Sq, Sk]`` float32 temporaries stay
+    within ``chunk_bytes``; results concatenated along bh."""
+    import torch
+
+    H, Sq, Sk = case["H"], case["Sq"], case["Sk"]
+    rows = max(1, chunk_bytes // (H * Sq * Sk * 4))
+    seg = case["seg"]
+    outs = []
+    for b0 in range(0, case["B"], rows):
+        b1 = min(case["B"], b0 + rows)
+        part = [t[b0 * H:b1 * H] for t in tensors]
+        s = (seg[b0:b1], seg[b0:b1]) if seg is not None else (None, None)
+        outs.append(fn(part, s))
+    return [torch.cat(x) for x in zip(*outs)]
+
+
+def _flash_cost(case, kind):
+    """(bytes, operations) one kernel must at least move and do: each
+    input read once, each output written once; the q-k pairs this mask
+    needs (causal: row i sees min(Sk, i + Sk - Sq + 1) keys)."""
+    B, H, Sq, Sk, D = (case[n] for n in ("B", "H", "Sq", "Sk", "D"))
+    isz = case["itemsize"]
+    if case["causal"]:
+        rows = np.arange(Sq)
+        pairs = int(np.clip(rows + (Sk - Sq) + 1, 0, Sk).sum())
+    else:
+        pairs = Sq * Sk
+    seg = 4 * B * (Sq + Sk) if case["seg"] is not None else 0
+    qd, kd = B * H * Sq * D * isz, B * H * Sk * D * isz
+    rowf = B * H * Sq * 4
+    if kind == "flash_fwd":
+        return qd + 2 * kd + qd + rowf + seg, 4 * B * H * pairs * D
+    if kind == "flash_dkdv":
+        return 2 * qd + 2 * kd + 2 * rowf + 2 * kd + seg, 8 * B * H * pairs * D
+    return 2 * qd + 2 * kd + 2 * rowf + qd + seg, 6 * B * H * pairs * D
+
+
+def check_flash(case, kind, p, timed=True):
+    """Kernels 4–6 against their plain versions on the same inputs:
+    ``flash_fwd``'s o and lse, then dq, dk, dv of ``flash_dq`` and
+    ``flash_dkdv`` from the plain version's (o, lse) and the same dO.
+    With ``timed``, CUDA-event medians of each kernel beside its plain
+    version, its bound and the library call (SDPA at dropout 0).
+    Returns ``{kernel: record}``; raises on a disagreement."""
+    import torch
+
+    from paddle_infer_tpu_torch.ops import flash_attention as FA
+
+    dt = torch.float32 if kind == "fp32" else torch.bfloat16
+    case = dict(case, itemsize=4 if kind == "fp32" else 2)
+    q, k, v, do = (case[n].to(dt) for n in ("q", "k", "v", "do"))
+    seg, H, causal, scale = case["seg"], case["H"], case["causal"], \
+        case["scale"]
+    tol = TOL[kind]
+    cfg = dict(seed=FLASH_SEED, causal=causal, scale=scale, dropout_p=p,
+               h=H)
+
+    def plain_fwd():
+        return _plain_chunks(
+            lambda t, s: FA._fwd_reference(*[x.float() for x in t], *s,
+                                           **cfg), case, (q, k, v))
+
+    ref_o, ref_lse = plain_fwd()
+    o, lse = FA.flash_fwd(q, k, v, seg, seg, **cfg)
+    delta = FA._delta(do, ref_o)
+
+    def plain_grads():
+        return _plain_chunks(
+            lambda t, s: FA._grads_reference(
+                *[x.float() for x in t[:4]], t[4], t[5], *s, **cfg),
+            case, (q, k, v, do, ref_lse, delta))
+
+    rdq, rdk, rdv = plain_grads()
+    dk, dv = FA.flash_dkdv(q, k, v, do, ref_lse, delta, seg, seg, **cfg)
+    dq = FA.flash_dq(q, k, v, do, ref_lse, delta, seg, seg, **cfg)
+    if q.is_cuda:
+        torch.cuda.synchronize()
+
+    def cmp(got, ref):
+        err = float((got.float() - ref).abs().max())
+        return err, bool(torch.allclose(got.float(), ref, atol=tol, rtol=tol))
+
+    out = {}
+    for name, pairs in (("flash_fwd", ((o, ref_o), (lse, ref_lse))),
+                        ("flash_dkdv", ((dk, rdk), (dv, rdv))),
+                        ("flash_dq", ((dq, rdq),))):
+        res = [cmp(g_, r_) for g_, r_ in pairs]
+        out[name] = {"max_abs_err": max(e for e, _ in res), "tol": tol,
+                     "ok": all(ok for _, ok in res)}
+    if timed:
+        out["flash_fwd"]["ms"] = time_ms(
+            lambda: FA.flash_fwd(q, k, v, seg, seg, **cfg))
+        out["flash_dkdv"]["ms"] = time_ms(
+            lambda: FA.flash_dkdv(q, k, v, do, ref_lse, delta, seg, seg,
+                                  **cfg))
+        out["flash_dq"]["ms"] = time_ms(
+            lambda: FA.flash_dq(q, k, v, do, ref_lse, delta, seg, seg,
+                                **cfg))
+        out["flash_fwd"]["plain_ms"] = time_ms(plain_fwd, reps=5, warmup=1)
+        # one plain function computes dq, dk and dv together: its time
+        # stands beside both backward kernels
+        grads_ms = time_ms(plain_grads, reps=5, warmup=1)
+        out["flash_dkdv"]["plain_ms"] = out["flash_dq"]["plain_ms"] = grads_ms
+        for name in out:
+            out[name]["bound_ms"], out[name]["bound_by"] = _bound(
+                *_flash_cost(case, name), kind)
+        lib = _sdpa_library_ms(case, q, k, v, do) if p == 0 else None
+        out["flash_fwd"]["library_ms"] = lib and lib[0]
+        out["flash_dkdv"]["library_ms"] = out["flash_dq"]["library_ms"] = \
+            lib and lib[1]
+    return out
+
+
+def _sdpa_library_ms(case, q, k, v, do):
+    """``torch.nn.functional.scaled_dot_product_attention`` on the same
+    inputs (the segment mask as a boolean ``attn_mask``; causal as
+    ``is_causal``): (forward ms, forward + backward ms minus forward)."""
+    import torch
+    import torch.nn.functional as F
+
+    B, H, Sq, Sk, D = (case[n] for n in ("B", "H", "Sq", "Sk", "D"))
+    q4, k4, v4 = (t.reshape(B, H, -1, D).detach().requires_grad_(True)
+                  for t in (q, k, v))
+    do4 = do.reshape(B, H, Sq, D)
+    mask = None
+    if case["seg"] is not None:
+        s = case["seg"]
+        mask = (s[:, :, None] == s[:, None, :])[:, None]
+    kw = dict(attn_mask=mask, is_causal=case["causal"] and mask is None,
+              scale=case["scale"])
+    fwd = time_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4, **kw))
+
+    def both():
+        F.scaled_dot_product_attention(q4, k4, v4, **kw).backward(do4)
+    return fwd, time_ms(both) - fwd
+
+
+def flash_kernels_phase(device, shapes=FLASH_SHAPES, runs=FLASH_RUNS,
+                        timed_runs=FLASH_TIMED):
+    """Phase 7.1: every (shape, type, dropout) of ``runs`` checked,
+    those of ``timed_runs`` timed.  Returns ``{(shape, kind, p):
+    {kernel: record}}``; raises on a disagreement."""
+    results = {}
+    cases = {}
+    for tag, kind, p in runs:
+        if tag not in cases:
+            cases[tag] = make_flash_case(device, **shapes[tag])
+        rec = check_flash(cases[tag], kind, p,
+                          timed=(tag, kind, p) in timed_runs)
+        results[(tag, kind, p)] = rec
+        for name, r in rec.items():
+            print(f"[flash] ({tag}) {name} {kind} dropout={p}: " + " ".join(
+                f"{k_}={v_:.4e}" if isinstance(v_, float) else f"{k_}={v_}"
+                for k_, v_ in r.items()), flush=True)
+    bad = [(key, n) for key, rec in results.items() for n, r in rec.items()
+           if not r["ok"]]
+    if bad:
+        raise AssertionError(f"flash kernels disagree with their plain "
+                             f"versions: {bad}")
+    return results
+
+
+def hybrid_vs_flash(device, shape=FLASH_SHAPES["a"], p=0.1):
+    """Forward + backward of ``hybrid_attention`` (plain forward, kernels
+    5 and 6) against ``flash_attention`` (kernels 4–6) at one shape in
+    bf16, in the ``(b, s, h, d)`` layout: CUDA-event medians."""
+    import torch
+
+    from paddle_infer_tpu_torch.ops import flash_attention as FA
+
+    case = make_flash_case(device, **shape)
+    B, H, S, D = shape["B"], shape["H"], shape["Sq"], shape["D"]
+    q, k, v, do = (case[n].to(torch.bfloat16).reshape(B, H, S, D)
+                   .permute(0, 2, 1, 3).detach().requires_grad_(True)
+                   for n in ("q", "k", "v", "do"))
+    do = do.detach()
+    kw = dict(q_segment_ids=case["seg"], kv_segment_ids=case["seg"],
+              dropout_p=p, dropout_seed=FLASH_SEED)
+    out = {}
+    for name, fn in (("flash", FA.flash_attention),
+                     ("hybrid", FA.hybrid_attention)):
+        out[name] = time_ms(lambda: fn(q, k, v, **kw).backward(do), reps=10)
+    print(f"[flash] fwd+bwd at (a) bf16 dropout={p}: flash_ms="
+          f"{out['flash']:.4f} hybrid_ms={out['hybrid']:.4f}", flush=True)
+    return out
+
+
+TRAIN_BATCH, TRAIN_SEQ = 32, 512
+TRAIN_WARMUP, TRAIN_STEPS = 2, 20
+H100_BF16_PEAK = 989e12
+
+
+def pretrain_batch(vocab, batch, seq, seed=0):
+    """``bench.py``'s ERNIE batch: random ids, ``seq // 10`` trailing
+    pads per row (mask 0, labels -100), random NSP labels."""
+    rng = np.random.RandomState(seed)
+    ids = rng.randint(0, vocab, (batch, seq)).astype(np.int32)
+    pad = max(1, seq // 10)
+    mask = np.ones((batch, seq), np.int32)
+    mask[:, seq - pad:] = 0
+    labels = rng.randint(0, vocab, (batch, seq)).astype(np.int32)
+    labels[:, seq - pad:] = -100
+    nsp = rng.randint(0, 2, (batch,)).astype(np.int32)
+    return ids, mask, labels, nsp
+
+
+def _pretrain_loss(m, ids, mask, labels, nsp):
+    from paddle_infer_tpu_torch.models.ernie import ernie_pretrain_loss
+
+    mlm, nsp_logits = m(ids, attention_mask=mask)
+    return ernie_pretrain_loss(mlm, nsp_logits, labels, nsp)
+
+
+def build_train_step(device, cfg, amp_o2, lr=1e-4, weight_decay=0.01,
+                     seed=0):
+    """ERNIE pretraining through ``FleetTrainStep`` on one device: random
+    fp32 weights (N(0, 0.02), seeded on the device), AdamW, AMP O2 bf16
+    when ``amp_o2``."""
+    from paddle_infer_tpu_torch.models.ernie import ErnieForPretraining
+    from paddle_infer_tpu_torch.optimizer import AdamW
+    from paddle_infer_tpu_torch.parallel import (DistributedStrategy,
+                                                 FleetTrainStep, fleet)
+
+    model = ErnieForPretraining(cfg, device=device, seed=seed)
+    strategy = DistributedStrategy()
+    if amp_o2:
+        strategy.amp = True
+        strategy.amp_configs = {"level": "O2", "dtype": "bfloat16"}
+    fleet.init(strategy=strategy, devices=[device])
+    opt = AdamW(learning_rate=lr, weight_decay=weight_decay,
+                parameters=model.parameters())
+    return FleetTrainStep(model, _pretrain_loss, opt, strategy=strategy)
+
+
+def train_phase(device, cfg=None, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                warmup=TRAIN_WARMUP, steps=TRAIN_STEPS, amp_o2=True,
+                launches_per_step=None):
+    """Phase 7.2: ERNIE-3.0-base pretraining (or ``cfg``), ``warmup``
+    steps, then ``steps`` timed steps on the same batch with the launch
+    counts zeroed just before and read just after.  Raises unless every
+    loss is finite, the last five losses average below the first five,
+    and each flash kernel launched ``launches_per_step`` times per step
+    (default: once per layer on the card, not checked on the CPU)."""
+    import torch
+
+    from paddle_infer_tpu_torch.models.ernie import ErnieConfig
+    from paddle_infer_tpu_torch.ops import _build
+
+    cuda = device.type == "cuda"
+    cfg = cfg or ErnieConfig.from_preset("ernie-3.0-base")
+    t0 = time.perf_counter()
+    step = build_train_step(device, cfg, amp_o2)
+    n_params = sum(p.numel() for p in step.params.values())
+    print(f"[train] ernie built in {time.perf_counter() - t0:.1f}s: hidden "
+          f"{cfg.hidden_size}, layers {cfg.num_hidden_layers}, vocab "
+          f"{cfg.vocab_size}, params {n_params / 1e6:.1f}M fp32, batch "
+          f"{batch}x{seq}, amp {'O2 bf16' if amp_o2 else 'off'}", flush=True)
+    data = [torch.from_numpy(a).to(device)
+            for a in pretrain_batch(cfg.vocab_size, batch, seq)]
+    for _ in range(warmup):
+        step(*data)
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    for k in _build.KERNELS.values():
+        k.launches = 0
+    losses, ms = [], []
+    for _ in range(steps):
+        t = time.perf_counter()
+        losses.append(float(step(*data)))       # syncs on the loss
+        ms.append((time.perf_counter() - t) * 1e3)
+    launches = {n: k.launches for n, k in _build.KERNELS.items()}
+    p50 = float(np.median(ms))
+    tok_s = batch * seq / (p50 / 1e3)
+    flops_tok = 6 * n_params + 12 * cfg.num_hidden_layers * seq \
+        * cfg.hidden_size
+    mfu = tok_s * flops_tok / H100_BF16_PEAK
+    peak = torch.cuda.max_memory_allocated() / 1e9 if cuda else 0.0
+    print(f"[train] steps={steps} step_ms_p50={p50:.2f} step_ms_min="
+          f"{min(ms):.2f} step_ms_max={max(ms):.2f} tokens_per_s="
+          f"{tok_s:.0f} mfu={mfu:.4f} (6N+12Lsh per token over "
+          f"{H100_BF16_PEAK:.0e}) peak_mem_gb={peak:.2f}", flush=True)
+    print("[train] losses " + " ".join(f"{x:.4f}" for x in losses),
+          flush=True)
+    print(f"[train] launches {launches}", flush=True)
+    if not all(np.isfinite(losses)):
+        raise AssertionError("non-finite training loss")
+    if not np.mean(losses[-5:]) < np.mean(losses[:5]):
+        raise AssertionError("training loss did not go down: "
+                             f"{losses[:5]} ... {losses[-5:]}")
+    if launches_per_step is None:
+        launches_per_step = cfg.num_hidden_layers if cuda else 0
+    for name in ("flash_fwd", "flash_dkdv", "flash_dq"):
+        if launches[name] != launches_per_step * steps:
+            raise AssertionError(
+                f"{name} launched {launches[name]} times in {steps} steps "
+                f"(want {launches_per_step} per step)")
+    return {"losses": losses, "step_ms": ms, "step_ms_p50": p50,
+            "tokens_per_s": tok_s, "mfu": mfu, "peak_mem_gb": peak,
+            "launches": launches, "step": step, "data": data}
+
+
+def step_parity_phase(device, cfg=None, batch=8, seq=TRAIN_SEQ, layers=2):
+    """Phase 7.3: one ``FleetTrainStep`` step (lr 0, so the weights stay
+    put) with the flash kernels and again with ``sdpa`` forced to its
+    plain version, on the same weights, batch and step key: in fp32 the
+    losses agree to 1e-5 relative and every gradient to 1e-4 of its
+    max-abs; under O2 bf16 to 2e-2 and 5e-2."""
+    import torch
+
+    from paddle_infer_tpu_torch.models.ernie import ErnieConfig
+    from paddle_infer_tpu_torch.ops import attention as A
+
+    base = cfg or ErnieConfig.from_preset("ernie-3.0-base")
+    cfg = ErnieConfig(**dict(vars(base), num_hidden_layers=layers))
+    data = [torch.from_numpy(a).to(device)
+            for a in pretrain_batch(cfg.vocab_size, batch, seq, seed=1)]
+    choice = A._attn_impl_choice
+    for amp_o2, (ltol, gtol) in ((False, (1e-5, 1e-4)),
+                                 (True, (2e-2, 5e-2))):
+        step = build_train_step(device, cfg, amp_o2, lr=0.0)
+        runs = []
+        try:
+            for plain in (False, True):
+                if plain:
+                    A._attn_impl_choice = lambda q, k, mask: "xla"
+                step.keys.seed(11)
+                loss = float(step(*data))
+                runs.append((loss, {n: p.grad.float().clone()
+                                    for n, p in step.params.items()}))
+        finally:
+            A._attn_impl_choice = choice
+        (lk, gk), (lp, gp) = runs
+        rel = abs(lk - lp) / abs(lp)
+        # the key third of each qkv bias: adding a constant to every key
+        # of a row leaves its softmax unchanged, so that gradient is zero
+        # in exact arithmetic and rounding noise in both runs (bf16 dS in
+        # the kernels, float32 in the plain backward): it is printed, not
+        # gated
+        hid = cfg.hidden_size
+        kb = {}
+        for n in gp:
+            if n.endswith("qkv_proj.bias"):
+                kb[n] = (float(gk[n][hid:2 * hid].abs().max()),
+                         float(gp[n][hid:2 * hid].abs().max()))
+                for g_ in (gk, gp):
+                    g_[n] = torch.cat([g_[n][:hid], g_[n][2 * hid:]])
+        # nsp.bias: its two entries are -+ the batch mean of the per-row
+        # (p - y), which largely cancels; bf16 rounds each p by 2^-8, so
+        # that tensor is judged against a per-row term's largest share of
+        # the mean (1 / batch), not against the cancelled sum
+        floor = {"nsp.bias": 1.0 / batch}
+        errs = sorted(((float((gk[n] - gp[n]).abs().max())
+                        / max(float(gp[n].abs().max()), floor.get(n, 0.0),
+                              1e-30), n)
+                       for n in gp), reverse=True)
+        worst = errs[0][0]
+        ok = rel <= ltol and worst <= gtol
+        print(f"[parity] {'O2 bf16' if amp_o2 else 'fp32'} depth {layers} "
+              f"batch {batch}: loss kernels={lk:.6f} plain={lp:.6f} "
+              f"rel={rel:.3e} (tol {ltol}) worst grad err/max-abs="
+              f"{worst:.3e} (tol {gtol}) ok={ok}; largest: "
+              + ", ".join(f"{n} {e:.3e}" for e, n in errs[:3])
+              + "; key-bias grad max-abs (kernels, plain): "
+              + ", ".join(f"{a:.3e}/{b:.3e}" for a, b in kb.values()),
+              flush=True)
+        if not ok:
+            raise AssertionError("kernel-path train step disagrees with the "
+                                 "plain-attention step")
+        del step, runs
+
+
+def profile_train(step, data, steps=2, top=14):
+    """Where a train step's device time goes: ``steps`` steps under
+    ``torch.profiler``; prints the device busy share of the wall and the
+    top device ops by self time, grouped into the flash kernels, matmul
+    and other."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            float(step(*data))
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = []
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        t = getattr(e, "self_device_time_total", None)
+        if t is None:
+            t = getattr(e, "self_cuda_time_total", 0.0)
+        if t > 0:
+            rows.append((t / 1e3, e.count, e.key))
+    busy = sum(r[0] for r in rows)
+    groups = {"flash_fwd_kernel": 0.0, "flash_dkdv_kernel": 0.0,
+              "flash_dq_kernel": 0.0, "matmul": 0.0, "other": 0.0}
+    for ms, _, name in rows:
+        low = name.lower()
+        hit = [g for g in groups if g.startswith("flash") and g in name]
+        if hit:
+            groups[hit[0]] += ms
+        elif any(s in low for s in ("gemm", "xmma", "cutlass", "nvjet",
+                                    "matmul", "mm_")):
+            groups["matmul"] += ms
+        else:
+            groups["other"] += ms
+    print(f"[profile] train: {steps} steps wall_ms={wall_ms:.1f} "
+          f"device_busy_ms={busy:.1f} idle_share="
+          f"{max(0.0, 1 - busy / wall_ms):.3f} groups_ms="
+          + json.dumps({k: round(v, 3) for k, v in groups.items()}),
+          flush=True)
+    for ms, n, name in sorted(rows, reverse=True)[:top]:
+        print(f"[profile] {ms:10.3f} ms {n:6d} calls  {name[:110]}",
+              flush=True)
+
+
 # ------------------------------------------------------------------ main
 
 def main() -> int:
@@ -657,6 +1125,7 @@ def main() -> int:
         from paddle_infer_tpu_torch.ops import _build
         from paddle_infer_tpu_torch.ops import \
             ragged_paged_attention as RPA
+        from paddle_infer_tpu_torch.ops import flash_attention  # noqa: F401
     except ImportError as e:
         print(f"chip_smoke: the port is not beside this script ({e})",
               file=sys.stderr)
@@ -754,7 +1223,27 @@ def main() -> int:
     by_run["gpt"] = gst["launches"]["paged_verify"]
     launches["paged_verify"] = sum(by_run.values())
 
-    # phase 7: the kernels line, the card line, the result line
+    # phase 7: training, GPT freed first
+    gc.collect()
+    torch.cuda.empty_cache()
+    fres = flash_kernels_phase(device)
+    hybrid_vs_flash(device)
+    tst = train_phase(device)
+    profile_train(tst["step"], tst["data"])
+    for name in ("flash_fwd", "flash_dkdv", "flash_dq"):
+        launches[name] = tst["launches"][name]
+        kres[name] = {"bf16": dict(fres[("a", "bf16", 0.1)][name])}
+        # SDPA is the same function only at dropout 0
+        kres[name]["bf16"]["library_ms"] = \
+            fres[("a", "bf16", 0.0)][name]["library_ms"]
+        for (tag, kind, p), rec in fres.items():
+            kres[name][f"{tag}/{kind}/dropout{p}"] = rec[name]
+    del tst
+    gc.collect()
+    torch.cuda.empty_cache()
+    step_parity_phase(device)
+
+    # phase 8: the kernels line, the card line, the result line
     line = []
     for name, k in _build.KERNELS.items():
         rec = kres[name]["bf16"]
@@ -764,7 +1253,8 @@ def main() -> int:
             "replaces": k.replaces, "launches": launches[name],
             "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
-            "bound_by": rec["bound_by"], "library_ms": None,
+            "bound_by": rec["bound_by"],
+            "library_ms": rec.get("library_ms"),
             "dtype": "bf16",
             "all": {kind: {kk: v for kk, v in r.items()}
                     for kind, r in kres[name].items()},

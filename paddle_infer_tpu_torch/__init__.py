@@ -12,9 +12,12 @@ explicitly.  On the CPU every hand-written kernel's wrapper runs the
 kernel's plain PyTorch version, because the tensor it was given lies on
 the CPU; on a CUDA tensor it launches the kernel or raises.
 
-What is ported so far is the ragged continuous-batching serving path of
+What is ported so far: the ragged continuous-batching serving path of
 ``ROADMAP.md`` slice A (``EngineCore`` → ``build_mixed_step`` →
-``PagedGenerationEngine`` → LLaMA → ragged paged attention).
+``PagedGenerationEngine`` → LLaMA/GPT → ragged paged attention), with
+speculative draft/verify serving; and ERNIE pretraining on one device
+(``parallel.FleetTrainStep`` → ``models.ErnieForPretraining`` → the
+flash-attention kernels, ``optimizer.AdamW``, ``amp`` O2).
 """
 from __future__ import annotations
 

@@ -4,10 +4,13 @@ The serving plane derives each request's sampling stream as
 ``fold_in(PRNGKey(seed), rid)`` and each step's key as
 ``fold_in(base, step)`` (``serving/programs.py``), so a port that wants
 the reference's sampled token streams needs the reference's bits, not
-merely a good generator.  This module re-implements the pieces that
-path uses — ``PRNGKey``, ``fold_in``, ``uniform`` and ``categorical`` —
-on torch tensors, following jax's ``_src/prng.py`` and ``_src/random.py``
-with ``jax_threefry_partitionable`` on (the default, so ``random_bits``
+merely a good generator; so does training, whose dropout masks hash a
+seed drawn from each step's keys.  This module re-implements the pieces
+those paths use — ``PRNGKey``, ``fold_in``, ``split``, scalar ``bits``,
+``uniform``, ``categorical`` and the ``KeyStream`` that stands in for
+the JAX package's global key — on torch tensors, following jax's
+``_src/prng.py`` and ``_src/random.py`` with
+``jax_threefry_partitionable`` on (the default, so ``random_bits``
 hashes the flat element index split into (hi, lo) uint32 counters and
 returns ``bits1 ^ bits2``).
 
@@ -17,6 +20,8 @@ tensor ``[..., 2]`` holding two uint32 words; numpy uint32 keys are
 accepted too.
 """
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
@@ -89,6 +94,74 @@ def random_bits(key, shape) -> torch.Tensor:
     b1, b2 = threefry2x32(k1, k2, (idx >> 32).reshape(shape),
                           (idx & _M).reshape(shape))
     return b1 ^ b2
+
+
+def _key_words(key):
+    """One key as two Python ints (the scalar fast path: threefry over
+    ints costs microseconds, over 1-element tensors a millisecond)."""
+    k = _as_key(key)
+    if tuple(k.shape) != (2,):
+        raise ValueError(f"expected one key [2], got {tuple(k.shape)}")
+    w0, w1 = k.tolist()
+    return w0 & _M, w1 & _M
+
+
+def split(key, num: int = 2) -> torch.Tensor:
+    """``jax.random.split(key, num)`` in partitionable mode: key ``i``
+    is ``threefry(key, (0, i))`` → ``[num, 2]``."""
+    k1, k2 = _key_words(key)
+    return torch.tensor([threefry2x32(k1, k2, 0, i) for i in range(num)],
+                        dtype=torch.int64)
+
+
+def bits(key) -> torch.Tensor:
+    """Scalar 32-bit ``jax.random.bits(key, dtype=uint32)``: ``b1 ^ b2``
+    of ``threefry(key, (0, 0))``, as a 0-d int64 tensor."""
+    b1, b2 = threefry2x32(*_key_words(key), 0, 0)
+    return torch.tensor(b1 ^ b2, dtype=torch.int64)
+
+
+def seed_from_key(key) -> int:
+    """The uint32 dropout seed drawn from a key (``_seed_from_key``)."""
+    return int(bits(key))
+
+
+class KeyStream:
+    """An explicit stream of keys: the port of the JAX package's global
+    RNG state (``core/random.py`` there), passed to whoever draws.
+
+    ``seed(n)`` sets the key to ``jax.random.key(n)``.  ``next_key()``
+    splits the key (``key, sub = split(key)``, returning ``sub``) or,
+    inside ``trace_key_scope(base)``, returns ``fold_in(base, counter)``
+    with a counter from 0 — what a compiled train step draws for each
+    dropout of its forward."""
+
+    def __init__(self, seed: int = 0):
+        self.seed(seed)
+
+    def seed(self, n: int):
+        self.key = PRNGKey(n)
+        self._scopes = []
+        return n
+
+    def next_key(self) -> torch.Tensor:
+        if self._scopes:
+            base, counter = self._scopes[-1]
+            self._scopes[-1] = (base, counter + 1)
+            k1, k2 = _key_words(base)
+            return torch.tensor(threefry2x32(k1, k2, 0, counter & _M),
+                                dtype=torch.int64)
+        self.key, sub = split(self.key)
+        return sub
+
+    @contextlib.contextmanager
+    def trace_key_scope(self, key):
+        """Derive ``next_key`` from ``key`` (by ``fold_in``) while open."""
+        self._scopes.append((_as_key(key), 0))
+        try:
+            yield
+        finally:
+            self._scopes.pop()
 
 
 def uniform(key, shape=(), minval=0.0, maxval=1.0) -> torch.Tensor:

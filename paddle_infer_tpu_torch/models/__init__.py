@@ -1,8 +1,12 @@
-"""Models of the port (LLaMA, GPT)."""
+"""Models of the port (LLaMA, GPT, ERNIE)."""
+from .ernie import (ERNIE_PRESETS, ErnieConfig, ErnieForPretraining,
+                    ErnieModel, ernie_pretrain_loss)
 from .gpt import GPT_PRESETS, GPTConfig, GPTForCausalLM, GPTModel
 from .llama import (LLAMA_PRESETS, LlamaConfig, LlamaDecoderLayer,
                     LlamaForCausalLM, LlamaMLP, LlamaModel)
 
-__all__ = ["GPT_PRESETS", "GPTConfig", "GPTForCausalLM", "GPTModel",
+__all__ = ["ERNIE_PRESETS", "ErnieConfig", "ErnieForPretraining",
+           "ErnieModel", "ernie_pretrain_loss",
+           "GPT_PRESETS", "GPTConfig", "GPTForCausalLM", "GPTModel",
            "LLAMA_PRESETS", "LlamaConfig", "LlamaDecoderLayer",
            "LlamaForCausalLM", "LlamaMLP", "LlamaModel"]

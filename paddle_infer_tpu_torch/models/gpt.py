@@ -84,8 +84,9 @@ class GPTModel(nn.Module):
         self.layers = nn.ModuleList([
             ParallelTransformerLayer(
                 config.hidden_size, config.num_attention_heads,
-                config.intermediate_size, activation=config.hidden_act,
-                layer_norm_eps=config.layer_norm_eps,
+                config.intermediate_size, dropout=0.0,
+                activation=config.hidden_act, normalize_before=True,
+                causal=True, layer_norm_eps=config.layer_norm_eps,
                 num_experts=getattr(config, "num_experts", 1), **kw)
             for _ in range(config.num_hidden_layers)])
         self.final_norm = LayerNorm(config.hidden_size,

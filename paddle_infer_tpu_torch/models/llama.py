@@ -89,7 +89,7 @@ class LlamaDecoderLayer(nn.Module):
         self.input_layernorm = RMSNorm(config.hidden_size,
                                        epsilon=config.rms_norm_eps, **kw)
         self.self_attn = ParallelSelfAttention(
-            config.hidden_size, config.num_attention_heads,
+            config.hidden_size, config.num_attention_heads, causal=True,
             rope_theta=config.rope_theta,
             num_kv_heads=config.num_key_value_heads, **kw)
         self.post_attention_layernorm = RMSNorm(

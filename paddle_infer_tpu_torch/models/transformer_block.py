@@ -1,39 +1,47 @@
-"""Transformer blocks of the serving path.
+"""Transformer blocks of the serving and training paths.
 
 Port of ``paddle_infer_tpu/models/transformer_block.py``:
 
 * ``ParallelSelfAttention``: QKV split, RoPE, GQA expansion, and the
   six- and seven-element-cache ragged branch of ``_forward_paged`` that
   ``serving/programs.build_mixed_step`` drives (the seventh element is
-  the speculative-verify flag).  With no cache the block runs plain
-  causal attention (the dense reference the tests and ``chip_smoke.py``
-  compare the paged path with).  The legacy 4- and 5-element paged
+  the speculative-verify flag).  With no cache the block calls ``sdpa``
+  (``ops/attention.py``) as the JAX block does: on the card the flash
+  kernels, causal or not, with padding masks as segment ids and
+  attention dropout in training.  The legacy 4- and 5-element paged
   caches of the reference are not ported yet (ROADMAP.md) and raise.
-* ``ParallelMLP`` and ``ParallelTransformerLayer``: the pre-LN GPT
-  block (the post-LN ERNIE/BERT form waits for the training slice, MoE
-  FFNs for their own slice and raise).  Parameter names follow
-  the JAX package so ``weights.from_jax_state_dict`` maps them.
+* ``ParallelMLP`` (with its act-dropout) and ``ParallelTransformerLayer``
+  in both forms: post-LN (ERNIE/BERT, the default, as in the reference)
+  and pre-LN (``normalize_before=True``, GPT).  MoE FFNs raise.
+  Parameter names follow the JAX package so
+  ``weights.from_jax_state_dict`` maps them.
+
+Dropout keys come from the ``KeyStream`` passed as ``keys``, drawn in
+the JAX order: the ``sdpa`` key, ``dropout1``, the MLP's act-dropout,
+``dropout2``.
 """
 from __future__ import annotations
 
-import math
-
 import torch
+import torch.nn.functional as F
 from torch import nn
 
-import torch.nn.functional as F
-
-from ..nn.layers import ColumnParallelLinear, LayerNorm, RowParallelLinear
+from ..nn import functional as PF
+from ..nn.layers import (ColumnParallelLinear, Dropout, LayerNorm,
+                         RowParallelLinear)
 from ..ops import ragged_paged_attention as RPA
 from ..ops.attention import rope
 
 
 class ParallelSelfAttention(nn.Module):
-    """Causal self-attention with fused QKV ``[hidden, (hq + 2*hkv) *
-    d]``, optional RoPE (``rope_theta``) and GQA (``num_kv_heads``)."""
+    """Self-attention with fused QKV ``[hidden, (hq + 2*hkv) * d]``,
+    optional causality, RoPE (``rope_theta``), GQA (``num_kv_heads``)
+    and attention dropout (``dropout``, in training, keys from
+    ``keys``)."""
 
-    def __init__(self, hidden, num_heads, rope_theta=None,
-                 num_kv_heads=None, device=None, dtype=torch.float32):
+    def __init__(self, hidden, num_heads, dropout=0.0, causal=False,
+                 rope_theta=None, num_kv_heads=None, keys=None,
+                 device=None, dtype=torch.float32):
         super().__init__()
         if hidden % num_heads:
             raise ValueError(f"hidden {hidden} not divisible by heads "
@@ -44,6 +52,9 @@ class ParallelSelfAttention(nn.Module):
         if num_heads % self.num_kv_heads:
             raise ValueError("num_heads must be a multiple of num_kv_heads")
         self.head_dim = hidden // num_heads
+        self.dropout = dropout
+        self.causal = causal
+        self.keys = keys
         self.rope_theta = rope_theta
         qkv_out = (num_heads + 2 * self.num_kv_heads) * self.head_dim
         self.qkv_proj = ColumnParallelLinear(hidden, qkv_out,
@@ -57,7 +68,8 @@ class ParallelSelfAttention(nn.Module):
         qkv = qkv.reshape(b, s, hq + 2 * hkv, d)
         return torch.split(qkv, (hq, hkv, hkv), dim=2)
 
-    def forward(self, x, cache=None, position_ids=None):
+    def forward(self, x, attn_mask=None, cache=None, segment_ids=None,
+                position_ids=None):
         b, s = x.shape[0], x.shape[1]
         q, k, v = self._split_qkv(self.qkv_proj(x), b, s)
         if self.rope_theta:
@@ -73,19 +85,12 @@ class ParallelSelfAttention(nn.Module):
             v = torch.repeat_interleave(v, rep, dim=2)
         if cache is not None:
             return self._forward_paged(q, k, v, cache)
-        out = self._dense_attention(q, k, v)
+        out = PF.scaled_dot_product_attention(
+            q, k, v, attn_mask=attn_mask,
+            dropout_p=self.dropout if self.training else 0.0,
+            is_causal=self.causal, q_segment_ids=segment_ids,
+            kv_segment_ids=segment_ids, keys=self.keys)
         return self.out_proj(out.reshape(b, s, self.hidden))
-
-    def _dense_attention(self, q, k, v):
-        """Plain causal attention in float32 over ``[b, s, h, d]``."""
-        s = q.shape[1]
-        scores = torch.einsum("bqhd,bkhd->bhqk", q.to(torch.float32),
-                              k.to(torch.float32)) / math.sqrt(self.head_dim)
-        keep = torch.ones(s, s, dtype=torch.bool, device=q.device).tril()
-        scores = scores.masked_fill(~keep, -1e30)
-        out = torch.einsum("bhqk,bkhd->bqhd", torch.softmax(scores, -1),
-                           v.to(torch.float32))
-        return out.to(q.dtype)
 
     def _forward_paged(self, q, k, v, cache):
         """Ragged mixed-batch paged step.  ``cache`` is the six-tuple
@@ -116,13 +121,14 @@ class ParallelSelfAttention(nn.Module):
 
 
 class ParallelMLP(nn.Module):
-    """``fc2(act(fc1(x)))`` (Megatron column→row split; one device
-    here).  ``gelu`` is the exact erf form, the reference's default."""
+    """``fc2(dropout(act(fc1(x))))`` (Megatron column→row split; one
+    device here).  ``gelu`` is the exact erf form, the reference's
+    default."""
 
-    _ACT = {"gelu": F.gelu, "silu": F.silu}
+    _ACT = {"gelu": PF.gelu, "silu": F.silu}
 
-    def __init__(self, hidden, ffn_hidden, activation="gelu", device=None,
-                 dtype=torch.float32):
+    def __init__(self, hidden, ffn_hidden, activation="gelu", dropout=0.0,
+                 keys=None, device=None, dtype=torch.float32):
         super().__init__()
         if activation not in self._ACT:
             raise ValueError(f"activation {activation!r} not ported")
@@ -131,33 +137,57 @@ class ParallelMLP(nn.Module):
         self.fc2 = RowParallelLinear(ffn_hidden, hidden, device=device,
                                      dtype=dtype)
         self.activation = self._ACT[activation]
+        self.dropout = Dropout(dropout, keys=keys)
 
     def forward(self, x):
-        return self.fc2(self.activation(self.fc1(x)))
+        return self.fc2(self.dropout(self.activation(self.fc1(x))))
 
 
 class ParallelTransformerLayer(nn.Module):
-    """Pre-LN causal block (GPT): ``x + attn(norm1(x))``, then
-    ``x + mlp(norm2(x))``.  Dropout is an identity at inference."""
+    """One encoder/decoder block: post-LN by default (ERNIE/BERT:
+    ``norm1(x + dropout1(attn(x)))``, then ``norm2(x +
+    dropout2(mlp(x)))``), pre-LN with ``normalize_before`` (GPT).
+    Dropout is an identity in eval."""
 
-    def __init__(self, hidden, num_heads, ffn_hidden, activation="gelu",
-                 layer_norm_eps=1e-12, num_experts=1, device=None,
-                 dtype=torch.float32):
+    def __init__(self, hidden, num_heads, ffn_hidden, dropout=0.1,
+                 attn_dropout=None, activation="gelu",
+                 normalize_before=False, causal=False,
+                 layer_norm_eps=1e-12, num_experts=1, keys=None,
+                 device=None, dtype=torch.float32):
         super().__init__()
         if int(num_experts) > 1:
             raise NotImplementedError(
                 "MoE FFNs are not ported yet; see ROADMAP.md slice B")
         kw = dict(device=device, dtype=dtype)
-        self.self_attn = ParallelSelfAttention(hidden, num_heads, **kw)
-        self.mlp = ParallelMLP(hidden, ffn_hidden, activation, **kw)
+        self.normalize_before = normalize_before
+        self.self_attn = ParallelSelfAttention(
+            hidden, num_heads,
+            dropout=attn_dropout if attn_dropout is not None else dropout,
+            causal=causal, keys=keys, **kw)
+        self.mlp = ParallelMLP(hidden, ffn_hidden, activation, dropout,
+                               keys=keys, **kw)
         self.norm1 = LayerNorm(hidden, epsilon=layer_norm_eps, **kw)
         self.norm2 = LayerNorm(hidden, epsilon=layer_norm_eps, **kw)
+        self.dropout1 = Dropout(dropout, keys=keys)
+        self.dropout2 = Dropout(dropout, keys=keys)
 
-    def forward(self, x, cache=None, position_ids=None):
-        h = self.self_attn(self.norm1(x), cache=cache,
+    def forward(self, x, attn_mask=None, cache=None, segment_ids=None,
+                position_ids=None):
+        residual = x
+        if self.normalize_before:
+            x = self.norm1(x)
+        h = self.self_attn(x, attn_mask, cache=cache,
+                           segment_ids=segment_ids,
                            position_ids=position_ids)
         if cache is not None:
             h, new_cache = h
-        x = x + h
-        x = x + self.mlp(self.norm2(x))
+        x = residual + self.dropout1(h)
+        if not self.normalize_before:
+            x = self.norm1(x)
+        residual = x
+        if self.normalize_before:
+            x = self.norm2(x)
+        x = residual + self.dropout2(self.mlp(x))
+        if not self.normalize_before:
+            x = self.norm2(x)
         return (x, new_cache) if cache is not None else x

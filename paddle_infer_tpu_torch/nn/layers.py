@@ -2,8 +2,8 @@
 
 Ports of ``paddle_infer_tpu/parallel/mp_layers.py``
 (``ColumnParallelLinear``, ``RowParallelLinear``,
-``VocabParallelEmbedding``) and ``nn/layers_common.py`` (``Embedding``,
-``RMSNorm``, ``LayerNorm``).  The tensor-parallel layers keep their names and their
+``VocabParallelEmbedding``) and ``nn/layers_common.py`` (``Linear``,
+``Embedding``, ``Dropout``, ``RMSNorm``, ``LayerNorm``).  The tensor-parallel layers keep their names and their
 Paddle weight layout ``[in, out]`` so state dicts carry over one to one;
 their mesh sharding is a later slice (ROADMAP.md slice B), so here they
 are plain matmuls.
@@ -11,6 +11,12 @@ are plain matmuls.
 Parameters are allocated empty on the target device in the target dtype;
 ``reset_parameters(generator)`` fills them (Xavier, as the reference
 initializers do), so a 7B model is never built on the CPU first.
+Parameters are created with ``requires_grad=False`` (serving); a
+training model turns them on (``models/ernie.py``).
+
+Every forward follows the O2 rule of ``amp.py`` through the port's
+functional ops, so under ``amp_scope`` float32 parameters are cast to
+bf16 where they are used; outside it nothing changes.
 """
 from __future__ import annotations
 
@@ -19,6 +25,8 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from . import functional as PF
 
 
 def _xavier_uniform_(w: torch.Tensor, generator):
@@ -50,8 +58,7 @@ class ColumnParallelLinear(nn.Module):
             self.bias.zero_()
 
     def forward(self, x):
-        y = torch.matmul(x, self.weight)
-        return y + self.bias if self.bias is not None else y
+        return PF.linear(x, self.weight, self.bias)
 
 
 class RowParallelLinear(ColumnParallelLinear):
@@ -75,7 +82,7 @@ class Embedding(nn.Module):
         self.weight.normal_(0.0, 1.0, generator=generator)
 
     def forward(self, ids):
-        return F.embedding(ids.long(), self.weight)
+        return PF.embedding(ids, self.weight)
 
 
 class VocabParallelEmbedding(Embedding):
@@ -130,7 +137,25 @@ class LayerNorm(nn.Module):
         self.bias.zero_()
 
     def forward(self, x):
-        return F.layer_norm(x.to(torch.float32), self.normalized_shape,
-                            self.weight.to(torch.float32),
-                            self.bias.to(torch.float32),
-                            self.epsilon).to(x.dtype)
+        return PF.layer_norm(x, self.normalized_shape, self.weight,
+                             self.bias, self.epsilon)
+
+
+class Linear(ColumnParallelLinear):
+    """``y = x @ W + b`` with W ``[in, out]`` (``nn/layers_common.py``
+    ``Linear``)."""
+
+
+class Dropout(nn.Module):
+    """Hash-RNG dropout drawing its keys from ``keys`` (a
+    ``core.random.KeyStream``); an identity in eval."""
+
+    def __init__(self, p=0.5, mode="upscale_in_train", keys=None):
+        super().__init__()
+        self.p = p
+        self.mode = mode
+        self.keys = keys
+
+    def forward(self, x):
+        return PF.dropout(x, p=self.p, training=self.training,
+                          mode=self.mode, keys=self.keys)

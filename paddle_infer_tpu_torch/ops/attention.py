@@ -1,8 +1,19 @@
-"""Rotary position embedding (port of ``paddle_infer_tpu/ops/attention.py``
-``_rope``)."""
+"""Attention ops: rotary embedding and the fused ``sdpa``.
+
+Ports of ``paddle_infer_tpu/ops/attention.py``: ``rope`` (``_rope``),
+``sdpa`` with its choice of implementation (``_sdpa``,
+``_attn_impl_choice``), the plain attention ``_xla_sdpa`` and
+``_seed_from_key``.
+"""
 from __future__ import annotations
 
+import math
+
 import torch
+
+from ..core import random as R
+from . import _build
+from . import flash_attention as FA
 
 
 def rope(x: torch.Tensor, position_ids: torch.Tensor,
@@ -26,3 +37,69 @@ def rope(x: torch.Tensor, position_ids: torch.Tensor,
     x1, x2 = xf[..., :half], xf[..., half:]
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def _xla_sdpa(q, k, v, mask, seed, dropout_p, is_causal, scale,
+              q_segment_ids=None, kv_segment_ids=None):
+    """Plain attention over ``(b, s, h, d)``: float32 logits and softmax,
+    masked entries at -1e9, the same ``dropout_keep`` mask as the
+    kernels (folded head ``b*h + h``), dead segment rows 0, probabilities
+    cast to q's dtype before the value product."""
+    d = q.shape[-1]
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    if mask is not None:
+        m = mask
+        if m.dtype == torch.bool:
+            m = torch.where(m, 0.0, -1e9)
+        logits = logits + m.float()
+    segmented = q_segment_ids is not None
+    if segmented:
+        seg_ok = (q_segment_ids.to(torch.int32)[:, None, :, None]
+                  == kv_segment_ids.to(torch.int32)[:, None, None, :])
+        logits = torch.where(seg_ok, logits, -1e9)
+    if is_causal:
+        sq, sk = logits.shape[-2], logits.shape[-1]
+        causal = torch.ones(sq, sk, dtype=torch.bool,
+                            device=q.device).tril(sk - sq)
+        logits = torch.where(causal, logits, -1e9)
+    probs = torch.softmax(logits, dim=-1)
+    if dropout_p and seed is not None:
+        b, h, sq, sk = logits.shape
+        ar = lambda n: torch.arange(n, device=q.device)
+        bh = (ar(b)[:, None] * h + ar(h)[None, :])[..., None, None]
+        keep = FA.dropout_keep(seed, bh, ar(sq)[:, None], ar(sk)[None, :],
+                               dropout_p)
+        probs = torch.where(keep, probs / (1.0 - dropout_p), 0.0)
+    if segmented:
+        # rows whose every key is masked: zero, the kernels' convention
+        probs = torch.where(seg_ok.any(dim=-1, keepdim=True), probs, 0.0)
+    return torch.einsum("bhqk,bkhd->bqhd", probs.to(q.dtype), v)
+
+
+def _attn_impl_choice(q, k, mask):
+    """``"flash"`` (kernels 4–6) for a CUDA tensor with no dense mask
+    and a head_dim the kernels take, else ``"xla"`` (the plain path).
+    The reference's ``hybrid`` band (512 <= s < 4096) came from a v5e
+    measurement and is not carried over."""
+    if q.device.type != "cuda" or mask is not None:
+        return "xla"
+    return "flash" if q.shape[-1] in FA.HEAD_DIMS else "xla"
+
+
+def sdpa(q, k, v, mask=None, key=None, q_segment_ids=None,
+         kv_segment_ids=None, dropout_p=0.0, is_causal=False, scale=None):
+    """Fused attention over ``(b, s, h, d)``; ``key`` seeds the dropout
+    mask when ``dropout_p`` (its scalar uint32 ``bits``).  A CUDA
+    tensor without a card raises."""
+    if q.device.type == "cuda":
+        _build.require_cuda()
+    seed = R.seed_from_key(key) if dropout_p else None
+    if _attn_impl_choice(q, k, mask) == "flash":
+        return FA.flash_attention(
+            q, k, v, q_segment_ids=q_segment_ids,
+            kv_segment_ids=kv_segment_ids, dropout_p=dropout_p,
+            dropout_seed=seed, is_causal=is_causal, scale=scale)
+    return _xla_sdpa(q, k, v, mask, seed, dropout_p, is_causal, scale,
+                     q_segment_ids=q_segment_ids,
+                     kv_segment_ids=kv_segment_ids)

@@ -82,3 +82,41 @@ def test_categorical_single_key():
     want = int(jax.random.categorical(k, logits))
     got = int(R.categorical(R.PRNGKey(9), torch.tensor(logits)))
     assert got == want
+
+
+@pytest.mark.parametrize("seed", [0, 3, 2 ** 31 - 1])
+@pytest.mark.parametrize("num", [2, 5])
+def test_split_equal(seed, num):
+    k = jax.random.key(seed)
+    want = _np(jax.random.key_data(jax.random.split(k, num)))
+    np.testing.assert_array_equal(R.split(R.PRNGKey(seed), num).numpy(),
+                                  want)
+
+
+@pytest.mark.parametrize("seed", [0, 9, 77])
+def test_scalar_bits_equal(seed):
+    k = jax.random.fold_in(jax.random.key(seed), 5)
+    want = int(jax.random.bits(k, dtype=jnp.uint32))
+    tk = torch.tensor(_np(jax.random.key_data(k)))
+    assert int(R.bits(tk)) == want == R.seed_from_key(tk)
+
+
+def test_key_stream_follows_the_jax_global_key():
+    """``KeyStream`` against the JAX package's ``core/random.py``: global
+    splits, then ``fold_in(base, counter)`` inside a trace scope."""
+    from paddle_infer_tpu.core import random as JR
+
+    JR.seed(21)
+    ks = R.KeyStream(21)
+    for _ in range(3):
+        np.testing.assert_array_equal(
+            ks.next_key().numpy(), _np(jax.random.key_data(JR.next_key())))
+    base = JR.next_key()
+    tbase = ks.next_key()
+    with JR.trace_key_scope(base), ks.trace_key_scope(tbase):
+        for _ in range(4):
+            np.testing.assert_array_equal(
+                ks.next_key().numpy(),
+                _np(jax.random.key_data(JR.next_key())))
+    np.testing.assert_array_equal(ks.next_key().numpy(),
+                                  _np(jax.random.key_data(JR.next_key())))
