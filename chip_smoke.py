@@ -37,14 +37,15 @@ Phases, in order; any failed check raises and the script exits non-zero:
    their plain versions at (a) the ERNIE shape B=32, H=12, S=512, D=64
    with 10 % trailing padding as segment ids, dropout 0.1 and 0, fp32
    and bf16, (b) B=2, H=32, S=4096, D=128 causal bf16, (c) Sq=256 <
-   Sk=512 causal, timed at (a) and (b) beside the plain version, the
-   bound and SDPA, and ``hybrid_attention`` against ``flash_attention``
-   at (a); (2) ERNIE-3.0-base pretraining at full width and depth
-   through ``FleetTrainStep`` (batch 32 x 512, dropout 0.1, AMP O2 bf16,
-   AdamW lr 1e-4): 2 warm-up and 20 timed steps, the loss falling and
-   each flash kernel launched once per layer per step; (3) one step at
-   depth 2, batch 8 with the kernels against the same step with plain
-   attention, fp32 and O2; (4) a profiled train step;
+   Sk=512 causal, (d) B=4, H=8, S=2000, D=256 causal with padding,
+   timed at (a), (b) and (d) beside the plain version, the bound and
+   SDPA, and ``hybrid_attention`` against ``flash_attention`` at (a);
+   (2) ERNIE-3.0-base pretraining at full width and depth through
+   ``FleetTrainStep`` (batch 32 x 512, dropout 0.1, AMP O2 bf16, AdamW
+   lr 1e-4): 2 warm-up and 20 timed steps, the loss falling and each
+   flash kernel launched once per layer per step; (3) one step at depth
+   2, batch 8 with the kernels against the same step with plain
+   attention, fp32 and O2, on three batches; (4) a profiled train step;
 8. the kernels line (one JSON object), the card line, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -53,6 +54,7 @@ before printing any result.  It imports nothing of JAX.
 """
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import re
@@ -429,11 +431,26 @@ def serve(model, device, prompt_lens=PROMPT_LENS, max_new=MAX_NEW,
             "prompts": prompts, "streams": [list(r.tokens) for r in reqs]}
 
 
+@contextlib.contextmanager
+def plain_attention():
+    """``sdpa`` forced to its plain version (``_xla_sdpa``) inside the
+    block: the reference side of a kernel-against-plain check."""
+    from paddle_infer_tpu_torch.ops import attention as A
+
+    choice = A._attn_impl_choice
+    A._attn_impl_choice = lambda q, k, mask: "xla"
+    try:
+        yield
+    finally:
+        A._attn_impl_choice = choice
+
+
 def reference_check(model, device, n_prompt=33, n_decode=4, page=16,
                     tol=5e-2):
     """The paged ragged forward (one prompt chunk, then decode steps)
     against the dense causal forward of the same model on the same
-    tokens: max |logit difference| relative to the logits' magnitude."""
+    tokens, its attention the plain version: max |logit difference|
+    relative to the logits' magnitude."""
     import torch
 
     cfg = model.config
@@ -453,7 +470,8 @@ def reference_check(model, device, n_prompt=33, n_decode=4, page=16,
               torch.zeros(P, H, page, D, dtype=dtype, device=device))
              for _ in range(L)]
     with torch.inference_mode():
-        dense = model(ids).float()
+        with plain_attention():
+            dense = model(ids).float()
         got = []
         for start, qn in [(0, n_prompt)] + [(n_prompt + i, 1)
                                             for i in range(n_decode)]:
@@ -660,16 +678,20 @@ def gpt_phase(device, config=None, dtype=None):
 
 # (a) ERNIE-3.0-base attention with 10 % trailing padding as segment
 # ids, (b) long causal (where the reference itself picks flash), (c)
-# Sq < Sk causal, which exercises the offset Sk - Sq
+# Sq < Sk causal, which exercises the offset Sk - Sq, (d) head_dim 256
+# (the kernels' split accumulators), causal with padding segments
 FLASH_SHAPES = {
     "a": dict(B=32, H=12, Sq=512, Sk=512, D=64, causal=False, pad=51),
     "b": dict(B=2, H=32, Sq=4096, Sk=4096, D=128, causal=True, pad=0),
     "c": dict(B=2, H=4, Sq=256, Sk=512, D=64, causal=True, pad=0),
+    "d": dict(B=4, H=8, Sq=2000, Sk=2000, D=256, causal=True, pad=200),
 }
 FLASH_RUNS = (("a", "fp32", 0.1), ("a", "bf16", 0.1), ("a", "fp32", 0.0),
               ("a", "bf16", 0.0), ("b", "bf16", 0.0), ("c", "fp32", 0.1),
-              ("c", "bf16", 0.1), ("c", "bf16", 0.0))
-FLASH_TIMED = (("a", "bf16", 0.1), ("a", "bf16", 0.0), ("b", "bf16", 0.0))
+              ("c", "bf16", 0.1), ("c", "bf16", 0.0), ("d", "fp32", 0.1),
+              ("d", "bf16", 0.1), ("d", "bf16", 0.0))
+FLASH_TIMED = (("a", "bf16", 0.1), ("a", "bf16", 0.0), ("b", "bf16", 0.0),
+               ("d", "bf16", 0.0))
 FLASH_SEED = 0x5EED1234
 
 
@@ -709,25 +731,35 @@ def _plain_chunks(fn, case, tensors, chunk_bytes=2 ** 31):
     return [torch.cat(x) for x in zip(*outs)]
 
 
+def _mask_pairs(case):
+    """The q-k pairs this case's mask lets through, summed over batch
+    rows: causal (row i sees keys j <= i + Sk - Sq) and, with segment
+    ids, equal ids on both sides."""
+    B, Sq, Sk = case["B"], case["Sq"], case["Sk"]
+    ok = np.ones((Sq, Sk), bool)
+    if case["causal"]:
+        ok = np.arange(Sq)[:, None] + (Sk - Sq) >= np.arange(Sk)[None, :]
+    if case["seg"] is None:
+        return B * int(ok.sum())
+    seg = case["seg"].cpu().numpy()            # the same ids on both sides
+    return sum(int(((s[:, None] == s[None, :]) & ok).sum()) for s in seg)
+
+
 def _flash_cost(case, kind):
     """(bytes, operations) one kernel must at least move and do: each
     input read once, each output written once; the q-k pairs this mask
-    needs (causal: row i sees min(Sk, i + Sk - Sq + 1) keys)."""
+    needs (``_mask_pairs``)."""
     B, H, Sq, Sk, D = (case[n] for n in ("B", "H", "Sq", "Sk", "D"))
     isz = case["itemsize"]
-    if case["causal"]:
-        rows = np.arange(Sq)
-        pairs = int(np.clip(rows + (Sk - Sq) + 1, 0, Sk).sum())
-    else:
-        pairs = Sq * Sk
+    pairs = _mask_pairs(case)
     seg = 4 * B * (Sq + Sk) if case["seg"] is not None else 0
     qd, kd = B * H * Sq * D * isz, B * H * Sk * D * isz
     rowf = B * H * Sq * 4
     if kind == "flash_fwd":
-        return qd + 2 * kd + qd + rowf + seg, 4 * B * H * pairs * D
+        return qd + 2 * kd + qd + rowf + seg, 4 * H * pairs * D
     if kind == "flash_dkdv":
-        return 2 * qd + 2 * kd + 2 * rowf + 2 * kd + seg, 8 * B * H * pairs * D
-    return 2 * qd + 2 * kd + 2 * rowf + qd + seg, 6 * B * H * pairs * D
+        return 2 * qd + 2 * kd + 2 * rowf + 2 * kd + seg, 8 * H * pairs * D
+    return 2 * qd + 2 * kd + 2 * rowf + qd + seg, 6 * H * pairs * D
 
 
 def check_flash(case, kind, p, timed=True):
@@ -995,74 +1027,76 @@ def train_phase(device, cfg=None, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
             "launches": launches, "step": step, "data": data}
 
 
-def step_parity_phase(device, cfg=None, batch=8, seq=TRAIN_SEQ, layers=2):
+def step_parity_phase(device, cfg=None, batch=8, seq=TRAIN_SEQ, layers=2,
+                      data_seeds=(1, 2, 3)):
     """Phase 7.3: one ``FleetTrainStep`` step (lr 0, so the weights stay
     put) with the flash kernels and again with ``sdpa`` forced to its
-    plain version, on the same weights, batch and step key: in fp32 the
-    losses agree to 1e-5 relative and every gradient to 1e-4 of its
-    max-abs; under O2 bf16 to 2e-2 and 5e-2."""
+    plain version, on the same weights, batch and step key, for the
+    batch of each of ``data_seeds``.  fp32: the losses agree to 1e-5
+    relative and every gradient to 1e-4 of its max-abs.  O2 bf16: the
+    losses to 2e-2, and every gradient to 5e-2 of its max-abs or to twice
+    the plain O2 step's own distance from the fp32 step on that tensor,
+    whichever is larger — one rule for every tensor: were the kernels'
+    step as close to the fp32 step as the plain O2 step is, the two O2
+    steps would differ by at most twice that distance (triangle
+    inequality).  Prints ``nsp.bias``'s readings (a gradient that
+    cancels: the batch mean of per-row p - y) as a witness."""
     import torch
 
     from paddle_infer_tpu_torch.models.ernie import ErnieConfig
-    from paddle_infer_tpu_torch.ops import attention as A
 
     base = cfg or ErnieConfig.from_preset("ernie-3.0-base")
     cfg = ErnieConfig(**dict(vars(base), num_hidden_layers=layers))
-    data = [torch.from_numpy(a).to(device)
-            for a in pretrain_batch(cfg.vocab_size, batch, seq, seed=1)]
-    choice = A._attn_impl_choice
+    batches = {ds: [torch.from_numpy(a).to(device)
+                    for a in pretrain_batch(cfg.vocab_size, batch, seq,
+                                            seed=ds)]
+               for ds in data_seeds}
+    exact = {}                     # data seed -> the plain fp32 gradients
     for amp_o2, (ltol, gtol) in ((False, (1e-5, 1e-4)),
                                  (True, (2e-2, 5e-2))):
         step = build_train_step(device, cfg, amp_o2, lr=0.0)
-        runs = []
-        try:
+        for ds, data in batches.items():
+            runs = []
             for plain in (False, True):
-                if plain:
-                    A._attn_impl_choice = lambda q, k, mask: "xla"
-                step.keys.seed(11)
-                loss = float(step(*data))
+                with plain_attention() if plain else contextlib.nullcontext():
+                    step.keys.seed(11)
+                    loss = float(step(*data))
                 runs.append((loss, {n: p.grad.float().clone()
                                     for n, p in step.params.items()}))
-        finally:
-            A._attn_impl_choice = choice
-        (lk, gk), (lp, gp) = runs
-        rel = abs(lk - lp) / abs(lp)
-        # the key third of each qkv bias: adding a constant to every key
-        # of a row leaves its softmax unchanged, so that gradient is zero
-        # in exact arithmetic and rounding noise in both runs (bf16 dS in
-        # the kernels, float32 in the plain backward): it is printed, not
-        # gated
-        hid = cfg.hidden_size
-        kb = {}
-        for n in gp:
-            if n.endswith("qkv_proj.bias"):
-                kb[n] = (float(gk[n][hid:2 * hid].abs().max()),
-                         float(gp[n][hid:2 * hid].abs().max()))
-                for g_ in (gk, gp):
-                    g_[n] = torch.cat([g_[n][:hid], g_[n][2 * hid:]])
-        # nsp.bias: its two entries are -+ the batch mean of the per-row
-        # (p - y), which largely cancels; bf16 rounds each p by 2^-8, so
-        # that tensor is judged against a per-row term's largest share of
-        # the mean (1 / batch), not against the cancelled sum
-        floor = {"nsp.bias": 1.0 / batch}
-        errs = sorted(((float((gk[n] - gp[n]).abs().max())
-                        / max(float(gp[n].abs().max()), floor.get(n, 0.0),
-                              1e-30), n)
-                       for n in gp), reverse=True)
-        worst = errs[0][0]
-        ok = rel <= ltol and worst <= gtol
-        print(f"[parity] {'O2 bf16' if amp_o2 else 'fp32'} depth {layers} "
-              f"batch {batch}: loss kernels={lk:.6f} plain={lp:.6f} "
-              f"rel={rel:.3e} (tol {ltol}) worst grad err/max-abs="
-              f"{worst:.3e} (tol {gtol}) ok={ok}; largest: "
-              + ", ".join(f"{n} {e:.3e}" for e, n in errs[:3])
-              + "; key-bias grad max-abs (kernels, plain): "
-              + ", ".join(f"{a:.3e}/{b:.3e}" for a, b in kb.values()),
-              flush=True)
-        if not ok:
-            raise AssertionError("kernel-path train step disagrees with the "
-                                 "plain-attention step")
-        del step, runs
+            (lk, gk), (lp, gp) = runs
+            if not amp_o2:
+                exact[ds] = gp
+            rel = abs(lk - lp) / abs(lp)
+            rows = []
+            for n in gp:
+                err = float((gk[n] - gp[n]).abs().max())
+                big = float(gp[n].abs().max())
+                noise = own = 0.0
+                if amp_o2:
+                    noise = float((gp[n] - exact[ds][n]).abs().max())
+                    own = float((gk[n] - exact[ds][n]).abs().max())
+                rows.append((err / max(gtol * big, 2 * noise, 1e-30), n,
+                             err, big, noise, own))
+            rows.sort(reverse=True)
+            worst = rows[0][0]
+            ok = rel <= ltol and worst <= 1.0
+            nsp = next(r for r in rows if r[1] == "nsp.bias")
+            print(f"[parity] {'O2 bf16' if amp_o2 else 'fp32'} depth "
+                  f"{layers} batch {batch} data seed {ds}: loss kernels="
+                  f"{lk:.6f} plain={lp:.6f} rel={rel:.3e} (tol {ltol}) "
+                  f"worst grad err/allowed={worst:.3e} (allowed: "
+                  f"max({gtol} x max-abs, 2 x plain-vs-fp32)) ok={ok}; "
+                  "largest (err, max-abs, plain-vs-fp32): "
+                  + ", ".join(f"{n} {e:.3e}/{b_:.3e}/{z:.3e}"
+                              for _, n, e, b_, z, _ in rows[:3])
+                  + f"; nsp.bias over its max-abs: kernels-vs-plain "
+                  f"{nsp[2] / nsp[3]:.3e}, plain-vs-fp32 {nsp[4] / nsp[3]:.3e}"
+                  f", kernels-vs-fp32 {nsp[5] / nsp[3]:.3e}", flush=True)
+            if not ok:
+                raise AssertionError("kernel-path train step disagrees with "
+                                     "the plain-attention step")
+            del runs, gk, gp
+        del step
 
 
 def profile_train(step, data, steps=2, top=14):
@@ -1151,7 +1185,8 @@ def main() -> int:
     for src, log in _build.BUILD_LOG.items():
         fn = "?"
         for line in log.splitlines():
-            m = re.search(r"([a-z]+_[a-z]+_kernel)I(\w+?)EEv", line)
+            m = re.search(r"([a-z]+_[a-z]+_kernel(?:_[a-z0-9]+)?)I(\w+?)EEv",
+                          line)
             if "Compiling entry" in line and m:
                 fn = f"{m.group(1)}<{m.group(2)}>"
             elif "registers" in line or "spill" in line:

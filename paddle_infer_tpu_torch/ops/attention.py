@@ -42,49 +42,51 @@ def rope(x: torch.Tensor, position_ids: torch.Tensor,
 def _xla_sdpa(q, k, v, mask, seed, dropout_p, is_causal, scale,
               q_segment_ids=None, kv_segment_ids=None):
     """Plain attention over ``(b, s, h, d)``: float32 logits and softmax,
-    masked entries at -1e9, the same ``dropout_keep`` mask as the
-    kernels (folded head ``b*h + h``), dead segment rows 0, probabilities
-    cast to q's dtype before the value product."""
-    d = q.shape[-1]
+    masked entries at ``NEG_INF`` with the kernels' causal, segment and
+    ``dropout_keep`` grids (folded head ``b*h + h``), dead segment rows
+    0, probabilities cast to q's dtype before the value product."""
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
     logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
     if mask is not None:
         m = mask
         if m.dtype == torch.bool:
-            m = torch.where(m, 0.0, -1e9)
+            m = torch.where(m, 0.0, FA.NEG_INF)
         logits = logits + m.float()
-    segmented = q_segment_ids is not None
-    if segmented:
-        seg_ok = (q_segment_ids.to(torch.int32)[:, None, :, None]
-                  == kv_segment_ids.to(torch.int32)[:, None, None, :])
-        logits = torch.where(seg_ok, logits, -1e9)
+    seg_ok = None
+    if q_segment_ids is not None:
+        seg_ok = FA._seg_ok(q_segment_ids.to(torch.int32),
+                            kv_segment_ids.to(torch.int32), h) \
+            .reshape(b, h, sq, sk)
+        logits = torch.where(seg_ok, logits, FA.NEG_INF)
     if is_causal:
-        sq, sk = logits.shape[-2], logits.shape[-1]
-        causal = torch.ones(sq, sk, dtype=torch.bool,
-                            device=q.device).tril(sk - sq)
-        logits = torch.where(causal, logits, -1e9)
+        logits = torch.where(FA._causal_ok(sq, sk, q.device), logits,
+                             FA.NEG_INF)
     probs = torch.softmax(logits, dim=-1)
     if dropout_p and seed is not None:
-        b, h, sq, sk = logits.shape
-        ar = lambda n: torch.arange(n, device=q.device)
-        bh = (ar(b)[:, None] * h + ar(h)[None, :])[..., None, None]
-        keep = FA.dropout_keep(seed, bh, ar(sq)[:, None], ar(sk)[None, :],
-                               dropout_p)
-        probs = torch.where(keep, probs / (1.0 - dropout_p), 0.0)
-    if segmented:
+        keep = FA._keep_grid(seed, b * h, sq, sk, dropout_p, q.device)
+        probs = torch.where(keep.reshape(b, h, sq, sk),
+                            probs / (1.0 - dropout_p), 0.0)
+    if seg_ok is not None:
         # rows whose every key is masked: zero, the kernels' convention
         probs = torch.where(seg_ok.any(dim=-1, keepdim=True), probs, 0.0)
     return torch.einsum("bhqk,bkhd->bqhd", probs.to(q.dtype), v)
 
 
 def _attn_impl_choice(q, k, mask):
-    """``"flash"`` (kernels 4–6) for a CUDA tensor with no dense mask
-    and a head_dim the kernels take, else ``"xla"`` (the plain path).
-    The reference's ``hybrid`` band (512 <= s < 4096) came from a v5e
-    measurement and is not carried over."""
+    """``"xla"`` (the plain path) for a CPU tensor or a dense mask, else
+    ``"flash"`` (kernels 4–6); on the card a head_dim the kernels do not
+    take raises rather than running plain attention.  The reference's
+    ``hybrid`` band (512 <= s < 4096) came from a v5e measurement and is
+    not carried over."""
     if q.device.type != "cuda" or mask is not None:
         return "xla"
-    return "flash" if q.shape[-1] in FA.HEAD_DIMS else "xla"
+    if q.shape[-1] not in FA.HEAD_DIMS:
+        raise NotImplementedError(
+            f"head_dim {q.shape[-1]}: the flash kernels take "
+            f"{FA.HEAD_DIMS}")
+    return "flash"
 
 
 def sdpa(q, k, v, mask=None, key=None, q_segment_ids=None,

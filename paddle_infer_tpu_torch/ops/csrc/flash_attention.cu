@@ -32,9 +32,15 @@
 // accumulation), the score fragments re-packed in registers as the next
 // product's A operand (no round trip through shared memory).  Tiles sit
 // in shared memory with rows padded by 8 elements, which makes the
-// fragment loads free of bank conflicts.  f32: CUDA cores, four threads
-// per tile row, scores staged in shared memory.  wgmma, TMA and a
-// pipelined tile ring are later work.
+// fragment loads free of bank conflicts.  At D = 256 a bf16 dK/dV block
+// would hold 256 f32 accumulators per thread, so the grid's z axis splits
+// dK and dV's head dim in two: each block recomputes its tile's scores
+// over the full D (1.5x the products) and keeps 128 columns of each; the
+// forward and dQ hold 128 accumulators per thread at D = 256, as dK/dV
+// does at D = 128, and need no split.  f32: CUDA cores, four threads
+// per tile row, scores staged in shared memory; tiles of 32 rows at
+// D = 256, so four f32 tiles fit in shared memory.  Head dims 64, 128
+// and 256.  wgmma, TMA and a pipelined tile ring are later work.
 //
 // Numerics kept from the TPU kernels: NEG_INF = -1e30 (not -inf) for
 // masked scores; l == 0 → 1; keys past Sk (the kernel guards its own
@@ -54,7 +60,6 @@ namespace {
 constexpr float kNegInf = -1e30f;
 constexpr int kTile = 64;         // rows of q and of k per tile
 constexpr int kMmaThreads = 128;  // bf16: 4 warps x 16 rows
-constexpr int kF32Threads = 256;  // f32: 4 threads per tile row
 
 enum DType { kF32 = 0, kBF16 = 1 };
 enum Kind { kFwd = 0, kDkdv = 1, kDq = 2 };
@@ -106,18 +111,20 @@ __device__ __forceinline__ bool causal_ok(const Args& a, int row, int col) {
   return !a.causal || row + (a.sk - a.sq) >= col;
 }
 
-// k-tiles a q-tile starting at q0 needs (the Pallas `needed` predicate).
-__device__ __forceinline__ int num_k_tiles(const Args& a, int q0) {
-  int nk = (a.sk + kTile - 1) / kTile;
+// k-tiles a q-tile of `tile` rows starting at q0 needs (the Pallas
+// `needed` predicate); q and k tiles have the same size.
+__device__ __forceinline__ int num_k_tiles(const Args& a, int q0, int tile) {
+  int nk = (a.sk + tile - 1) / tile;
   if (a.causal) {
-    const int last = q0 + kTile - 1 + a.sk - a.sq;
-    nk = last < 0 ? 0 : min(nk, last / kTile + 1);
+    const int last = q0 + tile - 1 + a.sk - a.sq;
+    nk = last < 0 ? 0 : min(nk, last / tile + 1);
   }
   return nk;
 }
 
-__device__ __forceinline__ bool tile_needed(const Args& a, int q0, int k0) {
-  return !a.causal || k0 <= q0 + kTile - 1 + a.sk - a.sq;
+__device__ __forceinline__ bool tile_needed(const Args& a, int q0, int k0,
+                                            int tile) {
+  return !a.causal || k0 <= q0 + tile - 1 + a.sk - a.sq;
 }
 
 __device__ __forceinline__ float warp_group_max(float x) {
@@ -200,12 +207,20 @@ __device__ __forceinline__ void abt_tile(const bf16* sA, const bf16* sB,
   }
 }
 
-// acc[16 x D] += P[16 x 64] . M[64 x D]: P in abt_tile's fragment layout
-// (rounded to bf16 as the A operand), M a row-major shared tile.
+// Head-dim columns of dK and dV one bf16 dK/dV block holds: all of D up
+// to 128; at D = 256 the grid's z axis splits them in two, so a thread's
+// 2 x 64 accumulators stay in registers (each block recomputes its
+// tile's scores over the full D).
 template <int D>
+__host__ __device__ constexpr int dkdv_cols() { return D < 128 ? D : 128; }
+
+// acc[16 x DA] += P[16 x 64] . M[64 x DA]: P in abt_tile's fragment
+// layout (rounded to bf16 as the A operand), M DA columns of a row-major
+// shared [*, D + 8] tile.
+template <int D, int DA>
 __device__ __forceinline__ void pm_tile(const float (&p)[8][4],
                                         const bf16* sM, int g, int t,
-                                        float (&acc)[D / 8][4]) {
+                                        float (&acc)[DA / 8][4]) {
   constexpr int LD = D + 8;
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
@@ -215,7 +230,7 @@ __device__ __forceinline__ void pm_tile(const float (&p)[8][4],
         pack_bf16(p[2 * j + 1][0], p[2 * j + 1][1]),
         pack_bf16(p[2 * j + 1][2], p[2 * j + 1][3])};
 #pragma unroll
-    for (int dt = 0; dt < D / 8; ++dt) {
+    for (int dt = 0; dt < DA / 8; ++dt) {
       const bf16* pb = sM + (j * 16 + t * 2) * LD + dt * 8 + g;
       const uint32_t bfr[2] = {ld2(pb, pb + LD),
                                ld2(pb + 8 * LD, pb + 9 * LD)};
@@ -224,10 +239,11 @@ __device__ __forceinline__ void pm_tile(const float (&p)[8][4],
   }
 }
 
-// Rows row[0], row[1] of acc ([16 x D] fragments) into dst [n, D].
-template <int D>
+// Rows row[0], row[1] of acc ([16 x DA] fragments) into DA columns of
+// dst [n, D].
+template <int D, int DA>
 __device__ __forceinline__ void store_rows_bf16(bf16* dst,
-                                                const float (&acc)[D / 8][4],
+                                                const float (&acc)[DA / 8][4],
                                                 const int (&row)[2], int n,
                                                 int t, const float (&mul)[2]) {
 #pragma unroll
@@ -235,7 +251,7 @@ __device__ __forceinline__ void store_rows_bf16(bf16* dst,
     if (row[i] >= n) continue;
     bf16* out = dst + static_cast<size_t>(row[i]) * D;
 #pragma unroll
-    for (int dt = 0; dt < D / 8; ++dt)
+    for (int dt = 0; dt < DA / 8; ++dt)
       *reinterpret_cast<__nv_bfloat162*>(out + dt * 8 + t * 2) =
           __floats2bfloat162_rn(acc[dt][2 * i] * mul[i],
                                 acc[dt][2 * i + 1] * mul[i]);
@@ -274,7 +290,7 @@ __global__ void __launch_bounds__(kMmaThreads)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[dt][e] = 0.f;
 
-  const int nk = num_k_tiles(a, q0);
+  const int nk = num_k_tiles(a, q0, kTile);
   for (int kt = 0; kt < nk; ++kt) {
     const int k0 = kt * kTile;
     __syncthreads();
@@ -334,7 +350,7 @@ __global__ void __launch_bounds__(kMmaThreads)
     for (int dt = 0; dt < D / 8; ++dt)
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[dt][e] *= corr[e >> 1];
-    pm_tile<D>(s, sV, g, t, acc);
+    pm_tile<D, D>(s, sV, g, t, acc);
   }
 
   float mul[2];
@@ -346,14 +362,15 @@ __global__ void __launch_bounds__(kMmaThreads)
     if (t == 0 && row[i] < a.sq)
       a.lse_out[static_cast<size_t>(bh) * a.sq + row[i]] = m[i] + logf(safe);
   }
-  store_rows_bf16<D>(static_cast<bf16*>(a.out0) + static_cast<size_t>(bh) * a.sq * D,
-                     acc, row, a.sq, t, mul);
+  store_rows_bf16<D, D>(
+      static_cast<bf16*>(a.out0) + static_cast<size_t>(bh) * a.sq * D, acc,
+      row, a.sq, t, mul);
 }
 
 template <int D>
 __global__ void __launch_bounds__(kMmaThreads)
     flash_dkdv_kernel_bf16(Args a) {
-  constexpr int LD = D + 8;
+  constexpr int LD = D + 8, DA = dkdv_cols<D>();
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* sK = reinterpret_cast<bf16*>(smem);
   bf16* sV = sK + kTile * LD;
@@ -363,7 +380,7 @@ __global__ void __launch_bounds__(kMmaThreads)
   float* sDelta = sLse + kTile;
   int* sQs = reinterpret_cast<int*>(sDelta + kTile);
 
-  const int bh = blockIdx.y, k0 = blockIdx.x * kTile;
+  const int bh = blockIdx.y, k0 = blockIdx.x * kTile, c0 = blockIdx.z * DA;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
   const size_t qoff = static_cast<size_t>(bh) * a.sq;
@@ -380,16 +397,16 @@ __global__ void __launch_bounds__(kMmaThreads)
 
   load_tile_bf16<D>(sK, static_cast<const bf16*>(a.k) + koff * D, k0, a.sk);
   load_tile_bf16<D>(sV, static_cast<const bf16*>(a.v) + koff * D, k0, a.sk);
-  float dk[D / 8][4], dv[D / 8][4];
+  float dk[DA / 8][4], dv[DA / 8][4];
 #pragma unroll
-  for (int dt = 0; dt < D / 8; ++dt)
+  for (int dt = 0; dt < DA / 8; ++dt)
 #pragma unroll
     for (int e = 0; e < 4; ++e) dk[dt][e] = dv[dt][e] = 0.f;
 
   const int nq = (a.sq + kTile - 1) / kTile;
   for (int qt = 0; qt < nq; ++qt) {
     const int q0 = qt * kTile;
-    if (!tile_needed(a, q0, k0)) continue;
+    if (!tile_needed(a, q0, k0, kTile)) continue;
     __syncthreads();
     load_tile_bf16<D>(sQ, Q, q0, a.sq);
     load_tile_bf16<D>(sO, dO, q0, a.sq);
@@ -434,15 +451,15 @@ __global__ void __launch_bounds__(kMmaThreads)
         dp[nt][e] = pv * (d - sDelta[ql]) * a.scale;
         p[nt][e] = pd;
       }
-    pm_tile<D>(p, sO, g, t, dv);
-    pm_tile<D>(dp, sQ, g, t, dk);
+    pm_tile<D, DA>(p, sO + c0, g, t, dv);
+    pm_tile<D, DA>(dp, sQ + c0, g, t, dk);
   }
 
   const float one[2] = {1.f, 1.f};
-  store_rows_bf16<D>(static_cast<bf16*>(a.out0) + koff * D, dk, key, a.sk, t,
-                     one);
-  store_rows_bf16<D>(static_cast<bf16*>(a.out1) + koff * D, dv, key, a.sk, t,
-                     one);
+  store_rows_bf16<D, DA>(static_cast<bf16*>(a.out0) + koff * D + c0, dk, key,
+                         a.sk, t, one);
+  store_rows_bf16<D, DA>(static_cast<bf16*>(a.out1) + koff * D + c0, dv, key,
+                         a.sk, t, one);
 }
 
 template <int D>
@@ -483,7 +500,7 @@ __global__ void __launch_bounds__(kMmaThreads)
 #pragma unroll
     for (int e = 0; e < 4; ++e) dq[dt][e] = 0.f;
 
-  const int nk = num_k_tiles(a, q0);
+  const int nk = num_k_tiles(a, q0, kTile);
   for (int kt = 0; kt < nk; ++kt) {
     const int k0 = kt * kTile;
     __syncthreads();
@@ -519,24 +536,29 @@ __global__ void __launch_bounds__(kMmaThreads)
         if (a.dropout) d = keep_elem(a, bh, row[i], col) ? d * a.rescale : 0.f;
         dp[nt][e] = p[nt][e] * (d - delta[i]) * a.scale;
       }
-    pm_tile<D>(dp, sK, g, t, dq);
+    pm_tile<D, D>(dp, sK, g, t, dq);
   }
   const float one[2] = {1.f, 1.f};
-  store_rows_bf16<D>(static_cast<bf16*>(a.out0) + qoff * D, dq, row, a.sq, t,
-                     one);
+  store_rows_bf16<D, D>(static_cast<bf16*>(a.out0) + qoff * D, dq, row, a.sq,
+                        t, one);
 }
 
 // -------------------------------------------------------------- f32 tiles
-// Four consecutive threads own one tile row (row = tid / 4); thread c4 of
-// the group takes columns c4, c4 + 4, ... of the 64-wide score row and
-// head dims c4, c4 + 4, ... of the accumulators.  Shared rows are padded
-// by one float (conflict-free column walks).
+// Tiles of T rows (64 up to D = 128; 32 at D = 256, so four f32 tiles
+// fit in shared memory).  Four consecutive threads own one tile row
+// (row = tid / 4); thread c4 of the group takes columns c4, c4 + 4, ...
+// of the T-wide score row and head dims c4, c4 + 4, ... of the
+// accumulators.  Shared rows are padded by one float (conflict-free
+// column walks).
 
 template <int D>
+__host__ __device__ constexpr int f32_tile() { return D > 128 ? 32 : 64; }
+
+template <int D, int T>
 __device__ __forceinline__ void load_tile_f32(float* dst, const float* src,
                                               int row0, int n) {
   constexpr int LDF = D + 1, VPR = D / 4;
-  for (int i = threadIdx.x; i < kTile * VPR; i += kF32Threads) {
+  for (int i = threadIdx.x; i < T * VPR; i += 4 * T) {
     const int r = i / VPR, c = (i % VPR) * 4;
     float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
     if (row0 + r < n)
@@ -558,17 +580,17 @@ __device__ __forceinline__ float dot_rows(const float* x, const float* y) {
   return acc;
 }
 
-template <int D>
-__global__ void __launch_bounds__(kF32Threads) flash_fwd_kernel_f32(Args a) {
-  constexpr int LDF = D + 1, SLD = kTile + 1;
+template <int D, int T>
+__global__ void __launch_bounds__(4 * T) flash_fwd_kernel_f32(Args a) {
+  constexpr int LDF = D + 1, SLD = T + 1;
   extern __shared__ float fsm[];
   float* sQ = fsm;
-  float* sK = sQ + kTile * LDF;
-  float* sV = sK + kTile * LDF;
-  float* sP = sV + kTile * LDF;
-  int* sKs = reinterpret_cast<int*>(sP + kTile * SLD);
+  float* sK = sQ + T * LDF;
+  float* sV = sK + T * LDF;
+  float* sP = sV + T * LDF;
+  int* sKs = reinterpret_cast<int*>(sP + T * SLD);
 
-  const int bh = blockIdx.y, q0 = blockIdx.x * kTile;
+  const int bh = blockIdx.y, q0 = blockIdx.x * T;
   const int r = threadIdx.x >> 2, c4 = threadIdx.x & 3, row = q0 + r;
   const size_t qoff = static_cast<size_t>(bh) * a.sq;
   const size_t koff = static_cast<size_t>(bh) * a.sk;
@@ -578,27 +600,27 @@ __global__ void __launch_bounds__(kF32Threads) flash_fwd_kernel_f32(Args a) {
   const int* kseg = a.kseg ? a.kseg + static_cast<size_t>(b) * a.sk : nullptr;
   const int qs = a.qseg && row < a.sq ? a.qseg[static_cast<size_t>(b) * a.sq + row] : 0;
 
-  load_tile_f32<D>(sQ, static_cast<const float*>(a.q) + qoff * D, q0, a.sq);
+  load_tile_f32<D, T>(sQ, static_cast<const float*>(a.q) + qoff * D, q0, a.sq);
   float m = kNegInf, l = 0.f;
   float acc[D / 4];
 #pragma unroll
   for (int j = 0; j < D / 4; ++j) acc[j] = 0.f;
 
-  const int nk = num_k_tiles(a, q0);
+  const int nk = num_k_tiles(a, q0, T);
   for (int kt = 0; kt < nk; ++kt) {
-    const int k0 = kt * kTile;
+    const int k0 = kt * T;
     __syncthreads();
-    load_tile_f32<D>(sK, K, k0, a.sk);
-    load_tile_f32<D>(sV, V, k0, a.sk);
+    load_tile_f32<D, T>(sK, K, k0, a.sk);
+    load_tile_f32<D, T>(sV, V, k0, a.sk);
     if (kseg)
-      for (int i = threadIdx.x; i < kTile; i += kF32Threads)
+      for (int i = threadIdx.x; i < T; i += 4 * T)
         sKs[i] = k0 + i < a.sk ? kseg[k0 + i] : 0;
     __syncthreads();
 
-    float sv[kTile / 4];
+    float sv[T / 4];
     float mx = -INFINITY;
 #pragma unroll
-    for (int i = 0; i < kTile / 4; ++i) {
+    for (int i = 0; i < T / 4; ++i) {
       const int cl = c4 + 4 * i, col = k0 + cl;
       float x = dot_rows<D>(sQ + r * LDF, sK + cl * LDF) * a.scale;
       if (col >= a.sk)
@@ -612,14 +634,14 @@ __global__ void __launch_bounds__(kF32Threads) flash_fwd_kernel_f32(Args a) {
     const float corr = expf(m - mn);
     float rs = 0.f;
 #pragma unroll
-    for (int i = 0; i < kTile / 4; ++i) {
+    for (int i = 0; i < T / 4; ++i) {
       sv[i] = expf(sv[i] - mn);
       rs += sv[i];
     }
     l = corr * l + warp_group_sum(rs);
     m = mn;
 #pragma unroll
-    for (int i = 0; i < kTile / 4; ++i) {
+    for (int i = 0; i < T / 4; ++i) {
       const int cl = c4 + 4 * i;
       float pa = sv[i];
       if (a.dropout) pa = keep_elem(a, bh, row, k0 + cl) ? pa * a.rescale : 0.f;
@@ -630,7 +652,7 @@ __global__ void __launch_bounds__(kF32Threads) flash_fwd_kernel_f32(Args a) {
     for (int j = 0; j < D / 4; ++j) {
       const int d = c4 + 4 * j;
       float pv = 0.f;
-      for (int c = 0; c < kTile; ++c)
+      for (int c = 0; c < T; ++c)
         pv = fmaf(sP[r * SLD + c], sV[c * LDF + d], pv);
       acc[j] = acc[j] * corr + pv;
     }
@@ -645,21 +667,21 @@ __global__ void __launch_bounds__(kF32Threads) flash_fwd_kernel_f32(Args a) {
   }
 }
 
-template <int D>
-__global__ void __launch_bounds__(kF32Threads) flash_dkdv_kernel_f32(Args a) {
-  constexpr int LDF = D + 1, SLD = kTile + 1;
+template <int D, int T>
+__global__ void __launch_bounds__(4 * T) flash_dkdv_kernel_f32(Args a) {
+  constexpr int LDF = D + 1, SLD = T + 1;
   extern __shared__ float fsm[];
   float* sK = fsm;
-  float* sV = sK + kTile * LDF;
-  float* sQ = sV + kTile * LDF;
-  float* sO = sQ + kTile * LDF;  // dO
-  float* sP = sO + kTile * LDF;  // pd [q][k]
-  float* sS = sP + kTile * SLD;  // ds [q][k]
-  float* sLse = sS + kTile * SLD;
-  float* sDelta = sLse + kTile;
-  int* sQs = reinterpret_cast<int*>(sDelta + kTile);
+  float* sV = sK + T * LDF;
+  float* sQ = sV + T * LDF;
+  float* sO = sQ + T * LDF;  // dO
+  float* sP = sO + T * LDF;  // pd [q][k]
+  float* sS = sP + T * SLD;  // ds [q][k]
+  float* sLse = sS + T * SLD;
+  float* sDelta = sLse + T;
+  int* sQs = reinterpret_cast<int*>(sDelta + T);
 
-  const int bh = blockIdx.y, k0 = blockIdx.x * kTile;
+  const int bh = blockIdx.y, k0 = blockIdx.x * T;
   const int kr = threadIdx.x >> 2, c4 = threadIdx.x & 3, key = k0 + kr;
   const size_t qoff = static_cast<size_t>(bh) * a.sq;
   const size_t koff = static_cast<size_t>(bh) * a.sk;
@@ -669,20 +691,20 @@ __global__ void __launch_bounds__(kF32Threads) flash_dkdv_kernel_f32(Args a) {
   const int* qseg = a.qseg ? a.qseg + static_cast<size_t>(b) * a.sq : nullptr;
   const int ksv = a.kseg && key < a.sk ? a.kseg[static_cast<size_t>(b) * a.sk + key] : 0;
 
-  load_tile_f32<D>(sK, static_cast<const float*>(a.k) + koff * D, k0, a.sk);
-  load_tile_f32<D>(sV, static_cast<const float*>(a.v) + koff * D, k0, a.sk);
+  load_tile_f32<D, T>(sK, static_cast<const float*>(a.k) + koff * D, k0, a.sk);
+  load_tile_f32<D, T>(sV, static_cast<const float*>(a.v) + koff * D, k0, a.sk);
   float dk[D / 4], dv[D / 4];
 #pragma unroll
   for (int j = 0; j < D / 4; ++j) dk[j] = dv[j] = 0.f;
 
-  const int nq = (a.sq + kTile - 1) / kTile;
+  const int nq = (a.sq + T - 1) / T;
   for (int qt = 0; qt < nq; ++qt) {
-    const int q0 = qt * kTile;
-    if (!tile_needed(a, q0, k0)) continue;
+    const int q0 = qt * T;
+    if (!tile_needed(a, q0, k0, T)) continue;
     __syncthreads();
-    load_tile_f32<D>(sQ, Q, q0, a.sq);
-    load_tile_f32<D>(sO, dO, q0, a.sq);
-    for (int i = threadIdx.x; i < kTile; i += kF32Threads) {
+    load_tile_f32<D, T>(sQ, Q, q0, a.sq);
+    load_tile_f32<D, T>(sO, dO, q0, a.sq);
+    for (int i = threadIdx.x; i < T; i += 4 * T) {
       const bool in = q0 + i < a.sq;
       sLse[i] = in ? a.lse_in[qoff + q0 + i] : 0.f;
       sDelta[i] = in ? a.delta[qoff + q0 + i] : 0.f;
@@ -690,7 +712,7 @@ __global__ void __launch_bounds__(kF32Threads) flash_dkdv_kernel_f32(Args a) {
     }
     __syncthreads();
 
-    for (int i = 0; i < kTile / 4; ++i) {
+    for (int i = 0; i < T / 4; ++i) {
       const int ql = c4 + 4 * i, qrow = q0 + ql;
       const bool cz = causal_ok(a, qrow, key);
       const float x = cz ? dot_rows<D>(sQ + ql * LDF, sK + kr * LDF) * a.scale
@@ -713,7 +735,7 @@ __global__ void __launch_bounds__(kF32Threads) flash_dkdv_kernel_f32(Args a) {
     for (int j = 0; j < D / 4; ++j) {
       const int d = c4 + 4 * j;
       float av = 0.f, ak = 0.f;
-      for (int ql = 0; ql < kTile; ++ql) {
+      for (int ql = 0; ql < T; ++ql) {
         av = fmaf(sP[ql * SLD + kr], sO[ql * LDF + d], av);
         ak = fmaf(sS[ql * SLD + kr], sQ[ql * LDF + d], ak);
       }
@@ -732,18 +754,18 @@ __global__ void __launch_bounds__(kF32Threads) flash_dkdv_kernel_f32(Args a) {
   }
 }
 
-template <int D>
-__global__ void __launch_bounds__(kF32Threads) flash_dq_kernel_f32(Args a) {
-  constexpr int LDF = D + 1, SLD = kTile + 1;
+template <int D, int T>
+__global__ void __launch_bounds__(4 * T) flash_dq_kernel_f32(Args a) {
+  constexpr int LDF = D + 1, SLD = T + 1;
   extern __shared__ float fsm[];
   float* sQ = fsm;
-  float* sO = sQ + kTile * LDF;  // dO
-  float* sK = sO + kTile * LDF;
-  float* sV = sK + kTile * LDF;
-  float* sS = sV + kTile * LDF;  // ds [q][k]
-  int* sKs = reinterpret_cast<int*>(sS + kTile * SLD);
+  float* sO = sQ + T * LDF;  // dO
+  float* sK = sO + T * LDF;
+  float* sV = sK + T * LDF;
+  float* sS = sV + T * LDF;  // ds [q][k]
+  int* sKs = reinterpret_cast<int*>(sS + T * SLD);
 
-  const int bh = blockIdx.y, q0 = blockIdx.x * kTile;
+  const int bh = blockIdx.y, q0 = blockIdx.x * T;
   const int r = threadIdx.x >> 2, c4 = threadIdx.x & 3, row = q0 + r;
   const size_t qoff = static_cast<size_t>(bh) * a.sq;
   const size_t koff = static_cast<size_t>(bh) * a.sk;
@@ -756,24 +778,24 @@ __global__ void __launch_bounds__(kF32Threads) flash_dq_kernel_f32(Args a) {
   const float lse = in ? a.lse_in[qoff + row] : 0.f;
   const float delta = in ? a.delta[qoff + row] : 0.f;
 
-  load_tile_f32<D>(sQ, static_cast<const float*>(a.q) + qoff * D, q0, a.sq);
-  load_tile_f32<D>(sO, static_cast<const float*>(a.dout) + qoff * D, q0, a.sq);
+  load_tile_f32<D, T>(sQ, static_cast<const float*>(a.q) + qoff * D, q0, a.sq);
+  load_tile_f32<D, T>(sO, static_cast<const float*>(a.dout) + qoff * D, q0, a.sq);
   float dq[D / 4];
 #pragma unroll
   for (int j = 0; j < D / 4; ++j) dq[j] = 0.f;
 
-  const int nk = num_k_tiles(a, q0);
+  const int nk = num_k_tiles(a, q0, T);
   for (int kt = 0; kt < nk; ++kt) {
-    const int k0 = kt * kTile;
+    const int k0 = kt * T;
     __syncthreads();
-    load_tile_f32<D>(sK, K, k0, a.sk);
-    load_tile_f32<D>(sV, V, k0, a.sk);
+    load_tile_f32<D, T>(sK, K, k0, a.sk);
+    load_tile_f32<D, T>(sV, V, k0, a.sk);
     if (kseg)
-      for (int i = threadIdx.x; i < kTile; i += kF32Threads)
+      for (int i = threadIdx.x; i < T; i += 4 * T)
         sKs[i] = k0 + i < a.sk ? kseg[k0 + i] : 0;
     __syncthreads();
 
-    for (int i = 0; i < kTile / 4; ++i) {
+    for (int i = 0; i < T / 4; ++i) {
       const int cl = c4 + 4 * i, col = k0 + cl;
       const bool cz = causal_ok(a, row, col);
       const float x = cz ? dot_rows<D>(sQ + r * LDF, sK + cl * LDF) * a.scale
@@ -790,7 +812,7 @@ __global__ void __launch_bounds__(kF32Threads) flash_dq_kernel_f32(Args a) {
     for (int j = 0; j < D / 4; ++j) {
       const int d = c4 + 4 * j;
       float aq = 0.f;
-      for (int c = 0; c < kTile; ++c)
+      for (int c = 0; c < T; ++c)
         aq = fmaf(sS[r * SLD + c], sK[c * LDF + d], aq);
       dq[j] += aq;
     }
@@ -804,14 +826,19 @@ __global__ void __launch_bounds__(kF32Threads) flash_dq_kernel_f32(Args a) {
 
 // ------------------------------------------------------------------ host
 
+// Rows per tile: kTile for bf16, f32_tile<D>() for f32.
+template <int D>
+int tile_rows(int dtype) { return dtype == kBF16 ? kTile : f32_tile<D>(); }
+
 template <int D>
 size_t smem_bytes(int dtype, int kind) {
   const int mats = kind == kFwd ? 3 : 4;
   const int vecs = kind == kDkdv ? 3 : 1;  // lse, delta, seg / seg
-  if (dtype == kBF16) return mats * kTile * (D + 8) * 2 + vecs * kTile * 4;
+  const int T = tile_rows<D>(dtype);
+  if (dtype == kBF16) return mats * T * (D + 8) * 2 + vecs * T * 4;
   const int score_tiles = kind == kDkdv ? 2 : 1;
-  return mats * kTile * (D + 1) * 4 + score_tiles * kTile * (kTile + 1) * 4 +
-         vecs * kTile * 4;
+  return mats * T * (D + 1) * 4 + score_tiles * T * (T + 1) * 4 +
+         vecs * T * 4;
 }
 
 template <typename Kernel>
@@ -828,11 +855,12 @@ int launch_one(Kernel kernel, dim3 grid, int threads, size_t smem,
 template <int D>
 int launch(int dtype, int kind, int bh_count, const Args& a,
            cudaStream_t stream) {
-  const int tiles = kind == kDkdv ? (a.sk + kTile - 1) / kTile
-                                  : (a.sq + kTile - 1) / kTile;
-  const dim3 grid(tiles, bh_count);
+  const int T = tile_rows<D>(dtype);
+  const int tiles = kind == kDkdv ? (a.sk + T - 1) / T : (a.sq + T - 1) / T;
   const size_t smem = smem_bytes<D>(dtype, kind);
   if (dtype == kBF16) {
+    // z (dK/dV): the blocks that split the head dim's accumulator columns
+    const dim3 grid(tiles, bh_count, kind == kDkdv ? D / dkdv_cols<D>() : 1);
     switch (kind) {
       case kFwd:
         return launch_one(flash_fwd_kernel_bf16<D>, grid, kMmaThreads, smem,
@@ -845,15 +873,17 @@ int launch(int dtype, int kind, int bh_count, const Args& a,
                           stream);
     }
   } else if (dtype == kF32) {
+    constexpr int TF = f32_tile<D>();
+    const dim3 grid(tiles, bh_count);
     switch (kind) {
       case kFwd:
-        return launch_one(flash_fwd_kernel_f32<D>, grid, kF32Threads, smem, a,
+        return launch_one(flash_fwd_kernel_f32<D, TF>, grid, 4 * TF, smem, a,
                           stream);
       case kDkdv:
-        return launch_one(flash_dkdv_kernel_f32<D>, grid, kF32Threads, smem,
+        return launch_one(flash_dkdv_kernel_f32<D, TF>, grid, 4 * TF, smem,
                           a, stream);
       case kDq:
-        return launch_one(flash_dq_kernel_f32<D>, grid, kF32Threads, smem, a,
+        return launch_one(flash_dq_kernel_f32<D, TF>, grid, 4 * TF, smem, a,
                           stream);
     }
   }
@@ -868,6 +898,7 @@ int dispatch(int dtype, int kind, int D, int bh_count, const Args& a,
   switch (D) {
     case 64: return launch<64>(dtype, kind, bh_count, a, s);
     case 128: return launch<128>(dtype, kind, bh_count, a, s);
+    case 256: return launch<256>(dtype, kind, bh_count, a, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

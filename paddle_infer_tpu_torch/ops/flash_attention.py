@@ -35,7 +35,7 @@ _M = 0xFFFFFFFF
 
 # the C side's dtype codes (csrc/flash_attention.cu ``DType``)
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (64, 128, 256)
 
 _c = ctypes
 _COMMON = [_c.c_int] * 4 + [_c.c_float, _c.c_int, _c.c_int, _c.c_uint32,

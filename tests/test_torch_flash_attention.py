@@ -250,6 +250,20 @@ def test_wrappers_raise_on_cuda_without_a_card(monkeypatch):
                       "q": TFA._DQ.launches}
 
 
+@pytest.mark.parametrize("d", [64, 128, 256, 96])
+def test_sdpa_choice_on_cuda_tensors(d):
+    """On a CUDA tensor ``sdpa`` takes the kernels for every head_dim they
+    take and raises for any other; only a dense mask goes plain."""
+    q, mask = _fake_cuda([(1, 8, 2, d), (8, 8)],
+                         [torch.bfloat16, torch.bool])
+    assert TA._attn_impl_choice(q, q, mask) == "xla"
+    if d in TFA.HEAD_DIMS:
+        assert TA._attn_impl_choice(q, q, None) == "flash"
+    else:
+        with pytest.raises(NotImplementedError, match="head_dim 96"):
+            TA._attn_impl_choice(q, q, None)
+
+
 @pytest.mark.parametrize("entry", ["flash", "hybrid", "sdpa"])
 def test_entry_points_raise_on_cuda_without_a_card(entry, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
