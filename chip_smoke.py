@@ -39,7 +39,9 @@ Phases, in order; any failed check raises and the script exits non-zero:
    and bf16, (b) B=2, H=32, S=4096, D=128 causal bf16, (c) Sq=256 <
    Sk=512 causal, (d) B=4, H=8, S=2000, D=256 causal with padding,
    timed at (a), (b) and (d) beside the plain version, the bound and
-   SDPA, and ``hybrid_attention`` against ``flash_attention`` at (a);
+   SDPA, the backward kernels also beside the earlier mma.sync design's
+   times (``MMA_SYNC_BWD_MS``) and each held bit-equal across two
+   launches, and ``hybrid_attention`` against ``flash_attention`` at (a);
    (2) ERNIE-3.0-base pretraining at full width and depth through
    ``FleetTrainStep`` (batch 32 x 512, dropout 0.1, AMP O2 bf16, AdamW
    lr 1e-4): 2 warm-up and 20 timed steps, the loss falling and each
@@ -693,6 +695,14 @@ FLASH_RUNS = (("a", "fp32", 0.1), ("a", "bf16", 0.1), ("a", "fp32", 0.0),
 FLASH_TIMED = (("a", "bf16", 0.1), ("a", "bf16", 0.0), ("b", "bf16", 0.0),
                ("d", "bf16", 0.0))
 FLASH_SEED = 0x5EED1234
+# CUDA-event medians of the earlier bf16 backward kernels (warp-level
+# mma.sync, synchronous tile loads, a head-dim split at D = 256) on an
+# NVIDIA H100 80GB HBM3 at 700 W, printed beside the redesigned
+# kernels' times: {(shape, type, dropout): (flash_dkdv ms, flash_dq ms)}
+MMA_SYNC_BWD_MS = {("a", "bf16", 0.1): (0.7340, 0.3396),
+                   ("a", "bf16", 0.0): (0.7768, 0.3357),
+                   ("b", "bf16", 0.0): (4.3734, 2.7188),
+                   ("d", "bf16", 0.0): (2.7206, 1.4400)}
 
 
 def make_flash_case(device, B, H, Sq, Sk, D, causal, pad, seed=2):
@@ -800,6 +810,9 @@ def check_flash(case, kind, p, timed=True):
     rdq, rdk, rdv = plain_grads()
     dk, dv = FA.flash_dkdv(q, k, v, do, ref_lse, delta, seg, seg, **cfg)
     dq = FA.flash_dq(q, k, v, do, ref_lse, delta, seg, seg, **cfg)
+    # determinism: a second launch on the same inputs gives the same bits
+    dk2, dv2 = FA.flash_dkdv(q, k, v, do, ref_lse, delta, seg, seg, **cfg)
+    dq2 = FA.flash_dq(q, k, v, do, ref_lse, delta, seg, seg, **cfg)
     if q.is_cuda:
         torch.cuda.synchronize()
 
@@ -814,6 +827,11 @@ def check_flash(case, kind, p, timed=True):
         res = [cmp(g_, r_) for g_, r_ in pairs]
         out[name] = {"max_abs_err": max(e for e, _ in res), "tol": tol,
                      "ok": all(ok for _, ok in res)}
+    for name, pairs in (("flash_dkdv", ((dk, dk2), (dv, dv2))),
+                        ("flash_dq", ((dq, dq2),))):
+        same = all(torch.equal(x, y) for x, y in pairs)
+        out[name]["repeat_equal"] = same
+        out[name]["ok"] = out[name]["ok"] and same
     if timed:
         out["flash_fwd"]["ms"] = time_ms(
             lambda: FA.flash_fwd(q, k, v, seg, seg, **cfg))
@@ -879,12 +897,32 @@ def flash_kernels_phase(device, shapes=FLASH_SHAPES, runs=FLASH_RUNS,
             print(f"[flash] ({tag}) {name} {kind} dropout={p}: " + " ".join(
                 f"{k_}={v_:.4e}" if isinstance(v_, float) else f"{k_}={v_}"
                 for k_, v_ in r.items()), flush=True)
+        if "ms" in rec["flash_dkdv"]:
+            print_backward(tag, kind, p, rec)
     bad = [(key, n) for key, rec in results.items() for n, r in rec.items()
            if not r["ok"]]
     if bad:
         raise AssertionError(f"flash kernels disagree with their plain "
                              f"versions: {bad}")
     return results
+
+
+def print_backward(tag, kind, p, rec):
+    """One line per timed run: each backward kernel's time beside the
+    earlier mma.sync design's (``MMA_SYNC_BWD_MS``) and its bound, and
+    their sum beside SDPA's backward (dropout 0 only)."""
+    dkdv, dq = rec["flash_dkdv"], rec["flash_dq"]
+    prev = MMA_SYNC_BWD_MS.get((tag, kind, p))
+    parts = []
+    for i, (name, r) in enumerate((("dkdv", dkdv), ("dq", dq))):
+        was = f"{prev[i]:.4f}" if prev else "none"
+        faster = "none" if prev is None else str(r["ms"] < prev[i])
+        parts.append(f"{name}_ms={r['ms']:.4f} mma_sync_ms={was} "
+                     f"faster={faster} {name}_bound_ms={r['bound_ms']:.4f}")
+    lib = dkdv.get("library_ms")
+    print(f"[flash] ({tag}) backward {kind} dropout={p}: " + " ".join(parts)
+          + f" sum_ms={dkdv['ms'] + dq['ms']:.4f} sdpa_bwd_ms="
+          + (f"{lib:.4f}" if lib is not None else "none"), flush=True)
 
 
 def hybrid_vs_flash(device, shape=FLASH_SHAPES["a"], p=0.1):

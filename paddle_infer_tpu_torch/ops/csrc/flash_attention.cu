@@ -10,37 +10,60 @@
 //   that reach v (the denominator l sums the undropped p); dead rows
 //   (running max <= NEG_INF/2, segmented only) give 0; lse = m + log l.
 // flash_dkdv — replaces `_dkdv_kernel` (:276, launched at :429): per
-//   k-tile, stream the q-tiles, recompute p = exp(s - lse) (`_masked_p`),
-//   dv += pd^T do, ds = p (dp - delta) scale, dk += ds^T q, with
-//   pd = keep p / (1 - p_drop) and dp = keep (do v^T) / (1 - p_drop).
-// flash_dq — replaces `_dq_kernel` (:346, launched at :453): per q-tile,
-//   stream the k-tiles, dq += ds k with the same ds.
+//   block of keys, stream the q-tiles, recompute p = exp(s - lse)
+//   (`_masked_p`), dv += pd^T do, ds = p (dp - delta) scale, dk += ds^T q,
+//   with pd = keep p / (1 - p_drop) and dp = keep (do v^T) / (1 - p_drop).
+// flash_dq — replaces `_dq_kernel` (:346, launched at :453): per block of
+//   q rows, stream the k-tiles, dq += ds k with the same ds.
 //
-// What bounds them here: at the ERNIE shape (B=32, H=12, S=512, D=64)
-// each row of q does 4*S*D FLOPs per byte of q/k/v it reads — about 512
-// FLOP/byte in bf16, above the card's ~295 — so in bf16 the tensor-core
-// rate bounds them.  Design: the TPU kernels carry (m, l, acc) and the
-// dk/dv/dq accumulators in VMEM across a sequential grid axis; here a
-// block owns one (bh, 64-row tile) and loops over the other side's tiles
-// inside the block, keeping the accumulators in registers, so no atomics
-// are needed and results are the same from run to run.  The forward and
-// dQ use one block per (bh, q-tile), dK/dV one per (bh, k-tile); causal
+// The TPU kernels carry their accumulators in VMEM across a sequential
+// grid axis; here a block owns its output rows and loops over the other
+// side's tiles inside the block with the accumulators in registers, so
+// there are no atomics and a second launch gives the same bits.  Causal
 // tiles above the diagonal plus the offset Sk - Sq are skipped as the
-// Pallas `needed` predicate skips them.  bf16: four warps, each owning
-// 16 rows of the block's tile; q k^T, p v, pd^T do, ds^T q and ds k run
-// on the tensor cores as warp-level mma.sync.m16n8k16 (bf16 in, f32
-// accumulation), the score fragments re-packed in registers as the next
-// product's A operand (no round trip through shared memory).  Tiles sit
-// in shared memory with rows padded by 8 elements, which makes the
-// fragment loads free of bank conflicts.  At D = 256 a bf16 dK/dV block
-// would hold 256 f32 accumulators per thread, so the grid's z axis splits
-// dK and dV's head dim in two: each block recomputes its tile's scores
-// over the full D (1.5x the products) and keeps 128 columns of each; the
-// forward and dQ hold 128 accumulators per thread at D = 256, as dK/dV
-// does at D = 128, and need no split.  f32: CUDA cores, four threads
-// per tile row, scores staged in shared memory; tiles of 32 rows at
-// D = 256, so four f32 tiles fit in shared memory.  Head dims 64, 128
-// and 256.  wgmma, TMA and a pipelined tile ring are later work.
+// Pallas `needed` predicate skips them.
+//
+// What bounds the backward pair on an H100: at the ERNIE shape (B=32,
+// H=12, S=512, D=64, 10 % padding) the bytes each must move (q, k, v,
+// dO, lse, delta in; dk, dv or dq out) over 3.35 TB/s; at long causal
+// sequences (S=4096, D=128) and at D=256 the bf16 tensor-core operations
+// (8 and 6 per q-k pair and head dim) over 989 TFLOP/s.  The bf16 design
+// (kernels of the earlier design, for comparison: synchronous register
+// loads between __syncthreads, warp-level mma.sync with fragments read
+// from shared memory by scalar loads, a head-dim split over the grid's
+// z axis at D = 256 that recomputed the scores, one host attribute call
+// per launch):
+//   * loads: one producer warp issues TMA copies of whole [rows, 64]
+//     panels into a ring of two to four stages, completed on
+//     mbarriers, so the next tiles arrive while the consumers multiply;
+//     K and V (dK/dV) or Q and dO (dQ) are loaded once per block.  lse,
+//     delta and the segment ids go through the producer's plain loads
+//     (issued before it waits for a free stage) into the stage: their
+//     row stride Sq * 4 bytes is not a multiple of 16 for every Sq,
+//     which TMA needs.  Rows past Sq / Sk arrive as zeros and are still
+//     masked by the kernel;
+//   * products: wgmma.mma_async, bf16 operands in 128-byte-swizzled
+//     shared memory read through descriptors, f32 accumulators in
+//     registers; the score-sized operand of the second product (Pd^T,
+//     dS^T, dS) is the score accumulator re-packed in registers as the
+//     A operand, all k-steps packed before the first is issued (packing
+//     between issues made ptxas fence and serialize them);
+//   * warpgroups: dK/dV runs two per block on the same 64 keys, one for
+//     S^T, P^T and dV, one for dP^T, the dropout hash, dS^T and dK, P^T
+//     and the keep bits passing between them through shared memory;
+//     each product runs once at every head dim, so D = 256 needs no
+//     split (each warpgroup holds 128 accumulators a thread).  dQ runs
+//     one warpgroup of 64 q rows per block, so that two or three blocks
+//     share an SM below D = 256, and works out P while its dP product
+//     runs;
+//   * host: each kernel instantiation opts into its shared memory once;
+//     the four tensor maps are encoded per call (they hold the tensors'
+//     addresses) and passed as __grid_constant__ parameters.
+// The forward keeps the earlier design: four warps of mma.sync.m16n8k16
+// over tiles padded by 8 elements a row in shared memory.  f32: CUDA
+// cores, four threads per tile row, scores staged in shared memory;
+// tiles of 32 rows at D = 256, so four f32 tiles fit.  Head dims 64, 128
+// and 256.
 //
 // Numerics kept from the TPU kernels: NEG_INF = -1e30 (not -inf) for
 // masked scores; l == 0 → 1; keys past Sk (the kernel guards its own
@@ -49,7 +72,9 @@
 // coordinates, bit for bit the plain version's.
 //
 // C interface (ctypes): every pointer and the stream are void*; each
-// entry returns cudaGetLastError() after its launch.
+// entry returns cudaGetLastError() after its launch (cudaErrorInvalidValue
+// when a tensor map cannot be encoded).
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -165,6 +190,10 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
+__device__ __forceinline__ float2 unpack_bf16(uint32_t v) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v));
+}
+
 // kTile rows of a [n, D] bf16 matrix from row0 into shared memory with
 // row stride D + 8; rows past n are zero.
 template <int D>
@@ -207,20 +236,13 @@ __device__ __forceinline__ void abt_tile(const bf16* sA, const bf16* sB,
   }
 }
 
-// Head-dim columns of dK and dV one bf16 dK/dV block holds: all of D up
-// to 128; at D = 256 the grid's z axis splits them in two, so a thread's
-// 2 x 64 accumulators stay in registers (each block recomputes its
-// tile's scores over the full D).
+// acc[16 x D] += P[16 x 64] . M[64 x D]: P in abt_tile's fragment layout
+// (rounded to bf16 as the A operand), M a row-major shared [*, D + 8]
+// tile.
 template <int D>
-__host__ __device__ constexpr int dkdv_cols() { return D < 128 ? D : 128; }
-
-// acc[16 x DA] += P[16 x 64] . M[64 x DA]: P in abt_tile's fragment
-// layout (rounded to bf16 as the A operand), M DA columns of a row-major
-// shared [*, D + 8] tile.
-template <int D, int DA>
 __device__ __forceinline__ void pm_tile(const float (&p)[8][4],
                                         const bf16* sM, int g, int t,
-                                        float (&acc)[DA / 8][4]) {
+                                        float (&acc)[D / 8][4]) {
   constexpr int LD = D + 8;
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
@@ -230,7 +252,7 @@ __device__ __forceinline__ void pm_tile(const float (&p)[8][4],
         pack_bf16(p[2 * j + 1][0], p[2 * j + 1][1]),
         pack_bf16(p[2 * j + 1][2], p[2 * j + 1][3])};
 #pragma unroll
-    for (int dt = 0; dt < DA / 8; ++dt) {
+    for (int dt = 0; dt < D / 8; ++dt) {
       const bf16* pb = sM + (j * 16 + t * 2) * LD + dt * 8 + g;
       const uint32_t bfr[2] = {ld2(pb, pb + LD),
                                ld2(pb + 8 * LD, pb + 9 * LD)};
@@ -239,11 +261,10 @@ __device__ __forceinline__ void pm_tile(const float (&p)[8][4],
   }
 }
 
-// Rows row[0], row[1] of acc ([16 x DA] fragments) into DA columns of
-// dst [n, D].
-template <int D, int DA>
+// Rows row[0], row[1] of acc ([16 x D] fragments) into dst [n, D].
+template <int D>
 __device__ __forceinline__ void store_rows_bf16(bf16* dst,
-                                                const float (&acc)[DA / 8][4],
+                                                const float (&acc)[D / 8][4],
                                                 const int (&row)[2], int n,
                                                 int t, const float (&mul)[2]) {
 #pragma unroll
@@ -251,7 +272,7 @@ __device__ __forceinline__ void store_rows_bf16(bf16* dst,
     if (row[i] >= n) continue;
     bf16* out = dst + static_cast<size_t>(row[i]) * D;
 #pragma unroll
-    for (int dt = 0; dt < DA / 8; ++dt)
+    for (int dt = 0; dt < D / 8; ++dt)
       *reinterpret_cast<__nv_bfloat162*>(out + dt * 8 + t * 2) =
           __floats2bfloat162_rn(acc[dt][2 * i] * mul[i],
                                 acc[dt][2 * i + 1] * mul[i]);
@@ -350,7 +371,7 @@ __global__ void __launch_bounds__(kMmaThreads)
     for (int dt = 0; dt < D / 8; ++dt)
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[dt][e] *= corr[e >> 1];
-    pm_tile<D, D>(s, sV, g, t, acc);
+    pm_tile<D>(s, sV, g, t, acc);
   }
 
   float mul[2];
@@ -362,185 +383,704 @@ __global__ void __launch_bounds__(kMmaThreads)
     if (t == 0 && row[i] < a.sq)
       a.lse_out[static_cast<size_t>(bh) * a.sq + row[i]] = m[i] + logf(safe);
   }
-  store_rows_bf16<D, D>(
+  store_rows_bf16<D>(
       static_cast<bf16*>(a.out0) + static_cast<size_t>(bh) * a.sq * D, acc,
       row, a.sq, t, mul);
 }
 
+// -------------------------------------------- Hopper primitives (sm_90a)
+// The bf16 backward kernels: a producer warp keeps TMA loads in flight
+// into a ring of two to four stages completed on mbarriers; consumer
+// warpgroups run wgmma.  A bf16 tile [rows, D] sits in shared memory as D / 64 panels
+// of [rows, 64] (128 bytes a row), 128-byte swizzled by the TMA unit,
+// each panel 1024-byte aligned.
+
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr int kWgRows = 64;        // rows of one warpgroup's wgmma tile
+constexpr int kProducer = 32;      // threads of the producer warp
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+
+// Wait until the phase of parity `parity` has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// One [rows, 64] panel of a [BH, S, D] tensor: columns c0.., rows r0..
+// of head bh; rows past S arrive as zeros.
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
+                                         uint64_t* bar, int c0, int r0,
+                                         int bh) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(r0), "r"(bh)
+      : "memory");
+}
+
+// Named barrier between the two consumer warpgroups (id 0 is
+// __syncthreads).
+__device__ __forceinline__ void bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wg_wait0() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Waits until at most one committed group is still in flight.
+__device__ __forceinline__ void wg_wait1() {
+  asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+}
+
+// 2^x, subnormal results flushed to zero (p feeds bf16 products).
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Keeps the compiler from moving reads or writes of wgmma accumulators
+// across the asynchronous product's issue and its wait.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// wgmma shared-memory descriptor, 128-byte swizzle; offsets in bytes.
+__device__ __forceinline__ uint64_t gmma_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
+}
+
+// K-major operand (the product sums over D): 64 rows from r0 of a tile
+// of `rows` rows, k-step kk (head-dim columns 16 kk ..).  Within a
+// 128-byte row a k-step is 32 bytes; eight rows are 1024 bytes.
+__device__ __forceinline__ uint64_t desc_k(const bf16* tile, int rows, int r0,
+                                           int kk) {
+  return gmma_desc(smem_u32(tile) + (kk >> 2) * rows * 128 + r0 * 128 +
+                       (kk & 3) * 32,
+                   16, 1024);
+}
+
+// MN-major B operand (the product sums over the tile's rows), k-step kk
+// (rows 16 kk ..): N runs along D, one 64-column panel after another
+// (`rows` x 128 bytes apart).
+__device__ __forceinline__ uint64_t desc_mn(const bf16* tile, int rows,
+                                            int kk) {
+  return gmma_desc(smem_u32(tile) + kk * 2048, rows * 128, 1024);
+}
+
+// The A operand of k-step kk from a [64 x 64] score accumulator, rounded
+// to bf16 (the accumulator's fragment is the A fragment's layout).
+__device__ __forceinline__ void a_frag(const float (&s)[32], int kk,
+                                       uint32_t (&a)[4]) {
+  a[0] = pack_bf16(s[8 * kk], s[8 * kk + 1]);
+  a[1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+  a[2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+  a[3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
+}
+
+// d[64 x 64] (+)= A . B^T, A and B K-major in shared memory
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
+                                         uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d[64 x 64] += A . B, A a register fragment, B MN-major in shared memory
+__device__ __forceinline__ void wgmma_rs(float (&d)[32],
+                                         const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d[64 x 128] += A . B, A a register fragment, B MN-major in shared memory
+__device__ __forceinline__ void wgmma_rs(float (&d)[64],
+                                         const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d[64 x 256] += A . B, A a register fragment, B MN-major in shared memory
+__device__ __forceinline__ void wgmma_rs(float (&d)[128],
+                                         const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
+      "{%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// Rows row[0], row[1] of a [64 x D] accumulator (fragment d[4 j + e]:
+// row row[e >> 1], column 8 j + 2 t + (e & 1)) into dst [n, D] as bf16.
 template <int D>
-__global__ void __launch_bounds__(kMmaThreads)
-    flash_dkdv_kernel_bf16(Args a) {
-  constexpr int LD = D + 8, DA = dkdv_cols<D>();
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* sK = reinterpret_cast<bf16*>(smem);
-  bf16* sV = sK + kTile * LD;
-  bf16* sQ = sV + kTile * LD;
-  bf16* sO = sQ + kTile * LD;  // dO
-  float* sLse = reinterpret_cast<float*>(sO + kTile * LD);
-  float* sDelta = sLse + kTile;
-  int* sQs = reinterpret_cast<int*>(sDelta + kTile);
-
-  const int bh = blockIdx.y, k0 = blockIdx.x * kTile, c0 = blockIdx.z * DA;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const size_t qoff = static_cast<size_t>(bh) * a.sq;
-  const size_t koff = static_cast<size_t>(bh) * a.sk;
-  const bf16* Q = static_cast<const bf16*>(a.q) + qoff * D;
-  const bf16* dO = static_cast<const bf16*>(a.dout) + qoff * D;
-  const int b = bh / a.heads;
-  const int* qseg = a.qseg ? a.qseg + static_cast<size_t>(b) * a.sq : nullptr;
-  const int key[2] = {k0 + warp * 16 + g, k0 + warp * 16 + g + 8};
-  int ks[2] = {0, 0};
-  if (a.kseg)
-    for (int i = 0; i < 2; ++i)
-      if (key[i] < a.sk) ks[i] = a.kseg[static_cast<size_t>(b) * a.sk + key[i]];
-
-  load_tile_bf16<D>(sK, static_cast<const bf16*>(a.k) + koff * D, k0, a.sk);
-  load_tile_bf16<D>(sV, static_cast<const bf16*>(a.v) + koff * D, k0, a.sk);
-  float dk[DA / 8][4], dv[DA / 8][4];
+__device__ __forceinline__ void store_acc_bf16(bf16* dst,
+                                               const float (&d)[D / 2],
+                                               const int (&row)[2], int n,
+                                               int t) {
 #pragma unroll
-  for (int dt = 0; dt < DA / 8; ++dt)
+  for (int i = 0; i < 2; ++i) {
+    if (row[i] >= n) continue;
+    bf16* out = dst + static_cast<size_t>(row[i]) * D;
 #pragma unroll
-    for (int e = 0; e < 4; ++e) dk[dt][e] = dv[dt][e] = 0.f;
-
-  const int nq = (a.sq + kTile - 1) / kTile;
-  for (int qt = 0; qt < nq; ++qt) {
-    const int q0 = qt * kTile;
-    if (!tile_needed(a, q0, k0, kTile)) continue;
-    __syncthreads();
-    load_tile_bf16<D>(sQ, Q, q0, a.sq);
-    load_tile_bf16<D>(sO, dO, q0, a.sq);
-    for (int i = threadIdx.x; i < kTile; i += kMmaThreads) {
-      const bool in = q0 + i < a.sq;
-      sLse[i] = in ? a.lse_in[qoff + q0 + i] : 0.f;
-      sDelta[i] = in ? a.delta[qoff + q0 + i] : 0.f;
-      sQs[i] = in && qseg ? qseg[q0 + i] : 0;
-    }
-    __syncthreads();
-
-    // p^T = exp(scale k q^T - lse), re-zeroed where masked (`_masked_p`)
-    float p[8][4];
-    abt_tile<D>(sK, sQ, warp * 16, g, t, p);
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int i = e >> 1, ql = nt * 8 + t * 2 + (e & 1), qrow = q0 + ql;
-        const bool cz = causal_ok(a, qrow, key[i]);
-        const float x = cz ? p[nt][e] * a.scale : kNegInf;
-        const float pv = expf(x - sLse[ql]);
-        const bool zero = !cz || (qseg && sQs[ql] != ks[i]) || qrow >= a.sq ||
-                          key[i] >= a.sk;
-        p[nt][e] = zero ? 0.f : pv;
-      }
-    // dp^T = v dO^T; then pd (in p) and ds (in dp)
-    float dp[8][4];
-    abt_tile<D>(sV, sO, warp * 16, g, t, dp);
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int i = e >> 1, ql = nt * 8 + t * 2 + (e & 1);
-        const float pv = p[nt][e];
-        float d = dp[nt][e], pd = pv;
-        if (a.dropout) {
-          const bool kp = keep_elem(a, bh, q0 + ql, key[i]);
-          pd = kp ? pv * a.rescale : 0.f;
-          d = kp ? d * a.rescale : 0.f;
-        }
-        dp[nt][e] = pv * (d - sDelta[ql]) * a.scale;
-        p[nt][e] = pd;
-      }
-    pm_tile<D, DA>(p, sO + c0, g, t, dv);
-    pm_tile<D, DA>(dp, sQ + c0, g, t, dk);
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(out + j * 8 + t * 2) =
+          __floats2bfloat162_rn(d[4 * j + 2 * i], d[4 * j + 2 * i + 1]);
   }
+}
 
-  const float one[2] = {1.f, 1.f};
-  store_rows_bf16<D, DA>(static_cast<bf16*>(a.out0) + koff * D + c0, dk, key,
-                         a.sk, t, one);
-  store_rows_bf16<D, DA>(static_cast<bf16*>(a.out1) + koff * D + c0, dv, key,
-                         a.sk, t, one);
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+  return p + ((1024u - (smem_u32(p) & 1023u)) & 1023u);
+}
+
+// dK/dV: one block per (bh, 64 keys) and two consumer warpgroups that
+// share the q-tile's work instead of splitting rows or head dims:
+//   WG 0: S^T = K Q^T, P^T (masked, lse), dV += Pd^T dO;
+//   WG 1: dP^T = V dO^T, dS^T = P^T (dP^T - delta) scale, dK += dS^T Q.
+// Per tile the two swap through shared memory: WG 0 hands over P^T in
+// bf16, WG 1 the dropout keep bits it hashes while its dP^T product
+// runs, so each product and each hash runs once.  The
+// producer warp loads K and V once and streams (Q, dO, lse, delta, q
+// segment ids) tiles through the ring.
+// Threads of a dK/dV block: two consumer warpgroups and the producer
+// warp; at D = 256 the producer's warpgroup is whole,
+// so that it can hand its registers to the consumers (setmaxnreg 40 /
+// 232), whose 128 accumulators a thread spill at the 168 registers
+// ptxas grants a block of 288 or 384 threads.
+template <int D>
+__host__ __device__ constexpr int dkdv_threads() {
+  return D > 128 ? 3 * 128 : 2 * 128 + kProducer;
 }
 
 template <int D>
-__global__ void __launch_bounds__(kMmaThreads)
-    flash_dq_kernel_bf16(Args a) {
-  constexpr int LD = D + 8;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem);
-  bf16* sO = sQ + kTile * LD;  // dO
-  bf16* sK = sO + kTile * LD;
-  bf16* sV = sK + kTile * LD;
-  int* sKs = reinterpret_cast<int*>(sV + kTile * LD);
+struct DkdvLayout {
+  // ring depth: as many stages as fit beside K and V (two blocks an SM
+  // at D = 64, one above)
+  static constexpr int kStages = D == 64 ? 3 : D == 128 ? 4 : 2;
+  static constexpr int kTileB = kWgRows * D * 2;  // one [64, D] bf16 tile
+  static constexpr int kK = 0, kV = kTileB, kQ = 2 * kTileB,
+                       kO = kQ + kStages * kTileB, kP = kO + kStages * kTileB,
+                       kLse = kP + kStages * kWgRows * kWgRows * 2,
+                       kDelta = kLse + kStages * kWgRows * 4,
+                       kQs = kDelta + kStages * kWgRows * 4,
+                       kKeep = kQs + kStages * kWgRows * 4,
+                       kBars = kKeep + kStages * 128 * 4,
+                       kBytes = kBars + (2 * kStages + 1) * 8 + 1024;
+};
 
-  const int bh = blockIdx.y, q0 = blockIdx.x * kTile;
+template <int D>
+__global__ void __launch_bounds__(dkdv_threads<D>(), D == 64 ? 2 : 1)
+    flash_dkdv_kernel_bf16(const __grid_constant__ CUtensorMap tq,
+                           const __grid_constant__ CUtensorMap tk,
+                           const __grid_constant__ CUtensorMap tv,
+                           const __grid_constant__ CUtensorMap tdo, Args a) {
+  using L = DkdvLayout<D>;
+  constexpr int STAGES = L::kStages;
+  constexpr int TILE = L::kTileB, PANEL = kWgRows * 64;  // elements
+  constexpr bool kRebalance = D > 128;  // setmaxnreg: 40 producer, 232
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm = align1024(smem_raw);
+  bf16* sK = reinterpret_cast<bf16*>(sm + L::kK);
+  bf16* sV = reinterpret_cast<bf16*>(sm + L::kV);
+  uint2* sP = reinterpret_cast<uint2*>(sm + L::kP);  // P^T, bf16
+  float* sLse = reinterpret_cast<float*>(sm + L::kLse);  // lse * log2(e)
+  float* sDelta = reinterpret_cast<float*>(sm + L::kDelta);
+  int* sQs = reinterpret_cast<int*>(sm + L::kQs);
+  // dropout keep bits of a tile, one word per thread, bit 4 j + e
+  uint32_t* sKeep = reinterpret_cast<uint32_t*>(sm + L::kKeep);
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + L::kBars);
+  uint64_t* empty = full + STAGES;
+  uint64_t* kvbar = empty + STAGES;
+  auto sQ = [&](int s) {
+    return reinterpret_cast<bf16*>(sm + L::kQ + s * TILE);
+  };
+  auto sO = [&](int s) {
+    return reinterpret_cast<bf16*>(sm + L::kO + s * TILE);
+  };
+
+  const int bh = blockIdx.y, k0 = blockIdx.x * kWgRows;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
   const size_t qoff = static_cast<size_t>(bh) * a.sq;
   const size_t koff = static_cast<size_t>(bh) * a.sk;
-  const bf16* K = static_cast<const bf16*>(a.k) + koff * D;
-  const bf16* V = static_cast<const bf16*>(a.v) + koff * D;
+  // q-tiles this block needs (the Pallas `needed` predicate): a suffix
+  const int nq = (a.sq + kWgRows - 1) / kWgRows;
+  int i0 = 0;
+  if (a.causal) {
+    const int lo = k0 - (kWgRows - 1) - (a.sk - a.sq);  // need q0 >= lo
+    i0 = lo <= 0 ? 0 : min(nq, (lo + kWgRows - 1) / kWgRows);
+  }
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], kProducer);
+      mbar_init(&empty[s], 2 * 128);
+    }
+    mbar_init(kvbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp >= 8) {  // -------------------------------- producer warp(group)
+    if constexpr (kRebalance)
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (warp == 8) {
+      if (lane == 0) {
+        mbar_expect_tx(kvbar, 2 * TILE);
+        for (int p = 0; p < D / 64; ++p) {
+          tma_load(sK + p * PANEL, &tk, kvbar, p * 64, k0, bh);
+          tma_load(sV + p * PANEL, &tv, kvbar, p * 64, k0, bh);
+        }
+      }
+      const int b = bh / a.heads;
+      for (int i = i0, it = 0; i < nq; ++i, ++it) {
+        const int s = it % STAGES, q0 = i * kWgRows;
+        // the tile's lse, delta and q segment ids, read before the
+        // stage frees up
+        float lse_v[kWgRows / 32], delta_v[kWgRows / 32];
+        int qs_v[kWgRows / 32];
+#pragma unroll
+        for (int j = 0; j < kWgRows / 32; ++j) {
+          const int q = q0 + lane + 32 * j;
+          const bool in = q < a.sq;
+          lse_v[j] = in ? a.lse_in[qoff + q] * kLog2e : 0.f;
+          delta_v[j] = in ? a.delta[qoff + q] : 0.f;
+          qs_v[j] =
+              in && a.qseg ? a.qseg[static_cast<size_t>(b) * a.sq + q] : 0;
+        }
+        mbar_wait(&empty[s], ((it / STAGES) & 1) ^ 1);
+#pragma unroll
+        for (int j = 0; j < kWgRows / 32; ++j) {
+          const int r = s * kWgRows + lane + 32 * j;
+          sLse[r] = lse_v[j];
+          sDelta[r] = delta_v[j];
+          sQs[r] = qs_v[j];
+        }
+        if (lane == 0) {
+          mbar_expect_tx(&full[s], 2 * TILE);
+          for (int p = 0; p < D / 64; ++p) {
+            tma_load(sQ(s) + p * PANEL, &tq, &full[s], p * 64, q0, bh);
+            tma_load(sO(s) + p * PANEL, &tdo, &full[s], p * 64, q0, bh);
+          }
+        } else {
+          mbar_arrive(&full[s]);
+        }
+      }
+    }
+  } else {  // ------------------------------------- consumer warpgroups
+    if constexpr (kRebalance)
+      asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+    const int wg = warp >> 2, tid = threadIdx.x & 127;
+    const int g = lane >> 2, t = lane & 3;
+    const int wr = (warp & 3) * 16;
+    const int key[2] = {k0 + wr + g, k0 + wr + g + 8};
+    int ks[2] = {0, 0};
+    if (a.kseg)
+      for (int i = 0; i < 2; ++i)
+        if (key[i] < a.sk)
+          ks[i] = a.kseg[static_cast<size_t>(bh / a.heads) * a.sk + key[i]];
+    const float scale_l2 = a.scale * kLog2e;
+
+    float acc[D / 2];  // WG 0: dV, WG 1: dK
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+    mbar_wait(kvbar, 0);
+
+    for (int i = i0, it = 0; i < nq; ++i, ++it) {
+      const int s = it % STAGES;
+      const int q0 = i * kWgRows;
+      mbar_wait(&full[s], (it / STAGES) & 1);
+      // P^T of the tile in fragment order: [8 col blocks][128 threads]
+      // x 4 bf16
+      uint2* Ps = sP + s * kWgRows * kWgRows / 4;
+      uint32_t* keep = sKeep + s * 128;
+      float sc[32];
+      if (wg == 0) {
+        // S^T = K Q^T over D
+        wg_fence();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk)
+          wgmma_ss(sc, desc_k(sK, kWgRows, 0, kk),
+                   desc_k(sQ(s), kWgRows, 0, kk), kk > 0);
+        wg_commit();
+        wg_wait0();
+        fence_regs(sc);
+        // P^T = exp(scale s - lse), zero where masked (`_masked_p`)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int ki = e >> 1, c = j * 8 + t * 2 + (e & 1), q = q0 + c;
+            const bool zero = !causal_ok(a, q, key[ki]) ||
+                              (a.qseg && sQs[s * kWgRows + c] != ks[ki]) ||
+                              q >= a.sq || key[ki] >= a.sk;
+            sc[4 * j + e] =
+                zero ? 0.f
+                     : exp2_ftz(fmaf(sc[4 * j + e], scale_l2,
+                                     -sLse[s * kWgRows + c]));
+          }
+          Ps[j * 128 + tid] =
+              make_uint2(pack_bf16(sc[4 * j], sc[4 * j + 1]),
+                         pack_bf16(sc[4 * j + 2], sc[4 * j + 3]));
+        }
+        bar_sync(1 + s, 2 * 128);  // P^T out, the keep bits in
+        if (a.dropout) {  // Pd = keep P / (1 - p_drop)
+          const uint32_t bits = keep[tid];
+#pragma unroll
+          for (int i = 0; i < 32; ++i)
+            sc[i] = (bits >> i) & 1u ? sc[i] * a.rescale : 0.f;
+        }
+        // dV += Pd^T dO
+        uint32_t af[kWgRows / 16][4];
+#pragma unroll
+        for (int kk = 0; kk < kWgRows / 16; ++kk) a_frag(sc, kk, af[kk]);
+        fence_regs(acc);
+        wg_fence();
+#pragma unroll
+        for (int kk = 0; kk < kWgRows / 16; ++kk)
+          wgmma_rs(acc, af[kk], desc_mn(sO(s), kWgRows, kk));
+        wg_commit();
+        wg_wait0();
+        fence_regs(acc);
+      } else {
+        // dP^T = V dO^T over D; the dropout keep bits of this thread's
+        // elements are hashed while the product runs
+        wg_fence();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk)
+          wgmma_ss(sc, desc_k(sV, kWgRows, 0, kk),
+                   desc_k(sO(s), kWgRows, 0, kk), kk > 0);
+        wg_commit();
+        uint32_t bits = 0xffffffffu;
+        if (a.dropout) {
+          bits = 0u;
+#pragma unroll
+          for (int i = 0; i < 32; ++i) {
+            const int c = (i >> 2) * 8 + t * 2 + (i & 1);
+            bits |= static_cast<uint32_t>(
+                        keep_elem(a, bh, q0 + c, key[(i >> 1) & 1]))
+                    << i;
+          }
+          keep[tid] = bits;
+        }
+        wg_wait0();
+        fence_regs(sc);
+        bar_sync(1 + s, 2 * 128);  // the keep bits out, P^T in
+        // dS^T = P^T (dP^T - delta) scale, dP^T dropped and rescaled
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const uint2 pj = Ps[j * 128 + tid];
+          const float2 lo = unpack_bf16(pj.x), hi = unpack_bf16(pj.y);
+          const float pv[4] = {lo.x, lo.y, hi.x, hi.y};
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int c = j * 8 + t * 2 + (e & 1);
+            float d = sc[4 * j + e];
+            if (a.dropout) d = (bits >> (4 * j + e)) & 1u ? d * a.rescale : 0.f;
+            sc[4 * j + e] = pv[e] * (d - sDelta[s * kWgRows + c]) * a.scale;
+          }
+        }
+        // dK += dS^T Q
+        uint32_t af[kWgRows / 16][4];
+#pragma unroll
+        for (int kk = 0; kk < kWgRows / 16; ++kk) a_frag(sc, kk, af[kk]);
+        fence_regs(acc);
+        wg_fence();
+#pragma unroll
+        for (int kk = 0; kk < kWgRows / 16; ++kk)
+          wgmma_rs(acc, af[kk], desc_mn(sQ(s), kWgRows, kk));
+        wg_commit();
+        wg_wait0();
+        fence_regs(acc);
+      }
+      mbar_arrive(&empty[s]);
+    }
+    store_acc_bf16<D>(static_cast<bf16*>(wg == 0 ? a.out1 : a.out0) + koff * D,
+                      acc, key, a.sk, t);
+  }
+}
+
+// dQ: one block per (bh, 64 q-rows) and one consumer warpgroup: S = Q
+// K^T, P (masked, lse) and the dropout keep bits while the dP = dO V^T
+// product runs, dS = P (dP - delta) scale, dQ += dS K.  The producer warp
+// loads Q and dO once and streams (K, V, k segment ids) tiles through
+// the ring.  Small blocks: three share an SM at D = 64, two at D = 128.
+template <int D>
+struct DqLayout {
+  static constexpr int kStages = D == 64 ? 3 : 2;
+  static constexpr int kTileB = kWgRows * D * 2;  // one [64, D] bf16 tile
+  static constexpr int kQ = 0, kO = kTileB, kK = 2 * kTileB,
+                       kV = kK + kStages * kTileB, kKs = kV + kStages * kTileB,
+                       kBars = kKs + kStages * kWgRows * 4,
+                       kBytes = kBars + (2 * kStages + 1) * 8 + 1024;
+};
+
+template <int D>
+__global__ void __launch_bounds__(128 + kProducer, D == 256 ? 1 : 2)
+    flash_dq_kernel_bf16(const __grid_constant__ CUtensorMap tq,
+                         const __grid_constant__ CUtensorMap tk,
+                         const __grid_constant__ CUtensorMap tv,
+                         const __grid_constant__ CUtensorMap tdo, Args a) {
+  using L = DqLayout<D>;
+  constexpr int STAGES = L::kStages, TILE = L::kTileB;
+  constexpr int PANEL = kWgRows * 64;  // elements
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm = align1024(smem_raw);
+  bf16* sQ = reinterpret_cast<bf16*>(sm + L::kQ);
+  bf16* sO = reinterpret_cast<bf16*>(sm + L::kO);
+  int* sKs = reinterpret_cast<int*>(sm + L::kKs);
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + L::kBars);
+  uint64_t* empty = full + STAGES;
+  uint64_t* qbar = empty + STAGES;
+  auto sK = [&](int s) {
+    return reinterpret_cast<bf16*>(sm + L::kK + s * TILE);
+  };
+  auto sV = [&](int s) {
+    return reinterpret_cast<bf16*>(sm + L::kV + s * TILE);
+  };
+
+  const int bh = blockIdx.y, q0 = blockIdx.x * kWgRows;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const size_t qoff = static_cast<size_t>(bh) * a.sq;
   const int b = bh / a.heads;
-  const int* kseg = a.kseg ? a.kseg + static_cast<size_t>(b) * a.sk : nullptr;
-  const int row[2] = {q0 + warp * 16 + g, q0 + warp * 16 + g + 8};
+  // k-tiles the block needs (the Pallas `needed` predicate): a prefix
+  int nk = (a.sk + kWgRows - 1) / kWgRows;
+  if (a.causal) {
+    const int last = q0 + kWgRows - 1 + a.sk - a.sq;
+    nk = last < 0 ? 0 : min(nk, last / kWgRows + 1);
+  }
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], kProducer);
+      mbar_init(&empty[s], 128);
+    }
+    mbar_init(qbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == 4) {  // ---------------------------------------- producer warp
+    if (lane == 0) {
+      mbar_expect_tx(qbar, 2 * TILE);
+      for (int p = 0; p < D / 64; ++p) {
+        tma_load(sQ + p * PANEL, &tq, qbar, p * 64, q0, bh);
+        tma_load(sO + p * PANEL, &tdo, qbar, p * 64, q0, bh);
+      }
+    }
+    for (int kt = 0; kt < nk; ++kt) {
+      const int s = kt % STAGES, k0 = kt * kWgRows;
+      int ks_v[kWgRows / 32];  // read before the stage frees up
+#pragma unroll
+      for (int j = 0; j < kWgRows / 32; ++j) {
+        const int k = k0 + lane + 32 * j;
+        ks_v[j] = a.kseg && k < a.sk
+                      ? a.kseg[static_cast<size_t>(b) * a.sk + k]
+                      : 0;
+      }
+      mbar_wait(&empty[s], ((kt / STAGES) & 1) ^ 1);
+#pragma unroll
+      for (int j = 0; j < kWgRows / 32; ++j)
+        sKs[s * kWgRows + lane + 32 * j] = ks_v[j];
+      if (lane == 0) {
+        mbar_expect_tx(&full[s], 2 * TILE);
+        for (int p = 0; p < D / 64; ++p) {
+          tma_load(sK(s) + p * PANEL, &tk, &full[s], p * 64, k0, bh);
+          tma_load(sV(s) + p * PANEL, &tv, &full[s], p * 64, k0, bh);
+        }
+      } else {
+        mbar_arrive(&full[s]);
+      }
+    }
+    return;
+  }
+
+  // ------------------------------------------------- consumer warpgroup
+  const int g = lane >> 2, t = lane & 3;
+  const int row[2] = {q0 + (warp & 3) * 16 + g,
+                      q0 + (warp & 3) * 16 + g + 8};
   int qs[2] = {0, 0};
   float lse[2] = {0.f, 0.f}, delta[2] = {0.f, 0.f};
   for (int i = 0; i < 2; ++i)
     if (row[i] < a.sq) {
-      lse[i] = a.lse_in[qoff + row[i]];
+      lse[i] = a.lse_in[qoff + row[i]] * kLog2e;
       delta[i] = a.delta[qoff + row[i]];
       if (a.qseg) qs[i] = a.qseg[static_cast<size_t>(b) * a.sq + row[i]];
     }
+  const float scale_l2 = a.scale * kLog2e;
 
-  load_tile_bf16<D>(sQ, static_cast<const bf16*>(a.q) + qoff * D, q0, a.sq);
-  load_tile_bf16<D>(sO, static_cast<const bf16*>(a.dout) + qoff * D, q0, a.sq);
-  float dq[D / 8][4];
+  float acc[D / 2];
 #pragma unroll
-  for (int dt = 0; dt < D / 8; ++dt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dq[dt][e] = 0.f;
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  mbar_wait(qbar, 0);
 
-  const int nk = num_k_tiles(a, q0, kTile);
   for (int kt = 0; kt < nk; ++kt) {
-    const int k0 = kt * kTile;
-    __syncthreads();
-    load_tile_bf16<D>(sK, K, k0, a.sk);
-    load_tile_bf16<D>(sV, V, k0, a.sk);
-    if (kseg)
-      for (int i = threadIdx.x; i < kTile; i += kMmaThreads)
-        sKs[i] = k0 + i < a.sk ? kseg[k0 + i] : 0;
-    __syncthreads();
-
-    float p[8][4];
-    abt_tile<D>(sQ, sK, warp * 16, g, t, p);
+    const int s = kt % STAGES, k0 = kt * kWgRows;
+    mbar_wait(&full[s], (kt / STAGES) & 1);
+    // S = Q K^T and dP = dO V^T over D, as two groups
+    float sc[32], dp[32];  // sc: S, then P, then dS
+    wg_fence();
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss(sc, desc_k(sQ, kWgRows, 0, kk), desc_k(sK(s), kWgRows, 0, kk),
+               kk > 0);
+    wg_commit();
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int i = e >> 1, cl = nt * 8 + t * 2 + (e & 1), col = k0 + cl;
-        const bool cz = causal_ok(a, row[i], col);
-        const float x = cz ? p[nt][e] * a.scale : kNegInf;
-        const float pv = expf(x - lse[i]);
-        const bool zero = !cz || (kseg && qs[i] != sKs[cl]) || col >= a.sk ||
-                          row[i] >= a.sq;
-        p[nt][e] = zero ? 0.f : pv;
-      }
-    float dp[8][4];
-    abt_tile<D>(sO, sV, warp * 16, g, t, dp);
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss(dp, desc_k(sO, kWgRows, 0, kk), desc_k(sV(s), kWgRows, 0, kk),
+               kk > 0);
+    wg_commit();
+    // P = exp(scale s - lse), zero where masked (`_masked_p`), and the
+    // dropout keep bits, while the dP product runs
+    wg_wait1();
+    fence_regs(sc);
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
+    for (int j = 0; j < 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int i = e >> 1, col = k0 + nt * 8 + t * 2 + (e & 1);
-        float d = dp[nt][e];
-        if (a.dropout) d = keep_elem(a, bh, row[i], col) ? d * a.rescale : 0.f;
-        dp[nt][e] = p[nt][e] * (d - delta[i]) * a.scale;
+        const int ri = e >> 1, c = j * 8 + t * 2 + (e & 1), col = k0 + c;
+        const bool zero = !causal_ok(a, row[ri], col) ||
+                          (a.kseg && qs[ri] != sKs[s * kWgRows + c]) ||
+                          col >= a.sk || row[ri] >= a.sq;
+        sc[4 * j + e] =
+            zero ? 0.f : exp2_ftz(fmaf(sc[4 * j + e], scale_l2, -lse[ri]));
       }
-    pm_tile<D, D>(dp, sK, g, t, dq);
+    uint32_t bits = 0xffffffffu;  // bit 4 j + e
+    if (a.dropout) {
+      bits = 0u;
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int c = (i >> 2) * 8 + t * 2 + (i & 1);
+        bits |= static_cast<uint32_t>(
+                    keep_elem(a, bh, row[(i >> 1) & 1], k0 + c))
+                << i;
+      }
+    }
+    // dS = P (dP - delta) scale, dP dropped and rescaled
+    wg_wait0();
+    fence_regs(dp);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const float d = (bits >> i) & 1u ? dp[i] * a.rescale : 0.f;
+      sc[i] = sc[i] * (d - delta[(i >> 1) & 1]) * a.scale;
+    }
+    // dQ += dS K
+    uint32_t af[kWgRows / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < kWgRows / 16; ++kk) a_frag(sc, kk, af[kk]);
+    fence_regs(acc);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < kWgRows / 16; ++kk)
+      wgmma_rs(acc, af[kk], desc_mn(sK(s), kWgRows, kk));
+    wg_commit();
+    wg_wait0();
+    fence_regs(acc);
+    mbar_arrive(&empty[s]);
   }
-  const float one[2] = {1.f, 1.f};
-  store_rows_bf16<D, D>(static_cast<bf16*>(a.out0) + qoff * D, dq, row, a.sq,
-                        t, one);
+  store_acc_bf16<D>(static_cast<bf16*>(a.out0) + qoff * D, acc, row, a.sq, t);
 }
 
 // -------------------------------------------------------------- f32 tiles
@@ -826,65 +1366,125 @@ __global__ void __launch_bounds__(4 * T) flash_dq_kernel_f32(Args a) {
 
 // ------------------------------------------------------------------ host
 
-// Rows per tile: kTile for bf16, f32_tile<D>() for f32.
-template <int D>
-int tile_rows(int dtype) { return dtype == kBF16 ? kTile : f32_tile<D>(); }
+// cuTensorMapEncodeTiled is a driver-API symbol: it is fetched once
+// through the runtime's driver entry point, so the library links
+// without -lcuda.
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType,
+                                cuuint32_t, void*, const cuuint64_t*,
+                                const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave,
+                                CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
 
-template <int D>
-size_t smem_bytes(int dtype, int kind) {
-  const int mats = kind == kFwd ? 3 : 4;
-  const int vecs = kind == kDkdv ? 3 : 1;  // lse, delta, seg / seg
-  const int T = tile_rows<D>(dtype);
-  if (dtype == kBF16) return mats * T * (D + 8) * 2 + vecs * T * 4;
-  const int score_tiles = kind == kDkdv ? 2 : 1;
-  return mats * T * (D + 1) * 4 + score_tiles * T * (T + 1) * 4 +
-         vecs * T * 4;
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = []() -> EncodeTiled {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    const cudaError_t rc = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t rc = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    return rc == cudaSuccess && q == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
 }
 
-template <typename Kernel>
-int launch_one(Kernel kernel, dim3 grid, int threads, size_t smem,
-               const Args& a, cudaStream_t stream) {
-  cudaError_t rc = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+// Tensor map of a bf16 [bh, s, D] tensor read as [rows, 64] panels,
+// 128-byte swizzled; rows past s read as zeros.  Built per call: the
+// map holds the tensor's address.
+bool make_map(CUtensorMap* map, const void* base, int bh, int s, int D,
+              int rows) {
+  const EncodeTiled enc = encode_tiled();
+  if (enc == nullptr) return false;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(D),
+                              static_cast<cuuint64_t>(s),
+                              static_cast<cuuint64_t>(bh)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(D) * 2,
+                                 static_cast<cuuint64_t>(s) * D * 2};
+  const cuuint32_t box[3] = {64, static_cast<cuuint32_t>(rows), 1};
+  const cuuint32_t elem_strides[3] = {1, 1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+             const_cast<void*>(base), dims, strides, box, elem_strides,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The dynamic shared-memory opt-in of one kernel instantiation: set on
+// its first launch, not on every launch.
+template <auto Kernel>
+cudaError_t smem_opt_in(size_t bytes) {
+  static const cudaError_t rc = cudaFuncSetAttribute(
+      Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(bytes));
+  return rc;
+}
+
+template <auto Kernel, typename... P>
+int launch_one(dim3 grid, int threads, size_t smem, cudaStream_t stream,
+               const P&... params) {
+  const cudaError_t rc = smem_opt_in<Kernel>(smem);
   if (rc != cudaSuccess) return static_cast<int>(rc);
-  kernel<<<grid, threads, smem, stream>>>(a);
+  Kernel<<<grid, threads, smem, stream>>>(params...);
   return static_cast<int>(cudaGetLastError());
 }
+
+static_assert(DkdvLayout<64>::kBytes <= 232448 / 2 &&
+                  DqLayout<64>::kBytes <= 232448 / 2 &&
+                  DqLayout<128>::kBytes <= 232448 / 2 &&
+                  DkdvLayout<128>::kBytes <= 232448 &&
+                  DkdvLayout<256>::kBytes <= 232448 &&
+                  DqLayout<256>::kBytes <= 232448,
+              "a bf16 backward block exceeds its share of shared memory");
 
 template <int D>
 int launch(int dtype, int kind, int bh_count, const Args& a,
            cudaStream_t stream) {
-  const int T = tile_rows<D>(dtype);
-  const int tiles = kind == kDkdv ? (a.sk + T - 1) / T : (a.sq + T - 1) / T;
-  const size_t smem = smem_bytes<D>(dtype, kind);
   if (dtype == kBF16) {
-    // z (dK/dV): the blocks that split the head dim's accumulator columns
-    const dim3 grid(tiles, bh_count, kind == kDkdv ? D / dkdv_cols<D>() : 1);
-    switch (kind) {
-      case kFwd:
-        return launch_one(flash_fwd_kernel_bf16<D>, grid, kMmaThreads, smem,
-                          a, stream);
-      case kDkdv:
-        return launch_one(flash_dkdv_kernel_bf16<D>, grid, kMmaThreads, smem,
-                          a, stream);
-      case kDq:
-        return launch_one(flash_dq_kernel_bf16<D>, grid, kMmaThreads, smem, a,
-                          stream);
-    }
+    if (kind == kFwd)
+      return launch_one<flash_fwd_kernel_bf16<D>>(
+          dim3((a.sq + kTile - 1) / kTile, bh_count), kMmaThreads,
+          3 * kTile * (D + 8) * 2 + kTile * 4, stream, a);
+    // the backward kernels read q, k, v and dO through tensor maps
+    CUtensorMap m[4];
+    if (!make_map(&m[0], a.q, bh_count, a.sq, D, kWgRows) ||
+        !make_map(&m[1], a.k, bh_count, a.sk, D, kWgRows) ||
+        !make_map(&m[2], a.v, bh_count, a.sk, D, kWgRows) ||
+        !make_map(&m[3], a.dout, bh_count, a.sq, D, kWgRows))
+      return static_cast<int>(cudaErrorInvalidValue);
+    if (kind == kDkdv)
+      return launch_one<flash_dkdv_kernel_bf16<D>>(
+          dim3((a.sk + kWgRows - 1) / kWgRows, bh_count), dkdv_threads<D>(),
+          DkdvLayout<D>::kBytes, stream, m[0], m[1], m[2], m[3], a);
+    if (kind == kDq)
+      return launch_one<flash_dq_kernel_bf16<D>>(
+          dim3((a.sq + kWgRows - 1) / kWgRows, bh_count), 128 + kProducer,
+          DqLayout<D>::kBytes, stream,
+          m[0], m[1], m[2], m[3], a);
   } else if (dtype == kF32) {
-    constexpr int TF = f32_tile<D>();
+    constexpr int T = f32_tile<D>();
+    const int tiles = kind == kDkdv ? (a.sk + T - 1) / T : (a.sq + T - 1) / T;
     const dim3 grid(tiles, bh_count);
+    const int mats = kind == kFwd ? 3 : 4;
+    const int vecs = kind == kDkdv ? 3 : 1;  // lse, delta, seg / seg
+    const int score_tiles = kind == kDkdv ? 2 : 1;
+    const size_t smem = mats * T * (D + 1) * 4 +
+                        score_tiles * T * (T + 1) * 4 + vecs * T * 4;
     switch (kind) {
       case kFwd:
-        return launch_one(flash_fwd_kernel_f32<D, TF>, grid, 4 * TF, smem, a,
-                          stream);
+        return launch_one<flash_fwd_kernel_f32<D, T>>(grid, 4 * T, smem,
+                                                      stream, a);
       case kDkdv:
-        return launch_one(flash_dkdv_kernel_f32<D, TF>, grid, 4 * TF, smem,
-                          a, stream);
+        return launch_one<flash_dkdv_kernel_f32<D, T>>(grid, 4 * T, smem,
+                                                       stream, a);
       case kDq:
-        return launch_one(flash_dq_kernel_f32<D, TF>, grid, 4 * TF, smem, a,
-                          stream);
+        return launch_one<flash_dq_kernel_f32<D, T>>(grid, 4 * T, smem,
+                                                     stream, a);
     }
   }
   return static_cast<int>(cudaErrorInvalidValue);

@@ -203,10 +203,16 @@ def _check(q, k, v, extra, qseg, kseg, h):
         if t.device != q.device or not t.is_contiguous():
             raise ValueError("kernel inputs must be contiguous on "
                              f"{q.device}")
-    for t in (q, k, v):
+    # the bf16 backward kernels read q, k, v and dO by TMA (16-byte
+    # aligned base addresses)
+    mats = (q, k, v) + tuple(extra[:1])
+    if extra and extra[0].shape != q.shape:
+        raise ValueError(f"dO {tuple(extra[0].shape)} does not match q "
+                         f"{tuple(q.shape)}")
+    for t in mats:
         if t.dtype != q.dtype or t.data_ptr() % 16:
-            raise ValueError("q, k, v must share a dtype and be 16-byte "
-                             "aligned")
+            raise ValueError("q, k, v (and dO) must share a dtype and be "
+                             "16-byte aligned")
     if qseg is not None:
         b = bh // h
         for t, s in ((qseg, sq), (kseg, k.shape[1])):

@@ -280,3 +280,47 @@ def test_key_drawn_seed_is_jax_bits():
         np.int64))
     assert R.seed_from_key(tkey) == int(jax.random.bits(key,
                                                         dtype=jnp.uint32))
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [64, 128, 256])
+def test_backward_kernels_ragged_on_card(cuda_device, d):
+    """``flash_dkdv`` and ``flash_dq`` in bf16 against ``_grads_reference``
+    (float32, on the same bf16-rounded inputs) at Sq=33, Sk=77: ragged
+    tiles on both sides, the causal offset Sk - Sq, segment ids and
+    dropout 0.1; tolerance 2e-2, bf16's (the kernels round p and dS to
+    bf16 for the tensor cores).  A second launch on the same inputs
+    gives the same bits."""
+    b, h, sq, sk = 2, 3, 33, 77
+    rng = np.random.RandomState(d)
+    mk = lambda s: torch.tensor(rng.randn(b * h, s, d).astype(np.float32),
+                                device=cuda_device).to(torch.bfloat16)
+    q, k, v, do = mk(sq), mk(sk), mk(sk), mk(sq)
+    qseg, kseg = (torch.tensor(_pad_segments(b, s, n, seed),
+                               device=cuda_device)
+                  for s, n, seed in ((sq, 6, 1), (sk, 12, 2)))
+    cfg = dict(seed=0x5EED, causal=True, scale=d ** -0.5, dropout_p=0.1,
+               h=h)
+    qf, kf, vf, dof = (t.float() for t in (q, k, v, do))
+    o, lse = TFA._fwd_reference(qf, kf, vf, qseg, kseg, **cfg)
+    delta = TFA._delta(dof, o)
+    want = TFA._grads_reference(qf, kf, vf, dof, lse, delta, qseg, kseg,
+                                **cfg)
+    args = (q, k, v, do, lse, delta, qseg, kseg)
+    runs = []
+    for _ in range(2):
+        dk, dv = TFA.flash_dkdv(*args, **cfg)
+        dq = TFA.flash_dq(*args, **cfg)
+        runs.append((dq, dk, dv))
+    torch.cuda.synchronize()
+    for got, ref in zip(runs[0], want):
+        torch.testing.assert_close(got.float(), ref.float(), atol=2e-2,
+                                   rtol=2e-2)
+    assert all(torch.equal(x, y) for x, y in zip(*runs))

@@ -17,6 +17,7 @@
   within the port, speculative greedy streams bitwise equal to plain
   ones with the ngram and the oracle sources.
 """
+import contextlib
 import itertools
 
 import numpy as np
@@ -322,6 +323,11 @@ def _serve(core, G, rid_mod):
     try:
         reqs = [core.submit(p, g)[0] for p, g in zip(_prompts(), _cfgs(G))]
         _drive(core, reqs)
+        # a request that failed names its cause here, not as a token
+        # mismatch in the tests below
+        failed = [(r.rid, r.state, r.error) for r in reqs
+                  if r.error is not None]
+        assert not failed, f"requests failed: {failed}"
         return reqs, core.metrics_snapshot()
     finally:
         core.close()
@@ -344,11 +350,59 @@ def _pair(kind):
     return jm, tm
 
 
+@contextlib.contextmanager
+def _pinned_globals():
+    """Every process-wide setting the streams below depend on, set to
+    its default for the serving runs and restored after: the module
+    fixture runs before the first test's autouse seeding, after whatever
+    test file the worker ran last.  JAX package: AMP state, the op
+    profile hook, the IR tracer, the default dtype, the global key;
+    jax's x64 flag; torch's default dtype, grad mode and global seed;
+    numpy's global seed; the port's O2 scope."""
+    from paddle_infer_tpu.core import dispatch as jdispatch
+    from paddle_infer_tpu_torch import amp as tamp
+
+    saved_amp = jdispatch.set_amp_state(False)
+    saved_hook = jdispatch.set_op_profile_hook(None)
+    saved_tracer = jdispatch.set_tracer(None)
+    saved_dtype = pit.get_default_dtype()
+    saved_x64 = jax.config.jax_enable_x64
+    saved_torch = (torch.get_default_dtype(), torch.is_grad_enabled(),
+                   torch.random.get_rng_state())
+    saved_np = np.random.get_state()
+    pit.set_default_dtype("float32")
+    jax.config.update("jax_enable_x64", False)
+    torch.set_default_dtype(torch.float32)
+    torch.set_grad_enabled(True)
+    torch.manual_seed(0)
+    np.random.seed(0)
+    pit.seed(0)
+    try:
+        with tamp.amp_scope(enabled=False):
+            yield
+    finally:
+        np.random.set_state(saved_np)
+        torch.set_default_dtype(saved_torch[0])
+        torch.set_grad_enabled(saved_torch[1])
+        torch.random.set_rng_state(saved_torch[2])
+        jax.config.update("jax_enable_x64", saved_x64)
+        pit.set_default_dtype(saved_dtype)
+        jdispatch.set_tracer(saved_tracer)
+        jdispatch.set_op_profile_hook(saved_hook)
+        jdispatch.set_amp_state(saved_amp["enabled"], saved_amp["dtype"],
+                                saved_amp["level"])
+
+
 @pytest.fixture(scope="module", params=["llama", "gpt"])
 def runs(request):
     """Port plain, port and JAX speculative with the oracle source (built
     from the plain streams) and with ngram."""
-    jm, tm = _pair(request.param)
+    with _pinned_globals():
+        return _runs(request.param)
+
+
+def _runs(kind):
+    jm, tm = _pair(kind)
     saved = jrequest._rid_counter, trequest._rid_counter
     jeng = JEngine(jm, page_size=PAGE)
     try:
