@@ -39,9 +39,11 @@ Phases, in order; any failed check raises and the script exits non-zero:
    and bf16, (b) B=2, H=32, S=4096, D=128 causal bf16, (c) Sq=256 <
    Sk=512 causal, (d) B=4, H=8, S=2000, D=256 causal with padding,
    timed at (a), (b) and (d) beside the plain version, the bound and
-   SDPA, the backward kernels also beside the earlier mma.sync design's
-   times (``MMA_SYNC_BWD_MS``) and each held bit-equal across two
-   launches, and ``hybrid_attention`` against ``flash_attention`` at (a);
+   SDPA, each kernel also beside the earlier mma.sync design's times
+   (``MMA_SYNC_FWD_MS``, ``MMA_SYNC_BWD_MS``) and held bit-equal across
+   two launches, the forward and SDPA's forward also device-only
+   (``torch.profiler``, and 25 calls back to back), and
+   ``hybrid_attention`` against ``flash_attention`` at (a);
    (2) ERNIE-3.0-base pretraining at full width and depth through
    ``FleetTrainStep`` (batch 32 x 512, dropout 0.1, AMP O2 bf16, AdamW
    lr 1e-4): 2 warm-up and 20 timed steps, the loss falling and each
@@ -53,6 +55,12 @@ Phases, in order; any failed check raises and the script exits non-zero:
 
 Without a card, or without the repository beside it, it exits non-zero
 before printing any result.  It imports nothing of JAX.
+
+    python3 chip_smoke.py --fwd-variants[=v,v,...]
+
+instead builds ``flash_attention.cu`` once per forward variant
+(``PIT_FWD_VARIANT``, all by default) and times them side by side at the
+timed flash shapes, then stops.
 """
 from __future__ import annotations
 
@@ -87,6 +95,32 @@ def card_line() -> str:
         f"nvidia-smi failed: {out.stderr.strip()}"
 
 
+def clocks_line() -> str:
+    """The card's SM and memory clocks, their maxima, power draw and
+    temperature now: times from different calls compare only at equal
+    clocks."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,clocks.mem,"
+         "clocks.max.mem,power.draw,temperature.gpu",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    return out.stdout.strip().splitlines()[0] if out.stdout else "none"
+
+
+def print_ptxas(tag, log, only=""):
+    """ptxas's registers, spills and performance warnings per kernel (of
+    kernels whose name holds ``only``) from an ``nvcc -Xptxas -v`` log."""
+    fn = "?"
+    for line in log.splitlines():
+        m = re.search(r"([a-z]+_[a-z]+_kernel(?:_[a-z0-9]+)?)I(\w+?)EEv",
+                      line)
+        if "Compiling entry" in line and m:
+            fn = f"{m.group(1)}<{m.group(2)}>"
+        elif (only in fn and ("registers" in line or "spill" in line
+                              or "Performance Loss" in line)):
+            print(f"{tag} {fn}: {line.strip()}", flush=True)
+
+
 def time_ms(fn, reps=25, warmup=3):
     """Median wall of one call on the device, from CUDA events."""
     import torch
@@ -104,6 +138,54 @@ def time_ms(fn, reps=25, warmup=3):
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def device_ms(fn, reps=25, name=None):
+    """Device-only time of one call, read from ``torch.profiler`` over
+    ``reps`` calls: the mean device time of each kernel they launch (only
+    those whose name holds ``name``, when given), summed over kernels,
+    each taken to launch once a call.  Means, not totals over ``reps``: a
+    trace can lose the first calls' kernels (one kept 16 of 25).  Returns
+    (ms, the fewest launches of a kernel the trace kept).  No host work
+    between launches counts."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    ms, seen = 0.0, reps
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA or (
+                name is not None and name not in e.key) or not e.count:
+            continue
+        t = getattr(e, "self_device_time_total", None)
+        t = t if t is not None else getattr(e, "self_cuda_time_total", 0.0)
+        ms += t / 1e3 / e.count
+        seen = min(seen, e.count)
+    return ms, seen
+
+
+def stream_ms(fn, reps=25):
+    """One call's share of ``reps`` calls issued back to back between two
+    CUDA events: the host prepares the next launch while the device runs
+    the last, so host work shows only where it outlasts the kernel."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / reps
 
 
 # ---------------------------------------------------------------- phase 3
@@ -703,6 +785,10 @@ MMA_SYNC_BWD_MS = {("a", "bf16", 0.1): (0.7340, 0.3396),
                    ("a", "bf16", 0.0): (0.7768, 0.3357),
                    ("b", "bf16", 0.0): (4.3734, 2.7188),
                    ("d", "bf16", 0.0): (2.7206, 1.4400)}
+# the same for the earlier bf16 forward kernel (four warps of mma.sync,
+# synchronous tile loads), printed beside the redesigned forward's time
+MMA_SYNC_FWD_MS = {("a", "bf16", 0.1): 0.3220, ("a", "bf16", 0.0): 0.3298,
+                   ("b", "bf16", 0.0): 2.3937, ("d", "bf16", 0.0): 0.8406}
 
 
 def make_flash_case(device, B, H, Sq, Sk, D, causal, pad, seed=2):
@@ -799,6 +885,7 @@ def check_flash(case, kind, p, timed=True):
 
     ref_o, ref_lse = plain_fwd()
     o, lse = FA.flash_fwd(q, k, v, seg, seg, **cfg)
+    o2, lse2 = FA.flash_fwd(q, k, v, seg, seg, **cfg)
     delta = FA._delta(do, ref_o)
 
     def plain_grads():
@@ -827,7 +914,8 @@ def check_flash(case, kind, p, timed=True):
         res = [cmp(g_, r_) for g_, r_ in pairs]
         out[name] = {"max_abs_err": max(e for e, _ in res), "tol": tol,
                      "ok": all(ok for _, ok in res)}
-    for name, pairs in (("flash_dkdv", ((dk, dk2), (dv, dv2))),
+    for name, pairs in (("flash_fwd", ((o, o2), (lse, lse2))),
+                        ("flash_dkdv", ((dk, dk2), (dv, dv2))),
                         ("flash_dq", ((dq, dq2),))):
         same = all(torch.equal(x, y) for x, y in pairs)
         out[name]["repeat_equal"] = same
@@ -835,6 +923,13 @@ def check_flash(case, kind, p, timed=True):
     if timed:
         out["flash_fwd"]["ms"] = time_ms(
             lambda: FA.flash_fwd(q, k, v, seg, seg, **cfg))
+        # without the wrapper's host work: the profiler's kernel time
+        # (and how many of the 25 launches the trace kept), and 25 calls
+        # back to back
+        fwd = lambda: FA.flash_fwd(q, k, v, seg, seg, **cfg)
+        out["flash_fwd"]["device_ms"], out["flash_fwd"]["device_calls"] \
+            = device_ms(fwd, name="flash_fwd_kernel")
+        out["flash_fwd"]["stream_ms"] = stream_ms(fwd)
         out["flash_dkdv"]["ms"] = time_ms(
             lambda: FA.flash_dkdv(q, k, v, do, ref_lse, delta, seg, seg,
                                   **cfg))
@@ -851,6 +946,8 @@ def check_flash(case, kind, p, timed=True):
                 *_flash_cost(case, name), kind)
         lib = _sdpa_library_ms(case, q, k, v, do) if p == 0 else None
         out["flash_fwd"]["library_ms"] = lib and lib[0]
+        out["flash_fwd"]["library_device_ms"] = lib and lib[2]
+        out["flash_fwd"]["library_stream_ms"] = lib and lib[3]
         out["flash_dkdv"]["library_ms"] = out["flash_dq"]["library_ms"] = \
             lib and lib[1]
     return out
@@ -858,8 +955,10 @@ def check_flash(case, kind, p, timed=True):
 
 def _sdpa_library_ms(case, q, k, v, do):
     """``torch.nn.functional.scaled_dot_product_attention`` on the same
-    inputs (the segment mask as a boolean ``attn_mask``; causal as
-    ``is_causal``): (forward ms, forward + backward ms minus forward)."""
+    inputs (the segment mask, and with it the causal mask, as a boolean
+    ``attn_mask``; causal alone as ``is_causal``): (forward ms, forward +
+    backward ms minus forward, the forward's profiled device ms, its ms
+    back to back)."""
     import torch
     import torch.nn.functional as F
 
@@ -871,13 +970,20 @@ def _sdpa_library_ms(case, q, k, v, do):
     if case["seg"] is not None:
         s = case["seg"]
         mask = (s[:, :, None] == s[:, None, :])[:, None]
+        if case["causal"]:
+            mask = mask & torch.ones(Sq, Sk, dtype=torch.bool,
+                                     device=s.device).tril(Sk - Sq)
     kw = dict(attn_mask=mask, is_causal=case["causal"] and mask is None,
               scale=case["scale"])
-    fwd = time_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4, **kw))
+
+    def fwd():
+        return F.scaled_dot_product_attention(q4, k4, v4, **kw)
 
     def both():
-        F.scaled_dot_product_attention(q4, k4, v4, **kw).backward(do4)
-    return fwd, time_ms(both) - fwd
+        fwd().backward(do4)
+    fwd_ms = time_ms(fwd)
+    return (fwd_ms, time_ms(both) - fwd_ms, device_ms(fwd)[0],
+            stream_ms(fwd))
 
 
 def flash_kernels_phase(device, shapes=FLASH_SHAPES, runs=FLASH_RUNS,
@@ -898,6 +1004,7 @@ def flash_kernels_phase(device, shapes=FLASH_SHAPES, runs=FLASH_RUNS,
                 f"{k_}={v_:.4e}" if isinstance(v_, float) else f"{k_}={v_}"
                 for k_, v_ in r.items()), flush=True)
         if "ms" in rec["flash_dkdv"]:
+            print_forward(tag, kind, p, rec["flash_fwd"])
             print_backward(tag, kind, p, rec)
     bad = [(key, n) for key, rec in results.items() for n, r in rec.items()
            if not r["ok"]]
@@ -905,6 +1012,25 @@ def flash_kernels_phase(device, shapes=FLASH_SHAPES, runs=FLASH_RUNS,
         raise AssertionError(f"flash kernels disagree with their plain "
                              f"versions: {bad}")
     return results
+
+
+def print_forward(tag, kind, p, r):
+    """One line per timed run: the forward's time beside the earlier
+    mma.sync design's (``MMA_SYNC_FWD_MS``), its bound and SDPA's forward
+    (dropout 0 only), then the device-only times of both (profiled, and
+    25 calls back to back) and the card's clocks."""
+    prev = MMA_SYNC_FWD_MS.get((tag, kind, p))
+    fmt = lambda x: "none" if x is None else f"{x:.4f}"
+    print(f"[flash] ({tag}) forward {kind} dropout={p}: fwd_ms={r['ms']:.4f}"
+          f" mma_sync_ms={fmt(prev)} faster="
+          f"{'none' if prev is None else r['ms'] < prev}"
+          f" bound_ms={r['bound_ms']:.4f} sdpa_fwd_ms={fmt(r['library_ms'])}"
+          f" device_ms={r['device_ms']:.4f} ({r['device_calls']} of 25 "
+          "launches traced)"
+          f" sdpa_fwd_device_ms={fmt(r['library_device_ms'])}"
+          f" stream_ms={r['stream_ms']:.4f} sdpa_fwd_stream_ms="
+          f"{fmt(r['library_stream_ms'])} clocks: {clocks_line()}",
+          flush=True)
 
 
 def print_backward(tag, kind, p, rec):
@@ -923,6 +1049,121 @@ def print_backward(tag, kind, p, rec):
     print(f"[flash] ({tag}) backward {kind} dropout={p}: " + " ".join(parts)
           + f" sum_ms={dkdv['ms'] + dq['ms']:.4f} sdpa_bwd_ms="
           + (f"{lib:.4f}" if lib is not None else "none"), flush=True)
+
+
+# ``PIT_FWD_VARIANT`` of ``flash_attention.cu``: bit 0 ping-pong, bit 1
+# heaviest causal q-blocks first, bit 2 one consumer warpgroup a block at
+# head_dim 64; every variant overlaps each tile's softmax with the P V
+# product of the tile before
+FWD_VARIANT_BITS = ("pingpong", "heavy", "onewg64")
+FWD_VARIANTS = tuple(range(8))          # what --fwd-variants times
+
+
+def fwd_variant_name(v):
+    return "+".join(["overlap"] + [n for b, n in enumerate(FWD_VARIANT_BITS)
+                                   if v >> b & 1])
+
+
+def build_fwd_variants(variants=FWD_VARIANTS):
+    """``flash_attention.cu`` built once per forward variant, one ``nvcc``
+    each, all started together, into ``_build/fwd_variants/``; returns
+    ``{variant: pit_flash_fwd}`` bound with the wrapper's signature."""
+    import ctypes
+    import os
+
+    from paddle_infer_tpu_torch.native import BUILD_DIR
+    from paddle_infer_tpu_torch.ops import _build
+    from paddle_infer_tpu_torch.ops import flash_attention as FA
+
+    out_dir = os.path.join(BUILD_DIR, "fwd_variants")
+    os.makedirs(out_dir, exist_ok=True)
+    src = os.path.join(_build._CSRC, "flash_attention.cu")
+    procs = {}
+    for v in variants:
+        path = os.path.join(out_dir, f"libflash_fwd_v{v}.so")
+        cmd = [_build._nvcc(), *_build.ARCH_FLAGS, *_build.NVCC_FLAGS,
+               f"-DPIT_FWD_VARIANT={v}", "-o", path, src]
+        procs[v] = (path, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                           stderr=subprocess.STDOUT,
+                                           text=True))
+    fns = {}
+    for v, (path, proc) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"nvcc variant {v} failed:\n{log}")
+        print_ptxas(f"[variants] v{v}", log, only="fwd_kernel_bf16")
+        fn = getattr(ctypes.CDLL(path), "pit_flash_fwd")
+        fn.argtypes = FA._FWD.argtypes
+        fn.restype = ctypes.c_int
+        fns[v] = fn
+    return fns
+
+
+def fwd_variants_phase(device, variants=FWD_VARIANTS, runs=FLASH_TIMED,
+                       reps=25):
+    """The forward variants side by side on the same inputs at each timed
+    run: outputs bit-equal to the first variant's, then CUDA-event medians with
+    the variants in order and again in reverse (each variant's two
+    medians printed) and each variant's device-only time."""
+    import torch
+
+    from paddle_infer_tpu_torch.ops import _build
+    from paddle_infer_tpu_torch.ops import flash_attention as FA
+
+    t0 = time.perf_counter()
+    fns = build_fwd_variants(variants)
+    first = variants[0]
+    print(f"[variants] {len(fns)} builds in {time.perf_counter() - t0:.1f}s",
+          flush=True)
+    cases = {}
+    for tag, kind, p in runs:
+        if tag not in cases:
+            cases[tag] = make_flash_case(device, **FLASH_SHAPES[tag])
+        case = cases[tag]
+        q, k, v = (case[n].to(torch.bfloat16) for n in ("q", "k", "v"))
+        seg, H = case["seg"], case["H"]
+        common = FA._common(q, k, H, case["scale"], case["causal"], p,
+                            FLASH_SEED)
+        o = torch.empty_like(q)
+        lse = torch.empty(q.shape[:2], dtype=torch.float32, device=device)
+        ptr = _build.ptr
+
+        def run(fn):
+            rc = fn(1, q.shape[2], ptr(q), ptr(k), ptr(v), FA._opt(seg),
+                    FA._opt(seg), ptr(o), ptr(lse), *common)
+            if rc:
+                raise RuntimeError(f"variant launch failed: CUDA error {rc}")
+
+        outs = {}
+        for var, fn in fns.items():
+            run(fn)
+            torch.cuda.synchronize()
+            outs[var] = (o.clone(), lse.clone())
+        same = all(torch.equal(x, y) for var in outs
+                   for x, y in zip(outs[var], outs[first]))
+        ms = {var: [] for var in fns}
+        order = list(fns) + list(reversed(list(fns)))
+        for var in order:
+            ms[var].append(time_ms(lambda: run(fns[var]), reps=reps))
+        # device-only: profiled, back to back, and profiled with the L2
+        # cache flushed before each launch (as the train step finds it)
+        flush = torch.empty(2 ** 26, dtype=torch.int32, device=device)
+        for var in fns:
+            fwd = lambda: run(fns[var])
+            ms[var] += [device_ms(fwd, reps, "flash_fwd_kernel")[0],
+                        stream_ms(fwd, reps),
+                        device_ms(lambda: (flush.zero_(), fwd()), reps,
+                                  "flash_fwd_kernel")[0]]
+        print(f"[variants] ({tag}) forward {kind} dropout={p}: bit_equal="
+              f"{same} (ms, ms again, device ms, back-to-back ms, device "
+              "ms cold L2) "
+              + " ".join(
+                  f"v{var}:{fwd_variant_name(var)}="
+                  + "/".join(f"{x:.4f}" for x in t)
+                  for var, t in ms.items()) + f" clocks: {clocks_line()}",
+              flush=True)
+        if not same:
+            raise AssertionError("forward variants disagree")
 
 
 def hybrid_vs_flash(device, shape=FLASH_SHAPES["a"], p=0.1):
@@ -1177,8 +1418,8 @@ def profile_train(step, data, steps=2, top=14):
     print(f"[profile] train: {steps} steps wall_ms={wall_ms:.1f} "
           f"device_busy_ms={busy:.1f} idle_share="
           f"{max(0.0, 1 - busy / wall_ms):.3f} groups_ms="
-          + json.dumps({k: round(v, 3) for k, v in groups.items()}),
-          flush=True)
+          + json.dumps({k: round(v, 3) for k, v in groups.items()})
+          + f" clocks: {clocks_line()}", flush=True)
     for ms, n, name in sorted(rows, reverse=True)[:top]:
         print(f"[profile] {ms:10.3f} ms {n:6d} calls  {name[:110]}",
               flush=True)
@@ -1221,14 +1462,14 @@ def main() -> int:
     print(f"[build] kernels {nvcc_s:.1f}s, total "
           f"{time.perf_counter() - t0:.1f}s", flush=True)
     for src, log in _build.BUILD_LOG.items():
-        fn = "?"
-        for line in log.splitlines():
-            m = re.search(r"([a-z]+_[a-z]+_kernel(?:_[a-z0-9]+)?)I(\w+?)EEv",
-                          line)
-            if "Compiling entry" in line and m:
-                fn = f"{m.group(1)}<{m.group(2)}>"
-            elif "registers" in line or "spill" in line:
-                print(f"[build] {src} {fn}: {line.strip()}", flush=True)
+        print_ptxas(f"[build] {src}", log)
+    for arg in sys.argv[1:]:          # --fwd-variants[=v,v,...]
+        if arg.startswith("--fwd-variants"):
+            chosen = arg.partition("=")[2]
+            fwd_variants_phase(device, tuple(
+                int(x) for x in chosen.split(",")) if chosen else
+                FWD_VARIANTS)
+            return 0
 
     # phase 3: kernels against their plain versions
     case = make_case(device)

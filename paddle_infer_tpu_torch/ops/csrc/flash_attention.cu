@@ -23,19 +23,25 @@
 // tiles above the diagonal plus the offset Sk - Sq are skipped as the
 // Pallas `needed` predicate skips them.
 //
-// What bounds the backward pair on an H100: at the ERNIE shape (B=32,
-// H=12, S=512, D=64, 10 % padding) the bytes each must move (q, k, v,
-// dO, lse, delta in; dk, dv or dq out) over 3.35 TB/s; at long causal
-// sequences (S=4096, D=128) and at D=256 the bf16 tensor-core operations
-// (8 and 6 per q-k pair and head dim) over 989 TFLOP/s.  The bf16 design
-// (kernels of the earlier design, for comparison: synchronous register
-// loads between __syncthreads, warp-level mma.sync with fragments read
-// from shared memory by scalar loads, a head-dim split over the grid's
-// z axis at D = 256 that recomputed the scores, one host attribute call
-// per launch):
+// What bounds the kernels on an H100.  At the ERNIE shape (B=32, H=12,
+// S=512, D=64, 10 % padding) each must at least move its bytes over
+// 3.35 TB/s (forward: q, k, v in, o and lse out; backward: q, k, v, dO,
+// lse, delta in, dk, dv or dq out); the forward's exponentials (one ex2
+// per score on the 16 special-function lanes of an SM) and, with
+// dropout, its keep hash (about a dozen integer operations per score)
+// take about as long.  At long causal sequences (S=4096, D=128) and at
+// D=256 the bf16 tensor-core operations bound them (4, 8 and 6 per q-k
+// pair and head dim) over 989 TFLOP/s.  The bf16 design (kernels of the
+// earlier design, for comparison: four warps of mma.sync.m16n8k16 with
+// fragments read from padded shared tiles by scalar loads, synchronous
+// tile loads between two __syncthreads per tile, each tile's softmax
+// waiting for its product and the next product for the softmax, every
+// element through the mask predicates and an expf; in the backward a
+// head-dim split over the grid's z axis at D = 256 that recomputed the
+// scores):
 //   * loads: one producer warp issues TMA copies of whole [rows, 64]
-//     panels into a ring of two to four stages, completed on
-//     mbarriers, so the next tiles arrive while the consumers multiply;
+//     panels into rings of two to four stages, completed on mbarriers,
+//     so the next tiles arrive while the consumers multiply; Q (forward),
 //     K and V (dK/dV) or Q and dO (dQ) are loaded once per block.  lse,
 //     delta and the segment ids go through the producer's plain loads
 //     (issued before it waits for a free stage) into the stage: their
@@ -44,26 +50,27 @@
 //     masked by the kernel;
 //   * products: wgmma.mma_async, bf16 operands in 128-byte-swizzled
 //     shared memory read through descriptors, f32 accumulators in
-//     registers; the score-sized operand of the second product (Pd^T,
+//     registers; the score-sized operand of the second product (P, Pd^T,
 //     dS^T, dS) is the score accumulator re-packed in registers as the
 //     A operand, all k-steps packed before the first is issued (packing
 //     between issues made ptxas fence and serialize them);
-//   * warpgroups: dK/dV runs two per block on the same 64 keys, one for
-//     S^T, P^T and dV, one for dP^T, the dropout hash, dS^T and dK, P^T
-//     and the keep bits passing between them through shared memory;
-//     each product runs once at every head dim, so D = 256 needs no
-//     split (each warpgroup holds 128 accumulators a thread).  dQ runs
-//     one warpgroup of 64 q rows per block, so that two or three blocks
-//     share an SM below D = 256, and works out P while its dP product
-//     runs;
+//   * warpgroups: the forward runs two per block, 64 q rows each, on
+//     the same key tiles, and overlaps each tile's softmax with the
+//     previous tile's P V product (below); at D = 256 it takes 64 keys a
+//     tile so that O (128 accumulators a thread), S and P fit the 240
+//     registers `setmaxnreg` gives the consumers.  dK/dV runs two per
+//     block on the same 64 keys, one for S^T, P^T and dV, one for dP^T,
+//     the dropout hash, dS^T and dK, P^T and the keep bits passing
+//     between them through shared memory; each product runs once at
+//     every head dim, so D = 256 needs no split.  dQ runs one warpgroup
+//     of 64 q rows per block, so that two or three blocks share an SM
+//     below D = 256, and works out P while its dP product runs;
 //   * host: each kernel instantiation opts into its shared memory once;
-//     the four tensor maps are encoded per call (they hold the tensors'
+//     the tensor maps are encoded per call (they hold the tensors'
 //     addresses) and passed as __grid_constant__ parameters.
-// The forward keeps the earlier design: four warps of mma.sync.m16n8k16
-// over tiles padded by 8 elements a row in shared memory.  f32: CUDA
-// cores, four threads per tile row, scores staged in shared memory;
-// tiles of 32 rows at D = 256, so four f32 tiles fit.  Head dims 64, 128
-// and 256.
+// f32 (fp32 parity runs): CUDA cores, four threads per tile row, scores
+// staged in shared memory; tiles of 32 rows at D = 256, so four f32
+// tiles fit.  Head dims 64, 128 and 256.
 //
 // Numerics kept from the TPU kernels: NEG_INF = -1e30 (not -inf) for
 // masked scores; l == 0 → 1; keys past Sk (the kernel guards its own
@@ -83,8 +90,6 @@
 namespace {
 
 constexpr float kNegInf = -1e30f;
-constexpr int kTile = 64;         // rows of q and of k per tile
-constexpr int kMmaThreads = 128;  // bf16: 4 warps x 16 rows
 
 enum DType { kF32 = 0, kBF16 = 1 };
 enum Kind { kFwd = 0, kDkdv = 1, kDq = 2 };
@@ -162,28 +167,7 @@ __device__ __forceinline__ float warp_group_sum(float x) {
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
-// ------------------------------------------------------------- bf16 tiles
-
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// Two bf16 from two rows, `lo` in the low half.
-__device__ __forceinline__ uint32_t ld2(const bf16* lo, const bf16* hi) {
-  return static_cast<uint32_t>(*reinterpret_cast<const uint16_t*>(lo)) |
-         (static_cast<uint32_t>(*reinterpret_cast<const uint16_t*>(hi))
-          << 16);
-}
+// ------------------------------------------------------------- bf16 pairs
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
@@ -194,206 +178,12 @@ __device__ __forceinline__ float2 unpack_bf16(uint32_t v) {
   return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v));
 }
 
-// kTile rows of a [n, D] bf16 matrix from row0 into shared memory with
-// row stride D + 8; rows past n are zero.
-template <int D>
-__device__ __forceinline__ void load_tile_bf16(bf16* dst, const bf16* src,
-                                               int row0, int n) {
-  constexpr int LD = D + 8, VPR = D / 8;
-  for (int i = threadIdx.x; i < kTile * VPR; i += kMmaThreads) {
-    const int r = i / VPR, c = (i % VPR) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < n)
-      val = *reinterpret_cast<const uint4*>(
-          src + static_cast<size_t>(row0 + r) * D + c);
-    *reinterpret_cast<uint4*>(dst + r * LD + c) = val;
-  }
-}
-
-// s[16 x 64] = A[rows arow0.., :] . B[0..64, :]^T over D, both row-major
-// [*, D + 8] tiles in shared memory.  Fragment (nt, e): row arow0 + g
-// (+8 for e >= 2), column nt * 8 + 2 t + (e & 1).
-template <int D>
-__device__ __forceinline__ void abt_tile(const bf16* sA, const bf16* sB,
-                                         int arow0, int g, int t,
-                                         float (&s)[8][4]) {
-  constexpr int LD = D + 8;
-#pragma unroll
-  for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
-#pragma unroll
-  for (int ks = 0; ks < D / 16; ++ks) {
-    const bf16* pa = sA + (arow0 + g) * LD + ks * 16 + t * 2;
-    const uint32_t af[4] = {ld32(pa), ld32(pa + 8 * LD), ld32(pa + 8),
-                            ld32(pa + 8 * LD + 8)};
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-      const bf16* pb = sB + (nt * 8 + g) * LD + ks * 16 + t * 2;
-      const uint32_t bfr[2] = {ld32(pb), ld32(pb + 8)};
-      mma_bf16(s[nt], af, bfr);
-    }
-  }
-}
-
-// acc[16 x D] += P[16 x 64] . M[64 x D]: P in abt_tile's fragment layout
-// (rounded to bf16 as the A operand), M a row-major shared [*, D + 8]
-// tile.
-template <int D>
-__device__ __forceinline__ void pm_tile(const float (&p)[8][4],
-                                        const bf16* sM, int g, int t,
-                                        float (&acc)[D / 8][4]) {
-  constexpr int LD = D + 8;
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const uint32_t af[4] = {
-        pack_bf16(p[2 * j][0], p[2 * j][1]),
-        pack_bf16(p[2 * j][2], p[2 * j][3]),
-        pack_bf16(p[2 * j + 1][0], p[2 * j + 1][1]),
-        pack_bf16(p[2 * j + 1][2], p[2 * j + 1][3])};
-#pragma unroll
-    for (int dt = 0; dt < D / 8; ++dt) {
-      const bf16* pb = sM + (j * 16 + t * 2) * LD + dt * 8 + g;
-      const uint32_t bfr[2] = {ld2(pb, pb + LD),
-                               ld2(pb + 8 * LD, pb + 9 * LD)};
-      mma_bf16(acc[dt], af, bfr);
-    }
-  }
-}
-
-// Rows row[0], row[1] of acc ([16 x D] fragments) into dst [n, D].
-template <int D>
-__device__ __forceinline__ void store_rows_bf16(bf16* dst,
-                                                const float (&acc)[D / 8][4],
-                                                const int (&row)[2], int n,
-                                                int t, const float (&mul)[2]) {
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    if (row[i] >= n) continue;
-    bf16* out = dst + static_cast<size_t>(row[i]) * D;
-#pragma unroll
-    for (int dt = 0; dt < D / 8; ++dt)
-      *reinterpret_cast<__nv_bfloat162*>(out + dt * 8 + t * 2) =
-          __floats2bfloat162_rn(acc[dt][2 * i] * mul[i],
-                                acc[dt][2 * i + 1] * mul[i]);
-  }
-}
-
-template <int D>
-__global__ void __launch_bounds__(kMmaThreads)
-    flash_fwd_kernel_bf16(Args a) {
-  constexpr int LD = D + 8;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem);
-  bf16* sK = sQ + kTile * LD;
-  bf16* sV = sK + kTile * LD;
-  int* sKs = reinterpret_cast<int*>(sV + kTile * LD);
-
-  const int bh = blockIdx.y, q0 = blockIdx.x * kTile;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const bf16* Q = static_cast<const bf16*>(a.q) + static_cast<size_t>(bh) * a.sq * D;
-  const bf16* K = static_cast<const bf16*>(a.k) + static_cast<size_t>(bh) * a.sk * D;
-  const bf16* V = static_cast<const bf16*>(a.v) + static_cast<size_t>(bh) * a.sk * D;
-  const int b = bh / a.heads;
-  const int* kseg = a.kseg ? a.kseg + static_cast<size_t>(b) * a.sk : nullptr;
-  const int row[2] = {q0 + warp * 16 + g, q0 + warp * 16 + g + 8};
-  int qs[2] = {0, 0};
-  if (a.qseg)
-    for (int i = 0; i < 2; ++i)
-      if (row[i] < a.sq) qs[i] = a.qseg[static_cast<size_t>(b) * a.sq + row[i]];
-
-  load_tile_bf16<D>(sQ, Q, q0, a.sq);
-  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
-  float acc[D / 8][4];
-#pragma unroll
-  for (int dt = 0; dt < D / 8; ++dt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[dt][e] = 0.f;
-
-  const int nk = num_k_tiles(a, q0, kTile);
-  for (int kt = 0; kt < nk; ++kt) {
-    const int k0 = kt * kTile;
-    __syncthreads();
-    load_tile_bf16<D>(sK, K, k0, a.sk);
-    load_tile_bf16<D>(sV, V, k0, a.sk);
-    if (kseg)
-      for (int i = threadIdx.x; i < kTile; i += kMmaThreads)
-        sKs[i] = k0 + i < a.sk ? kseg[k0 + i] : 0;
-    __syncthreads();
-
-    float s[8][4];
-    abt_tile<D>(sQ, sK, warp * 16, g, t, s);
-    float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int i = e >> 1, cl = nt * 8 + t * 2 + (e & 1), col = k0 + cl;
-        float x = s[nt][e] * a.scale;
-        if (col >= a.sk)
-          x = -INFINITY;
-        else if (!causal_ok(a, row[i], col) || (kseg && qs[i] != sKs[cl]))
-          x = kNegInf;
-        s[nt][e] = x;
-        mx[i] = fmaxf(mx[i], x);
-      }
-    float corr[2], mn[2], rs[2] = {0.f, 0.f};
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      mn[i] = fmaxf(m[i], warp_group_max(mx[i]));
-      corr[i] = expf(m[i] - mn[i]);
-    }
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p = expf(s[nt][e] - mn[e >> 1]);
-        rs[e >> 1] += p;
-        s[nt][e] = p;
-      }
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      l[i] = corr[i] * l[i] + warp_group_sum(rs[i]);
-      m[i] = mn[i];
-    }
-    if (a.dropout) {
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int col = k0 + nt * 8 + t * 2 + (e & 1);
-          s[nt][e] = keep_elem(a, bh, row[e >> 1], col) ? s[nt][e] * a.rescale
-                                                        : 0.f;
-        }
-    }
-#pragma unroll
-    for (int dt = 0; dt < D / 8; ++dt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[dt][e] *= corr[e >> 1];
-    pm_tile<D>(s, sV, g, t, acc);
-  }
-
-  float mul[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const float safe = l[i] == 0.f ? 1.f : l[i];
-    const bool dead = a.qseg && m[i] <= kNegInf * 0.5f;
-    mul[i] = dead ? 0.f : 1.f / safe;
-    if (t == 0 && row[i] < a.sq)
-      a.lse_out[static_cast<size_t>(bh) * a.sq + row[i]] = m[i] + logf(safe);
-  }
-  store_rows_bf16<D>(
-      static_cast<bf16*>(a.out0) + static_cast<size_t>(bh) * a.sq * D, acc,
-      row, a.sq, t, mul);
-}
-
 // -------------------------------------------- Hopper primitives (sm_90a)
-// The bf16 backward kernels: a producer warp keeps TMA loads in flight
-// into a ring of two to four stages completed on mbarriers; consumer
-// warpgroups run wgmma.  A bf16 tile [rows, D] sits in shared memory as D / 64 panels
-// of [rows, 64] (128 bytes a row), 128-byte swizzled by the TMA unit,
-// each panel 1024-byte aligned.
+// The bf16 kernels: a producer warp keeps TMA loads in flight into
+// rings of two to four stages completed on mbarriers; consumer
+// warpgroups run wgmma.  A bf16 tile [rows, D] sits in shared memory as
+// D / 64 panels of [rows, 64] (128 bytes a row), 128-byte swizzled by
+// the TMA unit, each panel 1024-byte aligned.
 
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr int kWgRows = 64;        // rows of one warpgroup's wgmma tile
@@ -452,10 +242,15 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
-// Named barrier between the two consumer warpgroups (id 0 is
-// __syncthreads).
+// Named barriers between the two consumer warpgroups (id 0 is
+// __syncthreads): bar_sync counts itself and waits, bar_arrive only
+// counts.
 __device__ __forceinline__ void bar_sync(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+__device__ __forceinline__ void bar_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
 __device__ __forceinline__ void wg_fence() {
@@ -516,9 +311,11 @@ __device__ __forceinline__ uint64_t desc_mn(const bf16* tile, int rows,
   return gmma_desc(smem_u32(tile) + kk * 2048, rows * 128, 1024);
 }
 
-// The A operand of k-step kk from a [64 x 64] score accumulator, rounded
-// to bf16 (the accumulator's fragment is the A fragment's layout).
-__device__ __forceinline__ void a_frag(const float (&s)[32], int kk,
+// The A operand of k-step kk from a [64 x N] score accumulator (N / 2
+// floats a thread), rounded to bf16 (the accumulator's fragment is the A
+// fragment's layout).
+template <int N>
+__device__ __forceinline__ void a_frag(const float (&s)[N], int kk,
                                        uint32_t (&a)[4]) {
   a[0] = pack_bf16(s[8 * kk], s[8 * kk + 1]);
   a[1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
@@ -539,6 +336,28 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d[64 x 128] (+)= A . B^T, A and B K-major in shared memory
+__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da,
+                                         uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
@@ -1083,6 +902,372 @@ __global__ void __launch_bounds__(128 + kProducer, D == 256 ? 1 : 2)
   store_acc_bf16<D>(static_cast<bf16*>(a.out0) + qoff * D, acc, row, a.sq, t);
 }
 
+// Forward: one block per (bh, 128 q rows) with two consumer warpgroups
+// of 64 rows each (one, 64 rows, in the D = 64 variant below) and a
+// producer warpgroup.  The producer's first warp
+// loads the block's Q once and streams (K, V, k segment ids) tiles of
+// kN keys through the ring; the consumers share each tile.  Per tile a
+// consumer warpgroup issues S = Q K^T (both operands in shared memory)
+// and, in the same breath, O += P V for the previous tile (P re-packed
+// from that tile's score accumulator as the register A operand), hashes
+// the tile's dropout keep bits while both products run, and works out
+// the online softmax of S once its product is done: the softmax of one
+// tile overlaps the P V product of the one before.  Scores live in
+// log2 units (scale * log2(e) folded into one multiply) so every
+// exponential is one ex2; masks run only on the tiles that need them
+// (the causal diagonal, the tile past Sk, tiles whose k segment ids are
+// not all this thread's q segment id); the row sum stays split over the
+// four threads of a row until the epilogue.
+// The variants timed against each other (`chip_smoke.py --fwd-variants`
+// builds one library per value): bit 0, the two consumer warpgroups take
+// turns issuing their products on named barriers (ping-pong), so one's
+// softmax runs under the other's products; bit 1, causal q-blocks start
+// heaviest first; bit 2, at D = 64 one consumer warpgroup a block, so
+// that two blocks share an SM and hide each other's loads and epilogue.
+// The default, 5, timed fastest without spills on an H100 SXM (700 W):
+// bit 2 took 15 % off the ERNIE shape, ping-pong up to 3 % off below
+// D = 256 (1 % on at 256); heaviest first gained about 1 % and made
+// ptxas spill at D = 64 and 128.
+#ifndef PIT_FWD_VARIANT
+#define PIT_FWD_VARIANT 5
+#endif
+constexpr bool kFwdPingPong = (PIT_FWD_VARIANT & 1) != 0;
+constexpr bool kFwdHeavyFirst = (PIT_FWD_VARIANT & 2) != 0;
+constexpr bool kFwdOneWgAt64 = (PIT_FWD_VARIANT & 4) != 0;
+
+
+template <int D>
+struct FwdLayout {
+  static constexpr int kWgs = D == 64 && kFwdOneWgAt64 ? 1 : 2;  // consumers
+  static constexpr int kThreads = 128 * (kWgs + 1), kBlocksPerSm = 3 - kWgs;
+  // registers a thread after setmaxnreg, producer and consumers: a
+  // warp of each role per block on each of the SM's four 16384-register
+  // quarters
+  static constexpr int kProducerRegs = kWgs == 2 ? 24 : 40,
+                       kConsumerRegs = kWgs == 2 ? 240 : 216;
+  static constexpr int kM = kWgs * kWgRows;       // q rows per block
+  static constexpr int kN = D == 256 ? 64 : 128;  // keys per tile
+  static constexpr int kStages = D == 64 ? 3 : 2;
+  static constexpr int kQB = kM * D * 2, kKB = kN * D * 2;  // bytes
+  static constexpr int kQ = 0, kK = kQB, kV = kK + kStages * kKB,
+                       kKs = kV + kStages * kKB,
+                       kKu = kKs + kStages * kN * 4,  // {uniform, id}
+                       kBars = kKu + kStages * 8,
+                       kBytes = kBars + (4 * kStages + 1) * 8 + 1024;
+};
+
+
+constexpr float kLn2 = 0.6931471805599453f;
+constexpr float kNegInf2 = kNegInf * kLog2e;  // NEG_INF in log2 units
+
+// S = Q K^T over D for one warpgroup's 64 rows (from r0 of the M-row Q
+// tile) against a tile of N keys; issued, not committed.
+template <int D, int M, int N>
+__device__ __forceinline__ void fwd_qk(float (&s)[N / 2], const bf16* sQ,
+                                       int r0, const bf16* sK) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+    wgmma_ss(s, desc_k(sQ, M, r0, kk), desc_k(sK, N, 0, kk), kk > 0);
+}
+
+// O += P V over a tile of N keys; issued, not committed.
+template <int D, int N>
+__device__ __forceinline__ void fwd_pv(float (&o)[D / 2],
+                                       const uint32_t (&pf)[N / 16][4],
+                                       const bf16* sV) {
+#pragma unroll
+  for (int kk = 0; kk < N / 16; ++kk) wgmma_rs(o, pf[kk], desc_mn(sV, N, kk));
+}
+
+// `keep_elem` for this thread's elements of a tile at k0, bit i for
+// element i of the score fragment; hrow[i] holds the row and head terms.
+template <int N>
+__device__ __forceinline__ void keep_bits(uint32_t (&bits)[N / 64],
+                                          const Args& a, int k0,
+                                          const uint32_t (&hrow)[2], int t) {
+  const uint32_t hc = static_cast<uint32_t>(k0 + 2 * t) * 0x85EBCA77u;
+#pragma unroll
+  for (int w = 0; w < N / 64; ++w) bits[w] = 0u;
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) {
+    const uint32_t c = static_cast<uint32_t>((i >> 2) * 8 + (i & 1));
+    const uint32_t x = hrow[(i >> 1) & 1] + hc + c * 0x85EBCA77u;
+    bits[i >> 5] |= static_cast<uint32_t>(mix32(x ^ a.seed) >= a.thresh)
+                    << (i & 31);
+  }
+}
+
+// One tile's scores (fragment element 4 j + e: row row[e >> 1], column
+// k0 + 8 j + 2 t + (e & 1)) become p in place: scaled to log2 units,
+// masked where `mask`, the running max m and this thread's share l of
+// the row sum updated (corr rescales what came before), then dropped by
+// the keep bits.  Masked scores are NEG_INF (keys past Sk: -inf), so a
+// row masked so far weighs its masked keys until a real score wipes
+// them, as the plain version does.
+template <int N>
+__device__ __forceinline__ void fwd_softmax(
+    float (&s)[N / 2], const Args& a, int k0, const int (&row)[2],
+    const int (&qs)[2], const int* ks, bool mask, float scale_l2,
+    const uint32_t (&bits)[N / 64], float (&m)[2], float (&l)[2],
+    float (&corr)[2], int t) {
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) s[i] *= scale_l2;
+  if (mask) {
+#pragma unroll
+    for (int i = 0; i < N / 2; ++i) {
+      const int c = (i >> 2) * 8 + 2 * t + (i & 1), col = k0 + c;
+      const int ri = (i >> 1) & 1;
+      if (col >= a.sk)
+        s[i] = -INFINITY;
+      else if (!causal_ok(a, row[ri], col) || (ks && qs[ri] != ks[c]))
+        s[i] = kNegInf2;
+    }
+  }
+  float mx[2] = {m[0], m[1]};
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i)
+    mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
+  float rs[2] = {0.f, 0.f};
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = warp_group_max(mx[r]);
+    corr[r] = exp2_ftz(m[r] - mx[r]);
+    m[r] = mx[r];
+  }
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) {
+    s[i] = exp2_ftz(s[i] - m[(i >> 1) & 1]);
+    rs[(i >> 1) & 1] += s[i];
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) l[r] = l[r] * corr[r] + rs[r];
+  if (a.dropout) {
+#pragma unroll
+    for (int i = 0; i < N / 2; ++i)
+      if (!((bits[i >> 5] >> (i & 31)) & 1u)) s[i] = 0.f;
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(FwdLayout<D>::kThreads,
+                                  FwdLayout<D>::kBlocksPerSm)
+    flash_fwd_kernel_bf16(const __grid_constant__ CUtensorMap tq,
+                          const __grid_constant__ CUtensorMap tk,
+                          const __grid_constant__ CUtensorMap tv, Args a) {
+  using L = FwdLayout<D>;
+  constexpr int STAGES = L::kStages, N = L::kN, M = L::kM, WGS = L::kWgs;
+  constexpr bool kPingPong = kFwdPingPong && WGS == 2;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm = align1024(smem_raw);
+  bf16* sQ = reinterpret_cast<bf16*>(sm + L::kQ);
+  int* sKs = reinterpret_cast<int*>(sm + L::kKs);
+  // per stage: whether the tile's k segment ids are all one id, and it
+  int2* sKu = reinterpret_cast<int2*>(sm + L::kKu);
+  // K (with its segment ids) and V stages fill and free apart: K is
+  // free once its tile's softmax is done, V once its P V product is
+  uint64_t* kfull = reinterpret_cast<uint64_t*>(sm + L::kBars);
+  uint64_t* kempty = kfull + STAGES;
+  uint64_t* vfull = kempty + STAGES;
+  uint64_t* vempty = vfull + STAGES;
+  uint64_t* qbar = vempty + STAGES;
+  auto sK = [&](int s) {
+    return reinterpret_cast<bf16*>(sm + L::kK + s * L::kKB);
+  };
+  auto sV = [&](int s) {
+    return reinterpret_cast<bf16*>(sm + L::kV + s * L::kKB);
+  };
+
+  const int bh = blockIdx.y;
+  const int qb = kFwdHeavyFirst && a.causal ? gridDim.x - 1 - blockIdx.x
+                                            : blockIdx.x;
+  const int q0 = qb * M, off = a.sk - a.sq;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int b = bh / a.heads;
+  // k-tiles the block needs (the Pallas `needed` predicate): a prefix
+  int nk = (a.sk + N - 1) / N;
+  if (a.causal) {
+    const int last = q0 + M - 1 + off;
+    nk = last < 0 ? 0 : min(nk, last / N + 1);
+  }
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&kfull[s], kProducer);
+      mbar_init(&kempty[s], WGS * 128);
+      mbar_init(&vfull[s], 1);
+      mbar_init(&vempty[s], WGS * 128);
+    }
+    mbar_init(qbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp >= 4 * WGS) {  // ------------------------- producer warpgroup
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(
+                     L::kProducerRegs)
+                 : "memory");
+    if (warp == 4 * WGS) {
+      if (lane == 0) {
+        mbar_expect_tx(qbar, L::kQB);
+        for (int p = 0; p < D / 64; ++p)
+          tma_load(sQ + p * M * 64, &tq, qbar, p * 64, q0, bh);
+      }
+      const int* kseg =
+          a.kseg ? a.kseg + static_cast<size_t>(b) * a.sk : nullptr;
+      for (int kt = 0; kt < nk; ++kt) {
+        const int s = kt % STAGES, k0 = kt * N;
+        // the tile's k segment ids, read before the stage frees up
+        int ks_v[N / 32];
+        int lo = 0, hi = 0;
+        if (kseg) {
+#pragma unroll
+          for (int j = 0; j < N / 32; ++j) {
+            const int k = k0 + lane + 32 * j;
+            ks_v[j] = k < a.sk ? kseg[k] : 0;
+            lo = j ? min(lo, ks_v[j]) : ks_v[j];
+            hi = j ? max(hi, ks_v[j]) : ks_v[j];
+          }
+          lo = __reduce_min_sync(0xffffffffu, lo);
+          hi = __reduce_max_sync(0xffffffffu, hi);
+        }
+        const uint32_t parity = ((kt / STAGES) & 1) ^ 1;
+        mbar_wait(&kempty[s], parity);
+        if (kseg) {
+#pragma unroll
+          for (int j = 0; j < N / 32; ++j) sKs[s * N + lane + 32 * j] = ks_v[j];
+          if (lane == 0) sKu[s] = make_int2(lo == hi && k0 + N <= a.sk, lo);
+        }
+        if (lane == 0) {
+          mbar_expect_tx(&kfull[s], L::kKB);
+          for (int p = 0; p < D / 64; ++p)
+            tma_load(sK(s) + p * N * 64, &tk, &kfull[s], p * 64, k0, bh);
+        } else {
+          mbar_arrive(&kfull[s]);
+        }
+        mbar_wait(&vempty[s], parity);
+        if (lane == 0) {
+          mbar_expect_tx(&vfull[s], L::kKB);
+          for (int p = 0; p < D / 64; ++p)
+            tma_load(sV(s) + p * N * 64, &tv, &vfull[s], p * 64, k0, bh);
+        }
+      }
+    }
+  } else {  // ------------------------------------- consumer warpgroups
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(
+                     L::kConsumerRegs)
+                 : "memory");
+    const int wg = warp >> 2, g = lane >> 2, t = lane & 3;
+    const int r0 = wg * kWgRows;  // this warpgroup's rows in the tile
+    const int row[2] = {q0 + r0 + (warp & 3) * 16 + g,
+                        q0 + r0 + (warp & 3) * 16 + g + 8};
+    int qs[2] = {0, 0};
+    uint32_t hrow[2];  // the row and head terms of `keep_elem`
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      if (a.qseg && row[i] < a.sq)
+        qs[i] = a.qseg[static_cast<size_t>(b) * a.sq + row[i]];
+      hrow[i] = static_cast<uint32_t>(row[i]) * 0x9E3779B1u +
+                static_cast<uint32_t>(bh) * 0xC2B2AE3Du;
+    }
+    const float scale_l2 = a.scale * kLog2e;
+    // whether tile kt at stage st needs the masks for this thread's rows
+    auto needs_mask = [&](int kt, int st) {
+      const int k0 = kt * N;
+      bool mask = k0 + N > a.sk ||
+                  (a.causal && k0 + N - 1 > q0 + r0 + off);
+      if (a.kseg) {
+        const int2 u = sKu[st];
+        mask = mask || !u.x || qs[0] != u.y || qs[1] != u.y;
+      }
+      return mask;
+    };
+
+    float o[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+    float m[2] = {kNegInf2, kNegInf2}, l[2] = {0.f, 0.f}, corr[2];
+    float s[N / 2];
+    uint32_t pf[N / 16][4], bits[N / 64];
+    if (kPingPong && wg == 1) bar_arrive(1, 2 * 128);  // WG 0 first
+    mbar_wait(qbar, 0);
+
+    if (nk > 0) {
+      mbar_wait(&kfull[0], 0);
+      wg_fence();
+      fwd_qk<D, M, N>(s, sQ, r0, sK(0));
+      wg_commit();
+      if (a.dropout) keep_bits<N>(bits, a, 0, hrow, t);
+      const bool mask = needs_mask(0, 0);
+      wg_wait0();
+      fence_regs(s);
+      fwd_softmax<N>(s, a, 0, row, qs, a.kseg ? sKs : nullptr, mask,
+                     scale_l2, bits, m, l, corr, t);
+      mbar_arrive(&kempty[0]);
+#pragma unroll
+      for (int kk = 0; kk < N / 16; ++kk) a_frag(s, kk, pf[kk]);
+    }
+    for (int kt = 1; kt < nk; ++kt) {
+      const int st = kt % STAGES, prev = (kt - 1) % STAGES;
+      mbar_wait(&kfull[st], (kt / STAGES) & 1);
+      mbar_wait(&vfull[prev], ((kt - 1) / STAGES) & 1);
+      if (kPingPong) bar_sync(1 + wg, 2 * 128);
+      // S of this tile and P V of the one before, as two groups
+      fence_regs(o);
+      wg_fence();
+      fwd_qk<D, M, N>(s, sQ, r0, sK(st));
+      wg_commit();
+      fwd_pv<D, N>(o, pf, sV(prev));
+      wg_commit();
+      if (kPingPong) bar_arrive(2 - wg, 2 * 128);
+      if (a.dropout) keep_bits<N>(bits, a, kt * N, hrow, t);
+      const bool mask = needs_mask(kt, st);
+      wg_wait1();
+      fence_regs(s);
+      fwd_softmax<N>(s, a, kt * N, row, qs, a.kseg ? sKs + st * N : nullptr,
+                     mask, scale_l2, bits, m, l, corr, t);
+      mbar_arrive(&kempty[st]);
+      wg_wait0();
+      fence_regs(o);
+      mbar_arrive(&vempty[prev]);
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) o[i] *= corr[(i >> 1) & 1];
+#pragma unroll
+      for (int kk = 0; kk < N / 16; ++kk) a_frag(s, kk, pf[kk]);
+    }
+    if (kPingPong && wg == 0) bar_sync(1, 2 * 128);  // WG 1's last turn
+    if (nk > 0) {
+      const int last = (nk - 1) % STAGES;
+      mbar_wait(&vfull[last], ((nk - 1) / STAGES) & 1);
+      fence_regs(o);
+      wg_fence();
+      fwd_pv<D, N>(o, pf, sV(last));
+      wg_commit();
+      wg_wait0();
+      fence_regs(o);
+      mbar_arrive(&vempty[last]);
+    }
+
+    // o / l (times 1 / (1 - p_drop): the kept p were not rescaled), dead
+    // rows 0; lse = m + log l in natural log
+    float mul[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const float lt = warp_group_sum(l[i]);
+      const float safe = lt == 0.f ? 1.f : lt;
+      const bool dead = a.qseg && m[i] <= kNegInf2 * 0.5f;
+      mul[i] = dead ? 0.f : (a.dropout ? a.rescale : 1.f) / safe;
+      if (t == 0 && row[i] < a.sq)
+        a.lse_out[static_cast<size_t>(bh) * a.sq + row[i]] =
+            m[i] * kLn2 + logf(safe);
+    }
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o[i] *= mul[(i >> 1) & 1];
+    store_acc_bf16<D>(
+        static_cast<bf16*>(a.out0) + static_cast<size_t>(bh) * a.sq * D, o,
+        row, a.sq, t);
+  }
+}
+
 // -------------------------------------------------------------- f32 tiles
 // Tiles of T rows (64 up to D = 128; 32 at D = 256, so four f32 tiles
 // fit in shared memory).  Four consecutive threads own one tile row
@@ -1434,6 +1619,10 @@ int launch_one(dim3 grid, int threads, size_t smem, cudaStream_t stream,
   return static_cast<int>(cudaGetLastError());
 }
 
+static_assert(FwdLayout<64>::kBytes <= 232448 / FwdLayout<64>::kBlocksPerSm &&
+                  FwdLayout<128>::kBytes <= 232448 &&
+                  FwdLayout<256>::kBytes <= 232448,
+              "a bf16 forward block exceeds the shared memory of an SM");
 static_assert(DkdvLayout<64>::kBytes <= 232448 / 2 &&
                   DqLayout<64>::kBytes <= 232448 / 2 &&
                   DqLayout<128>::kBytes <= 232448 / 2 &&
@@ -1446,12 +1635,18 @@ template <int D>
 int launch(int dtype, int kind, int bh_count, const Args& a,
            cudaStream_t stream) {
   if (dtype == kBF16) {
-    if (kind == kFwd)
-      return launch_one<flash_fwd_kernel_bf16<D>>(
-          dim3((a.sq + kTile - 1) / kTile, bh_count), kMmaThreads,
-          3 * kTile * (D + 8) * 2 + kTile * 4, stream, a);
-    // the backward kernels read q, k, v and dO through tensor maps
+    // the bf16 kernels read q, k, v (and dO) through tensor maps
     CUtensorMap m[4];
+    if (kind == kFwd) {
+      using L = FwdLayout<D>;
+      if (!make_map(&m[0], a.q, bh_count, a.sq, D, L::kM) ||
+          !make_map(&m[1], a.k, bh_count, a.sk, D, L::kN) ||
+          !make_map(&m[2], a.v, bh_count, a.sk, D, L::kN))
+        return static_cast<int>(cudaErrorInvalidValue);
+      return launch_one<flash_fwd_kernel_bf16<D>>(
+          dim3((a.sq + L::kM - 1) / L::kM, bh_count), L::kThreads,
+          L::kBytes, stream, m[0], m[1], m[2], a);
+    }
     if (!make_map(&m[0], a.q, bh_count, a.sq, D, kWgRows) ||
         !make_map(&m[1], a.k, bh_count, a.sk, D, kWgRows) ||
         !make_map(&m[2], a.v, bh_count, a.sk, D, kWgRows) ||

@@ -110,11 +110,13 @@ def test_flash_values_and_grads_match_jax(causal, segments, dropout):
         _close(a, w)
 
 
+@pytest.mark.parametrize("d", [64, 128, 256])
 @pytest.mark.parametrize("segments", [False, True])
-def test_forward_lse_matches_jax_kernel(segments):
+def test_forward_lse_matches_jax_kernel(segments, d):
     """``flash_fwd``'s (o, lse) against the Pallas ``_fwd`` in interpret
-    mode, folded layout, Sq < Sk causal (the offset)."""
-    b, h, d, sq, sk = 1, 2, 64, 128, 256
+    mode, folded layout, Sq < Sk causal (the offset), at every head dim
+    the kernel serves."""
+    b, h, sq, sk = 1, 2, 128, 256
     q, k, v, _ = _qkv(b, sq, h, d, seed=2, sk=sk)
     fold = lambda x: np.ascontiguousarray(
         x.transpose(0, 2, 1, 3).reshape(b * h, x.shape[1], d))
@@ -324,3 +326,38 @@ def test_backward_kernels_ragged_on_card(cuda_device, d):
         torch.testing.assert_close(got.float(), ref.float(), atol=2e-2,
                                    rtol=2e-2)
     assert all(torch.equal(x, y) for x, y in zip(*runs))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [64, 128, 256])
+def test_forward_kernel_ragged_on_card(cuda_device, d):
+    """``flash_fwd`` in bf16 against ``_fwd_reference`` (float32, on the
+    same bf16-rounded inputs) at Sq=33, Sk=77 (ragged tiles on both
+    sides) and at Sq=200, Sk=333 (several key tiles per block), causal
+    with the offset Sk - Sq, segment ids and dropout 0.1; one q segment
+    id matches no key, so that row is dead and must come out 0.  o and
+    lse at 2e-2, bf16's tolerance (the kernel rounds p to bf16 for the
+    tensor cores).  A second launch on the same inputs gives the same
+    bits."""
+    b, h = 2, 3
+    rng = np.random.RandomState(d + 1)
+    cfg = dict(seed=0x5EED, causal=True, scale=d ** -0.5, dropout_p=0.1,
+               h=h)
+    for sq, sk in ((33, 77), (200, 333)):
+        mk = lambda s: torch.tensor(rng.randn(b * h, s, d).astype(
+            np.float32), device=cuda_device).to(torch.bfloat16)
+        q, k, v = mk(sq), mk(sk), mk(sk)
+        qseg, kseg = (torch.tensor(_pad_segments(b, s, n, seed),
+                                   device=cuda_device)
+                      for s, n, seed in ((sq, 6, 1), (sk, 12, 2)))
+        qseg[1, sq // 2] = 5                     # matches no key: dead
+        want_o, want_lse = TFA._fwd_reference(q.float(), k.float(),
+                                              v.float(), qseg, kseg, **cfg)
+        runs = [TFA.flash_fwd(q, k, v, qseg, kseg, **cfg) for _ in range(2)]
+        torch.cuda.synchronize()
+        o, lse = runs[0]
+        torch.testing.assert_close(o.float(), want_o.float(), atol=2e-2,
+                                   rtol=2e-2)
+        torch.testing.assert_close(lse, want_lse, atol=2e-2, rtol=2e-2)
+        assert torch.all(o[h:2 * h, sq // 2] == 0)
+        assert all(torch.equal(x, y) for x, y in zip(*runs))
