@@ -55,12 +55,6 @@ Phases, in order; any failed check raises and the script exits non-zero:
 
 Without a card, or without the repository beside it, it exits non-zero
 before printing any result.  It imports nothing of JAX.
-
-    python3 chip_smoke.py --fwd-variants[=v,v,...]
-
-instead builds ``flash_attention.cu`` once per forward variant
-(``PIT_FWD_VARIANT``, all by default) and times them side by side at the
-timed flash shapes, then stops.
 """
 from __future__ import annotations
 
@@ -107,17 +101,17 @@ def clocks_line() -> str:
     return out.stdout.strip().splitlines()[0] if out.stdout else "none"
 
 
-def print_ptxas(tag, log, only=""):
-    """ptxas's registers, spills and performance warnings per kernel (of
-    kernels whose name holds ``only``) from an ``nvcc -Xptxas -v`` log."""
+def print_ptxas(tag, log):
+    """ptxas's registers, spills and performance warnings per kernel from
+    an ``nvcc -Xptxas -v`` log."""
     fn = "?"
     for line in log.splitlines():
         m = re.search(r"([a-z]+_[a-z]+_kernel(?:_[a-z0-9]+)?)I(\w+?)EEv",
                       line)
         if "Compiling entry" in line and m:
             fn = f"{m.group(1)}<{m.group(2)}>"
-        elif (only in fn and ("registers" in line or "spill" in line
-                              or "Performance Loss" in line)):
+        elif ("registers" in line or "spill" in line
+              or "Performance Loss" in line):
             print(f"{tag} {fn}: {line.strip()}", flush=True)
 
 
@@ -1051,121 +1045,6 @@ def print_backward(tag, kind, p, rec):
           + (f"{lib:.4f}" if lib is not None else "none"), flush=True)
 
 
-# ``PIT_FWD_VARIANT`` of ``flash_attention.cu``: bit 0 ping-pong, bit 1
-# heaviest causal q-blocks first, bit 2 one consumer warpgroup a block at
-# head_dim 64; every variant overlaps each tile's softmax with the P V
-# product of the tile before
-FWD_VARIANT_BITS = ("pingpong", "heavy", "onewg64")
-FWD_VARIANTS = tuple(range(8))          # what --fwd-variants times
-
-
-def fwd_variant_name(v):
-    return "+".join(["overlap"] + [n for b, n in enumerate(FWD_VARIANT_BITS)
-                                   if v >> b & 1])
-
-
-def build_fwd_variants(variants=FWD_VARIANTS):
-    """``flash_attention.cu`` built once per forward variant, one ``nvcc``
-    each, all started together, into ``_build/fwd_variants/``; returns
-    ``{variant: pit_flash_fwd}`` bound with the wrapper's signature."""
-    import ctypes
-    import os
-
-    from paddle_infer_tpu_torch.native import BUILD_DIR
-    from paddle_infer_tpu_torch.ops import _build
-    from paddle_infer_tpu_torch.ops import flash_attention as FA
-
-    out_dir = os.path.join(BUILD_DIR, "fwd_variants")
-    os.makedirs(out_dir, exist_ok=True)
-    src = os.path.join(_build._CSRC, "flash_attention.cu")
-    procs = {}
-    for v in variants:
-        path = os.path.join(out_dir, f"libflash_fwd_v{v}.so")
-        cmd = [_build._nvcc(), *_build.ARCH_FLAGS, *_build.NVCC_FLAGS,
-               f"-DPIT_FWD_VARIANT={v}", "-o", path, src]
-        procs[v] = (path, subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                           stderr=subprocess.STDOUT,
-                                           text=True))
-    fns = {}
-    for v, (path, proc) in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode:
-            raise RuntimeError(f"nvcc variant {v} failed:\n{log}")
-        print_ptxas(f"[variants] v{v}", log, only="fwd_kernel_bf16")
-        fn = getattr(ctypes.CDLL(path), "pit_flash_fwd")
-        fn.argtypes = FA._FWD.argtypes
-        fn.restype = ctypes.c_int
-        fns[v] = fn
-    return fns
-
-
-def fwd_variants_phase(device, variants=FWD_VARIANTS, runs=FLASH_TIMED,
-                       reps=25):
-    """The forward variants side by side on the same inputs at each timed
-    run: outputs bit-equal to the first variant's, then CUDA-event medians with
-    the variants in order and again in reverse (each variant's two
-    medians printed) and each variant's device-only time."""
-    import torch
-
-    from paddle_infer_tpu_torch.ops import _build
-    from paddle_infer_tpu_torch.ops import flash_attention as FA
-
-    t0 = time.perf_counter()
-    fns = build_fwd_variants(variants)
-    first = variants[0]
-    print(f"[variants] {len(fns)} builds in {time.perf_counter() - t0:.1f}s",
-          flush=True)
-    cases = {}
-    for tag, kind, p in runs:
-        if tag not in cases:
-            cases[tag] = make_flash_case(device, **FLASH_SHAPES[tag])
-        case = cases[tag]
-        q, k, v = (case[n].to(torch.bfloat16) for n in ("q", "k", "v"))
-        seg, H = case["seg"], case["H"]
-        common = FA._common(q, k, H, case["scale"], case["causal"], p,
-                            FLASH_SEED)
-        o = torch.empty_like(q)
-        lse = torch.empty(q.shape[:2], dtype=torch.float32, device=device)
-        ptr = _build.ptr
-
-        def run(fn):
-            rc = fn(1, q.shape[2], ptr(q), ptr(k), ptr(v), FA._opt(seg),
-                    FA._opt(seg), ptr(o), ptr(lse), *common)
-            if rc:
-                raise RuntimeError(f"variant launch failed: CUDA error {rc}")
-
-        outs = {}
-        for var, fn in fns.items():
-            run(fn)
-            torch.cuda.synchronize()
-            outs[var] = (o.clone(), lse.clone())
-        same = all(torch.equal(x, y) for var in outs
-                   for x, y in zip(outs[var], outs[first]))
-        ms = {var: [] for var in fns}
-        order = list(fns) + list(reversed(list(fns)))
-        for var in order:
-            ms[var].append(time_ms(lambda: run(fns[var]), reps=reps))
-        # device-only: profiled, back to back, and profiled with the L2
-        # cache flushed before each launch (as the train step finds it)
-        flush = torch.empty(2 ** 26, dtype=torch.int32, device=device)
-        for var in fns:
-            fwd = lambda: run(fns[var])
-            ms[var] += [device_ms(fwd, reps, "flash_fwd_kernel")[0],
-                        stream_ms(fwd, reps),
-                        device_ms(lambda: (flush.zero_(), fwd()), reps,
-                                  "flash_fwd_kernel")[0]]
-        print(f"[variants] ({tag}) forward {kind} dropout={p}: bit_equal="
-              f"{same} (ms, ms again, device ms, back-to-back ms, device "
-              "ms cold L2) "
-              + " ".join(
-                  f"v{var}:{fwd_variant_name(var)}="
-                  + "/".join(f"{x:.4f}" for x in t)
-                  for var, t in ms.items()) + f" clocks: {clocks_line()}",
-              flush=True)
-        if not same:
-            raise AssertionError("forward variants disagree")
-
-
 def hybrid_vs_flash(device, shape=FLASH_SHAPES["a"], p=0.1):
     """Forward + backward of ``hybrid_attention`` (plain forward, kernels
     5 and 6) against ``flash_attention`` (kernels 4–6) at one shape in
@@ -1463,13 +1342,6 @@ def main() -> int:
           f"{time.perf_counter() - t0:.1f}s", flush=True)
     for src, log in _build.BUILD_LOG.items():
         print_ptxas(f"[build] {src}", log)
-    for arg in sys.argv[1:]:          # --fwd-variants[=v,v,...]
-        if arg.startswith("--fwd-variants"):
-            chosen = arg.partition("=")[2]
-            fwd_variants_phase(device, tuple(
-                int(x) for x in chosen.split(",")) if chosen else
-                FWD_VARIANTS)
-            return 0
 
     # phase 3: kernels against their plain versions
     case = make_case(device)

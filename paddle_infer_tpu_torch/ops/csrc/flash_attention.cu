@@ -54,9 +54,9 @@
 //     dS^T, dS) is the score accumulator re-packed in registers as the
 //     A operand, all k-steps packed before the first is issued (packing
 //     between issues made ptxas fence and serialize them);
-//   * warpgroups: the forward runs two per block, 64 q rows each, on
-//     the same key tiles, and overlaps each tile's softmax with the
-//     previous tile's P V product (below); at D = 256 it takes 64 keys a
+//   * warpgroups: the forward runs two per block (one at D = 64), 64 q
+//     rows each, on the same key tiles, and overlaps each tile's softmax
+//     with the previous tile's P V product (below); at D = 256 it takes 64 keys a
 //     tile so that O (128 accumulators a thread), S and P fit the 240
 //     registers `setmaxnreg` gives the consumers.  dK/dV runs two per
 //     block on the same 64 keys, one for S^T, P^T and dV, one for dP^T,
@@ -141,12 +141,13 @@ __device__ __forceinline__ bool causal_ok(const Args& a, int row, int col) {
   return !a.causal || row + (a.sk - a.sq) >= col;
 }
 
-// k-tiles a q-tile of `tile` rows starting at q0 needs (the Pallas
-// `needed` predicate); q and k tiles have the same size.
-__device__ __forceinline__ int num_k_tiles(const Args& a, int q0, int tile) {
+// k-tiles of `tile` keys that `rows` q rows starting at q0 need (the
+// Pallas `needed` predicate): a prefix of the key tiles.
+__device__ __forceinline__ int num_k_tiles(const Args& a, int q0, int rows,
+                                           int tile) {
   int nk = (a.sk + tile - 1) / tile;
   if (a.causal) {
-    const int last = q0 + tile - 1 + a.sk - a.sq;
+    const int last = q0 + rows - 1 + a.sk - a.sq;
     nk = last < 0 ? 0 : min(nk, last / tile + 1);
   }
   return nk;
@@ -903,8 +904,8 @@ __global__ void __launch_bounds__(128 + kProducer, D == 256 ? 1 : 2)
 }
 
 // Forward: one block per (bh, 128 q rows) with two consumer warpgroups
-// of 64 rows each (one, 64 rows, in the D = 64 variant below) and a
-// producer warpgroup.  The producer's first warp
+// of 64 rows each (at D = 64 one, 64 rows, see below) and a producer
+// warpgroup.  The producer's first warp
 // loads the block's Q once and streams (K, V, k segment ids) tiles of
 // kN keys through the ring; the consumers share each tile.  Per tile a
 // consumer warpgroup issues S = Q K^T (both operands in shared memory)
@@ -918,27 +919,18 @@ __global__ void __launch_bounds__(128 + kProducer, D == 256 ? 1 : 2)
 // (the causal diagonal, the tile past Sk, tiles whose k segment ids are
 // not all this thread's q segment id); the row sum stays split over the
 // four threads of a row until the epilogue.
-// The variants timed against each other (`chip_smoke.py --fwd-variants`
-// builds one library per value): bit 0, the two consumer warpgroups take
-// turns issuing their products on named barriers (ping-pong), so one's
-// softmax runs under the other's products; bit 1, causal q-blocks start
-// heaviest first; bit 2, at D = 64 one consumer warpgroup a block, so
-// that two blocks share an SM and hide each other's loads and epilogue.
-// The default, 5, timed fastest without spills on an H100 SXM (700 W):
-// bit 2 took 15 % off the ERNIE shape, ping-pong up to 3 % off below
-// D = 256 (1 % on at 256); heaviest first gained about 1 % and made
-// ptxas spill at D = 64 and 128.
-#ifndef PIT_FWD_VARIANT
-#define PIT_FWD_VARIANT 5
-#endif
-constexpr bool kFwdPingPong = (PIT_FWD_VARIANT & 1) != 0;
-constexpr bool kFwdHeavyFirst = (PIT_FWD_VARIANT & 2) != 0;
-constexpr bool kFwdOneWgAt64 = (PIT_FWD_VARIANT & 4) != 0;
-
+// Two consumer warpgroups take turns issuing their products on named
+// barriers (ping-pong), so one's softmax runs under the other's
+// products.  At D = 64 a block has one consumer warpgroup, so that two
+// blocks share an SM and hide each other's loads and epilogue.  Timed
+// against the other choices on an H100 SXM (700 W), one warpgroup took
+// 15 % off the ERNIE shape at D = 64 and ping-pong up to 3 % off at
+// D = 128; launching the heaviest causal q-blocks first gained about 1 %
+// and made ptxas spill, so blocks run in grid order.
 
 template <int D>
 struct FwdLayout {
-  static constexpr int kWgs = D == 64 && kFwdOneWgAt64 ? 1 : 2;  // consumers
+  static constexpr int kWgs = D == 64 ? 1 : 2;  // consumer warpgroups
   static constexpr int kThreads = 128 * (kWgs + 1), kBlocksPerSm = 3 - kWgs;
   // registers a thread after setmaxnreg, producer and consumers: a
   // warp of each role per block on each of the SM's four 16384-register
@@ -1056,7 +1048,7 @@ __global__ void __launch_bounds__(FwdLayout<D>::kThreads,
                           const __grid_constant__ CUtensorMap tv, Args a) {
   using L = FwdLayout<D>;
   constexpr int STAGES = L::kStages, N = L::kN, M = L::kM, WGS = L::kWgs;
-  constexpr bool kPingPong = kFwdPingPong && WGS == 2;
+  constexpr bool kPingPong = WGS == 2;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* sm = align1024(smem_raw);
   bf16* sQ = reinterpret_cast<bf16*>(sm + L::kQ);
@@ -1078,17 +1070,10 @@ __global__ void __launch_bounds__(FwdLayout<D>::kThreads,
   };
 
   const int bh = blockIdx.y;
-  const int qb = kFwdHeavyFirst && a.causal ? gridDim.x - 1 - blockIdx.x
-                                            : blockIdx.x;
-  const int q0 = qb * M, off = a.sk - a.sq;
+  const int q0 = blockIdx.x * M, off = a.sk - a.sq;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int b = bh / a.heads;
-  // k-tiles the block needs (the Pallas `needed` predicate): a prefix
-  int nk = (a.sk + N - 1) / N;
-  if (a.causal) {
-    const int last = q0 + M - 1 + off;
-    nk = last < 0 ? 0 : min(nk, last / N + 1);
-  }
+  const int nk = num_k_tiles(a, q0, M, N);
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < STAGES; ++s) {
@@ -1331,7 +1316,7 @@ __global__ void __launch_bounds__(4 * T) flash_fwd_kernel_f32(Args a) {
 #pragma unroll
   for (int j = 0; j < D / 4; ++j) acc[j] = 0.f;
 
-  const int nk = num_k_tiles(a, q0, T);
+  const int nk = num_k_tiles(a, q0, T, T);
   for (int kt = 0; kt < nk; ++kt) {
     const int k0 = kt * T;
     __syncthreads();
@@ -1509,7 +1494,7 @@ __global__ void __launch_bounds__(4 * T) flash_dq_kernel_f32(Args a) {
 #pragma unroll
   for (int j = 0; j < D / 4; ++j) dq[j] = 0.f;
 
-  const int nk = num_k_tiles(a, q0, T);
+  const int nk = num_k_tiles(a, q0, T, T);
   for (int kt = 0; kt < nk; ++kt) {
     const int k0 = kt * T;
     __syncthreads();

@@ -203,8 +203,8 @@ def _check(q, k, v, extra, qseg, kseg, h):
         if t.device != q.device or not t.is_contiguous():
             raise ValueError("kernel inputs must be contiguous on "
                              f"{q.device}")
-    # the bf16 backward kernels read q, k, v and dO by TMA (16-byte
-    # aligned base addresses)
+    # the bf16 kernels (forward and backward) read q, k, v (and dO) by
+    # TMA (16-byte aligned base addresses)
     mats = (q, k, v) + tuple(extra[:1])
     if extra and extra[0].shape != q.shape:
         raise ValueError(f"dO {tuple(extra[0].shape)} does not match q "
