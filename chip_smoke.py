@@ -8,7 +8,9 @@ Phases, in order; any failed check raises and the script exits non-zero:
 1. card — name and power limit (``nvidia-smi``), TF32 off for matmul
    and cuDNN;
 2. build — the CUDA kernels (one ``nvcc`` per source, in parallel) and
-   the native KV block pool, from the checkout's sources;
+   the native KV block pool, from the checkout's sources; ptxas's
+   registers and spills per kernel, and the decode / verify split
+   (``kSplitPages``);
 3. kernels — every kernel against its plain PyTorch version at the
    serving shapes (B=8, H=32, D=128, page 16, 128 pages per row,
    contexts over 1..2048; the ragged kernel at C=512 with decode, chunk
@@ -16,6 +18,9 @@ Phases, in order; any failed check raises and the script exits non-zero:
    ctx + j + 1, every lane also EQUAL to the decode kernel at its
    length), fp32, bf16 and int8 pages, each timed with CUDA events
    (median of 25 after warm-up) beside its plain version and its bound;
+   decode and verify also device-only (``torch.profiler``, split walk
+   and combine summed) and 25 calls back to back, beside the earlier
+   sequential-walk design's times (``SEQUENTIAL_WALK_MS``);
 4. serve — LLaMA-7B at full width and depth (random bf16 weights from a
    seeded on-device generator) behind ``EngineCore``: 8 requests with
    prompts of 1536..1 tokens, 32 new tokens each, 6 greedy and 2
@@ -47,9 +52,12 @@ Phases, in order; any failed check raises and the script exits non-zero:
    (2) ERNIE-3.0-base pretraining at full width and depth through
    ``FleetTrainStep`` (batch 32 x 512, dropout 0.1, AMP O2 bf16, AdamW
    lr 1e-4): 2 warm-up and 20 timed steps, the loss falling and each
-   flash kernel launched once per layer per step; (3) one step at depth
-   2, batch 8 with the kernels against the same step with plain
-   attention, fp32 and O2, on three batches; (4) a profiled train step;
+   flash kernel launched once per layer per step, then a profiled train
+   step; (3) ERNIE-3.0-mini (12 heads of 32, a head_dim the flash
+   kernels do not take): 3 steps on plain attention, every loss finite
+   and no flash launch; (4) one step at depth 2, batch 8 with the
+   kernels against the same step with plain attention, fp32 and O2, on
+   three batches;
 8. the kernels line (one JSON object), the card line, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -80,6 +88,18 @@ SPEC_PROMPT_LENS = (512, 384, 256, 200, 128, 64, 33, 8)
 NUM_DRAFT = 4
 
 
+# CUDA-event medians of the earlier decode and verify kernels (one block
+# per (row, head) walking all of the row's pages in order, one page at a
+# time) at the serving shapes of phase 3 on an NVIDIA H100 80GB HBM3 at
+# 700 W, printed beside the split kernels' times: {(kernel, pages): ms}
+SEQUENTIAL_WALK_MS = {("paged_decode", "bf16"): 0.4074,
+                      ("paged_decode", "fp32"): 0.6711,
+                      ("paged_decode", "int8"): 0.3321,
+                      ("paged_verify", "bf16"): 1.1578,
+                      ("paged_verify", "fp32"): 1.8010,
+                      ("paged_verify", "int8"): 0.9982}
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -106,8 +126,8 @@ def print_ptxas(tag, log):
     an ``nvcc -Xptxas -v`` log."""
     fn = "?"
     for line in log.splitlines():
-        m = re.search(r"([a-z]+_[a-z]+_kernel(?:_[a-z0-9]+)?)I(\w+?)EEv",
-                      line)
+        m = re.search(r"([a-z]+(?:_[a-z]+)*_kernel(?:_[a-z0-9]+)?)"
+                      r"I(\w+?)EEv", line)
         if "Compiling entry" in line and m:
             fn = f"{m.group(1)}<{m.group(2)}>"
         elif ("registers" in line or "spill" in line
@@ -295,6 +315,17 @@ def _bound(byts, flops, kind):
     return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
 
 
+def paged_times(name, kind, run):
+    """A split kernel's CUDA-event median (host work of the wrapper
+    included), its device-only time (``torch.profiler``: split walk and
+    combine summed, a mean per launch), 25 calls back to back, and the
+    earlier design's time (``SEQUENTIAL_WALK_MS``)."""
+    dev, seen = device_ms(run, name=name)
+    return {"ms": time_ms(run), "device_ms": dev, "device_calls": seen,
+            "stream_ms": stream_ms(run),
+            "sequential_walk_ms": SEQUENTIAL_WALK_MS[(name, kind)]}
+
+
 def check_verify(case, kinds=("fp32", "bf16", "int8"), timed=True):
     """The verify kernel: every lane EQUAL to the decode kernel at its
     length (the greedy-parity invariant), and allclose to the plain
@@ -322,8 +353,9 @@ def check_verify(case, kinds=("fp32", "bf16", "int8"), timed=True):
         rec = {"max_abs_err": err, "lanes_equal_decode": lanes_equal,
                "tol": tol, "ok": ok}
         if timed:
-            rec["ms"] = time_ms(lambda: PA.paged_attention_verify(
-                qv, kp, vp, tables, vlens))
+            run = lambda: PA.paged_attention_verify(qv, kp, vp, tables,
+                                                    vlens)
+            rec.update(paged_times("paged_verify", kind, run))
             rec["plain_ms"] = time_ms(lambda: PA._verify_plain(
                 qv, kp, vp, tables, vlens), reps=10)
             # the W separate decode launches the kernel stands in for
@@ -337,8 +369,10 @@ def check_verify(case, kinds=("fp32", "bf16", "int8"), timed=True):
               f"max_abs_err={err:.3e} lanes_equal_decode={lanes_equal} "
               f"tol={tol} ok={ok} " + " ".join(
                   f"{k}={v:.4f}" for k, v in rec.items()
-                  if k in ("ms", "plain_ms", "decode_x_w_ms", "bound_ms")),
-              flush=True)
+                  if k in ("ms", "device_ms", "stream_ms",
+                           "sequential_walk_ms", "plain_ms",
+                           "decode_x_w_ms", "bound_ms"))
+              + (f" clocks: {clocks_line()}" if timed else ""), flush=True)
     bad = [k for k, v in out.items() if not v["ok"]]
     if bad:
         raise AssertionError(f"paged_verify disagrees (lanes vs decode or "
@@ -374,8 +408,8 @@ def check_kernels(case, kinds=("fp32", "bf16", "int8"), timed=True):
         byts, flops = _bytes_decode(case, kind, ln)
         rec = {"max_abs_err": err, "tol": tol, "ok": ok}
         if timed:
-            rec["ms"] = time_ms(lambda: PA.paged_attention_decode(
-                q, kp, vp, tables, lengths))
+            rec.update(paged_times("paged_decode", kind, lambda: (
+                PA.paged_attention_decode(q, kp, vp, tables, lengths))))
             rec["plain_ms"] = time_ms(lambda: PA._decode_plain(
                 q, kp, vp, tables, lengths), reps=10)
             rec["bound_ms"], rec["bound_by"] = _bound(byts, flops, kind)
@@ -383,7 +417,9 @@ def check_kernels(case, kinds=("fp32", "bf16", "int8"), timed=True):
         print(f"[kernels] paged_decode {kind}: max_abs_err={err:.3e} "
               f"tol={tol} ok={ok} " + " ".join(
                   f"{k}={v:.4f}" for k, v in rec.items()
-                  if k in ("ms", "plain_ms", "bound_ms")), flush=True)
+                  if k in ("ms", "device_ms", "stream_ms",
+                           "sequential_walk_ms", "plain_ms", "bound_ms"))
+              + (f" clocks: {clocks_line()}" if timed else ""), flush=True)
 
         rag = RPA.ragged_kernel(qc, kp, vp, tables, ctx, qlens)
         ref = RPA._ragged_plain(qc.float(), kp_ref, vp_ref, tables, ctx,
@@ -420,6 +456,75 @@ def check_kernels(case, kinds=("fp32", "bf16", "int8"), timed=True):
                              f"versions: {bad}")
     results["paged_verify"] = check_verify(case, kinds, timed)
     return results
+
+
+def split_sweep(device, splits=(4, 8, 16, 32),
+                kinds=("bf16", "fp32", "int8")):
+    """``--split-sweep``: decode and verify at phase 3's shapes for each
+    ``kSplitPages`` in ``splits``, each built from a copy of
+    ``csrc/paged_attention.cu`` with only that constant changed and bound
+    in turn to the wrappers; the variants run in the order given and then
+    reversed, each checked against the plain versions (verify lanes EQUAL
+    to decode) before it is timed."""
+    import ctypes
+    import os
+
+    from paddle_infer_tpu_torch.native import BUILD_DIR
+    from paddle_infer_tpu_torch.ops import _build
+    from paddle_infer_tpu_torch.ops import paged_attention as PA
+
+    with open(os.path.join(_build._CSRC, "paged_attention.cu")) as fh:
+        src = fh.read()
+    const = re.compile(r"constexpr int kSplitPages = \d+;")
+    assert len(const.findall(src)) == 1
+    jobs = []
+    for n in splits:
+        d = os.path.join(BUILD_DIR, f"split{n}")
+        os.makedirs(d, exist_ok=True)
+        path = os.path.join(d, "paged_attention.cu")
+        with open(path, "w") as fh:
+            fh.write(const.sub(f"constexpr int kSplitPages = {n};", src))
+        lib = os.path.join(d, "libpaged_attention.so")
+        cmd = [_build._nvcc(), *_build.ARCH_FLAGS, *_build.NVCC_FLAGS,
+               "-o", lib, path]
+        jobs.append((n, lib, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    libs = {}
+    for n, lib, proc in jobs:
+        log, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"split {n}: nvcc failed\n{log}")
+        libs[n] = ctypes.CDLL(lib)
+
+    def bind(n):
+        for kern in (PA._DECODE, PA._VERIFY):
+            fn = getattr(libs[n], kern.symbol)
+            fn.argtypes, fn.restype = kern.argtypes, ctypes.c_int
+            kern._fn = fn
+        PA._split_pages = n
+
+    case = make_case(device)
+    tables, lengths, vlens = case["tables"], case["lengths"], case["vlens"]
+    try:
+        for kind in kinds:
+            q, _, qv, kp, vp, _, _ = _cast(case, kind)
+            dec = lambda: PA.paged_attention_decode(q, kp, vp, tables,
+                                                    lengths)
+            ver = lambda: PA.paged_attention_verify(qv, kp, vp, tables,
+                                                    vlens)
+            for n in list(splits) + list(reversed(splits)):
+                bind(n)
+                check_verify(case, (kind,), timed=False)
+                dd, _ = device_ms(dec, name="paged_decode")
+                vd, _ = device_ms(ver, name="paged_verify")
+                print(f"[sweep] kSplitPages={n} {kind}: decode device_ms="
+                      f"{dd:.4f} ms={time_ms(dec):.4f} verify device_ms="
+                      f"{vd:.4f} ms={time_ms(ver):.4f}", flush=True)
+    finally:
+        for kern in (PA._DECODE, PA._VERIFY):
+            kern._fn = None
+        PA._split_pages = None
 
 
 # ---------------------------------------------------------------- phase 4
@@ -598,14 +703,15 @@ def profile_serving(model, device, prompt_lens=(512, 1), max_new=4,
             rows.append((t / 1e3, e.count, e.key))
     busy_ms = sum(r[0] for r in rows)
     wall_ms = stats["wall_s"] * 1e3
-    groups = {"matmul": 0.0, "paged_decode_kernel": 0.0,
-              "paged_verify_kernel": 0.0, "other": 0.0}
+    # a paged kernel's group holds its split walk and its combine
+    groups = {"matmul": 0.0, "paged_decode": 0.0, "paged_verify": 0.0,
+              "other": 0.0}
     for ms, _, name in rows:
         low = name.lower()
-        if "paged_decode_kernel" in name:
-            groups["paged_decode_kernel"] += ms
-        elif "paged_verify_kernel" in name:
-            groups["paged_verify_kernel"] += ms
+        if "paged_decode_" in name:
+            groups["paged_decode"] += ms
+        elif "paged_verify_" in name:
+            groups["paged_verify"] += ms
         elif any(s in low for s in ("gemm", "xmma", "cutlass", "nvjet",
                                     "matmul", "mm_")):
             groups["matmul"] += ms
@@ -1185,9 +1291,45 @@ def train_phase(device, cfg=None, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
             "launches": launches, "step": step, "data": data}
 
 
+def small_head_phase(device, cfg=None, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                     steps=3):
+    """Phase 7.3: ERNIE-3.0-mini (or ``cfg``) — 12 heads of 32, a head_dim
+    the flash kernels do not take — through ``FleetTrainStep`` (AMP O2
+    bf16, AdamW): attention takes plain ``_xla_sdpa``, as the reference
+    routes that head_dim.  Raises unless every loss is finite and no
+    flash kernel launched in the ``steps`` steps."""
+    import torch
+
+    from paddle_infer_tpu_torch.models.ernie import ErnieConfig
+    from paddle_infer_tpu_torch.ops import _build
+
+    cfg = cfg or ErnieConfig.from_preset("ernie-3.0-mini")
+    step = build_train_step(device, cfg, amp_o2=True)
+    data = [torch.from_numpy(a).to(device)
+            for a in pretrain_batch(cfg.vocab_size, batch, seq)]
+    for k in _build.KERNELS.values():
+        k.launches = 0
+    losses = [float(step(*data)) for _ in range(steps)]
+    launches = {n: _build.KERNELS[n].launches
+                for n in ("flash_fwd", "flash_dkdv", "flash_dq")}
+    print(f"[train] small head: hidden {cfg.hidden_size}, heads "
+          f"{cfg.num_attention_heads}, head_dim "
+          f"{cfg.hidden_size // cfg.num_attention_heads}, layers "
+          f"{cfg.num_hidden_layers}, batch {batch}x{seq}: losses "
+          + " ".join(f"{x:.4f}" for x in losses)
+          + f" flash launches {launches}", flush=True)
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"non-finite loss at a small head_dim: "
+                             f"{losses}")
+    if any(launches.values()):
+        raise AssertionError(f"flash kernels launched at a head_dim they "
+                             f"do not take: {launches}")
+    return losses
+
+
 def step_parity_phase(device, cfg=None, batch=8, seq=TRAIN_SEQ, layers=2,
                       data_seeds=(1, 2, 3)):
-    """Phase 7.3: one ``FleetTrainStep`` step (lr 0, so the weights stay
+    """Phase 7.4: one ``FleetTrainStep`` step (lr 0, so the weights stay
     put) with the flash kernels and again with ``sdpa`` forced to its
     plain version, on the same weights, batch and step key, for the
     batch of each of ``data_seeds``.  fp32: the losses agree to 1e-5
@@ -1315,6 +1457,7 @@ def main() -> int:
     try:
         from paddle_infer_tpu_torch import native
         from paddle_infer_tpu_torch.ops import _build
+        from paddle_infer_tpu_torch.ops import paged_attention as PA
         from paddle_infer_tpu_torch.ops import \
             ragged_paged_attention as RPA
         from paddle_infer_tpu_torch.ops import flash_attention  # noqa: F401
@@ -1342,10 +1485,15 @@ def main() -> int:
           f"{time.perf_counter() - t0:.1f}s", flush=True)
     for src, log in _build.BUILD_LOG.items():
         print_ptxas(f"[build] {src}", log)
+    print(f"[build] paged decode / verify: kSplitPages={PA.split_pages()}",
+          flush=True)
 
     # phase 3: kernels against their plain versions
     case = make_case(device)
     kres = check_kernels(case)
+    if "--split-sweep" in sys.argv[1:]:
+        split_sweep(device)
+        return 0
 
     # phase 4: serve LLaMA-7B; counts zeroed just before, read just after
     t0 = time.perf_counter()
@@ -1425,6 +1573,9 @@ def main() -> int:
         for (tag, kind, p), rec in fres.items():
             kres[name][f"{tag}/{kind}/dropout{p}"] = rec[name]
     del tst
+    gc.collect()
+    torch.cuda.empty_cache()
+    small_head_phase(device)
     gc.collect()
     torch.cuda.empty_cache()
     step_parity_phase(device)

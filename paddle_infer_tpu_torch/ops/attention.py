@@ -75,17 +75,16 @@ def _xla_sdpa(q, k, v, mask, seed, dropout_p, is_causal, scale,
 
 
 def _attn_impl_choice(q, k, mask):
-    """``"xla"`` (the plain path) for a CPU tensor or a dense mask, else
-    ``"flash"`` (kernels 4–6); on the card a head_dim the kernels do not
-    take raises rather than running plain attention.  The reference's
-    ``hybrid`` band (512 <= s < 4096) came from a v5e measurement and is
-    not carried over."""
-    if q.device.type != "cuda" or mask is not None:
+    """``"xla"`` (the plain path) for a CPU tensor, a dense mask or a
+    head_dim outside ``FA.HEAD_DIMS``, else ``"flash"`` (kernels 4–6).
+    The head-dim rule is the reference's own: its Pallas kernels take
+    64, 128 and 256 and it sends every other head_dim to XLA on every
+    device, so the choice is made from the shape before any launch.  The
+    reference's ``hybrid`` band (512 <= s < 4096) came from a v5e
+    measurement and is not carried over."""
+    if (q.device.type != "cuda" or mask is not None
+            or q.shape[-1] not in FA.HEAD_DIMS):
         return "xla"
-    if q.shape[-1] not in FA.HEAD_DIMS:
-        raise NotImplementedError(
-            f"head_dim {q.shape[-1]}: the flash kernels take "
-            f"{FA.HEAD_DIMS}")
     return "flash"
 
 

@@ -1,35 +1,54 @@
 // Paged attention over a head-major KV page pool [P, H, page, D] for
-// Hopper (sm_90a).  Three kernels, one source:
+// Hopper (sm_90a).  One source: the decode and verify kernels, the
+// combine pass they share, and the ragged kernel.
 //
 // paged_decode_kernel — replaces the Pallas kernel
 //   paddle_infer_tpu/ops/pallas/paged_attention.py:140 `_decode_kernel`
 //   (launched by `_decode_local`, :307).  One query per row against the
-//   row's pages.  Bound: device-memory bytes — every K and V byte of the
-//   row's ceil(len/page) pages is read once and used for 2 FLOPs, far
-//   under the ~295 FLOP/byte the card needs to be compute-bound.  Design:
-//   one 128-thread block per (row, head); a loop over the row's pages
-//   takes the place of the TPU's sequential `max_pages` grid axis, so
-//   pages past the row's length are never read.  K and V rows arrive as
-//   16-byte vector loads (8 bf16, 4 fp32 or 16 int8 values per lane).
-//   Per page: each group of G lanes dots one slot (shuffle reduction),
-//   slot scores meet in shared memory, then every thread applies the same
-//   online-softmax update (m, l in f32) and accumulates p*V for its own
-//   slots into an f32 partial accumulator that alpha rescales; the
-//   partials are summed once at the end.  One __syncthreads per page
-//   (double-buffered score row).
-//
+//   row's pages, online softmax over them.
 // paged_verify_kernel — replaces the Pallas kernel
 //   paddle_infer_tpu/ops/pallas/paged_attention.py:317 `_verify_kernel`
 //   (launched by `_verify_local`, :476).  W query lanes per row (the last
 //   emitted token and W-1 drafts), lane w masked at lengths[b, w]; lane
 //   (b, w) must equal the decode kernel at lengths[b, w] bit for bit,
-//   which is what keeps greedy speculative streams equal to plain ones.
-//   Bound: bytes, as decode — each K/V byte of the longest lane's pages
-//   once.  Design: the decode kernel's block per (row, head) and thread
-//   mapping, one page walk for up to 8 lanes (a further z-block walks
-//   again for lanes 8..15, and so on), the decode kernel's two per-query
-//   device functions called per lane unchanged; a lane skips the pages
-//   past its own length, as the decode kernel's shorter walk does.
+//   which keeps greedy speculative streams equal to plain ones.
+//
+// What bounds both: device-memory bytes.  Every K and V byte of a row's
+// pages is read once and used for 2 FLOPs per query lane, far under the
+// ~295 FLOP/byte at which the card turns compute-bound.  So the design's
+// one job is to keep enough bytes in flight on all 132 SMs:
+//
+// - Split page walk.  A row's pages are cut into splits of kSplitPages
+//   pages.  The grid is (B, H, splits) — verify: (B, H, splits x lane
+//   groups) — sized from the table's shape, so the host never reads
+//   lengths.  A block whose split starts at or past its row's page count
+//   exits at once; the longest chain of dependent pages is kSplitPages,
+//   not the row's page count.
+// - Pages in flight.  A block reads its split's page ids (and int8
+//   scales) once, then streams each (page, head) K and V slab — page*D
+//   contiguous elements of the pool, taken in units of at most kChunk
+//   slots — through a ring of 2..kMaxStages stages in shared memory with
+//   16-byte cp.async copies, stages-1 units ahead of the compute.
+// - One softmax per slot.  Per unit, each group of G threads dots one
+//   slot with the query (shuffle reduction), the scores meet in shared
+//   memory, ONE warp per query lane runs the online-softmax update (m, l
+//   in f32, one expf per slot) and leaves p and alpha in shared memory,
+//   and every thread accumulates p*V for its own slots and head-dim
+//   vector.
+// - Fixed-order combine.  A split that is its row's only split writes the
+//   output itself; otherwise it writes (m, l, acc[D]) in f32 to a
+//   workspace [rows, H, splits, D+2] and a combine kernel merges splits
+//   0..n-1 in ascending order.  No atomics anywhere: a row's bits depend
+//   only on its own q, length, table and pool — not on B, not on the
+//   other rows, not on the launch.
+//
+// The decode kernel is the verify kernel's code at one lane: both run
+// split_walk (NL = 1 and kVerifyLanes lanes) and combine_rows, whose
+// per-lane arithmetic does not depend on NL (explicit _rn intrinsics, so
+// no contraction can differ between the two).  A verify block reads its
+// split's K and V once for all its lanes; lane w takes part only in the
+// units that start before its own length — the units the decode kernel
+// walks at that length — and its combine runs over its own splits.
 //
 // ragged_paged_kernel — replaces the Pallas kernel
 //   paddle_infer_tpu/ops/pallas/ragged_paged_attention.py:132
@@ -47,10 +66,11 @@
 //
 // Numerics shared by all three: NEG_INF = -1e30 (not -inf, so exp(m_prev -
 // m_new) is 0, never NaN, on the first page), masked slots score NEG_INF
-// and weigh exactly 0, out = acc / max(l, 1e-20), written in q's dtype.
+// and weigh exactly 0, out = acc / max(l, 1e-20), written in q's dtype;
+// a row of length 0 gives zeros.
 //
 // C interface (ctypes): every pointer and the stream are void*; each
-// entry returns cudaGetLastError() after its launch.
+// entry returns cudaGetLastError() after its launches.
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
@@ -60,9 +80,17 @@ namespace {
 
 constexpr float kNegInf = -1e30f;
 constexpr int kThreads = 128;
-constexpr int kTQ = 16;     // queries per ragged tile
-constexpr int kMaxDPT = 2;  // head dims per thread in the ragged PV loop
-constexpr int kVerifyLanes = 8;  // verify lanes sharing one page walk
+constexpr int kWarps = kThreads / 32;
+constexpr int kTQ = 16;          // queries per ragged tile
+constexpr int kMaxDPT = 2;       // head dims per thread in the ragged PV loop
+constexpr int kSplitPages = 8;   // pages of a row per decode / verify block
+constexpr int kChunk = 16;       // slots per ring unit (one warp's softmax)
+constexpr int kMaxStages = 4;    // ring depth
+constexpr int kRingBytes = 48 * 1024;  // ring budget of one block
+constexpr int kVerifyLanes = 8;  // verify lanes sharing one block's walk
+constexpr int kQPL = 8;          // query values one score thread holds
+static_assert(kChunk <= 32, "one warp runs a unit's softmax");
+static_assert(kMaxStages <= 4, "cp_async_wait takes depths 0..2");
 
 enum DType { kF32 = 0, kBF16 = 1, kF16 = 2, kI8 = 3 };
 
@@ -98,68 +126,416 @@ __device__ __forceinline__ void load16(const T* p, float* out) {
   for (int i = 0; i < VEC; ++i) out[i] = to_f(e[i]);
 }
 
-// ---------------------------------------------------------------- decode
-// The per-query reduction order lives in these two device functions so a
-// W-lane verify kernel (one page walk, W queries) can call them per lane
-// unchanged and stay bitwise equal to this decode kernel per lane.
+// ------------------------------------------------------- decode / verify
 
-// Scores of one page for the query whose slice `qf` this lane holds:
-// slot s is dotted by lane group `gid` (G lanes, `vpl` 16-byte vectors
-// each), reduced by xor-shuffles inside the group, masked at `len`.
+// Page elements one thread handles as a vector: 4 f32 (16 bytes) or 8
+// bf16 / f16 (16 bytes) / int8 (8 bytes).
 template <typename KT>
-__device__ __forceinline__ void decode_page_scores(
-    const float* qf, const KT* kpage, float kscale, float* sc, int page,
-    int D, int j, int len, float scale, int G, int vpl, int gid, int lig,
-    int ngroups) {
-  constexpr int VEC = 16 / sizeof(KT);
-  constexpr int QPL = VEC > 8 ? VEC : 8;
-  for (int s0 = 0; s0 < page; s0 += ngroups) {
-    const int s = s0 + gid;
-    float part = 0.f;
-    if (s < page) {
+struct Vec {
+  static constexpr int N = sizeof(KT) == 4 ? 4 : 8;
+};
+
+// One vector of page elements from shared memory, as floats.
+template <typename KT>
+__device__ __forceinline__ void lds_vec(const KT* p, float* out) {
+  constexpr int N = Vec<KT>::N;
+  if constexpr (N * sizeof(KT) == 16) {
+    const uint4 raw = *reinterpret_cast<const uint4*>(p);
+    const KT* e = reinterpret_cast<const KT*>(&raw);
 #pragma unroll
-      for (int v = 0; v < QPL / VEC; ++v) {
-        if (v < vpl) {
-          float kf[VEC];
-          load16(kpage + static_cast<size_t>(s) * D + (lig + v * G) * VEC,
-                 kf);
+    for (int i = 0; i < N; ++i) out[i] = to_f(e[i]);
+  } else {
+    const uint2 raw = *reinterpret_cast<const uint2*>(p);
+    const KT* e = reinterpret_cast<const KT*>(&raw);
 #pragma unroll
-          for (int e = 0; e < VEC; ++e)
-            part += qf[v * VEC + e] * (kf[e] * kscale);
-        }
-      }
-    }
-    for (int off = G / 2; off > 0; off >>= 1)
-      part += __shfl_xor_sync(0xffffffffu, part, off);
-    if (s < page && lig == 0)
-      sc[s] = (j * page + s < len) ? part * scale : kNegInf;
+    for (int i = 0; i < N; ++i) out[i] = to_f(e[i]);
   }
 }
 
-// Online-softmax update from one page's scores (identical in every
-// thread: same shared values, same order), then p*V for this thread's
-// slots (s = sg, sg + nsg, ...) and head-dim vector `vi` into `acc`.
-template <typename KT>
-__device__ __forceinline__ void decode_page_update(
-    const float* sc, const KT* vpage, float vscale, int page, int D,
-    float& m, float& l, float* acc, int vi, int sg, int nsg) {
-  constexpr int VEC = 16 / sizeof(KT);
-  float m_cur = kNegInf;
-  for (int s = 0; s < page; ++s) m_cur = fmaxf(m_cur, sc[s]);
-  const float m_new = fmaxf(m, m_cur);
-  const float alpha = expf(m - m_new);
-  float psum = 0.f;
-  for (int s = 0; s < page; ++s) psum += expf(sc[s] - m_new);
-  l = l * alpha + psum;
-  m = m_new;
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most n of this thread's newest copy groups are pending.
+__device__ __forceinline__ void cp_async_wait(int n) {
+  if (n <= 0)
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  else if (n == 1)
+    asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+  else
+    asm volatile("cp.async.wait_group 2;\n" ::: "memory");
+}
+
+// `bytes` (a multiple of 16) from device to shared memory, 16 per copy,
+// spread over the block's threads.
+__device__ __forceinline__ void copy_async(void* dst, const void* src,
+                                           int bytes) {
+  for (int i = threadIdx.x * 16; i < bytes; i += kThreads * 16)
+    cp_async16(static_cast<char*>(dst) + i,
+               static_cast<const char*>(src) + i);
+}
+
+// A row's page count: ceil(len / page), clamped to the table's width.
+__host__ __device__ __forceinline__ int row_pages(int len, int page,
+                                                  int max_pages) {
+  const int n = len > 0 ? (len + page - 1) / page : 0;
+  return n > max_pages ? max_pages : n;
+}
+
+// Ring stages for units of min(page, kChunk) rows of K and V.
+__host__ __device__ __forceinline__ int ring_rows(int page) {
+  return page < kChunk ? page : kChunk;
+}
+
+int ring_stages(int D, int page, int esize) {
+  const int s = kRingBytes / (2 * ring_rows(page) * D * esize);
+  return s < 2 ? 2 : (s > kMaxStages ? kMaxStages : s);
+}
+
+__host__ __device__ __forceinline__ int take(int& off, int bytes) {
+  const int at = off;
+  off += (bytes + 15) / 16 * 16;
+  return at;
+}
+
+// Byte offsets of one split block's shared memory.
+struct SplitLayout {
+  int sc, p, alpha, ml, red, q, pid, ksc, vsc, total;
+  __host__ __device__ SplitLayout(int nl, int D, int page, int esize,
+                                  int stages) {
+    const int vec = esize == 4 ? 4 : 8;
+    const int nvec = D / vec;
+    const int G = nvec < 32 ? nvec : 32;
+    int off = stages * 2 * ring_rows(page) * D * esize;  // the ring
+    sc = take(off, nl * kChunk * 4);      // [nl][kChunk] scores
+    p = take(off, nl * kChunk * 4);       // [nl][kChunk] weights
+    alpha = take(off, nl * 4);            // [nl] rescale of the sum
+    ml = take(off, 2 * nl * 4);           // [nl][m, l]
+    red = take(off, kThreads * vec * 4);  // [nsg][D] partial sums
+    q = take(off, nl * G * kQPL * 4);     // [nl][G][kQPL] queries
+    pid = take(off, kSplitPages * 4);     // the split's page ids
+    ksc = take(off, kSplitPages * 4);     // and their int8 scales
+    vsc = take(off, kSplitPages * 4);
+    total = off;
+  }
+};
+
+// Scores of one unit (ns <= kChunk slots of K in shared memory, row
+// stride D) for every lane in `act`: slot s is dotted by thread group gid
+// (G threads, vpl vectors each), reduced by xor-shuffles inside the
+// group; slots at or past the lane's length score kNegInf.
+template <typename KT, int NL>
+__device__ __forceinline__ void unit_scores(const KT* ks, const float* qs,
+                                            float* sc, const int* len,
+                                            unsigned act, int ns, int D,
+                                            int pos0, float kscale,
+                                            float scale) {
+  constexpr int VEC = Vec<KT>::N;
+  const int tid = threadIdx.x;
+  const int nvec = D / VEC;
+  const int G = nvec < 32 ? nvec : 32;
+  const int vpl = nvec / G, ngroups = kThreads / G;
+  const int gid = tid / G, lig = tid % G;
+  for (int s0 = 0; s0 < ns; s0 += ngroups) {
+    const int s = s0 + gid;
+    float part[NL];
 #pragma unroll
-  for (int e = 0; e < VEC; ++e) acc[e] *= alpha;
-  for (int s = sg; s < page; s += nsg) {
-    const float p = expf(sc[s] - m_new);
+    for (int w = 0; w < NL; ++w) part[w] = 0.f;
+    if (s < ns) {
+#pragma unroll
+      for (int v = 0; v < kQPL / VEC; ++v) {
+        if (v < vpl) {
+          float kf[VEC];
+          lds_vec<KT>(ks + s * D + (lig + v * G) * VEC, kf);
+#pragma unroll
+          for (int w = 0; w < NL; ++w) {
+            if (act >> w & 1u) {
+              const float* qw = qs + (w * G + lig) * kQPL + v * VEC;
+#pragma unroll
+              for (int e = 0; e < VEC; e += 4) {
+                const float4 q4 = *reinterpret_cast<const float4*>(qw + e);
+                part[w] = __fmaf_rn(q4.x, kf[e], part[w]);
+                part[w] = __fmaf_rn(q4.y, kf[e + 1], part[w]);
+                part[w] = __fmaf_rn(q4.z, kf[e + 2], part[w]);
+                part[w] = __fmaf_rn(q4.w, kf[e + 3], part[w]);
+              }
+            }
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int w = 0; w < NL; ++w) {
+      if (act >> w & 1u) {
+        for (int off = G / 2; off > 0; off >>= 1)
+          part[w] = __fadd_rn(part[w],
+                              __shfl_xor_sync(0xffffffffu, part[w], off));
+        if (s < ns && lig == 0)
+          sc[w * kChunk + s] =
+              pos0 + s < len[w]
+                  ? __fmul_rn(__fmul_rn(part[w], kscale), scale)
+                  : kNegInf;
+      }
+    }
+  }
+}
+
+// One lane's online-softmax update from one unit's scores, run by ONE
+// warp (thread t holds slot t): m and l (ml[0], ml[1]) advance, and the
+// slots' weights p and the earlier sum's rescale alpha are left in shared
+// memory for every thread.
+__device__ __forceinline__ void unit_softmax(const float* sc, float* p,
+                                             float* alpha, float* ml,
+                                             int ns) {
+  const int t = threadIdx.x & 31;
+  const float x = t < ns ? sc[t] : kNegInf;
+  float mc = x;
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    mc = fmaxf(mc, __shfl_xor_sync(0xffffffffu, mc, off));
+  const float m = ml[0];
+  const float mn = fmaxf(m, mc);
+  const float pt = t < ns ? expf(__fsub_rn(x, mn)) : 0.f;
+  float ps = pt;
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    ps = __fadd_rn(ps, __shfl_xor_sync(0xffffffffu, ps, off));
+  if (t < ns) p[t] = pt;
+  if (t == 0) {
+    const float a = expf(__fsub_rn(m, mn));
+    *alpha = a;
+    ml[0] = mn;
+    ml[1] = __fmaf_rn(ml[1], a, ps);
+  }
+}
+
+// p*V of one unit into this thread's accumulators: head-dim vector vi,
+// slots sg, sg + nsg, ...; each lane's sum is first rescaled by alpha.
+template <typename KT, int NL>
+__device__ __forceinline__ void unit_pv(const KT* vs, const float* p,
+                                        const float* alpha, unsigned act,
+                                        int ns, int D, float vscale,
+                                        float (&acc)[NL][Vec<KT>::N]) {
+  constexpr int VEC = Vec<KT>::N;
+  const int tid = threadIdx.x;
+  const int nvec = D / VEC;
+  const int vi = tid % nvec, sg = tid / nvec, nsg = kThreads / nvec;
+#pragma unroll
+  for (int w = 0; w < NL; ++w) {
+    if (act >> w & 1u) {
+      const float a = alpha[w];
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) acc[w][e] = __fmul_rn(acc[w][e], a);
+    }
+  }
+  for (int s = sg; s < ns; s += nsg) {
     float vf[VEC];
-    load16(vpage + static_cast<size_t>(s) * D + vi * VEC, vf);
+    lds_vec<KT>(vs + s * D + vi * VEC, vf);
 #pragma unroll
-    for (int e = 0; e < VEC; ++e) acc[e] += p * (vf[e] * vscale);
+    for (int w = 0; w < NL; ++w) {
+      if (act >> w & 1u) {
+        const float pv = __fmul_rn(p[w * kChunk + s], vscale);
+#pragma unroll
+        for (int e = 0; e < VEC; ++e)
+          acc[w][e] = __fmaf_rn(pv, vf[e], acc[w][e]);
+      }
+    }
+  }
+}
+
+// One block's split: lanes w0 .. w0 + NL - 1 of row b (W lanes a row;
+// decode is W = NL = 1), head h, pages s*kSplitPages .. of the row.
+template <typename QT, typename KT, int NL>
+__device__ __forceinline__ void split_walk(
+    const QT* __restrict__ q, const KT* __restrict__ kp,
+    const KT* __restrict__ vp, const float* __restrict__ ksc,
+    const float* __restrict__ vsc, const int* __restrict__ tables,
+    const int* __restrict__ lengths, QT* __restrict__ out,
+    float* __restrict__ ws, int P, int W, int H, int D, int page,
+    int max_pages, int nsplit, int stages, float scale, int b, int h,
+    int s, int w0) {
+  constexpr int VEC = Vec<KT>::N;
+  extern __shared__ __align__(16) unsigned char pa_smem[];
+  const int tid = threadIdx.x;
+  const int nl = W - w0 < NL ? W - w0 : NL;
+  int len[NL], np[NL];
+  int maxlen = 0, maxnp = 0;
+#pragma unroll
+  for (int w = 0; w < NL; ++w) {
+    len[w] = w < nl ? lengths[static_cast<size_t>(b) * W + w0 + w] : 0;
+    np[w] = row_pages(len[w], page, max_pages);
+    maxlen = len[w] > maxlen ? len[w] : maxlen;
+    maxnp = np[w] > maxnp ? np[w] : maxnp;
+  }
+  const int p0 = s * kSplitPages;
+  if (p0 >= maxnp) return;                 // no lane reaches this split
+  const int npg = maxnp - p0 < kSplitPages ? maxnp - p0 : kSplitPages;
+  const int nc = (page + kChunk - 1) / kChunk;   // units per page
+  const int nu = npg * nc;
+  const int rows = ring_rows(page);
+  const SplitLayout L(NL, D, page, sizeof(KT), stages);
+  KT* ring = reinterpret_cast<KT*>(pa_smem);
+  float* sc = reinterpret_cast<float*>(pa_smem + L.sc);
+  float* pw = reinterpret_cast<float*>(pa_smem + L.p);
+  float* al = reinterpret_cast<float*>(pa_smem + L.alpha);
+  float* ml = reinterpret_cast<float*>(pa_smem + L.ml);
+  float* red = reinterpret_cast<float*>(pa_smem + L.red);
+  float* qs = reinterpret_cast<float*>(pa_smem + L.q);
+  int* pid = reinterpret_cast<int*>(pa_smem + L.pid);
+  float* kss = reinterpret_cast<float*>(pa_smem + L.ksc);
+  float* vss = reinterpret_cast<float*>(pa_smem + L.vsc);
+
+  // the split's page ids (clamped to [0, P)) and scales, read once
+  const int* trow = tables + static_cast<size_t>(b) * max_pages;
+  for (int i = tid; i < npg; i += kThreads) {
+    int phys = trow[p0 + i];
+    phys = phys < 0 ? 0 : (phys >= P ? P - 1 : phys);
+    pid[i] = phys;
+    const size_t ph = static_cast<size_t>(phys) * H + h;
+    kss[i] = ksc ? ksc[ph] : 1.f;
+    vss[i] = vsc ? vsc[ph] : 1.f;
+  }
+  // each lane's query, laid out per (lane, score thread lig)
+  const int nvec = D / VEC;
+  const int G = nvec < 32 ? nvec : 32;
+  const int vpl = nvec / G;
+  for (int i = tid; i < nl * G * kQPL; i += kThreads) {
+    const int w = i / (G * kQPL), r = i % (G * kQPL);
+    const int li = r / kQPL, v = (r % kQPL) / VEC, e = r % VEC;
+    const QT* qrow =
+        q + ((static_cast<size_t>(b) * W + w0 + w) * H + h) * D;
+    qs[i] = v < vpl ? to_f(qrow[(li + v * G) * VEC + e]) : 0.f;
+  }
+  if (tid < NL) {
+    ml[2 * tid] = kNegInf;
+    ml[2 * tid + 1] = 0.f;
+  }
+  __syncthreads();
+
+  // unit u: page p0 + u / nc, slots (u % nc) * kChunk ..; loaded only
+  // when some lane reaches it
+  auto issue = [&](int u) {
+    const int j = u / nc, c = u % nc;
+    if ((p0 + j) * page + c * kChunk >= maxlen) return;
+    const int ns = page - c * kChunk < kChunk ? page - c * kChunk : kChunk;
+    const size_t src =
+        (static_cast<size_t>(pid[j]) * H + h) * page * D +
+        static_cast<size_t>(c) * kChunk * D;
+    KT* dst = ring + static_cast<size_t>(u % stages) * 2 * rows * D;
+    const int bytes = ns * D * static_cast<int>(sizeof(KT));
+    copy_async(dst, kp + src, bytes);
+    copy_async(dst + rows * D, vp + src, bytes);
+  };
+
+  float acc[NL][VEC];
+#pragma unroll
+  for (int w = 0; w < NL; ++w)
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) acc[w][e] = 0.f;
+
+  for (int u = 0; u < stages - 1; ++u) {
+    if (u < nu) issue(u);
+    cp_async_commit();
+  }
+  const int warp = tid >> 5;
+  for (int u = 0; u < nu; ++u) {
+    cp_async_wait(stages - 2);
+    // unit u has landed, and every thread is done with unit u - 1, whose
+    // stage the next copies reuse
+    __syncthreads();
+    if (u + stages - 1 < nu) issue(u + stages - 1);
+    cp_async_commit();
+    const int j = u / nc, c = u % nc;
+    const int pos0 = (p0 + j) * page + c * kChunk;
+    if (pos0 >= maxlen) continue;
+    const int ns = page - c * kChunk < kChunk ? page - c * kChunk : kChunk;
+    unsigned act = 0;
+#pragma unroll
+    for (int w = 0; w < NL; ++w)
+      if (w < nl && p0 + j < np[w] && pos0 < len[w]) act |= 1u << w;
+    const KT* kst = ring + static_cast<size_t>(u % stages) * 2 * rows * D;
+    unit_scores<KT, NL>(kst, qs, sc, len, act, ns, D, pos0, kss[j], scale);
+    __syncthreads();
+    for (int w = warp; w < NL; w += kWarps)
+      if (act >> w & 1u)
+        unit_softmax(sc + w * kChunk, pw + w * kChunk, al + w, ml + 2 * w,
+                     ns);
+    __syncthreads();
+    unit_pv<KT, NL>(kst + rows * D, pw, al, act, ns, D, vss[j], acc);
+  }
+  cp_async_wait(0);
+
+  // per lane: the slot groups' partial sums in order, then the output (a
+  // row's only split) or the split's (m, l, acc) for the combine
+  const int vi = tid % nvec, sg = tid / nvec, nsg = kThreads / nvec;
+#pragma unroll
+  for (int w = 0; w < NL; ++w) {
+    if (w < nl && p0 < np[w]) {
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) red[sg * D + vi * VEC + e] = acc[w][e];
+      __syncthreads();
+      const int n = (np[w] + kSplitPages - 1) / kSplitPages;
+      const size_t row = (static_cast<size_t>(b) * W + w0 + w) * H + h;
+      const float l = ml[2 * w + 1];
+      float* part = ws + (row * nsplit + s) * (D + 2);
+      for (int d = tid; d < D; d += kThreads) {
+        float a = 0.f;
+        for (int g = 0; g < nsg; ++g) a = __fadd_rn(a, red[g * D + d]);
+        if (n == 1)
+          out[row * D + d] = from_f<QT>(__fdiv_rn(a, fmaxf(l, 1e-20f)));
+        else
+          part[2 + d] = a;
+      }
+      if (n > 1 && tid == 0) {
+        part[0] = ml[2 * w];
+        part[1] = l;
+      }
+      __syncthreads();
+    }
+  }
+}
+
+// Row r (= b * W + w) and head h of the output from its splits' (m, l,
+// acc) in ascending split order; a row of one split was written by its
+// split, a row of length 0 gets zeros.
+template <typename QT>
+__device__ __forceinline__ void combine_rows(const float* __restrict__ ws,
+                                             const int* __restrict__ lengths,
+                                             QT* __restrict__ out, int H,
+                                             int D, int page, int max_pages,
+                                             int nsplit) {
+  const int r = blockIdx.x, h = blockIdx.y;
+  const int n =
+      (row_pages(lengths[r], page, max_pages) + kSplitPages - 1) /
+      kSplitPages;
+  if (n == 1) return;
+  const size_t row = static_cast<size_t>(r) * H + h;
+  QT* o = out + row * D;
+  if (n == 0) {
+    for (int d = threadIdx.x; d < D; d += kThreads) o[d] = from_f<QT>(0.f);
+    return;
+  }
+  const float* part = ws + row * nsplit * (D + 2);
+  float m = part[0];
+  for (int s = 1; s < n; ++s) m = fmaxf(m, part[s * (D + 2)]);
+  float l = 0.f;
+  for (int s = 0; s < n; ++s)
+    l = __fmaf_rn(part[s * (D + 2) + 1],
+                  expf(__fsub_rn(part[s * (D + 2)], m)), l);
+  const float denom = fmaxf(l, 1e-20f);
+  for (int d = threadIdx.x; d < D; d += kThreads) {
+    float a = 0.f;
+    for (int s = 0; s < n; ++s)
+      a = __fmaf_rn(part[s * (D + 2) + 2 + d],
+                    expf(__fsub_rn(part[s * (D + 2)], m)), a);
+    o[d] = from_f<QT>(__fdiv_rn(a, denom));
   }
 }
 
@@ -168,172 +544,43 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
     const QT* __restrict__ q, const KT* __restrict__ kp,
     const KT* __restrict__ vp, const float* __restrict__ ksc,
     const float* __restrict__ vsc, const int* __restrict__ tables,
-    const int* __restrict__ lengths, QT* __restrict__ out, int P, int H,
-    int D, int page, int max_pages, float scale) {
-  constexpr int VEC = 16 / sizeof(KT);
-  constexpr int QPL = VEC > 8 ? VEC : 8;
-  extern __shared__ float smem[];
-  const int b = blockIdx.x, h = blockIdx.y, tid = threadIdx.x;
-  const int nvec = D / VEC;                // 16-byte vectors per row
-  const int G = nvec < 32 ? nvec : 32;     // lanes per slot (scores)
-  const int vpl = nvec / G;
-  const int ngroups = kThreads / G;
-  const int gid = tid / G, lig = tid % G;
-  const int vi = tid % nvec, sg = tid / nvec;  // p*V layout
-  const int nsg = kThreads / nvec;
-  float* sbuf = smem;                      // [2][page]
-  float* red = smem + 2 * page;            // [nsg][D]
-
-  const QT* qrow = q + (static_cast<size_t>(b) * H + h) * D;
-  float qf[QPL];
-#pragma unroll
-  for (int v = 0; v < QPL / VEC; ++v) {
-#pragma unroll
-    for (int e = 0; e < VEC; ++e)
-      qf[v * VEC + e] = v < vpl ? to_f(qrow[(lig + v * G) * VEC + e]) : 0.f;
-  }
-
-  const int len = lengths[b];
-  int npages = len > 0 ? (len + page - 1) / page : 0;
-  if (npages > max_pages) npages = max_pages;
-  const int* trow = tables + static_cast<size_t>(b) * max_pages;
-  float m = kNegInf, l = 0.f;
-  float acc[VEC];
-#pragma unroll
-  for (int e = 0; e < VEC; ++e) acc[e] = 0.f;
-
-  for (int j = 0; j < npages; ++j) {
-    int phys = trow[j];
-    phys = phys < 0 ? 0 : (phys >= P ? P - 1 : phys);
-    const size_t ph = static_cast<size_t>(phys) * H + h;
-    const size_t base = ph * page * D;
-    const float kscale = ksc ? ksc[ph] : 1.f;
-    const float vscale = vsc ? vsc[ph] : 1.f;
-    float* sc = sbuf + (j & 1) * page;
-    decode_page_scores<KT>(qf, kp + base, kscale, sc, page, D, j, len,
-                           scale, G, vpl, gid, lig, ngroups);
-    __syncthreads();
-    decode_page_update<KT>(sc, vp + base, vscale, page, D, m, l, acc, vi,
-                           sg, nsg);
-  }
-
-#pragma unroll
-  for (int e = 0; e < VEC; ++e) red[sg * D + vi * VEC + e] = acc[e];
-  __syncthreads();
-  const float denom = fmaxf(l, 1e-20f);
-  QT* orow = out + (static_cast<size_t>(b) * H + h) * D;
-  for (int d = tid; d < D; d += kThreads) {
-    float s = 0.f;
-    for (int g = 0; g < nsg; ++g) s += red[g * D + d];
-    orow[d] = from_f<QT>(s / denom);
-  }
+    const int* __restrict__ lengths, QT* __restrict__ out,
+    float* __restrict__ ws, int P, int H, int D, int page, int max_pages,
+    int nsplit, int stages, float scale) {
+  split_walk<QT, KT, 1>(q, kp, vp, ksc, vsc, tables, lengths, out, ws, P,
+                        1, H, D, page, max_pages, nsplit, stages, scale,
+                        blockIdx.x, blockIdx.y, blockIdx.z, 0);
 }
 
-// ---------------------------------------------------------------- verify
-// W query lanes per row, lane w masked at its own lengths[b, w]; lane
-// (b, w) is bit for bit paged_decode_kernel at lengths[b, w].  Same
-// thread mapping as the decode kernel; the lanes of one group share one
-// page walk and call decode_page_scores / decode_page_update per lane.
-// A lane skips every page at or past its own length, exactly as the
-// decode kernel's shorter walk never reaches them, so its (m, l, acc)
-// sees the decode kernel's sequence of updates and nothing else.
 template <typename QT, typename KT>
 __global__ void __launch_bounds__(kThreads) paged_verify_kernel(
     const QT* __restrict__ q, const KT* __restrict__ kp,
     const KT* __restrict__ vp, const float* __restrict__ ksc,
     const float* __restrict__ vsc, const int* __restrict__ tables,
-    const int* __restrict__ lengths, QT* __restrict__ out, int P, int W,
-    int H, int D, int page, int max_pages, float scale) {
-  constexpr int VEC = 16 / sizeof(KT);
-  constexpr int QPL = VEC > 8 ? VEC : 8;
-  extern __shared__ float smem[];
-  const int b = blockIdx.x, h = blockIdx.y, tid = threadIdx.x;
-  const int w0 = blockIdx.z * kVerifyLanes;
-  const int nl = (W - w0) < kVerifyLanes ? (W - w0) : kVerifyLanes;
-  const int nvec = D / VEC;
-  const int G = nvec < 32 ? nvec : 32;
-  const int vpl = nvec / G;
-  const int ngroups = kThreads / G;
-  const int gid = tid / G, lig = tid % G;
-  const int vi = tid % nvec, sg = tid / nvec;
-  const int nsg = kThreads / nvec;
-  float* sbuf = smem;                          // [2][lanes][page]
-  float* qs = sbuf + 2 * kVerifyLanes * page;  // [lanes][G][QPL]
-  float* red = qs + kVerifyLanes * G * QPL;    // [nsg][D]
+    const int* __restrict__ lengths, QT* __restrict__ out,
+    float* __restrict__ ws, int P, int W, int H, int D, int page,
+    int max_pages, int nsplit, int stages, float scale) {
+  split_walk<QT, KT, kVerifyLanes>(
+      q, kp, vp, ksc, vsc, tables, lengths, out, ws, P, W, H, D, page,
+      max_pages, nsplit, stages, scale, blockIdx.x, blockIdx.y,
+      blockIdx.z % nsplit, (blockIdx.z / nsplit) * kVerifyLanes);
+}
 
-  // each lane's query slice, laid out per (lane, lig) as the decode
-  // kernel holds it in registers (16 int8 lanes would not fit there)
-  for (int idx = tid; idx < nl * G * QPL; idx += kThreads) {
-    const int w = idx / (G * QPL), r = idx % (G * QPL);
-    const int li = r / QPL, i = r % QPL, v = i / VEC, e = i % VEC;
-    const QT* qrow =
-        q + ((static_cast<size_t>(b) * W + w0 + w) * H + h) * D;
-    qs[idx] = v < vpl ? to_f(qrow[(li + v * G) * VEC + e]) : 0.f;
-  }
+// one combine per kernel, so a profile tells the two apart
+template <typename QT>
+__global__ void __launch_bounds__(kThreads) paged_decode_combine_kernel(
+    const float* __restrict__ ws, const int* __restrict__ lengths,
+    QT* __restrict__ out, int H, int D, int page, int max_pages,
+    int nsplit) {
+  combine_rows<QT>(ws, lengths, out, H, D, page, max_pages, nsplit);
+}
 
-  int len[kVerifyLanes];
-  int maxlen = 0;
-#pragma unroll
-  for (int w = 0; w < kVerifyLanes; ++w) {
-    len[w] = w < nl ? lengths[static_cast<size_t>(b) * W + w0 + w] : 0;
-    maxlen = len[w] > maxlen ? len[w] : maxlen;
-  }
-  // the longest lane gates the walk (the last one: lengths do not
-  // decrease over w), clamped to the table width as in decode
-  int npages = maxlen > 0 ? (maxlen + page - 1) / page : 0;
-  if (npages > max_pages) npages = max_pages;
-  const int* trow = tables + static_cast<size_t>(b) * max_pages;
-  float m[kVerifyLanes], l[kVerifyLanes], acc[kVerifyLanes][VEC];
-#pragma unroll
-  for (int w = 0; w < kVerifyLanes; ++w) {
-    m[w] = kNegInf;
-    l[w] = 0.f;
-#pragma unroll
-    for (int e = 0; e < VEC; ++e) acc[w][e] = 0.f;
-  }
-  __syncthreads();                             // qs filled
-
-  for (int j = 0; j < npages; ++j) {
-    int phys = trow[j];
-    phys = phys < 0 ? 0 : (phys >= P ? P - 1 : phys);
-    const size_t ph = static_cast<size_t>(phys) * H + h;
-    const size_t base = ph * page * D;
-    const float kscale = ksc ? ksc[ph] : 1.f;
-    const float vscale = vsc ? vsc[ph] : 1.f;
-    float* sc = sbuf + (j & 1) * kVerifyLanes * page;
-    // lane conditions are block-uniform, so the shuffles inside
-    // decode_page_scores see every thread of the warp
-#pragma unroll
-    for (int w = 0; w < kVerifyLanes; ++w)
-      if (w < nl && j * page < len[w])
-        decode_page_scores<KT>(qs + (w * G + lig) * QPL, kp + base, kscale,
-                               sc + w * page, page, D, j, len[w], scale, G,
-                               vpl, gid, lig, ngroups);
-    __syncthreads();
-#pragma unroll
-    for (int w = 0; w < kVerifyLanes; ++w)
-      if (w < nl && j * page < len[w])
-        decode_page_update<KT>(sc + w * page, vp + base, vscale, page, D,
-                               m[w], l[w], acc[w], vi, sg, nsg);
-  }
-
-  // per lane, the decode kernel's cross-group sum and division
-#pragma unroll
-  for (int w = 0; w < kVerifyLanes; ++w) {
-    if (w < nl) {
-#pragma unroll
-      for (int e = 0; e < VEC; ++e) red[sg * D + vi * VEC + e] = acc[w][e];
-      __syncthreads();
-      const float denom = fmaxf(l[w], 1e-20f);
-      QT* orow = out + ((static_cast<size_t>(b) * W + w0 + w) * H + h) * D;
-      for (int d = tid; d < D; d += kThreads) {
-        float s = 0.f;
-        for (int g = 0; g < nsg; ++g) s += red[g * D + d];
-        orow[d] = from_f<QT>(s / denom);
-      }
-      __syncthreads();
-    }
-  }
+template <typename QT>
+__global__ void __launch_bounds__(kThreads) paged_verify_combine_kernel(
+    const float* __restrict__ ws, const int* __restrict__ lengths,
+    QT* __restrict__ out, int H, int D, int page, int max_pages,
+    int nsplit) {
+  combine_rows<QT>(ws, lengths, out, H, D, page, max_pages, nsplit);
 }
 
 // ---------------------------------------------------------------- ragged
@@ -471,21 +718,6 @@ __global__ void __launch_bounds__(kThreads) ragged_paged_kernel(
   }
 }
 
-template <typename KT>
-size_t decode_smem(int D, int page) {
-  const int nvec = D / (16 / static_cast<int>(sizeof(KT)));
-  return (2 * page + (kThreads / nvec) * D) * sizeof(float);
-}
-
-template <typename KT>
-size_t verify_smem(int D, int page) {
-  constexpr int VEC = 16 / static_cast<int>(sizeof(KT));
-  constexpr int QPL = VEC > 8 ? VEC : 8;
-  const int nvec = D / VEC;
-  const int G = nvec < 32 ? nvec : 32;
-  return (2 * kVerifyLanes * page + kVerifyLanes * G * QPL +
-          (kThreads / nvec) * D) * sizeof(float);
-}
 
 size_t ragged_smem(int D, int page) {
   return (kTQ * (D + 1) + page * (D + 1) + page * D + kTQ * page +
@@ -504,37 +736,58 @@ int set_smem(K kernel, size_t smem) {
 template <typename QT, typename KT>
 int launch_decode(const void* q, const void* k, const void* v,
                   const void* ks, const void* vs, const void* tables,
-                  const void* lengths, void* out, int B, int P, int H,
-                  int D, int page, int max_pages, float scale,
+                  const void* lengths, void* out, void* ws, int B, int P,
+                  int H, int D, int page, int max_pages, float scale,
                   cudaStream_t stream) {
-  auto kernel = paged_decode_kernel<QT, KT>;
-  const size_t smem = decode_smem<KT>(D, page);
-  if (int rc = set_smem(kernel, smem)) return rc;
-  kernel<<<dim3(B, H), kThreads, smem, stream>>>(
-      static_cast<const QT*>(q), static_cast<const KT*>(k),
-      static_cast<const KT*>(v), static_cast<const float*>(ks),
-      static_cast<const float*>(vs), static_cast<const int*>(tables),
-      static_cast<const int*>(lengths), static_cast<QT*>(out), P, H, D,
-      page, max_pages, scale);
+  if (B == 0 || H == 0) return 0;
+  const int nsplit = (max_pages + kSplitPages - 1) / kSplitPages;
+  if (nsplit > 0) {
+    auto kernel = paged_decode_kernel<QT, KT>;
+    const int stages = ring_stages(D, page, sizeof(KT));
+    const size_t smem = SplitLayout(1, D, page, sizeof(KT), stages).total;
+    if (int rc = set_smem(kernel, smem)) return rc;
+    kernel<<<dim3(B, H, nsplit), kThreads, smem, stream>>>(
+        static_cast<const QT*>(q), static_cast<const KT*>(k),
+        static_cast<const KT*>(v), static_cast<const float*>(ks),
+        static_cast<const float*>(vs), static_cast<const int*>(tables),
+        static_cast<const int*>(lengths), static_cast<QT*>(out),
+        static_cast<float*>(ws), P, H, D, page, max_pages, nsplit, stages,
+        scale);
+    if (int rc = static_cast<int>(cudaGetLastError())) return rc;
+  }
+  paged_decode_combine_kernel<QT><<<dim3(B, H), kThreads, 0, stream>>>(
+      static_cast<const float*>(ws), static_cast<const int*>(lengths),
+      static_cast<QT*>(out), H, D, page, max_pages, nsplit);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename QT, typename KT>
 int launch_verify(const void* q, const void* k, const void* v,
                   const void* ks, const void* vs, const void* tables,
-                  const void* lengths, void* out, int B, int W, int P,
-                  int H, int D, int page, int max_pages, float scale,
+                  const void* lengths, void* out, void* ws, int B, int W,
+                  int P, int H, int D, int page, int max_pages, float scale,
                   cudaStream_t stream) {
-  auto kernel = paged_verify_kernel<QT, KT>;
-  const size_t smem = verify_smem<KT>(D, page);
-  if (int rc = set_smem(kernel, smem)) return rc;
-  const int groups = (W + kVerifyLanes - 1) / kVerifyLanes;
-  kernel<<<dim3(B, H, groups), kThreads, smem, stream>>>(
-      static_cast<const QT*>(q), static_cast<const KT*>(k),
-      static_cast<const KT*>(v), static_cast<const float*>(ks),
-      static_cast<const float*>(vs), static_cast<const int*>(tables),
-      static_cast<const int*>(lengths), static_cast<QT*>(out), P, W, H, D,
-      page, max_pages, scale);
+  if (B == 0 || W == 0 || H == 0) return 0;
+  const int nsplit = (max_pages + kSplitPages - 1) / kSplitPages;
+  if (nsplit > 0) {
+    auto kernel = paged_verify_kernel<QT, KT>;
+    const int stages = ring_stages(D, page, sizeof(KT));
+    const size_t smem =
+        SplitLayout(kVerifyLanes, D, page, sizeof(KT), stages).total;
+    if (int rc = set_smem(kernel, smem)) return rc;
+    const int groups = (W + kVerifyLanes - 1) / kVerifyLanes;
+    kernel<<<dim3(B, H, nsplit * groups), kThreads, smem, stream>>>(
+        static_cast<const QT*>(q), static_cast<const KT*>(k),
+        static_cast<const KT*>(v), static_cast<const float*>(ks),
+        static_cast<const float*>(vs), static_cast<const int*>(tables),
+        static_cast<const int*>(lengths), static_cast<QT*>(out),
+        static_cast<float*>(ws), P, W, H, D, page, max_pages, nsplit,
+        stages, scale);
+    if (int rc = static_cast<int>(cudaGetLastError())) return rc;
+  }
+  paged_verify_combine_kernel<QT><<<dim3(B * W, H), kThreads, 0, stream>>>(
+      static_cast<const float*>(ws), static_cast<const int*>(lengths),
+      static_cast<QT*>(out), H, D, page, max_pages, nsplit);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -575,23 +828,27 @@ int launch_ragged(const void* q, const void* k, const void* v,
 
 extern "C" {
 
+// Pages per decode / verify split: the wrapper sizes the workspace
+// [rows, H, ceil(max_pages / this), D + 2] float32 from it.
+int pit_paged_split_pages() { return kSplitPages; }
+
 int pit_paged_decode(int qdt, int kvdt, const void* q, const void* k,
                      const void* v, const void* ks, const void* vs,
                      const void* tables, const void* lengths, void* out,
-                     int B, int P, int H, int D, int page, int max_pages,
-                     float scale, void* stream) {
-  PIT_DISPATCH(launch_decode, q, k, v, ks, vs, tables, lengths, out, B, P,
-               H, D, page, max_pages, scale,
+                     void* ws, int B, int P, int H, int D, int page,
+                     int max_pages, float scale, void* stream) {
+  PIT_DISPATCH(launch_decode, q, k, v, ks, vs, tables, lengths, out, ws, B,
+               P, H, D, page, max_pages, scale,
                static_cast<cudaStream_t>(stream))
 }
 
 int pit_paged_verify(int qdt, int kvdt, const void* q, const void* k,
                      const void* v, const void* ks, const void* vs,
                      const void* tables, const void* lengths, void* out,
-                     int B, int W, int P, int H, int D, int page,
+                     void* ws, int B, int W, int P, int H, int D, int page,
                      int max_pages, float scale, void* stream) {
-  PIT_DISPATCH(launch_verify, q, k, v, ks, vs, tables, lengths, out, B, W,
-               P, H, D, page, max_pages, scale,
+  PIT_DISPATCH(launch_verify, q, k, v, ks, vs, tables, lengths, out, ws, B,
+               W, P, H, D, page, max_pages, scale,
                static_cast<cudaStream_t>(stream))
 }
 

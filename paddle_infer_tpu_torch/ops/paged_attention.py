@@ -9,9 +9,11 @@ kernel ``paged_decode_kernel`` (``csrc/paged_attention.cu``), which
 replaces the Pallas ``_decode_kernel``; ``paged_attention_verify`` wraps
 ``paged_verify_kernel``, which replaces ``_verify_kernel`` (W query
 lanes per row, lane ``w`` bit for bit the decode kernel at its own
-length).  On a CPU tensor a wrapper runs the kernel's plain PyTorch
-version (``_decode_plain``, ``_verify_plain``); on a CUDA tensor it
-launches the kernel or raises.
+length).  Each kernel splits a row's pages over blocks of
+``split_pages()`` pages and merges the splits in a fixed order through
+a float32 workspace the wrapper allocates.  On a CPU tensor a wrapper
+runs the kernel's plain PyTorch version (``_decode_plain``,
+``_verify_plain``); on a CUDA tensor it launches the kernel or raises.
 
 Quantized pools are ``(int8 payload [P, H, page, D], float32 scales
 [P, H])`` pairs, one scale per (page, head); ``quantize_pages`` builds
@@ -39,14 +41,34 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2,
 _c = ctypes
 _DECODE = _build.register(_build.CudaKernel(
     "paged_decode", "paged_attention.cu", "pit_paged_decode",
-    [_c.c_int, _c.c_int] + [_c.c_void_p] * 8
+    [_c.c_int, _c.c_int] + [_c.c_void_p] * 9
     + [_c.c_int] * 6 + [_c.c_float, _c.c_void_p],
     replaces="paddle_infer_tpu/ops/pallas/paged_attention.py:140"))
 _VERIFY = _build.register(_build.CudaKernel(
     "paged_verify", "paged_attention.cu", "pit_paged_verify",
-    [_c.c_int, _c.c_int] + [_c.c_void_p] * 8
+    [_c.c_int, _c.c_int] + [_c.c_void_p] * 9
     + [_c.c_int] * 7 + [_c.c_float, _c.c_void_p],
     replaces="paddle_infer_tpu/ops/pallas/paged_attention.py:317"))
+_split_pages = None
+
+
+def split_pages() -> int:
+    """Pages of a row per decode / verify block (the kernels' one
+    ``kSplitPages``), read once from the built source."""
+    global _split_pages
+    if _split_pages is None:
+        fn = _build.load(_DECODE.source).pit_paged_split_pages
+        fn.restype = _c.c_int
+        _split_pages = int(fn())
+    return _split_pages
+
+
+def _workspace(rows, max_pages, d, device):
+    """The splits' (m, l, acc[D]) in float32: ``[*rows, splits, D + 2]``
+    with ``rows`` the leading dims (``(B, H)`` or ``(B, W, H)``)."""
+    splits = -(-max_pages // split_pages())
+    return torch.empty(*rows, splits, d + 2, dtype=torch.float32,
+                       device=device)
 
 
 def is_quantized(pages) -> bool:
@@ -182,11 +204,12 @@ def _decode_cuda(q, k_pages, v_pages, block_tables, lengths, scale=None):
     b, h, d = q.shape
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
     out = torch.empty_like(q)
+    ws = _workspace((b, h), block_tables.shape[1], d, q.device)
     p = _build.ptr
     _DECODE(DTYPE_CODES[q.dtype], kvdt, p(q), p(k), p(v),
             p(ks) if ks is not None else None,
             p(vs) if vs is not None else None,
-            p(block_tables), p(lengths), p(out),
+            p(block_tables), p(lengths), p(out), p(ws),
             b, k.shape[0], h, d, k.shape[2], block_tables.shape[1],
             float(scale), _build.stream_ptr())
     return out
@@ -235,11 +258,12 @@ def _verify_cuda(q, k_pages, v_pages, block_tables, lengths, scale=None):
                                             int_shape=(b, w))
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
     out = torch.empty_like(q)
+    ws = _workspace((b, w, h), block_tables.shape[1], d, q.device)
     p = _build.ptr
     _VERIFY(DTYPE_CODES[q.dtype], kvdt, p(q), p(k), p(v),
             p(ks) if ks is not None else None,
             p(vs) if vs is not None else None,
-            p(block_tables), p(lengths), p(out),
+            p(block_tables), p(lengths), p(out), p(ws),
             b, w, k.shape[0], h, d, k.shape[2], block_tables.shape[1],
             float(scale), _build.stream_ptr())
     return out
@@ -259,7 +283,8 @@ def paged_attention_verify(q, k_pages, v_pages, block_tables, lengths,
     → [B, W, H, D] in q's dtype
 
     Lane ``(b, w)`` is ``paged_attention_decode(q[:, w], ...,
-    lengths[:, w])[b]`` bit for bit, in one page walk per row.  A CPU
+    lengths[:, w])[b]`` bit for bit; a block reads its split's pages
+    once for all its lanes.  A CPU
     ``q`` runs the plain version; a CUDA ``q`` launches the
     ``paged_verify`` kernel (contiguous int32 tables/lengths required)
     or raises."""

@@ -252,18 +252,17 @@ def test_wrappers_raise_on_cuda_without_a_card(monkeypatch):
                       "q": TFA._DQ.launches}
 
 
-@pytest.mark.parametrize("d", [64, 128, 256, 96])
+@pytest.mark.parametrize("d", [64, 128, 256, 96, 26, 32])
 def test_sdpa_choice_on_cuda_tensors(d):
     """On a CUDA tensor ``sdpa`` takes the kernels for every head_dim they
-    take and raises for any other; only a dense mask goes plain."""
+    take and plain attention for any other (the reference's routing:
+    ernie-3.0-nano has head_dim 26, -micro and -mini 32); a dense mask
+    goes plain at every head_dim."""
     q, mask = _fake_cuda([(1, 8, 2, d), (8, 8)],
                          [torch.bfloat16, torch.bool])
     assert TA._attn_impl_choice(q, q, mask) == "xla"
-    if d in TFA.HEAD_DIMS:
-        assert TA._attn_impl_choice(q, q, None) == "flash"
-    else:
-        with pytest.raises(NotImplementedError, match="head_dim 96"):
-            TA._attn_impl_choice(q, q, None)
+    want = "flash" if d in (64, 128, 256) else "xla"
+    assert TA._attn_impl_choice(q, q, None) == want
 
 
 @pytest.mark.parametrize("entry", ["flash", "hybrid", "sdpa"])
@@ -361,3 +360,30 @@ def test_forward_kernel_ragged_on_card(cuda_device, d):
         torch.testing.assert_close(lse, want_lse, atol=2e-2, rtol=2e-2)
         assert torch.all(o[h:2 * h, sq // 2] == 0)
         assert all(torch.equal(x, y) for x, y in zip(*runs))
+
+
+@pytest.mark.gpu
+def test_sdpa_small_head_dim_on_card_matches_cpu(cuda_device):
+    """``sdpa`` at ernie-3.0-mini's attention shape (12 heads of 32) on the
+    card takes plain attention, as the reference does for a head_dim its
+    kernels lack, and agrees with the CPU plain path on the same inputs:
+    segment ids and dropout 0.1 from one key; fp32 at 1e-4 (sums in
+    another order), bf16 at 2e-2 (bf16 products).  No flash kernel
+    launches."""
+    b, s, h, d = 4, 128, 12, 32
+    q, k, v, _ = _qkv(b, s, h, d, seed=11)
+    seg = torch.tensor(_pad_segments(b, s, 13, seed=12))
+    key = jax.random.fold_in(jax.random.key(3), 4)
+    tkey = torch.tensor(np.asarray(jax.random.key_data(key)).astype(
+        np.int64))
+    before = [kern.launches for kern in (TFA._FWD, TFA._DKDV, TFA._DQ)]
+    for dt, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
+        cpu = [torch.tensor(a).to(dt) for a in (q, k, v)]
+        want = TA.sdpa(*cpu, None, tkey, seg, seg, dropout_p=0.1)
+        got = TA.sdpa(*(t.to(cuda_device) for t in cpu), None, tkey,
+                      seg.to(cuda_device), seg.to(cuda_device),
+                      dropout_p=0.1)
+        torch.testing.assert_close(got.cpu().float(), want.float(),
+                                   atol=tol, rtol=tol)
+    assert before == [kern.launches for kern in (TFA._FWD, TFA._DKDV,
+                                                 TFA._DQ)]

@@ -89,6 +89,49 @@ def test_decode_plain_matches_jax_kernel(quantized):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 
+# The card kernels split a row's pages into blocks of kSplitPages = 8
+# (csrc/paged_attention.cu) and change their control flow at page and
+# split boundaries; a table of 20 pages of 4 spans two whole splits and
+# part of a third.  These lengths sit on each side of every boundary.
+SPLIT, B_PAGES, B_PAGE = 8, 20, 4
+BOUNDARY_LENS = (0, 1, B_PAGE - 1, B_PAGE, B_PAGE + 1,
+                 SPLIT * B_PAGE - 1, SPLIT * B_PAGE, SPLIT * B_PAGE + 1,
+                 2 * SPLIT * B_PAGE - 1, 2 * SPLIT * B_PAGE,
+                 2 * SPLIT * B_PAGE + 1, B_PAGES * B_PAGE)
+
+
+def boundary_case(seed, quantized, rows=len(BOUNDARY_LENS)):
+    """Pools and distinct-page tables for ``rows`` rows of a 20-page
+    table of 4-slot pages (h=2, d=8), as (jax pools, torch pools,
+    tables)."""
+    rs = np.random.RandomState(seed)
+    num_pages = rows * B_PAGES + 1
+    k = rs.randn(num_pages, H, B_PAGE, D).astype(np.float32)
+    v = rs.randn(num_pages, H, B_PAGE, D).astype(np.float32)
+    tables = rs.permutation(num_pages)[:rows * B_PAGES].reshape(
+        rows, B_PAGES).astype(np.int32)
+    return (*_both(k, v, quantized), tables)
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+def test_decode_plain_matches_jax_kernel_at_split_boundaries(quantized):
+    """Lengths 0, 1, page +- 1, the split boundaries +- 1 and the full
+    table: where the card kernel's split walk and combine change course,
+    the plain version (its yardstick) still equals the Pallas kernel."""
+    (jk, jv), (tk, tv), tables = boundary_case(30, quantized)
+    lengths = np.asarray(BOUNDARY_LENS, np.int32)
+    q = np.random.RandomState(31).randn(len(lengths), H, D).astype(
+        np.float32)
+    want = JPA.paged_attention_decode(jnp.asarray(q), jk, jv,
+                                      jnp.asarray(tables),
+                                      jnp.asarray(lengths), interpret=True)
+    got = PA.paged_attention_decode(torch.tensor(q), tk, tv,
+                                    torch.tensor(tables),
+                                    torch.tensor(lengths))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    assert not got[0].any()                       # length 0: zeros
+
+
 def _ragged_inputs(seed):
     rs = np.random.RandomState(seed)
     c = 6
@@ -225,3 +268,84 @@ def test_prefix_prefill_attention_matches_jax(quantized):
                                       torch.tensor(tables),
                                       torch.tensor(offsets))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+# ------------------------------------------------------------- on the card
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda")
+
+
+CARD_TOL = {"fp32": 1e-4, "bf16": 2e-2, "int8": 2e-2}
+
+
+def _card_pools(kind, k, v):
+    """(kernel pools, float32 pools holding the same stored values)."""
+    if kind == "fp32":
+        return (k, v), (k, v)
+    if kind == "bf16":
+        kb, vb = k.to(torch.bfloat16), v.to(torch.bfloat16)
+        return (kb, vb), (kb.float(), vb.float())
+    kq, vq = PA.quantize_pages(k), PA.quantize_pages(v)
+    return (kq, vq), (kq, vq)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [64, 128, 256])
+def test_decode_and_verify_kernels_on_card(cuda_device, d):
+    """The split decode and verify kernels at lengths on each side of
+    every page and split boundary (page 16, a table of 2.5 splits; the
+    split from ``PA.split_pages()``), fp32, bf16 and int8 pools: each
+    allclose to its plain version (fp32 1e-4, bf16 / int8 2e-2: bf16
+    queries and pages, sums in another order); every verify lane EQUAL
+    to the decode kernel at its length; each kernel bit-equal across two
+    launches; each row bit-equal whether run in the batch or alone."""
+    split, page = PA.split_pages(), 16
+    max_pages = 2 * split + split // 2
+    t = split * page
+    lens = [0, 1, page - 1, page, page + 1, t - 1, t, t + 1, 2 * t - 1,
+            2 * t, 2 * t + 1, max_pages * page]
+    b, h, w = len(lens), 4, 5
+    rs = np.random.RandomState(d)
+    num_pages = b * max_pages + 1
+    mk = lambda *shape: torch.tensor(rs.randn(*shape).astype(np.float32),
+                                     device=cuda_device)
+    k, v = mk(num_pages, h, page, d), mk(num_pages, h, page, d)
+    tables = torch.tensor(rs.permutation(num_pages)[:b * max_pages].reshape(
+        b, max_pages).astype(np.int32), device=cuda_device)
+    lengths = torch.tensor(lens, dtype=torch.int32, device=cuda_device)
+    vlens = torch.clamp(lengths[:, None] - (w - 1)
+                        + torch.arange(w, device=cuda_device)[None],
+                        min=0).int().contiguous()
+    q32, qv32 = mk(b, h, d), mk(b, w, h, d)
+    for kind in ("fp32", "bf16", "int8"):
+        (kp, vp), (kr, vr) = _card_pools(kind, k, v)
+        qdt = torch.float32 if kind == "fp32" else torch.bfloat16
+        q, qv = q32.to(qdt), qv32.to(qdt)
+        tol = CARD_TOL[kind]
+        dec = [PA.paged_attention_decode(q, kp, vp, tables, lengths)
+               for _ in range(2)]
+        ver = [PA.paged_attention_verify(qv, kp, vp, tables, vlens)
+               for _ in range(2)]
+        torch.cuda.synchronize()
+        torch.testing.assert_close(
+            dec[0].float(), PA._decode_plain(q.float(), kr, vr, tables,
+                                             lengths), atol=tol, rtol=tol)
+        torch.testing.assert_close(
+            ver[0].float(), PA._verify_plain(qv.float(), kr, vr, tables,
+                                             vlens), atol=tol, rtol=tol)
+        assert torch.equal(dec[0], dec[1]) and torch.equal(ver[0], ver[1])
+        assert not dec[0][0].any()                 # length 0: zeros
+        for lane in range(w):
+            assert torch.equal(ver[0][:, lane], PA.paged_attention_decode(
+                qv[:, lane].contiguous(), kp, vp, tables,
+                vlens[:, lane].contiguous())), (kind, lane)
+        for row in range(b):
+            one = slice(row, row + 1)
+            assert torch.equal(dec[0][one], PA.paged_attention_decode(
+                q[one], kp, vp, tables[one], lengths[one])), (kind, row)
+            assert torch.equal(ver[0][one], PA.paged_attention_verify(
+                qv[one], kp, vp, tables[one], vlens[one])), (kind, row)

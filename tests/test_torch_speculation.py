@@ -112,6 +112,33 @@ def test_verify_plain_matches_jax_kernel(quantized):
 
 
 @pytest.mark.parametrize("quantized", [False, True])
+def test_verify_plain_matches_jax_kernel_across_split_boundaries(quantized):
+    """Verify lanes that straddle the card kernel's page and split
+    boundaries (a 20-page table of 4-slot pages, splits of 8 pages: see
+    ``test_torch_paged_attention.BOUNDARY_LENS``), a row of length 0 and
+    the full table: the plain version still equals the Pallas kernel.
+    A row's lanes are at least 1 where its last lane is: beside a longer
+    lane, the Pallas verify kernel gives a lane of length 0 the mean of V
+    over its first page, where its decode kernel gives zeros (serving's
+    lanes are ctx + j + 1 >= 1)."""
+    from test_torch_paged_attention import BOUNDARY_LENS, D, H, boundary_case
+
+    (jk, jv), (tk, tv), tables = boundary_case(40, quantized)
+    w = 5
+    last = np.asarray(BOUNDARY_LENS)
+    lens = np.clip(last[:, None] - (w - 1) + np.arange(w)[None],
+                   np.minimum(last, 1)[:, None], None).astype(np.int32)
+    q = np.random.RandomState(41).randn(len(last), w, H, D).astype(
+        np.float32)
+    want = np.asarray(JPA.paged_attention_verify(
+        jnp.asarray(q), jk, jv, jnp.asarray(tables), jnp.asarray(lens),
+        interpret=True))
+    got = PA.paged_attention_verify(torch.tensor(q), tk, tv,
+                                    torch.tensor(tables), torch.tensor(lens))
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+
+
+@pytest.mark.parametrize("quantized", [False, True])
 def test_verify_lanes_equal_decode_plain(quantized):
     q, _, (tk, tv), tables, lens = _verify_case(1, quantized)
     tq, tt, tl = torch.tensor(q), torch.tensor(tables), torch.tensor(lens)
