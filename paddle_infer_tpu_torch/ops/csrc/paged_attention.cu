@@ -84,12 +84,15 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kTQ = 16;          // queries per ragged tile
 constexpr int kMaxDPT = 2;       // head dims per thread in the ragged PV loop
 constexpr int kSplitPages = 8;   // pages of a row per decode / verify block
-constexpr int kChunk = 16;       // slots per ring unit (one warp's softmax)
+constexpr int kChunk = 16;       // slots per ring unit (a half-warp's softmax)
 constexpr int kMaxStages = 4;    // ring depth
 constexpr int kRingBytes = 48 * 1024;  // ring budget of one block
 constexpr int kVerifyLanes = 8;  // verify lanes sharing one block's walk
-constexpr int kQPL = 8;          // query values one score thread holds
-static_assert(kChunk <= 32, "one warp runs a unit's softmax");
+constexpr int kVerifyMinBlocks = 1;  // verify blocks an SM (launch bounds)
+constexpr int kSlotThreads = kThreads / kChunk;  // score threads a slot, at most
+constexpr int kPVDims = 4;       // head dims a thread accumulates in p*V
+static_assert(kChunk <= 16, "one half-warp runs a unit's softmax");
+static_assert(kVerifyLanes <= 2 * kThreads / 32, "a half-warp per lane");
 static_assert(kMaxStages <= 4, "cp_async_wait takes depths 0..2");
 
 enum DType { kF32 = 0, kBF16 = 1, kF16 = 2, kI8 = 3 };
@@ -128,28 +131,21 @@ __device__ __forceinline__ void load16(const T* p, float* out) {
 
 // ------------------------------------------------------- decode / verify
 
-// Page elements one thread handles as a vector: 4 f32 (16 bytes) or 8
-// bf16 / f16 (16 bytes) / int8 (8 bytes).
+// Page elements one score thread reads as a vector: 4 f32 (16 bytes) or
+// 8 bf16 / f16 (16 bytes) / int8 (8 bytes).
 template <typename KT>
 struct Vec {
   static constexpr int N = sizeof(KT) == 4 ? 4 : 8;
 };
 
-// One vector of page elements from shared memory, as floats.
-template <typename KT>
-__device__ __forceinline__ void lds_vec(const KT* p, float* out) {
-  constexpr int N = Vec<KT>::N;
-  if constexpr (N * sizeof(KT) == 16) {
-    const uint4 raw = *reinterpret_cast<const uint4*>(p);
-    const KT* e = reinterpret_cast<const KT*>(&raw);
+// n consecutive page elements from shared memory, as floats, in one load
+// of n * sizeof(KT) bytes (4 to 16).
+template <typename KT, int N>
+__device__ __forceinline__ void lds_n(const KT* p, float* out) {
+  struct alignas(N * sizeof(KT)) Pack { KT e[N]; };
+  const Pack raw = *reinterpret_cast<const Pack*>(p);
 #pragma unroll
-    for (int i = 0; i < N; ++i) out[i] = to_f(e[i]);
-  } else {
-    const uint2 raw = *reinterpret_cast<const uint2*>(p);
-    const KT* e = reinterpret_cast<const KT*>(&raw);
-#pragma unroll
-    for (int i = 0; i < N; ++i) out[i] = to_f(e[i]);
-  }
+  for (int i = 0; i < N; ++i) out[i] = to_f(raw.e[i]);
 }
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
@@ -189,7 +185,7 @@ __host__ __device__ __forceinline__ int row_pages(int len, int page,
   return n > max_pages ? max_pages : n;
 }
 
-// Ring stages for units of min(page, kChunk) rows of K and V.
+// Rows of K (and of V) in one ring unit: a page, or kChunk of its slots.
 __host__ __device__ __forceinline__ int ring_rows(int page) {
   return page < kChunk ? page : kChunk;
 }
@@ -210,27 +206,41 @@ struct SplitLayout {
   int sc, p, alpha, ml, red, q, pid, ksc, vsc, total;
   __host__ __device__ SplitLayout(int nl, int D, int page, int esize,
                                   int stages) {
-    const int vec = esize == 4 ? 4 : 8;
-    const int nvec = D / vec;
-    const int G = nvec < 32 ? nvec : 32;
     int off = stages * 2 * ring_rows(page) * D * esize;  // the ring
-    sc = take(off, nl * kChunk * 4);      // [nl][kChunk] scores
-    p = take(off, nl * kChunk * 4);       // [nl][kChunk] weights
-    alpha = take(off, nl * 4);            // [nl] rescale of the sum
-    ml = take(off, 2 * nl * 4);           // [nl][m, l]
-    red = take(off, kThreads * vec * 4);  // [nsg][D] partial sums
-    q = take(off, nl * G * kQPL * 4);     // [nl][G][kQPL] queries
-    pid = take(off, kSplitPages * 4);     // the split's page ids
-    ksc = take(off, kSplitPages * 4);     // and their int8 scales
+    sc = take(off, nl * kChunk * 4);         // [nl][kChunk] scores
+    p = take(off, nl * kChunk * 4);          // [nl][kChunk] weights
+    alpha = take(off, nl * 4);               // [nl] rescale of the sum
+    ml = take(off, 2 * nl * 4);              // [nl][m, l]
+    red = take(off, kThreads * kPVDims * 4); // [groups][D] partial sums
+    q = take(off, nl * D * 4);               // [nl][G][D / G] queries
+    pid = take(off, kSplitPages * 4);        // the split's page ids
+    ksc = take(off, kSplitPages * 4);        // and their int8 scales
     vsc = take(off, kSplitPages * 4);
     total = off;
   }
 };
 
+// The scores' thread mapping: G threads a slot (G <= kSlotThreads, so a
+// unit's slots take one pass), each reading vpl vectors of the slot's K
+// row: vectors lig, lig + G, ...
+template <typename KT>
+struct ScoreMap {
+  int G, vpl, gid, lig;
+  __device__ __forceinline__ explicit ScoreMap(int D) {
+    const int nvec = D / Vec<KT>::N;
+    G = nvec < kSlotThreads ? nvec : kSlotThreads;
+    vpl = nvec / G;
+    gid = threadIdx.x / G;
+    lig = threadIdx.x % G;
+  }
+};
+
 // Scores of one unit (ns <= kChunk slots of K in shared memory, row
-// stride D) for every lane in `act`: slot s is dotted by thread group gid
-// (G threads, vpl vectors each), reduced by xor-shuffles inside the
-// group; slots at or past the lane's length score kNegInf.
+// stride D) for every lane in `act`: each thread dots its vectors of one
+// slot with the lane's query (fixed order), the group's G partial sums
+// meet by xor-shuffles, and slots at or past the lane's length score
+// kNegInf.  The lanes' shuffles interleave; each lane's own sequence of
+// operations is the same whatever NL is.
 template <typename KT, int NL>
 __device__ __forceinline__ void unit_scores(const KT* ks, const float* qs,
                                             float* sc, const int* len,
@@ -238,77 +248,76 @@ __device__ __forceinline__ void unit_scores(const KT* ks, const float* qs,
                                             int pos0, float kscale,
                                             float scale) {
   constexpr int VEC = Vec<KT>::N;
-  const int tid = threadIdx.x;
-  const int nvec = D / VEC;
-  const int G = nvec < 32 ? nvec : 32;
-  const int vpl = nvec / G, ngroups = kThreads / G;
-  const int gid = tid / G, lig = tid % G;
-  for (int s0 = 0; s0 < ns; s0 += ngroups) {
-    const int s = s0 + gid;
+  const ScoreMap<KT> sm(D);
+  const int qpl = sm.vpl * VEC;
+  for (int s0 = 0; s0 < ns; s0 += kThreads / sm.G) {
+    const int s = s0 + sm.gid;
     float part[NL];
 #pragma unroll
     for (int w = 0; w < NL; ++w) part[w] = 0.f;
     if (s < ns) {
+      for (int v = 0; v < sm.vpl; ++v) {
+        float kf[VEC];
+        lds_n<KT, VEC>(ks + s * D + (sm.lig + v * sm.G) * VEC, kf);
 #pragma unroll
-      for (int v = 0; v < kQPL / VEC; ++v) {
-        if (v < vpl) {
-          float kf[VEC];
-          lds_vec<KT>(ks + s * D + (lig + v * G) * VEC, kf);
+        for (int w = 0; w < NL; ++w) {
+          if (act >> w & 1u) {
+            const float* qw = qs + (w * sm.G + sm.lig) * qpl + v * VEC;
 #pragma unroll
-          for (int w = 0; w < NL; ++w) {
-            if (act >> w & 1u) {
-              const float* qw = qs + (w * G + lig) * kQPL + v * VEC;
-#pragma unroll
-              for (int e = 0; e < VEC; e += 4) {
-                const float4 q4 = *reinterpret_cast<const float4*>(qw + e);
-                part[w] = __fmaf_rn(q4.x, kf[e], part[w]);
-                part[w] = __fmaf_rn(q4.y, kf[e + 1], part[w]);
-                part[w] = __fmaf_rn(q4.z, kf[e + 2], part[w]);
-                part[w] = __fmaf_rn(q4.w, kf[e + 3], part[w]);
-              }
+            for (int e = 0; e < VEC; e += 4) {
+              const float4 q4 = *reinterpret_cast<const float4*>(qw + e);
+              part[w] = __fmaf_rn(q4.x, kf[e], part[w]);
+              part[w] = __fmaf_rn(q4.y, kf[e + 1], part[w]);
+              part[w] = __fmaf_rn(q4.z, kf[e + 2], part[w]);
+              part[w] = __fmaf_rn(q4.w, kf[e + 3], part[w]);
             }
           }
         }
       }
     }
+    for (int off = sm.G / 2; off > 0; off >>= 1) {
 #pragma unroll
-    for (int w = 0; w < NL; ++w) {
-      if (act >> w & 1u) {
-        for (int off = G / 2; off > 0; off >>= 1)
+      for (int w = 0; w < NL; ++w)
+        if (act >> w & 1u)
           part[w] = __fadd_rn(part[w],
                               __shfl_xor_sync(0xffffffffu, part[w], off));
-        if (s < ns && lig == 0)
+    }
+    if (s < ns && sm.lig == 0) {
+#pragma unroll
+      for (int w = 0; w < NL; ++w)
+        if (act >> w & 1u)
           sc[w * kChunk + s] =
               pos0 + s < len[w]
                   ? __fmul_rn(__fmul_rn(part[w], kscale), scale)
                   : kNegInf;
-      }
     }
   }
 }
 
 // One lane's online-softmax update from one unit's scores, run by ONE
-// warp (thread t holds slot t): m and l (ml[0], ml[1]) advance, and the
-// slots' weights p and the earlier sum's rescale alpha are left in shared
-// memory for every thread.
+// half-warp (thread t holds slot t); the whole warp calls it, and a half
+// whose lane is not `on` computes but writes nothing.  m and l (ml[0],
+// ml[1]) advance; each slot's weight times the page's V scale (p) and the
+// earlier sum's rescale (alpha) are left in shared memory.
 __device__ __forceinline__ void unit_softmax(const float* sc, float* p,
                                              float* alpha, float* ml,
-                                             int ns) {
-  const int t = threadIdx.x & 31;
+                                             int ns, float vscale,
+                                             bool on) {
+  const int t = threadIdx.x & 15;
   const float x = t < ns ? sc[t] : kNegInf;
   float mc = x;
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
+  for (int off = 8; off > 0; off >>= 1)
     mc = fmaxf(mc, __shfl_xor_sync(0xffffffffu, mc, off));
   const float m = ml[0];
   const float mn = fmaxf(m, mc);
   const float pt = t < ns ? expf(__fsub_rn(x, mn)) : 0.f;
   float ps = pt;
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
+  for (int off = 8; off > 0; off >>= 1)
     ps = __fadd_rn(ps, __shfl_xor_sync(0xffffffffu, ps, off));
-  if (t < ns) p[t] = pt;
-  if (t == 0) {
+  if (on && t < ns) p[t] = __fmul_rn(pt, vscale);
+  if (on && t == 0) {
     const float a = expf(__fsub_rn(m, mn));
     *alpha = a;
     ml[0] = mn;
@@ -316,34 +325,43 @@ __device__ __forceinline__ void unit_softmax(const float* sc, float* p,
   }
 }
 
-// p*V of one unit into this thread's accumulators: head-dim vector vi,
-// slots sg, sg + nsg, ...; each lane's sum is first rescaled by alpha.
+// The p*V mapping: each thread holds kPVDims consecutive head dims (vi)
+// for the slots of its slot group (sg): sg, sg + nsg, ...
+struct PVMap {
+  int vi, sg, nsg;
+  __device__ __forceinline__ explicit PVMap(int D) {
+    const int nv = D / kPVDims;
+    vi = threadIdx.x % nv;
+    sg = threadIdx.x / nv;
+    nsg = kThreads / nv;
+  }
+};
+
+// p*V of one unit into this thread's accumulators, each lane's sum first
+// rescaled by alpha.
 template <typename KT, int NL>
 __device__ __forceinline__ void unit_pv(const KT* vs, const float* p,
                                         const float* alpha, unsigned act,
-                                        int ns, int D, float vscale,
-                                        float (&acc)[NL][Vec<KT>::N]) {
-  constexpr int VEC = Vec<KT>::N;
-  const int tid = threadIdx.x;
-  const int nvec = D / VEC;
-  const int vi = tid % nvec, sg = tid / nvec, nsg = kThreads / nvec;
+                                        int ns, int D,
+                                        float (&acc)[NL][kPVDims]) {
+  const PVMap pm(D);
 #pragma unroll
   for (int w = 0; w < NL; ++w) {
     if (act >> w & 1u) {
       const float a = alpha[w];
 #pragma unroll
-      for (int e = 0; e < VEC; ++e) acc[w][e] = __fmul_rn(acc[w][e], a);
+      for (int e = 0; e < kPVDims; ++e) acc[w][e] = __fmul_rn(acc[w][e], a);
     }
   }
-  for (int s = sg; s < ns; s += nsg) {
-    float vf[VEC];
-    lds_vec<KT>(vs + s * D + vi * VEC, vf);
+  for (int s = pm.sg; s < ns; s += pm.nsg) {
+    float vf[kPVDims];
+    lds_n<KT, kPVDims>(vs + s * D + pm.vi * kPVDims, vf);
 #pragma unroll
     for (int w = 0; w < NL; ++w) {
       if (act >> w & 1u) {
-        const float pv = __fmul_rn(p[w * kChunk + s], vscale);
+        const float pv = p[w * kChunk + s];
 #pragma unroll
-        for (int e = 0; e < VEC; ++e)
+        for (int e = 0; e < kPVDims; ++e)
           acc[w][e] = __fmaf_rn(pv, vf[e], acc[w][e]);
       }
     }
@@ -403,15 +421,14 @@ __device__ __forceinline__ void split_walk(
     vss[i] = vsc ? vsc[ph] : 1.f;
   }
   // each lane's query, laid out per (lane, score thread lig)
-  const int nvec = D / VEC;
-  const int G = nvec < 32 ? nvec : 32;
-  const int vpl = nvec / G;
-  for (int i = tid; i < nl * G * kQPL; i += kThreads) {
-    const int w = i / (G * kQPL), r = i % (G * kQPL);
-    const int li = r / kQPL, v = (r % kQPL) / VEC, e = r % VEC;
+  const ScoreMap<KT> sm(D);
+  const int qpl = sm.vpl * VEC;
+  for (int i = tid; i < nl * D; i += kThreads) {
+    const int w = i / D, r = i % D;
+    const int li = r / qpl, v = (r % qpl) / VEC, e = r % VEC;
     const QT* qrow =
         q + ((static_cast<size_t>(b) * W + w0 + w) * H + h) * D;
-    qs[i] = v < vpl ? to_f(qrow[(li + v * G) * VEC + e]) : 0.f;
+    qs[i] = to_f(qrow[(li + v * sm.G) * VEC + e]);
   }
   if (tid < NL) {
     ml[2 * tid] = kNegInf;
@@ -434,17 +451,18 @@ __device__ __forceinline__ void split_walk(
     copy_async(dst + rows * D, vp + src, bytes);
   };
 
-  float acc[NL][VEC];
+  float acc[NL][kPVDims];
 #pragma unroll
   for (int w = 0; w < NL; ++w)
 #pragma unroll
-    for (int e = 0; e < VEC; ++e) acc[w][e] = 0.f;
+    for (int e = 0; e < kPVDims; ++e) acc[w][e] = 0.f;
 
   for (int u = 0; u < stages - 1; ++u) {
     if (u < nu) issue(u);
     cp_async_commit();
   }
-  const int warp = tid >> 5;
+  // the softmax of lane hw runs in half-warp hw (a warp holds two lanes)
+  const int hw = tid >> 4, hwl = hw < NL ? hw : 0;
   for (int u = 0; u < nu; ++u) {
     cp_async_wait(stages - 2);
     // unit u has landed, and every thread is done with unit u - 1, whose
@@ -463,23 +481,23 @@ __device__ __forceinline__ void split_walk(
     const KT* kst = ring + static_cast<size_t>(u % stages) * 2 * rows * D;
     unit_scores<KT, NL>(kst, qs, sc, len, act, ns, D, pos0, kss[j], scale);
     __syncthreads();
-    for (int w = warp; w < NL; w += kWarps)
-      if (act >> w & 1u)
-        unit_softmax(sc + w * kChunk, pw + w * kChunk, al + w, ml + 2 * w,
-                     ns);
+    if (act >> (hw & ~1) & 3u)             // a lane of this warp is on
+      unit_softmax(sc + hwl * kChunk, pw + hwl * kChunk, al + hwl,
+                   ml + 2 * hwl, ns, vss[j], hw < NL && (act >> hw & 1u));
     __syncthreads();
-    unit_pv<KT, NL>(kst + rows * D, pw, al, act, ns, D, vss[j], acc);
+    unit_pv<KT, NL>(kst + rows * D, pw, al, act, ns, D, acc);
   }
   cp_async_wait(0);
 
   // per lane: the slot groups' partial sums in order, then the output (a
   // row's only split) or the split's (m, l, acc) for the combine
-  const int vi = tid % nvec, sg = tid / nvec, nsg = kThreads / nvec;
+  const PVMap pm(D);
 #pragma unroll
   for (int w = 0; w < NL; ++w) {
     if (w < nl && p0 < np[w]) {
 #pragma unroll
-      for (int e = 0; e < VEC; ++e) red[sg * D + vi * VEC + e] = acc[w][e];
+      for (int e = 0; e < kPVDims; ++e)
+        red[pm.sg * D + pm.vi * kPVDims + e] = acc[w][e];
       __syncthreads();
       const int n = (np[w] + kSplitPages - 1) / kSplitPages;
       const size_t row = (static_cast<size_t>(b) * W + w0 + w) * H + h;
@@ -487,7 +505,7 @@ __device__ __forceinline__ void split_walk(
       float* part = ws + (row * nsplit + s) * (D + 2);
       for (int d = tid; d < D; d += kThreads) {
         float a = 0.f;
-        for (int g = 0; g < nsg; ++g) a = __fadd_rn(a, red[g * D + d]);
+        for (int g = 0; g < pm.nsg; ++g) a = __fadd_rn(a, red[g * D + d]);
         if (n == 1)
           out[row * D + d] = from_f<QT>(__fdiv_rn(a, fmaxf(l, 1e-20f)));
         else
@@ -553,7 +571,8 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
 }
 
 template <typename QT, typename KT>
-__global__ void __launch_bounds__(kThreads) paged_verify_kernel(
+__global__ void __launch_bounds__(kThreads, kVerifyMinBlocks)
+    paged_verify_kernel(
     const QT* __restrict__ q, const KT* __restrict__ kp,
     const KT* __restrict__ vp, const float* __restrict__ ksc,
     const float* __restrict__ vsc, const int* __restrict__ tables,
