@@ -458,7 +458,7 @@ def check_kernels(case, kinds=("fp32", "bf16", "int8"), timed=True):
     return results
 
 
-def variant_sweep(device, variants, kinds=("bf16",)):
+def variant_sweep(device, variants, kinds=("bf16", "int8")):
     """``--variant-sweep``: decode and verify at phase 3's shapes for each
     variant, a ``{constant: value}`` edit of ``csrc/paged_attention.cu``
     (``constexpr int NAME = VALUE;`` lines only), built in parallel and

@@ -29,12 +29,22 @@
 //   contiguous elements of the pool, taken in units of at most kChunk
 //   slots — through a ring of 2..kMaxStages stages in shared memory with
 //   16-byte cp.async copies, stages-1 units ahead of the compute.
-// - One softmax per slot.  Per unit, each group of G threads dots one
-//   slot with the query (shuffle reduction), the scores meet in shared
-//   memory, ONE warp per query lane runs the online-softmax update (m, l
-//   in f32, one expf per slot) and leaves p and alpha in shared memory,
-//   and every thread accumulates p*V for its own slots and head-dim
-//   vector.
+// - Per unit, two walks, chosen by the page and query types:
+//   * tensor cores (split_walk_mma) for bf16 / f16 queries over 16-bit or
+//     int8 pages with D % 16 == 0 — the serving case.  The block's lanes
+//     are the rows of m16n8k16 tiles: every warp computes the unit's
+//     scores S = Q K^T (K fragments by ldmatrix from a ring whose 16-byte
+//     chunks are XOR-swizzled by row; int8 units widened exactly to the
+//     query type once, by the whole block), runs each lane's online
+//     softmax in the quad of threads holding its row (one expf per slot,
+//     m and l in f32), and adds P V for its quarter of the head dims.
+//     One barrier a unit, to hand the ring stage over.
+//   * CUDA cores (split_walk) for f32 queries and other head dims: each
+//     group of at most 8 threads dots one slot with every lane's query
+//     (shuffle reduction, the lanes interleaved), the scores meet in
+//     shared memory, ONE half-warp per lane runs the online-softmax
+//     update and leaves p and alpha in shared memory, and every thread
+//     accumulates p*V for its own slots and 4 head dims.
 // - Fixed-order combine.  A split that is its row's only split writes the
 //   output itself; otherwise it writes (m, l, acc[D]) in f32 to a
 //   workspace [rows, H, splits, D+2] and a combine kernel merges splits
@@ -42,13 +52,14 @@
 //   only on its own q, length, table and pool — not on B, not on the
 //   other rows, not on the launch.
 //
-// The decode kernel is the verify kernel's code at one lane: both run
-// split_walk (NL = 1 and kVerifyLanes lanes) and combine_rows, whose
-// per-lane arithmetic does not depend on NL (explicit _rn intrinsics, so
-// no contraction can differ between the two).  A verify block reads its
-// split's K and V once for all its lanes; lane w takes part only in the
-// units that start before its own length — the units the decode kernel
-// walks at that length — and its combine runs over its own splits.
+// The decode kernel is the verify kernel's code at one lane: both run the
+// same walk (NL = 1 and kVerifyLanes lanes) and combine_rows, and a
+// lane's arithmetic does not depend on NL — explicit _rn intrinsics, so
+// no contraction can differ, and a tensor-core tile row's sums do not
+// depend on the other rows.  A verify block reads its split's K and V
+// once for all its lanes; lane w takes part only in the units that start
+// before its own length — the units the decode kernel walks at that
+// length — and its combine runs over its own splits.
 //
 // ragged_paged_kernel — replaces the Pallas kernel
 //   paddle_infer_tpu/ops/pallas/ragged_paged_attention.py:132
@@ -88,7 +99,6 @@ constexpr int kChunk = 16;       // slots per ring unit (a half-warp's softmax)
 constexpr int kMaxStages = 4;    // ring depth
 constexpr int kRingBytes = 48 * 1024;  // ring budget of one block
 constexpr int kVerifyLanes = 8;  // verify lanes sharing one block's walk
-constexpr int kVerifyMinBlocks = 1;  // verify blocks an SM (launch bounds)
 constexpr int kSlotThreads = kThreads / kChunk;  // score threads a slot, at most
 constexpr int kPVDims = 4;       // head dims a thread accumulates in p*V
 static_assert(kChunk <= 16, "one half-warp runs a unit's softmax");
@@ -383,6 +393,12 @@ __device__ __forceinline__ void split_walk(
   extern __shared__ __align__(16) unsigned char pa_smem[];
   const int tid = threadIdx.x;
   const int nl = W - w0 < NL ? W - w0 : NL;
+  const int p0 = s * kSplitPages;
+  // the split's table entry (one a thread) and the lanes' lengths, all
+  // in flight together
+  const int* trow = tables + static_cast<size_t>(b) * max_pages;
+  const int entry =
+      tid < kSplitPages && p0 + tid < max_pages ? trow[p0 + tid] : 0;
   int len[NL], np[NL];
   int maxlen = 0, maxnp = 0;
 #pragma unroll
@@ -392,7 +408,6 @@ __device__ __forceinline__ void split_walk(
     maxlen = len[w] > maxlen ? len[w] : maxlen;
     maxnp = np[w] > maxnp ? np[w] : maxnp;
   }
-  const int p0 = s * kSplitPages;
   if (p0 >= maxnp) return;                 // no lane reaches this split
   const int npg = maxnp - p0 < kSplitPages ? maxnp - p0 : kSplitPages;
   const int nc = (page + kChunk - 1) / kChunk;   // units per page
@@ -411,24 +426,12 @@ __device__ __forceinline__ void split_walk(
   float* vss = reinterpret_cast<float*>(pa_smem + L.vsc);
 
   // the split's page ids (clamped to [0, P)) and scales, read once
-  const int* trow = tables + static_cast<size_t>(b) * max_pages;
-  for (int i = tid; i < npg; i += kThreads) {
-    int phys = trow[p0 + i];
-    phys = phys < 0 ? 0 : (phys >= P ? P - 1 : phys);
-    pid[i] = phys;
+  if (tid < npg) {
+    const int phys = entry < 0 ? 0 : (entry >= P ? P - 1 : entry);
+    pid[tid] = phys;
     const size_t ph = static_cast<size_t>(phys) * H + h;
-    kss[i] = ksc ? ksc[ph] : 1.f;
-    vss[i] = vsc ? vsc[ph] : 1.f;
-  }
-  // each lane's query, laid out per (lane, score thread lig)
-  const ScoreMap<KT> sm(D);
-  const int qpl = sm.vpl * VEC;
-  for (int i = tid; i < nl * D; i += kThreads) {
-    const int w = i / D, r = i % D;
-    const int li = r / qpl, v = (r % qpl) / VEC, e = r % VEC;
-    const QT* qrow =
-        q + ((static_cast<size_t>(b) * W + w0 + w) * H + h) * D;
-    qs[i] = to_f(qrow[(li + v * sm.G) * VEC + e]);
+    kss[tid] = ksc ? ksc[ph] : 1.f;
+    vss[tid] = vsc ? vsc[ph] : 1.f;
   }
   if (tid < NL) {
     ml[2 * tid] = kNegInf;
@@ -460,6 +463,18 @@ __device__ __forceinline__ void split_walk(
   for (int u = 0; u < stages - 1; ++u) {
     if (u < nu) issue(u);
     cp_async_commit();
+  }
+  // each lane's query, laid out per (lane, score thread lig), loaded
+  // while the first units are in flight (visible after the first unit's
+  // barrier)
+  const ScoreMap<KT> sm(D);
+  const int qpl = sm.vpl * VEC;
+  for (int i = tid; i < nl * D; i += kThreads) {
+    const int w = i / D, r = i % D;
+    const int li = r / qpl, v = (r % qpl) / VEC, e = r % VEC;
+    const QT* qrow =
+        q + ((static_cast<size_t>(b) * W + w0 + w) * H + h) * D;
+    qs[i] = to_f(qrow[(li + v * sm.G) * VEC + e]);
   }
   // the softmax of lane hw runs in half-warp hw (a warp holds two lanes)
   const int hw = tid >> 4, hwl = hw < NL ? hw : 0;
@@ -520,6 +535,380 @@ __device__ __forceinline__ void split_walk(
   }
 }
 
+// ------------------------------------------- the tensor-core split walk
+// 16-bit queries (bf16, f16) over 16-bit or int8 pages, D % 16 == 0.
+// The block's lanes are the rows of an m16n8k16 tile (rows >= the lane
+// count hold zeros): every warp computes the unit's 16 x 16 scores S =
+// Q K^T on the tensor cores (the same S in every warp), runs each lane's
+// online softmax in the quad of threads that holds its row, and adds
+// P V for its own quarter of the head dims.  No barrier inside a unit:
+// the one __syncthreads a unit hands the ring stage over.  Ring stages
+// hold kChunk rows of K and V, their 16-byte chunks XOR-swizzled by row
+// so the fragment loads meet no bank conflict.
+
+template <typename QT, typename KT>
+struct MmaPair {
+  static constexpr bool value =
+      (sizeof(QT) == 2) && (sizeof(KT) == 2 || sizeof(KT) == 1);
+};
+
+__device__ __forceinline__ uint32_t pack2(__nv_bfloat16, float lo,
+                                          float hi) {
+  return static_cast<uint32_t>(__bfloat16_as_ushort(__float2bfloat16(lo))) |
+         static_cast<uint32_t>(__bfloat16_as_ushort(__float2bfloat16(hi)))
+             << 16;
+}
+__device__ __forceinline__ uint32_t pack2(__half, float lo, float hi) {
+  return static_cast<uint32_t>(__half_as_ushort(__float2half(lo))) |
+         static_cast<uint32_t>(__half_as_ushort(__float2half(hi))) << 16;
+}
+
+// D (4 f32) += A (16x16, 4 regs) B (16x8, 2 regs), bf16 or f16 operands
+__device__ __forceinline__ void mma_m16n8k16(__nv_bfloat16, float (&d)[4],
+                                             const uint32_t (&a)[4],
+                                             uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+__device__ __forceinline__ void mma_m16n8k16(__half, float (&d)[4],
+                                             const uint32_t (&a)[4],
+                                             uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// four 8x8 b16 matrices from shared memory; thread i gives the address
+// of row i % 8 of matrix i / 8 (trans: each matrix transposed)
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a));
+}
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
+                                              const void* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a));
+}
+
+// A stage row's layout: `chunks` 16-byte chunks, chunk c of row r stored
+// at chunk c ^ (r & mask).
+struct Swizzle {
+  int row_bytes, mask;
+  __host__ __device__ Swizzle(int D, int esize) {
+    row_bytes = D * esize;
+    const int chunks = row_bytes / 16;
+    mask = (chunks < 8 ? chunks : 8) - 1;
+  }
+  // byte offset of element byte `e` of row r
+  __device__ __forceinline__ int at(int r, int e) const {
+    return r * row_bytes + ((((e >> 4) ^ (r & mask))) << 4) + (e & 15);
+  }
+};
+
+// Byte offsets of one tensor-core split block's shared memory.
+struct MmaLayout {
+  int wide, qa, pid, ksc, vsc, total;
+  __host__ __device__ MmaLayout(int D, int esize, int stages) {
+    int off = stages * 2 * kChunk * D * esize;   // the ring
+    wide = take(off, esize == 1 ? 2 * kChunk * D * 2 : 0);  // int8 widened
+    qa = take(off, (D / 16) * 32 * 2 * 4);       // A fragments of Q
+    pid = take(off, kSplitPages * 4);
+    ksc = take(off, kSplitPages * 4);
+    vsc = take(off, kSplitPages * 4);
+    total = off;
+  }
+};
+
+int mma_stages(int D, int esize) {
+  const int s = kRingBytes / (2 * kChunk * D * esize);
+  return s < 2 ? 2 : (s > kMaxStages ? kMaxStages : s);
+}
+
+// B fragments of K^T at k-step `kstep` for both 8-slot halves of a unit
+// (b[0], b[1]: slots 0..7; b[2], b[3]: slots 8..15) from a 16-bit stage.
+__device__ __forceinline__ void k_frags(const unsigned char* ks,
+                                        const Swizzle& sw, int kstep,
+                                        uint32_t (&b)[4]) {
+  const int lane = threadIdx.x & 31;
+  const int m = lane >> 3, row = 8 * (m >> 1) + (lane & 7);
+  ldsm_x4(b, ks + sw.at(row, (16 * kstep + 8 * (m & 1)) * 2));
+}
+
+// B fragments of V for head-dim tiles dtA (b[0], b[1]: slots 0..7,
+// 8..15) and dtB (b[2], b[3]) from a 16-bit stage.
+__device__ __forceinline__ void v_frags(const unsigned char* vs,
+                                        const Swizzle& sw, int dtA,
+                                        int dtB, uint32_t (&b)[4]) {
+  const int lane = threadIdx.x & 31;
+  const int m = lane >> 3, slot = 8 * (m & 1) + (lane & 7);
+  ldsm_x4_trans(b, vs + sw.at(slot, ((m >> 1) ? dtB : dtA) * 16));
+}
+
+// An int8 stage (K rows, then V rows) widened exactly to the compute type
+// T in `wide`, both in their swizzled layouts; the block's threads share
+// the 16-byte chunks.
+template <typename T>
+__device__ __forceinline__ void widen_unit(const unsigned char* st,
+                                           unsigned char* wide,
+                                           const Swizzle& sw8,
+                                           const Swizzle& sw16) {
+  const int cpr = sw8.row_bytes / 16;               // int8 chunks a row
+  for (int i = threadIdx.x; i < 2 * kChunk * cpr; i += kThreads) {
+    const int r = i / cpr, e = (i % cpr) * 16;      // row of K then V
+    const int rr = r % kChunk, half = (r / kChunk) * kChunk;
+    const unsigned char* src =
+        st + (r / kChunk) * kChunk * sw8.row_bytes + sw8.at(rr, e);
+    const uint4 raw = *reinterpret_cast<const uint4*>(src);
+    const int8_t* v = reinterpret_cast<const int8_t*>(&raw);
+    uint32_t w[8];
+#pragma unroll
+    for (int k = 0; k < 8; ++k)
+      w[k] = pack2(T(), static_cast<float>(v[2 * k]),
+                   static_cast<float>(v[2 * k + 1]));
+    unsigned char* dst = wide + half * sw16.row_bytes;
+    *reinterpret_cast<uint4*>(dst + sw16.at(rr, 2 * e)) =
+        make_uint4(w[0], w[1], w[2], w[3]);
+    *reinterpret_cast<uint4*>(dst + sw16.at(rr, 2 * e + 16)) =
+        make_uint4(w[4], w[5], w[6], w[7]);
+  }
+}
+
+constexpr int kMaxTiles = 256 / 8 / kWarps;  // head-dim tiles a warp holds
+
+// One block's split on the tensor cores: the arguments of split_walk.
+template <typename QT, typename KT, int NL>
+__device__ __forceinline__ void split_walk_mma(
+    const QT* __restrict__ q, const KT* __restrict__ kp,
+    const KT* __restrict__ vp, const float* __restrict__ ksc,
+    const float* __restrict__ vsc, const int* __restrict__ tables,
+    const int* __restrict__ lengths, QT* __restrict__ out,
+    float* __restrict__ ws, int P, int W, int H, int D, int page,
+    int max_pages, int nsplit, int stages, float scale, int b, int h,
+    int s, int w0) {
+  static_assert(NL <= 8, "a lane per row of the tiles' top half");
+  extern __shared__ __align__(16) unsigned char pa_smem[];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, tig = lane & 3;   // this thread's lane: row g
+  const int nl = W - w0 < NL ? W - w0 : NL;
+  const int p0 = s * kSplitPages;
+  // the split's table entry (one a thread) and the lanes' lengths, all
+  // in flight together
+  const int* trow = tables + static_cast<size_t>(b) * max_pages;
+  const int entry =
+      tid < kSplitPages && p0 + tid < max_pages ? trow[p0 + tid] : 0;
+  int maxlen = 0, maxnp = 0;
+#pragma unroll
+  for (int w = 0; w < NL; ++w) {
+    const int lw =
+        w < nl ? lengths[static_cast<size_t>(b) * W + w0 + w] : 0;
+    maxlen = lw > maxlen ? lw : maxlen;
+    const int npw = row_pages(lw, page, max_pages);
+    maxnp = npw > maxnp ? npw : maxnp;
+  }
+  const int my_len =
+      g < nl ? lengths[static_cast<size_t>(b) * W + w0 + g] : 0;
+  const int my_np = row_pages(my_len, page, max_pages);
+  if (p0 >= maxnp) return;                 // no lane reaches this split
+  const int npg = maxnp - p0 < kSplitPages ? maxnp - p0 : kSplitPages;
+  const int nc = (page + kChunk - 1) / kChunk;   // units per page
+  const int nu = npg * nc;
+  const Swizzle sw(D, sizeof(KT));
+  const int stage_bytes = 2 * kChunk * sw.row_bytes;
+  const MmaLayout L(D, sizeof(KT), stages);
+  unsigned char* ring = pa_smem;
+  unsigned char* wide = pa_smem + L.wide;
+  const Swizzle sw16(D, 2);                // the 16-bit stage the tiles read
+  uint32_t* qa = reinterpret_cast<uint32_t*>(pa_smem + L.qa);
+  int* pid = reinterpret_cast<int*>(pa_smem + L.pid);
+  float* kss = reinterpret_cast<float*>(pa_smem + L.ksc);
+  float* vss = reinterpret_cast<float*>(pa_smem + L.vsc);
+
+  if (tid < npg) {
+    const int phys = entry < 0 ? 0 : (entry >= P ? P - 1 : entry);
+    pid[tid] = phys;
+    const size_t ph = static_cast<size_t>(phys) * H + h;
+    kss[tid] = ksc ? ksc[ph] : 1.f;
+    vss[tid] = vsc ? vsc[ph] : 1.f;
+  }
+  // a unit shorter than kChunk leaves stage rows unwritten: zeros, so
+  // that a masked slot's weight 0 never meets a non-finite value
+  if (page % kChunk)
+    for (int i = tid * 16; i < stages * stage_bytes; i += kThreads * 16)
+      *reinterpret_cast<uint4*>(ring + i) = make_uint4(0, 0, 0, 0);
+  __syncthreads();
+
+  auto issue = [&](int u) {
+    const int j = u / nc, c = u % nc;
+    if ((p0 + j) * page + c * kChunk >= maxlen) return;
+    const int ns = page - c * kChunk < kChunk ? page - c * kChunk : kChunk;
+    const size_t src = (static_cast<size_t>(pid[j]) * H + h) * page * D +
+                       static_cast<size_t>(c) * kChunk * D;
+    const char* kg = reinterpret_cast<const char*>(kp + src);
+    const char* vg = reinterpret_cast<const char*>(vp + src);
+    unsigned char* dst = ring + (u % stages) * stage_bytes;
+    const int cpr = sw.row_bytes / 16;
+    for (int i = tid; i < ns * cpr; i += kThreads) {
+      const int at = sw.at(i / cpr, (i % cpr) * 16);
+      cp_async16(dst + at, kg + i * 16);
+      cp_async16(dst + stage_bytes / 2 + at, vg + i * 16);
+    }
+  };
+  for (int u = 0; u < stages - 1; ++u) {
+    if (u < nu) issue(u);
+    cp_async_commit();
+  }
+
+  // Q's A fragments per (k-step, thread), loaded while the first units
+  // are in flight: row g's dims 16ks + 2tig, +1 and 16ks + 2tig + 8, +9;
+  // rows of absent lanes are zeros (visible after the first unit's
+  // barrier)
+  const int nks = D / 16;
+  for (int i = tid; i < nks * 32; i += kThreads) {
+    const int ks = i >> 5, gg = (i & 31) >> 2, tt = i & 3;
+    uint32_t lo = 0, hi = 0;
+    if (gg < nl) {
+      const uint16_t* qr = reinterpret_cast<const uint16_t*>(
+          q + ((static_cast<size_t>(b) * W + w0 + gg) * H + h) * D +
+          16 * ks + 2 * tt);
+      lo = qr[0] | static_cast<uint32_t>(qr[1]) << 16;
+      hi = qr[8] | static_cast<uint32_t>(qr[9]) << 16;
+    }
+    qa[2 * i] = lo;
+    qa[2 * i + 1] = hi;
+  }
+
+  // this warp's head-dim tiles: dt = warp, warp + kWarps, ...
+  const int ntiles = D / 8;
+  const int my_nt = warp < ntiles ? (ntiles - 1 - warp) / kWarps + 1 : 0;
+  float o[kMaxTiles][2];
+#pragma unroll
+  for (int jt = 0; jt < kMaxTiles; ++jt) o[jt][0] = o[jt][1] = 0.f;
+  float m = kNegInf, l = 0.f;
+
+  for (int u = 0; u < nu; ++u) {
+    cp_async_wait(stages - 2);
+    __syncthreads();                       // as in split_walk
+    if (u + stages - 1 < nu) issue(u + stages - 1);
+    cp_async_commit();
+    const int j = u / nc, c = u % nc;
+    const int pos0 = (p0 + j) * page + c * kChunk;
+    if (pos0 >= maxlen) continue;
+    const int ns = page - c * kChunk < kChunk ? page - c * kChunk : kChunk;
+    const bool on = p0 + j < my_np && pos0 < my_len;
+    const unsigned char* kst = ring + (u % stages) * stage_bytes;
+    if constexpr (sizeof(KT) == 1) {       // int8: widen, then as 16-bit
+      widen_unit<QT>(kst, wide, sw, sw16);
+      __syncthreads();
+      kst = wide;
+    }
+    const unsigned char* vst = kst + kChunk * sw16.row_bytes;
+
+    // S = Q K^T: row g, slots 8nt + 2tig (+1) in sacc[nt][0 (1)]
+    float sacc[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+    for (int ks = 0; ks < nks; ++ks) {
+      uint32_t kb[4];
+      k_frags(kst, sw16, ks, kb);
+      const uint2 a2 = *reinterpret_cast<const uint2*>(qa + 2 * (ks * 32 +
+                                                                 lane));
+      const uint32_t a[4] = {a2.x, 0u, a2.y, 0u};
+      mma_m16n8k16(QT(), sacc[0], a, kb[0], kb[1]);
+      mma_m16n8k16(QT(), sacc[1], a, kb[2], kb[3]);
+    }
+    float x[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int slot = 8 * (i >> 1) + 2 * tig + (i & 1);
+      x[i] = slot < ns && pos0 + slot < my_len
+                 ? __fmul_rn(__fmul_rn(sacc[i >> 1][i & 1], kss[j]), scale)
+                 : kNegInf;
+    }
+    // row g's online softmax in its quad: one expf per slot
+    float mc = fmaxf(fmaxf(x[0], x[1]), fmaxf(x[2], x[3]));
+    mc = fmaxf(mc, __shfl_xor_sync(0xffffffffu, mc, 1));
+    mc = fmaxf(mc, __shfl_xor_sync(0xffffffffu, mc, 2));
+    const float mn = fmaxf(m, mc);
+    float pv[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) pv[i] = expf(__fsub_rn(x[i], mn));
+    float ps = __fadd_rn(__fadd_rn(pv[0], pv[1]), __fadd_rn(pv[2], pv[3]));
+    ps = __fadd_rn(ps, __shfl_xor_sync(0xffffffffu, ps, 1));
+    ps = __fadd_rn(ps, __shfl_xor_sync(0xffffffffu, ps, 2));
+    float a = 1.f;
+    if (on) {
+      a = expf(__fsub_rn(m, mn));
+      l = __fmaf_rn(l, a, ps);
+      m = mn;
+    } else {
+      pv[0] = pv[1] = pv[2] = pv[3] = 0.f;
+    }
+    const float vs = vss[j];
+    const uint32_t pa[4] = {
+        pack2(QT(), __fmul_rn(pv[0], vs), __fmul_rn(pv[1], vs)), 0u,
+        pack2(QT(), __fmul_rn(pv[2], vs), __fmul_rn(pv[3], vs)), 0u};
+
+    // O (row g, this warp's tiles) = alpha O + P V
+#pragma unroll
+    for (int jt = 0; jt < kMaxTiles; jt += 2) {
+      if (jt < my_nt) {
+        const int dtA = warp + kWarps * jt;
+        const bool two = jt + 1 < my_nt;
+        uint32_t vb[4];
+        v_frags(vst, sw16, dtA, two ? dtA + kWarps : dtA, vb);
+        float d0[4] = {__fmul_rn(o[jt][0], a), __fmul_rn(o[jt][1], a), 0.f,
+                       0.f};
+        mma_m16n8k16(QT(), d0, pa, vb[0], vb[1]);
+        o[jt][0] = d0[0];
+        o[jt][1] = d0[1];
+        if (two) {
+          float d1[4] = {__fmul_rn(o[jt + 1][0], a),
+                         __fmul_rn(o[jt + 1][1], a), 0.f, 0.f};
+          mma_m16n8k16(QT(), d1, pa, vb[2], vb[3]);
+          o[jt + 1][0] = d1[0];
+          o[jt + 1][1] = d1[1];
+        }
+      }
+    }
+  }
+  cp_async_wait(0);
+
+  // row g: the output (its row's only split) or the split's (m, l, acc)
+  if (g < nl && p0 < my_np) {
+    const int n = (my_np + kSplitPages - 1) / kSplitPages;
+    const size_t row = (static_cast<size_t>(b) * W + w0 + g) * H + h;
+    float* part = ws + (row * nsplit + s) * (D + 2);
+    const float den = fmaxf(l, 1e-20f);
+#pragma unroll
+    for (int jt = 0; jt < kMaxTiles; ++jt) {
+      if (jt < my_nt) {
+        const int d = 8 * (warp + kWarps * jt) + 2 * tig;
+        if (n == 1) {
+          out[row * D + d] = from_f<QT>(__fdiv_rn(o[jt][0], den));
+          out[row * D + d + 1] = from_f<QT>(__fdiv_rn(o[jt][1], den));
+        } else {
+          part[2 + d] = o[jt][0];
+          part[3 + d] = o[jt][1];
+        }
+      }
+    }
+    if (n > 1 && warp == 0 && tig == 0) {
+      part[0] = m;
+      part[1] = l;
+    }
+  }
+}
+
 // Row r (= b * W + w) and head h of the output from its splits' (m, l,
 // acc) in ascending split order; a row of one split was written by its
 // split, a row of length 0 gets zeros.
@@ -557,7 +946,32 @@ __device__ __forceinline__ void combine_rows(const float* __restrict__ ws,
   }
 }
 
+// The split walk for one (QT, KT, D): the tensor-core walk where it
+// applies, else the CUDA-core one; decode and verify always take the
+// same walk.  Each walk is its own kernel instantiation (Mma), so
+// neither pays the other's registers.
 template <typename QT, typename KT>
+bool use_mma(int D) {
+  return MmaPair<QT, KT>::value && D % 16 == 0;
+}
+
+template <typename QT, typename KT, int NL, bool Mma>
+__device__ __forceinline__ void walk(
+    const QT* q, const KT* kp, const KT* vp, const float* ksc,
+    const float* vsc, const int* tables, const int* lengths, QT* out,
+    float* ws, int P, int W, int H, int D, int page, int max_pages,
+    int nsplit, int stages, float scale, int b, int h, int s, int w0) {
+  if constexpr (Mma)
+    split_walk_mma<QT, KT, NL>(q, kp, vp, ksc, vsc, tables, lengths, out,
+                               ws, P, W, H, D, page, max_pages, nsplit,
+                               stages, scale, b, h, s, w0);
+  else
+    split_walk<QT, KT, NL>(q, kp, vp, ksc, vsc, tables, lengths, out, ws,
+                           P, W, H, D, page, max_pages, nsplit, stages,
+                           scale, b, h, s, w0);
+}
+
+template <typename QT, typename KT, bool Mma>
 __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
     const QT* __restrict__ q, const KT* __restrict__ kp,
     const KT* __restrict__ vp, const float* __restrict__ ksc,
@@ -565,24 +979,24 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
     const int* __restrict__ lengths, QT* __restrict__ out,
     float* __restrict__ ws, int P, int H, int D, int page, int max_pages,
     int nsplit, int stages, float scale) {
-  split_walk<QT, KT, 1>(q, kp, vp, ksc, vsc, tables, lengths, out, ws, P,
-                        1, H, D, page, max_pages, nsplit, stages, scale,
-                        blockIdx.x, blockIdx.y, blockIdx.z, 0);
+  walk<QT, KT, 1, Mma>(q, kp, vp, ksc, vsc, tables, lengths, out, ws, P, 1,
+                       H, D, page, max_pages, nsplit, stages, scale,
+                       blockIdx.x, blockIdx.y, blockIdx.z, 0);
 }
 
-template <typename QT, typename KT>
-__global__ void __launch_bounds__(kThreads, kVerifyMinBlocks)
-    paged_verify_kernel(
+template <typename QT, typename KT, bool Mma>
+__global__ void __launch_bounds__(kThreads) paged_verify_kernel(
     const QT* __restrict__ q, const KT* __restrict__ kp,
     const KT* __restrict__ vp, const float* __restrict__ ksc,
     const float* __restrict__ vsc, const int* __restrict__ tables,
     const int* __restrict__ lengths, QT* __restrict__ out,
     float* __restrict__ ws, int P, int W, int H, int D, int page,
     int max_pages, int nsplit, int stages, float scale) {
-  split_walk<QT, KT, kVerifyLanes>(
-      q, kp, vp, ksc, vsc, tables, lengths, out, ws, P, W, H, D, page,
-      max_pages, nsplit, stages, scale, blockIdx.x, blockIdx.y,
-      blockIdx.z % nsplit, (blockIdx.z / nsplit) * kVerifyLanes);
+  walk<QT, KT, kVerifyLanes, Mma>(q, kp, vp, ksc, vsc, tables, lengths,
+                                  out, ws, P, W, H, D, page, max_pages,
+                                  nsplit, stages, scale, blockIdx.x,
+                                  blockIdx.y, blockIdx.z % nsplit,
+                                  (blockIdx.z / nsplit) * kVerifyLanes);
 }
 
 // one combine per kernel, so a profile tells the two apart
@@ -743,6 +1157,17 @@ size_t ragged_smem(int D, int page) {
           3 * kTQ) * sizeof(float);
 }
 
+// Ring stages and shared memory of one walk.
+template <typename KT, int NL, bool Mma>
+size_t walk_smem(int D, int page, int* stages) {
+  if (Mma) {
+    *stages = mma_stages(D, sizeof(KT));
+    return MmaLayout(D, sizeof(KT), *stages).total;
+  }
+  *stages = ring_stages(D, page, sizeof(KT));
+  return SplitLayout(NL, D, page, sizeof(KT), *stages).total;
+}
+
 template <typename K>
 int set_smem(K kernel, size_t smem) {
   if (smem > 48 * 1024)
@@ -752,32 +1177,84 @@ int set_smem(K kernel, size_t smem) {
   return 0;
 }
 
+// The split walk of decode (Verify false, W = 1) or verify, then the
+// combine; the walk's kernel instantiation follows use_mma.
+template <typename QT, typename KT, bool Verify, bool Mma>
+int launch_walk(const void* q, const void* k, const void* v,
+                const void* ks, const void* vs, const void* tables,
+                const void* lengths, void* out, void* ws, int B, int W,
+                int P, int H, int D, int page, int max_pages, float scale,
+                cudaStream_t stream) {
+  const int nsplit = (max_pages + kSplitPages - 1) / kSplitPages;
+  if (nsplit > 0) {
+    int stages;
+    const size_t smem = walk_smem<KT, Verify ? kVerifyLanes : 1, Mma>(
+        D, page, &stages);
+    const int groups = (W + kVerifyLanes - 1) / kVerifyLanes;
+    const dim3 grid(B, H, nsplit * (Verify ? groups : 1));
+    const QT* qq = static_cast<const QT*>(q);
+    const KT* kk = static_cast<const KT*>(k);
+    const KT* vv = static_cast<const KT*>(v);
+    const float* kss = static_cast<const float*>(ks);
+    const float* vss = static_cast<const float*>(vs);
+    const int* tt = static_cast<const int*>(tables);
+    const int* ll = static_cast<const int*>(lengths);
+    QT* oo = static_cast<QT*>(out);
+    float* ww = static_cast<float*>(ws);
+    if constexpr (Verify) {
+      auto kernel = paged_verify_kernel<QT, KT, Mma>;
+      if (int rc = set_smem(kernel, smem)) return rc;
+      kernel<<<grid, kThreads, smem, stream>>>(
+          qq, kk, vv, kss, vss, tt, ll, oo, ww, P, W, H, D, page, max_pages,
+          nsplit, stages, scale);
+    } else {
+      auto kernel = paged_decode_kernel<QT, KT, Mma>;
+      if (int rc = set_smem(kernel, smem)) return rc;
+      kernel<<<grid, kThreads, smem, stream>>>(
+          qq, kk, vv, kss, vss, tt, ll, oo, ww, P, H, D, page, max_pages,
+          nsplit, stages, scale);
+    }
+    if (int rc = static_cast<int>(cudaGetLastError())) return rc;
+  }
+  const dim3 cgrid(B * W, H);
+  if constexpr (Verify)
+    paged_verify_combine_kernel<QT><<<cgrid, kThreads, 0, stream>>>(
+        static_cast<const float*>(ws), static_cast<const int*>(lengths),
+        static_cast<QT*>(out), H, D, page, max_pages, nsplit);
+  else
+    paged_decode_combine_kernel<QT><<<cgrid, kThreads, 0, stream>>>(
+        static_cast<const float*>(ws), static_cast<const int*>(lengths),
+        static_cast<QT*>(out), H, D, page, max_pages, nsplit);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename QT, typename KT, bool Verify>
+int launch_paged(const void* q, const void* k, const void* v,
+                 const void* ks, const void* vs, const void* tables,
+                 const void* lengths, void* out, void* ws, int B, int W,
+                 int P, int H, int D, int page, int max_pages, float scale,
+                 cudaStream_t stream) {
+  if (B == 0 || W == 0 || H == 0) return 0;
+  if constexpr (MmaPair<QT, KT>::value) {
+    if (use_mma<QT, KT>(D))
+      return launch_walk<QT, KT, Verify, true>(
+          q, k, v, ks, vs, tables, lengths, out, ws, B, W, P, H, D, page,
+          max_pages, scale, stream);
+  }
+  return launch_walk<QT, KT, Verify, false>(
+      q, k, v, ks, vs, tables, lengths, out, ws, B, W, P, H, D, page,
+      max_pages, scale, stream);
+}
+
 template <typename QT, typename KT>
 int launch_decode(const void* q, const void* k, const void* v,
                   const void* ks, const void* vs, const void* tables,
                   const void* lengths, void* out, void* ws, int B, int P,
                   int H, int D, int page, int max_pages, float scale,
                   cudaStream_t stream) {
-  if (B == 0 || H == 0) return 0;
-  const int nsplit = (max_pages + kSplitPages - 1) / kSplitPages;
-  if (nsplit > 0) {
-    auto kernel = paged_decode_kernel<QT, KT>;
-    const int stages = ring_stages(D, page, sizeof(KT));
-    const size_t smem = SplitLayout(1, D, page, sizeof(KT), stages).total;
-    if (int rc = set_smem(kernel, smem)) return rc;
-    kernel<<<dim3(B, H, nsplit), kThreads, smem, stream>>>(
-        static_cast<const QT*>(q), static_cast<const KT*>(k),
-        static_cast<const KT*>(v), static_cast<const float*>(ks),
-        static_cast<const float*>(vs), static_cast<const int*>(tables),
-        static_cast<const int*>(lengths), static_cast<QT*>(out),
-        static_cast<float*>(ws), P, H, D, page, max_pages, nsplit, stages,
-        scale);
-    if (int rc = static_cast<int>(cudaGetLastError())) return rc;
-  }
-  paged_decode_combine_kernel<QT><<<dim3(B, H), kThreads, 0, stream>>>(
-      static_cast<const float*>(ws), static_cast<const int*>(lengths),
-      static_cast<QT*>(out), H, D, page, max_pages, nsplit);
-  return static_cast<int>(cudaGetLastError());
+  return launch_paged<QT, KT, false>(q, k, v, ks, vs, tables, lengths, out,
+                                     ws, B, 1, P, H, D, page, max_pages,
+                                     scale, stream);
 }
 
 template <typename QT, typename KT>
@@ -786,28 +1263,9 @@ int launch_verify(const void* q, const void* k, const void* v,
                   const void* lengths, void* out, void* ws, int B, int W,
                   int P, int H, int D, int page, int max_pages, float scale,
                   cudaStream_t stream) {
-  if (B == 0 || W == 0 || H == 0) return 0;
-  const int nsplit = (max_pages + kSplitPages - 1) / kSplitPages;
-  if (nsplit > 0) {
-    auto kernel = paged_verify_kernel<QT, KT>;
-    const int stages = ring_stages(D, page, sizeof(KT));
-    const size_t smem =
-        SplitLayout(kVerifyLanes, D, page, sizeof(KT), stages).total;
-    if (int rc = set_smem(kernel, smem)) return rc;
-    const int groups = (W + kVerifyLanes - 1) / kVerifyLanes;
-    kernel<<<dim3(B, H, nsplit * groups), kThreads, smem, stream>>>(
-        static_cast<const QT*>(q), static_cast<const KT*>(k),
-        static_cast<const KT*>(v), static_cast<const float*>(ks),
-        static_cast<const float*>(vs), static_cast<const int*>(tables),
-        static_cast<const int*>(lengths), static_cast<QT*>(out),
-        static_cast<float*>(ws), P, W, H, D, page, max_pages, nsplit,
-        stages, scale);
-    if (int rc = static_cast<int>(cudaGetLastError())) return rc;
-  }
-  paged_verify_combine_kernel<QT><<<dim3(B * W, H), kThreads, 0, stream>>>(
-      static_cast<const float*>(ws), static_cast<const int*>(lengths),
-      static_cast<QT*>(out), H, D, page, max_pages, nsplit);
-  return static_cast<int>(cudaGetLastError());
+  return launch_paged<QT, KT, true>(q, k, v, ks, vs, tables, lengths, out,
+                                    ws, B, W, P, H, D, page, max_pages,
+                                    scale, stream);
 }
 
 template <typename QT, typename KT>
