@@ -458,109 +458,6 @@ def check_kernels(case, kinds=("fp32", "bf16", "int8"), timed=True):
     return results
 
 
-def variant_sweep(device, variants, kinds=("bf16", "int8")):
-    """``--variant-sweep``: decode and verify at phase 3's shapes for each
-    variant, a ``{constant: value}`` edit of ``csrc/paged_attention.cu``
-    (``constexpr int NAME = VALUE;`` lines only), built in parallel and
-    bound in turn to the wrappers; the variants run in the order given
-    and then reversed, each checked against the plain versions (verify
-    lanes EQUAL to decode) before it is timed.  Prints the device-only
-    time of each kernel of a call (split walk, combine), verify at W=5
-    and at W=1."""
-    import ctypes
-    import os
-
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    from paddle_infer_tpu_torch.native import BUILD_DIR
-    from paddle_infer_tpu_torch.ops import _build
-    from paddle_infer_tpu_torch.ops import paged_attention as PA
-
-    with open(os.path.join(_build._CSRC, "paged_attention.cu")) as fh:
-        src = fh.read()
-    jobs = []
-    for i, edits in enumerate(variants):
-        text = src
-        for name, value in edits.items():
-            const = re.compile(rf"constexpr int {name} = [^;]+;")
-            assert len(const.findall(text)) == 1, name
-            text = const.sub(f"constexpr int {name} = {value};", text)
-        d = os.path.join(BUILD_DIR, f"variant{i}")
-        os.makedirs(d, exist_ok=True)
-        path = os.path.join(d, "paged_attention.cu")
-        with open(path, "w") as fh:
-            fh.write(text)
-        lib = os.path.join(d, "libpaged_attention.so")
-        cmd = [_build._nvcc(), *_build.ARCH_FLAGS, *_build.NVCC_FLAGS,
-               "-o", lib, path]
-        jobs.append((i, lib, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-            text=True)))
-    libs = {}
-    for i, lib, proc in jobs:
-        log, _ = proc.communicate()
-        if proc.returncode:
-            raise RuntimeError(f"variant {variants[i]}: nvcc failed\n{log}")
-        print_ptxas(f"[variant {i}]", "\n".join(
-            x for x in log.splitlines() if "verify_kernel" in x
-            or "decode_kernel" in x or "registers" in x))
-        libs[i] = ctypes.CDLL(lib)
-
-    def bind(i):
-        for kern in (PA._DECODE, PA._VERIFY):
-            fn = getattr(libs[i], kern.symbol)
-            fn.argtypes, fn.restype = kern.argtypes, ctypes.c_int
-            kern._fn = fn
-        fn = libs[i].pit_paged_split_pages
-        fn.restype = ctypes.c_int
-        PA._split_pages = int(fn())
-
-    def per_kernel(run, reps=25):
-        run()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                run()
-            torch.cuda.synchronize()
-        out = {}
-        for e in prof.key_averages():
-            if e.device_type == torch.autograd.DeviceType.CUDA and e.count \
-                    and "paged_" in e.key:
-                t = getattr(e, "self_device_time_total", None)
-                t = t if t is not None else e.self_cuda_time_total
-                tag = "combine" if "combine" in e.key else "split"
-                out[tag] = t / 1e3 / e.count
-        return out
-
-    case = make_case(device)
-    tables, lengths, vlens = case["tables"], case["lengths"], case["vlens"]
-    fmt = lambda d: " ".join(f"{k}={v:.4f}" for k, v in sorted(d.items()))
-    try:
-        for kind in kinds:
-            q, _, qv, kp, vp, _, _ = _cast(case, kind)
-            qv1, vl1 = qv[:, -1:].contiguous(), vlens[:, -1:].contiguous()
-            runs = {
-                "decode": lambda: PA.paged_attention_decode(
-                    q, kp, vp, tables, lengths),
-                "verify": lambda: PA.paged_attention_verify(
-                    qv, kp, vp, tables, vlens),
-                "verify_w1": lambda: PA.paged_attention_verify(
-                    qv1, kp, vp, tables, vl1)}
-            order = list(range(len(variants)))
-            for i in order + order[::-1]:
-                bind(i)
-                check_verify(case, (kind,), timed=False)
-                print(f"[variant {i}] {variants[i]} {kind}: " + " | ".join(
-                    f"{n} {fmt(per_kernel(r))} ms={time_ms(r):.4f}"
-                    for n, r in runs.items()), flush=True)
-    finally:
-        for kern in (PA._DECODE, PA._VERIFY):
-            kern._fn = None
-        PA._split_pages = None
-
-
 # ---------------------------------------------------------------- phase 4
 
 def build_llama(device, config=None, dtype=None, seed=0):
@@ -1525,9 +1422,6 @@ def main() -> int:
     # phase 3: kernels against their plain versions
     case = make_case(device)
     kres = check_kernels(case)
-    if "--variant-sweep" in sys.argv[1:]:
-        variant_sweep(device, [json.loads(a) for a in sys.argv[2:]])
-        return 0
 
     # phase 4: serve LLaMA-7B; counts zeroed just before, read just after
     t0 = time.perf_counter()

@@ -200,8 +200,10 @@ __host__ __device__ __forceinline__ int ring_rows(int page) {
   return page < kChunk ? page : kChunk;
 }
 
-int ring_stages(int D, int page, int esize) {
-  const int s = kRingBytes / (2 * ring_rows(page) * D * esize);
+// Ring stages for units of `rows` rows of K and of V: as many as
+// kRingBytes holds, 2 to kMaxStages.
+int ring_stages(int rows, int D, int esize) {
+  const int s = kRingBytes / (2 * rows * D * esize);
   return s < 2 ? 2 : (s > kMaxStages ? kMaxStages : s);
 }
 
@@ -630,11 +632,6 @@ struct MmaLayout {
     total = off;
   }
 };
-
-int mma_stages(int D, int esize) {
-  const int s = kRingBytes / (2 * kChunk * D * esize);
-  return s < 2 ? 2 : (s > kMaxStages ? kMaxStages : s);
-}
 
 // B fragments of K^T at k-step `kstep` for both 8-slot halves of a unit
 // (b[0], b[1]: slots 0..7; b[2], b[3]: slots 8..15) from a 16-bit stage.
@@ -1161,10 +1158,10 @@ size_t ragged_smem(int D, int page) {
 template <typename KT, int NL, bool Mma>
 size_t walk_smem(int D, int page, int* stages) {
   if (Mma) {
-    *stages = mma_stages(D, sizeof(KT));
+    *stages = ring_stages(kChunk, D, sizeof(KT));
     return MmaLayout(D, sizeof(KT), *stages).total;
   }
-  *stages = ring_stages(D, page, sizeof(KT));
+  *stages = ring_stages(ring_rows(page), D, sizeof(KT));
   return SplitLayout(NL, D, page, sizeof(KT), *stages).total;
 }
 

@@ -279,30 +279,35 @@ def cuda_device():
     return torch.device("cuda")
 
 
-CARD_TOL = {"fp32": 1e-4, "bf16": 2e-2, "int8": 2e-2}
+CARD_TOL = {"fp32": 1e-4, "bf16": 2e-2, "f16": 2e-2, "int8": 2e-2}
+CARD_Q = {"fp32": torch.float32, "bf16": torch.bfloat16, "f16": torch.float16,
+          "int8": torch.bfloat16}
 
 
 def _card_pools(kind, k, v):
     """(kernel pools, float32 pools holding the same stored values)."""
     if kind == "fp32":
         return (k, v), (k, v)
-    if kind == "bf16":
-        kb, vb = k.to(torch.bfloat16), v.to(torch.bfloat16)
+    if kind in ("bf16", "f16"):
+        kb, vb = k.to(CARD_Q[kind]), v.to(CARD_Q[kind])
         return (kb, vb), (kb.float(), vb.float())
     kq, vq = PA.quantize_pages(k), PA.quantize_pages(v)
     return (kq, vq), (kq, vq)
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("d", [64, 128, 256, 8])
 def test_decode_and_verify_kernels_on_card(cuda_device, d):
     """The split decode and verify kernels at lengths on each side of
     every page and split boundary (page 16, a table of 2.5 splits; the
-    split from ``PA.split_pages()``), fp32, bf16 and int8 pools: each
-    allclose to its plain version (fp32 1e-4, bf16 / int8 2e-2: bf16
-    queries and pages, sums in another order); every verify lane EQUAL
-    to the decode kernel at its length; each kernel bit-equal across two
-    launches; each row bit-equal whether run in the batch or alone."""
+    split from ``PA.split_pages()``), fp32, bf16, f16 and int8 pools
+    (tensor-core walk for 16-bit queries at head dims 64-256, CUDA-core
+    walk for fp32 and at head dim 8, which int8 pools do not take): each
+    allclose to its plain version (fp32 1e-4, bf16 / f16 / int8 2e-2:
+    16-bit queries, pages and weights, sums in another order); every
+    verify lane EQUAL to the decode kernel at its length; each kernel
+    bit-equal across two launches; each row bit-equal whether run in the
+    batch or alone."""
     split, page = PA.split_pages(), 16
     max_pages = 2 * split + split // 2
     t = split * page
@@ -321,10 +326,9 @@ def test_decode_and_verify_kernels_on_card(cuda_device, d):
                         + torch.arange(w, device=cuda_device)[None],
                         min=0).int().contiguous()
     q32, qv32 = mk(b, h, d), mk(b, w, h, d)
-    for kind in ("fp32", "bf16", "int8"):
+    for kind in ("fp32", "bf16", "f16", "int8")[:4 if d % 16 == 0 else 3]:
         (kp, vp), (kr, vr) = _card_pools(kind, k, v)
-        qdt = torch.float32 if kind == "fp32" else torch.bfloat16
-        q, qv = q32.to(qdt), qv32.to(qdt)
+        q, qv = q32.to(CARD_Q[kind]), qv32.to(CARD_Q[kind])
         tol = CARD_TOL[kind]
         dec = [PA.paged_attention_decode(q, kp, vp, tables, lengths)
                for _ in range(2)]
