@@ -443,7 +443,7 @@ __device__ __forceinline__ void split_walk(
 
   // unit u: page p0 + u / nc, slots (u % nc) * kChunk ..; loaded only
   // when some lane reaches it
-  auto issue = [&](int u) {
+  auto load_unit = [&](int u) {
     const int j = u / nc, c = u % nc;
     if ((p0 + j) * page + c * kChunk >= maxlen) return;
     const int ns = page - c * kChunk < kChunk ? page - c * kChunk : kChunk;
@@ -463,7 +463,7 @@ __device__ __forceinline__ void split_walk(
     for (int e = 0; e < kPVDims; ++e) acc[w][e] = 0.f;
 
   for (int u = 0; u < stages - 1; ++u) {
-    if (u < nu) issue(u);
+    if (u < nu) load_unit(u);
     cp_async_commit();
   }
   // each lane's query, laid out per (lane, score thread lig), loaded
@@ -485,7 +485,7 @@ __device__ __forceinline__ void split_walk(
     // unit u has landed, and every thread is done with unit u - 1, whose
     // stage the next copies reuse
     __syncthreads();
-    if (u + stages - 1 < nu) issue(u + stages - 1);
+    if (u + stages - 1 < nu) load_unit(u + stages - 1);
     cp_async_commit();
     const int j = u / nc, c = u % nc;
     const int pos0 = (p0 + j) * page + c * kChunk;
@@ -746,7 +746,7 @@ __device__ __forceinline__ void split_walk_mma(
       *reinterpret_cast<uint4*>(ring + i) = make_uint4(0, 0, 0, 0);
   __syncthreads();
 
-  auto issue = [&](int u) {
+  auto load_unit = [&](int u) {
     const int j = u / nc, c = u % nc;
     if ((p0 + j) * page + c * kChunk >= maxlen) return;
     const int ns = page - c * kChunk < kChunk ? page - c * kChunk : kChunk;
@@ -763,7 +763,7 @@ __device__ __forceinline__ void split_walk_mma(
     }
   };
   for (int u = 0; u < stages - 1; ++u) {
-    if (u < nu) issue(u);
+    if (u < nu) load_unit(u);
     cp_async_commit();
   }
 
@@ -797,7 +797,7 @@ __device__ __forceinline__ void split_walk_mma(
   for (int u = 0; u < nu; ++u) {
     cp_async_wait(stages - 2);
     __syncthreads();                       // as in split_walk
-    if (u + stages - 1 < nu) issue(u + stages - 1);
+    if (u + stages - 1 < nu) load_unit(u + stages - 1);
     cp_async_commit();
     const int j = u / nc, c = u % nc;
     const int pos0 = (p0 + j) * page + c * kChunk;
