@@ -315,15 +315,25 @@ def _bound(byts, flops, kind):
     return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
 
 
-def paged_times(name, kind, run):
+def paged_times(name, run):
     """A split kernel's CUDA-event median (host work of the wrapper
     included), its device-only time (``torch.profiler``: split walk and
-    combine summed, a mean per launch), 25 calls back to back, and the
-    earlier design's time (``SEQUENTIAL_WALK_MS``)."""
+    combine summed, a mean per launch) and 25 calls back to back, all
+    measured in this run."""
     dev, seen = device_ms(run, name=name)
     return {"ms": time_ms(run), "device_ms": dev, "device_calls": seen,
-            "stream_ms": stream_ms(run),
-            "sequential_walk_ms": SEQUENTIAL_WALK_MS[(name, kind)]}
+            "stream_ms": stream_ms(run)}
+
+
+def paged_line_times(name, kind, rec, keys):
+    """The ``[kernels]`` line's times: the record's, then the earlier
+    sequential-walk design's (``SEQUENTIAL_WALK_MS``), which is printed
+    only and never enters the record."""
+    times = [f"{k}={rec[k]:.4f}" for k in keys if k in rec]
+    if "ms" in rec:
+        times.append(f"sequential_walk_ms="
+                     f"{SEQUENTIAL_WALK_MS[(name, kind)]:.4f}")
+    return " ".join(times)
 
 
 def check_verify(case, kinds=("fp32", "bf16", "int8"), timed=True):
@@ -355,7 +365,7 @@ def check_verify(case, kinds=("fp32", "bf16", "int8"), timed=True):
         if timed:
             run = lambda: PA.paged_attention_verify(qv, kp, vp, tables,
                                                     vlens)
-            rec.update(paged_times("paged_verify", kind, run))
+            rec.update(paged_times("paged_verify", run))
             rec["plain_ms"] = time_ms(lambda: PA._verify_plain(
                 qv, kp, vp, tables, vlens), reps=10)
             # the W separate decode launches the kernel stands in for
@@ -367,11 +377,10 @@ def check_verify(case, kinds=("fp32", "bf16", "int8"), timed=True):
         out[kind] = rec
         print(f"[kernels] paged_verify {kind} W={qv.shape[1]}: "
               f"max_abs_err={err:.3e} lanes_equal_decode={lanes_equal} "
-              f"tol={tol} ok={ok} " + " ".join(
-                  f"{k}={v:.4f}" for k, v in rec.items()
-                  if k in ("ms", "device_ms", "stream_ms",
-                           "sequential_walk_ms", "plain_ms",
-                           "decode_x_w_ms", "bound_ms"))
+              f"tol={tol} ok={ok} " + paged_line_times(
+                  "paged_verify", kind, rec,
+                  ("ms", "device_ms", "stream_ms", "plain_ms",
+                   "decode_x_w_ms", "bound_ms"))
               + (f" clocks: {clocks_line()}" if timed else ""), flush=True)
     bad = [k for k, v in out.items() if not v["ok"]]
     if bad:
@@ -408,17 +417,16 @@ def check_kernels(case, kinds=("fp32", "bf16", "int8"), timed=True):
         byts, flops = _bytes_decode(case, kind, ln)
         rec = {"max_abs_err": err, "tol": tol, "ok": ok}
         if timed:
-            rec.update(paged_times("paged_decode", kind, lambda: (
+            rec.update(paged_times("paged_decode", lambda: (
                 PA.paged_attention_decode(q, kp, vp, tables, lengths))))
             rec["plain_ms"] = time_ms(lambda: PA._decode_plain(
                 q, kp, vp, tables, lengths), reps=10)
             rec["bound_ms"], rec["bound_by"] = _bound(byts, flops, kind)
         results["paged_decode"][kind] = rec
         print(f"[kernels] paged_decode {kind}: max_abs_err={err:.3e} "
-              f"tol={tol} ok={ok} " + " ".join(
-                  f"{k}={v:.4f}" for k, v in rec.items()
-                  if k in ("ms", "device_ms", "stream_ms",
-                           "sequential_walk_ms", "plain_ms", "bound_ms"))
+              f"tol={tol} ok={ok} " + paged_line_times(
+                  "paged_decode", kind, rec,
+                  ("ms", "device_ms", "stream_ms", "plain_ms", "bound_ms"))
               + (f" clocks: {clocks_line()}" if timed else ""), flush=True)
 
         rag = RPA.ragged_kernel(qc, kp, vp, tables, ctx, qlens)

@@ -28,7 +28,10 @@
 //   scales) once, then streams each (page, head) K and V slab — page*D
 //   contiguous elements of the pool, taken in units of at most kChunk
 //   slots — through a ring of 2..kMaxStages stages in shared memory with
-//   16-byte cp.async copies, stages-1 units ahead of the compute.
+//   16-byte cp.async copies, stages-1 units ahead of the compute.  The
+//   ring takes what kRingBytes (16 KB) holds, at least 2 stages: at the
+//   serving shapes a 16 KB ring (more blocks an SM) timed faster on an
+//   H100 than a 48 KB one, and no other traffic was timed.
 // - Per unit, two walks, chosen by the page and query types:
 //   * tensor cores (split_walk_mma) for bf16 / f16 queries over 16-bit or
 //     int8 pages with D % 16 == 0 — the serving case.  The block's lanes
@@ -37,7 +40,10 @@
 //     chunks are XOR-swizzled by row; int8 units widened exactly to the
 //     query type once, by the whole block), runs each lane's online
 //     softmax in the quad of threads holding its row (one expf per slot,
-//     m and l in f32), and adds P V for its quarter of the head dims.
+//     m and l in f32), and adds P V for its quarter of the head dims:
+//     p is rounded to the query type for the tile, the product is taken
+//     into a zeroed f32 accumulator, and the page's V scale and the
+//     rescale of the earlier sum are applied to it in f32.
 //     One barrier a unit, to hand the ring stage over.
 //   * CUDA cores (split_walk) for f32 queries and other head dims: each
 //     group of at most 8 threads dots one slot with every lane's query
@@ -97,7 +103,7 @@ constexpr int kMaxDPT = 2;       // head dims per thread in the ragged PV loop
 constexpr int kSplitPages = 8;   // pages of a row per decode / verify block
 constexpr int kChunk = 16;       // slots per ring unit (a half-warp's softmax)
 constexpr int kMaxStages = 4;    // ring depth
-constexpr int kRingBytes = 48 * 1024;  // ring budget of one block
+constexpr int kRingBytes = 16 * 1024;  // ring budget of one block
 constexpr int kVerifyLanes = 8;  // verify lanes sharing one block's walk
 constexpr int kSlotThreads = kThreads / kChunk;  // score threads a slot, at most
 constexpr int kPVDims = 4;       // head dims a thread accumulates in p*V
@@ -850,12 +856,13 @@ __device__ __forceinline__ void split_walk_mma(
     } else {
       pv[0] = pv[1] = pv[2] = pv[3] = 0.f;
     }
+    // p rounded to the query type (the tile's operand type); the page's
+    // V scale stays in f32, folded in after the product
     const float vs = vss[j];
-    const uint32_t pa[4] = {
-        pack2(QT(), __fmul_rn(pv[0], vs), __fmul_rn(pv[1], vs)), 0u,
-        pack2(QT(), __fmul_rn(pv[2], vs), __fmul_rn(pv[3], vs)), 0u};
+    const uint32_t pa[4] = {pack2(QT(), pv[0], pv[1]), 0u,
+                            pack2(QT(), pv[2], pv[3]), 0u};
 
-    // O (row g, this warp's tiles) = alpha O + P V
+    // O (row g, this warp's tiles) = alpha O + vscale (P V)
 #pragma unroll
     for (int jt = 0; jt < kMaxTiles; jt += 2) {
       if (jt < my_nt) {
@@ -863,17 +870,15 @@ __device__ __forceinline__ void split_walk_mma(
         const bool two = jt + 1 < my_nt;
         uint32_t vb[4];
         v_frags(vst, sw16, dtA, two ? dtA + kWarps : dtA, vb);
-        float d0[4] = {__fmul_rn(o[jt][0], a), __fmul_rn(o[jt][1], a), 0.f,
-                       0.f};
+        float d0[4] = {0.f, 0.f, 0.f, 0.f};
         mma_m16n8k16(QT(), d0, pa, vb[0], vb[1]);
-        o[jt][0] = d0[0];
-        o[jt][1] = d0[1];
+        o[jt][0] = __fmaf_rn(vs, d0[0], __fmul_rn(o[jt][0], a));
+        o[jt][1] = __fmaf_rn(vs, d0[1], __fmul_rn(o[jt][1], a));
         if (two) {
-          float d1[4] = {__fmul_rn(o[jt + 1][0], a),
-                         __fmul_rn(o[jt + 1][1], a), 0.f, 0.f};
+          float d1[4] = {0.f, 0.f, 0.f, 0.f};
           mma_m16n8k16(QT(), d1, pa, vb[2], vb[3]);
-          o[jt + 1][0] = d1[0];
-          o[jt + 1][1] = d1[1];
+          o[jt + 1][0] = __fmaf_rn(vs, d1[0], __fmul_rn(o[jt + 1][0], a));
+          o[jt + 1][1] = __fmaf_rn(vs, d1[1], __fmul_rn(o[jt + 1][1], a));
         }
       }
     }

@@ -8,6 +8,9 @@ kernel against its reference composition (tests/test_ragged_serving.py):
 float32 sums in another order.  The page writers move values and must
 be bitwise equal.
 """
+import os
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -89,11 +92,23 @@ def test_decode_plain_matches_jax_kernel(quantized):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 
-# The card kernels split a row's pages into blocks of kSplitPages = 8
+def _source_split_pages():
+    """The kernels' one ``kSplitPages``, read from their source (the CPU
+    has no built library to ask ``PA.split_pages()``)."""
+    src = os.path.join(os.path.dirname(PA.__file__), "csrc",
+                       "paged_attention.cu")
+    with open(src) as f:
+        return int(re.search(r"constexpr int kSplitPages = (\d+);",
+                             f.read()).group(1))
+
+
+# The card kernels split a row's pages into blocks of kSplitPages pages
 # (csrc/paged_attention.cu) and change their control flow at page and
-# split boundaries; a table of 20 pages of 4 spans two whole splits and
-# part of a third.  These lengths sit on each side of every boundary.
-SPLIT, B_PAGES, B_PAGE = 8, 20, 4
+# split boundaries; at a split of 8, a table of 20 pages of 4 spans two
+# whole splits and part of a third.  These lengths sit on each side of
+# every boundary.
+SPLIT = _source_split_pages()
+B_PAGES, B_PAGE = 2 * SPLIT + SPLIT // 2, 4
 BOUNDARY_LENS = (0, 1, B_PAGE - 1, B_PAGE, B_PAGE + 1,
                  SPLIT * B_PAGE - 1, SPLIT * B_PAGE, SPLIT * B_PAGE + 1,
                  2 * SPLIT * B_PAGE - 1, 2 * SPLIT * B_PAGE,
@@ -101,9 +116,9 @@ BOUNDARY_LENS = (0, 1, B_PAGE - 1, B_PAGE, B_PAGE + 1,
 
 
 def boundary_case(seed, quantized, rows=len(BOUNDARY_LENS)):
-    """Pools and distinct-page tables for ``rows`` rows of a 20-page
-    table of 4-slot pages (h=2, d=8), as (jax pools, torch pools,
-    tables)."""
+    """Pools and distinct-page tables for ``rows`` rows of a
+    ``B_PAGES``-page table of 4-slot pages (h=2, d=8), as (jax pools,
+    torch pools, tables)."""
     rs = np.random.RandomState(seed)
     num_pages = rows * B_PAGES + 1
     k = rs.randn(num_pages, H, B_PAGE, D).astype(np.float32)
@@ -309,6 +324,7 @@ def test_decode_and_verify_kernels_on_card(cuda_device, d):
     bit-equal across two launches; each row bit-equal whether run in the
     batch or alone."""
     split, page = PA.split_pages(), 16
+    assert split == SPLIT
     max_pages = 2 * split + split // 2
     t = split * page
     lens = [0, 1, page - 1, page, page + 1, t - 1, t, t + 1, 2 * t - 1,
