@@ -14,30 +14,39 @@ Phases, in order; any failed check raises and the script exits non-zero:
 3. kernels — every kernel against its plain PyTorch version at the
    serving shapes (B=8, H=32, D=128, page 16, 128 pages per row,
    contexts over 1..2048; the ragged kernel at C=512 with decode, chunk
-   and inactive rows; the verify kernel at W=5 with lane lengths
-   ctx + j + 1, every lane also EQUAL to the decode kernel at its
-   length), fp32, bf16 and int8 pages, each timed with CUDA events
-   (median of 25 after warm-up) beside its plain version and its bound;
-   decode and verify also device-only (``torch.profiler``, split walk
-   and combine summed) and 25 calls back to back, beside the earlier
-   sequential-walk design's times (``SEQUENTIAL_WALK_MS``);
+   and inactive rows — the mix — and at the prefill-heavy case (p),
+   eight 512-query chunks at contexts 0..1536; the verify kernel at W=5
+   with lane lengths ctx + j + 1, every lane also EQUAL to the decode
+   kernel at its length), fp32, bf16 and int8 pages, each timed with
+   CUDA events (median of 25 after warm-up) beside its plain version
+   and its bound; decode, verify and ragged also device-only
+   (``torch.profiler``) and 25 calls back to back, beside the earlier
+   designs' times (``SEQUENTIAL_WALK_MS``, ``CUDA_CORE_RAGGED_MS``), the
+   ragged kernel also beside ``prefix_prefill_attention`` (the dense
+   window attention it replaced on the serving path); then one
+   700-token prompt through the ragged kernel chunked three ways, EQUAL
+   at every position;
 4. serve — LLaMA-7B at full width and depth (random bf16 weights from a
    seeded on-device generator) behind ``EngineCore``: 8 requests with
    prompts of 1536..1 tokens, 32 new tokens each, 6 greedy and 2
    sampled, driven to completion with launch counts zeroed just before
-   and read just after; then the paged forward against the dense one on
-   a small input, and the ragged kernel's own entry point
-   (``ragged_paged_attention(use_kernel=True)``) at the serving shapes;
+   and read just after (the ragged kernel once per layer per step, for
+   the chunk rows); then the paged forward against the dense one on a
+   small input, a profiled short run, and the ragged kernel's opt-in
+   single-launch entry point (``ragged_paged_attention(use_kernel=True)``)
+   at the serving shapes;
 5. spec — the same LLaMA-7B core shape with ``num_draft_tokens=4``: 8
    greedy requests plain (a), then ``speculate=True`` with an oracle
    draft source proposing run (a)'s streams (b: streams equal to (a),
    every draft accepted), then ``speculate=True`` with ngram drafts on
    tiled prompts, 2 of 8 requests sampled (c: greedy streams equal to a
    plain run of the same prompts); the verify kernel launches at least
-   once per layer per step in (b) and (c);
+   once per layer per step in (b) and (c), the ragged kernel once per
+   layer per step in every run;
 6. gpt — the LLaMA model freed, ``gpt3-6.7b`` at full width and depth
-   (random bf16 weights) serves 8 requests with ngram speculation, then
-   its paged forward against its dense one;
+   (random bf16 weights) serves 8 requests with ngram speculation (the
+   ragged kernel once per layer per step), then its paged forward
+   against its dense one;
 7. train — GPT freed: (1) the flash kernels (forward, dK/dV, dQ) against
    their plain versions at (a) the ERNIE shape B=32, H=12, S=512, D=64
    with 10 % trailing padding as segment ids, dropout 0.1 and 0, fp32
@@ -87,6 +96,19 @@ MAX_NEW = 32
 SPEC_PROMPT_LENS = (512, 384, 256, 200, 128, 64, 33, 8)
 NUM_DRAFT = 4
 
+
+# the ragged kernel's tolerance against its plain version (atol = rtol):
+# 16-bit p in the tensor-core P V and the 16-bit output's own rounding
+RAGGED_TOL = {"fp32": 1e-4, "bf16": 1e-2, "int8": 1e-2}
+# the prefill-heavy ragged case "(p)": every row a 512-query chunk, at
+# these contexts (the last pair reaching the 2048-slot window's end)
+PREFILL_CTX = (0, 512, 1024, 1536, 0, 512, 1024, 1536)
+# CUDA-event medians of the earlier ragged kernel (one block per 16
+# queries, f32 tiles, scalar dot products; now the fp32 path) at the
+# mix of phase 3 on an NVIDIA H100 80GB HBM3 at 700 W, printed beside
+# the redesigned kernel's times: {(case, pages): ms}
+CUDA_CORE_RAGGED_MS = {("mix", "bf16"): 3.9093, ("mix", "fp32"): 3.8235,
+                       ("mix", "int8"): 4.1808}
 
 # CUDA-event medians of the earlier decode and verify kernels (one block
 # per (row, head) walking all of the row's pages in order, one page at a
@@ -389,25 +411,162 @@ def check_verify(case, kinds=("fp32", "bf16", "int8"), timed=True):
     return out
 
 
+def prefill_case(case, ctx=PREFILL_CTX):
+    """``case`` with every ragged row a chunk of C queries at the given
+    contexts (cut to the case's window): the prefill-heavy case (p)."""
+    import torch
+
+    C = case["qc"].shape[1]
+    window = case["tables"].shape[1] * case["page"]
+    cx = [min(c, max(0, window - C)) for c in ctx][:case["qc"].shape[0]]
+    dev = case["qc"].device
+    return dict(case, ctx=torch.tensor(cx, dtype=torch.int32, device=dev),
+                qlens=torch.full((len(cx),), min(C, window),
+                                 dtype=torch.int32, device=dev))
+
+
+def check_ragged(case, kinds=("fp32", "bf16", "int8"), timed=True,
+                 tag="mix"):
+    """The ragged kernel against its plain version (``RAGGED_TOL``) on the
+    case's ragged rows, pads zero, a qlen == 1 row against the decode
+    kernel at ctx + 1.  With ``timed``: CUDA-event median, device-only
+    time (``torch.profiler``) and 25 calls back to back, beside the plain
+    version, ``prefix_prefill_attention`` (the dense fp32 window attention
+    the serving step ran for chunk rows until the kernel took them) and
+    the bound.  Returns ``{kind: record}``; raises on a disagreement."""
+    import torch
+
+    from paddle_infer_tpu_torch.ops import paged_attention as PA
+    from paddle_infer_tpu_torch.ops import ragged_paged_attention as RPA
+
+    tables, ctx, qlens = case["tables"], case["ctx"], case["qlens"]
+    C = case["qc"].shape[1]
+    cx = ctx.cpu().numpy().astype(np.int64)
+    ql = qlens.cpu().numpy().astype(np.int64)
+    valid = (torch.arange(C, device=qlens.device)[None]
+             < qlens[:, None].long())
+    out = {}
+    for kind in kinds:
+        _, qc, _, kp, vp, kp_ref, vp_ref = _cast(case, kind)
+        tol = RAGGED_TOL[kind]
+        rag = RPA.ragged_kernel(qc, kp, vp, tables, ctx, qlens)
+        ref = RPA._ragged_plain(qc.float(), kp_ref, vp_ref, tables, ctx,
+                                qlens)
+        err = float((rag.float() - ref)[valid].abs().max())
+        ok = bool(torch.allclose(rag.float()[valid], ref[valid], atol=tol,
+                                 rtol=tol)) and not bool(rag[~valid].any())
+        rec = {"max_abs_err": err, "tol": tol}
+        one = qlens == 1
+        if bool(one.any()):
+            # a qlen == 1 row must match the decode kernel at ctx + 1
+            dec1 = PA.paged_attention_decode(qc[:, 0].contiguous(), kp, vp,
+                                             tables, (ctx + 1).int())
+            rec["decode_row_err"] = float(
+                (rag[:, 0].float() - dec1.float())[one].abs().max())
+            ok = ok and rec["decode_row_err"] <= TOL[kind]
+        rec["ok"] = ok
+        if timed:
+            run = lambda: RPA.ragged_kernel(qc, kp, vp, tables, ctx, qlens)
+            rec["ms"] = time_ms(run)
+            rec["device_ms"], rec["device_calls"] = device_ms(
+                run, name="ragged_paged")
+            rec["stream_ms"] = stream_ms(run)
+            rec["plain_ms"] = time_ms(lambda: RPA._ragged_plain(
+                qc, kp, vp, tables, ctx, qlens), reps=10)
+            rec["prefix_prefill_ms"] = time_ms(
+                lambda: PA.prefix_prefill_attention(qc, kp, vp, tables, ctx),
+                reps=10)
+            rec["bound_ms"], rec["bound_by"] = _bound(
+                *_bytes_ragged(case, kind, cx, ql, C), kind)
+        out[kind] = rec
+        old_ms = CUDA_CORE_RAGGED_MS.get((tag, kind))
+        print(f"[kernels] ragged_paged_attention ({tag}) {kind}: "
+              + " ".join(f"{k}={v:.4e}" if k.endswith("err") else
+                         f"{k}={v:.4f}" if isinstance(v, float) else
+                         f"{k}={v}" for k, v in rec.items())
+              + (f" cuda_core_ms={old_ms:.4f}" if timed and old_ms else "")
+              + (f" clocks: {clocks_line()}" if timed else ""), flush=True)
+    bad = [k for k, v in out.items() if not v["ok"]]
+    if bad:
+        raise AssertionError(f"ragged kernel ({tag}) disagrees with its "
+                             f"plain version for {bad}")
+    return out
+
+
+CHUNKINGS = ((700,), (100, 600), (333, 367))
+
+
+def check_chunk_independence(device, kinds=("bf16", "int8", "fp32"), H=32,
+                             D=128, page=16, seed=5):
+    """One prompt of ``sum(CHUNKINGS[0])`` tokens through the ragged
+    kernel, taken as one chunk and as the chunks of each of
+    ``CHUNKINGS``: each chunk in its own batch of 4 rows (the prompt in
+    a different row each time, the other rows with their own tables,
+    contexts and lengths) and a C of its own.  Raises unless every
+    chunking gives EQUAL outputs at every position; returns ``{kind:
+    True}``."""
+    import torch
+
+    from paddle_infer_tpu_torch.ops import ragged_paged_attention as RPA
+
+    n = sum(CHUNKINGS[0])
+    g = torch.Generator(device=device)
+    g.manual_seed(seed)
+    B = 4
+    max_pages = -(-n // page) + 3
+    window = max_pages * page
+    P = B * max_pages + 1
+    case = dict(kp=torch.randn(P, H, page, D, generator=g, device=device),
+                vp=torch.randn(P, H, page, D, generator=g, device=device))
+    perm = torch.randperm(P - 1, generator=g, device=device)
+    tables = perm[:B * max_pages].reshape(B, max_pages).int()
+    prompt_q = torch.randn(n, H, D, generator=g, device=device)
+    res = {}
+    for kind in kinds:
+        _, _, _, kp, vp, _, _ = _cast(dict(case, q=prompt_q, qc=prompt_q,
+                                           qv=prompt_q), kind)
+        qdt = torch.float32 if kind == "fp32" else torch.bfloat16
+        outs = []
+        for ci, chunks in enumerate(CHUNKINGS):
+            got, start = [], 0
+            for j, m in enumerate(chunks):
+                C = m + 29 * j + ci
+                row = (ci + j) % B
+                tb = tables.roll(row, 0).contiguous()    # the prompt: row
+                ctx = torch.randint(0, window - C, (B,), generator=g,
+                                    device=device).int()
+                ql = torch.randint(0, C + 1, (B,), generator=g,
+                                   device=device).int()
+                ctx[row], ql[row] = start, m
+                qc = torch.randn(B, C, H, D, generator=g, device=device)
+                qc[row, :m] = prompt_q[start:start + m]
+                out = RPA.ragged_kernel(qc.to(qdt), kp, vp, tb,
+                                        ctx.contiguous(), ql.contiguous())
+                got.append(out[row, :m])
+                start += m
+            outs.append(torch.cat(got))
+        res[kind] = all(torch.equal(outs[0], o) for o in outs[1:])
+        print(f"[kernels] ragged chunk independence {kind}: a {n}-token "
+              f"prompt as {' / '.join('+'.join(map(str, c)) for c in CHUNKINGS)}"
+              f": equal={res[kind]}", flush=True)
+    if not all(res.values()):
+        raise AssertionError(f"ragged outputs depend on the chunking: {res}")
+    return res
+
+
 def check_kernels(case, kinds=("fp32", "bf16", "int8"), timed=True):
     """Each kernel against its plain version on the same inputs.
     Returns ``{kernel: {kind: record}}``; raises on a disagreement."""
     import torch
 
     from paddle_infer_tpu_torch.ops import paged_attention as PA
-    from paddle_infer_tpu_torch.ops import ragged_paged_attention as RPA
 
     tables, lengths = case["tables"], case["lengths"]
-    ctx, qlens = case["ctx"], case["qlens"]
-    C = case["qc"].shape[1]
     ln = lengths.cpu().numpy().astype(np.int64)
-    cx = ctx.cpu().numpy().astype(np.int64)
-    ql = qlens.cpu().numpy().astype(np.int64)
-    valid = (torch.arange(C, device=qlens.device)[None]
-             < qlens[:, None].long())
-    results = {"paged_decode": {}, "ragged_paged_attention": {}}
+    results = {"paged_decode": {},
+               "ragged_paged_attention": check_ragged(case, kinds, timed)}
     for kind in kinds:
-        q, qc, _, kp, vp, kp_ref, vp_ref = _cast(case, kind)
+        q, _, _, kp, vp, kp_ref, vp_ref = _cast(case, kind)
         tol = TOL[kind]
 
         dec = PA.paged_attention_decode(q, kp, vp, tables, lengths)
@@ -429,34 +588,6 @@ def check_kernels(case, kinds=("fp32", "bf16", "int8"), timed=True):
                   ("ms", "device_ms", "stream_ms", "plain_ms", "bound_ms"))
               + (f" clocks: {clocks_line()}" if timed else ""), flush=True)
 
-        rag = RPA.ragged_kernel(qc, kp, vp, tables, ctx, qlens)
-        ref = RPA._ragged_plain(qc.float(), kp_ref, vp_ref, tables, ctx,
-                                qlens)
-        diff = (rag.float() - ref)[valid]
-        err = float(diff.abs().max())
-        ok = bool(torch.allclose(rag.float()[valid], ref[valid], atol=tol,
-                                 rtol=tol))
-        # a qlen == 1 row must match the decode kernel at ctx + 1
-        one = qlens == 1
-        dec1 = PA.paged_attention_decode(qc[:, 0].contiguous(), kp, vp,
-                                         tables, (ctx + 1).int())
-        err1 = float((rag[:, 0].float() - dec1.float())[one].abs().max())
-        ok = ok and err1 <= tol
-        byts, flops = _bytes_ragged(case, kind, cx, ql, C)
-        rec = {"max_abs_err": err, "decode_row_err": err1, "tol": tol,
-               "ok": ok}
-        if timed:
-            rec["ms"] = time_ms(lambda: RPA.ragged_kernel(
-                qc, kp, vp, tables, ctx, qlens))
-            rec["plain_ms"] = time_ms(lambda: RPA._ragged_plain(
-                qc, kp, vp, tables, ctx, qlens), reps=10)
-            rec["bound_ms"], rec["bound_by"] = _bound(byts, flops, kind)
-        results["ragged_paged_attention"][kind] = rec
-        print(f"[kernels] ragged_paged_attention {kind}: max_abs_err="
-              f"{err:.3e} decode_row_err={err1:.3e} tol={tol} ok={ok} "
-              + " ".join(f"{k}={v:.4f}" for k, v in rec.items()
-                         if k in ("ms", "plain_ms", "bound_ms")),
-              flush=True)
     bad = [(n, k) for n, r in results.items() for k, v in r.items()
            if not v["ok"]]
     if bad:
@@ -643,11 +774,13 @@ def profile_serving(model, device, prompt_lens=(512, 1), max_new=4,
     busy_ms = sum(r[0] for r in rows)
     wall_ms = stats["wall_s"] * 1e3
     # a paged kernel's group holds its split walk and its combine
-    groups = {"matmul": 0.0, "paged_decode": 0.0, "paged_verify": 0.0,
-              "other": 0.0}
+    groups = {"matmul": 0.0, "ragged_paged": 0.0, "paged_decode": 0.0,
+              "paged_verify": 0.0, "other": 0.0}
     for ms, _, name in rows:
         low = name.lower()
-        if "paged_decode_" in name:
+        if "ragged_paged" in name:
+            groups["ragged_paged"] += ms
+        elif "paged_decode_" in name:
             groups["paged_decode"] += ms
         elif "paged_verify_" in name:
             groups["paged_verify"] += ms
@@ -715,6 +848,15 @@ def serve_counted(model, device, tag, **kw):
     return st
 
 
+def _check_ragged_launches(st, L, tag):
+    """Chunk rows ride the ragged kernel: one launch a layer a step."""
+    n = st["launches"]["ragged_paged_attention"]
+    if n != L * st["steps"]:
+        raise AssertionError(f"{tag}: ragged_paged_attention launched {n} "
+                             f"times in {st['steps']} steps (want {L} per "
+                             "step)")
+
+
 def _check_verify_launches(st, L, tag):
     n = st["launches"]["paged_verify"]
     if n < L * st["steps"]:
@@ -757,6 +899,8 @@ def spec_phase(model, device):
                              "plain ones")
     for tag in ("b", "c"):
         _check_verify_launches(runs[tag], L, f"spec {tag}")
+    for tag, st in runs.items():
+        _check_ragged_launches(st, L, f"spec {tag}")
     return runs
 
 
@@ -793,6 +937,7 @@ def gpt_phase(device, config=None, dtype=None):
         print(f"[gpt] peak_mem_gb="
               f"{torch.cuda.max_memory_allocated() / 1e9:.1f}", flush=True)
     _check_verify_launches(st, cfg.num_hidden_layers, "gpt")
+    _check_ragged_launches(st, cfg.num_hidden_layers, "gpt")
     reference_check(model, device)
     return st
 
@@ -1427,9 +1572,14 @@ def main() -> int:
     print(f"[build] paged decode / verify: kSplitPages={PA.split_pages()}",
           flush=True)
 
-    # phase 3: kernels against their plain versions
+    # phase 3: kernels against their plain versions; the ragged kernel
+    # also at the prefill-heavy case (p), and chunked two other ways
     case = make_case(device)
     kres = check_kernels(case)
+    kres["ragged_paged_attention"].update({
+        f"p/{kind}": rec for kind, rec in check_ragged(
+            prefill_case(case), tag="p").items()})
+    check_chunk_independence(device)
 
     # phase 4: serve LLaMA-7B; counts zeroed just before, read just after
     t0 = time.perf_counter()
@@ -1448,6 +1598,8 @@ def main() -> int:
     print(f"[serve] steps={stats['steps']} wall_s={stats['wall_s']:.3f} "
           f"generated={stats['generated_tokens']} "
           f"tokens_per_s={stats['tokens_per_s']:.2f} "
+          f"step_ms_p50={np.median(stats['step_ms'][1:]):.1f} (steps after "
+          f"the first) "
           f"peak_mem_gb={torch.cuda.max_memory_allocated() / 1e9:.1f}",
           flush=True)
     print("[serve] ttft_s " + " ".join(
@@ -1461,19 +1613,18 @@ def main() -> int:
         raise AssertionError(
             f"paged_decode launched {launches['paged_decode']} times in "
             f"{stats['steps']} steps (< {L} per step)")
+    _check_ragged_launches(dict(stats, launches=launches), L, "serve")
     reference_check(model, device)
     profile_serving(model, device)
 
-    # the ragged kernel's own path: its entry point at the serving shapes
+    # the ragged kernel's opt-in single-launch entry point (every row
+    # type in one launch) at the serving shapes
     q, qc, _, kp, vp, _, _ = _cast(case, "bf16")
-    for k in _build.KERNELS.values():
-        k.launches = 0
+    before = _build.KERNELS["ragged_paged_attention"].launches
     RPA.ragged_paged_attention(qc, kp, vp, case["tables"], case["ctx"],
                                case["qlens"], use_kernel=True)
     torch.cuda.synchronize()
-    launches["ragged_paged_attention"] = \
-        _build.KERNELS["ragged_paged_attention"].launches
-    if launches["ragged_paged_attention"] < 1:
+    if _build.KERNELS["ragged_paged_attention"].launches != before + 1:
         raise AssertionError("ragged kernel entry point launched nothing")
 
     # phase 5: speculation on the same model; counts zeroed per run

@@ -67,19 +67,50 @@
 // before its own length — the units the decode kernel walks at that
 // length — and its combine runs over its own splits.
 //
-// ragged_paged_kernel — replaces the Pallas kernel
-//   paddle_infer_tpu/ops/pallas/ragged_paged_attention.py:132
+// ragged_paged_mma_kernel / ragged_paged_kernel — replace the Pallas
+//   kernel paddle_infer_tpu/ops/pallas/ragged_paged_attention.py:132
 //   `_ragged_kernel` (launched by `_ragged_kernel_call`, :239).  Row b
 //   carries q_lens[b] queries at absolute positions ctx[b] + i under the
-//   causal predicate slot <= ctx + i.  Bound: for decode rows, bytes as
-//   above; for prompt chunks the 4*qlen*(ctx+qlen)*D FLOPs per head.
-//   Design: one block per (row, head, tile of 16 queries); inactive tiles
-//   write zeros and exit; a tile walks only the pages its last query can
-//   see.  Each page is staged in shared memory as f32 (int8 dequantised
-//   by its per-(page, head) scale on load), 16x`page` scores are dotted
-//   from shared memory, 16 threads run the online softmax (one per query)
-//   and every thread accumulates p*V for its own head dimensions.  Plain
-//   CUDA cores; wgmma/TMA tiles are a later step.
+//   causal predicate slot <= ctx + i; positions past q_lens[b] are zeros.
+//   The serving step sends its prompt-chunk rows through it.
+//
+// What bounds it: a head of a row reads its (ctx + q_len) K and V slots
+// and does 4 * q_len * (ctx + q_len / 2) * D FLOPs on them, about q_len
+// FLOPs per byte.  Decode-heavy mixes are bound by bytes; chunks of more
+// than ~300 queries by tensor-core operations.  So the walk must both
+// read each slot once per query tile and keep the tensor cores fed:
+//
+// - Tensor-core walk (ragged_paged_mma_kernel): bf16 / f16 queries over
+//   16-bit or int8 pages, D in {64, 128, 256}, page % 16 == 0 — the
+//   serving case.  A block owns (head, row, a tile of kRaggedQ = 64
+//   queries); warp w holds queries 16w..16w+15 as the rows of its
+//   m16n8k16 tiles.  The Q tile sits in shared memory for the whole walk
+//   (fragments by ldmatrix).  KV tiles of kRaggedK = 64 slots, aligned to
+//   the row's slot 0 and gathered page by page through the row's table,
+//   stream through a ring of 2..kMaxStages stages (kRaggedRingBytes) with
+//   16-byte cp.async copies, XOR-swizzled as the decode walk's.  S = Q K^T
+//   in f32; the online softmax runs in registers (exp2, m and l in f32);
+//   p is rounded to the query type as the A operand of P V; O stays in
+//   f32.  int8 tiles are widened once by the block; the K scale of a
+//   page multiplies its score columns, the V scale is applied in f32 to
+//   the page's own zeroed accumulator (a page of 16 is one k-step).
+// - Causal tile walk.  A block walks only the KV tiles its last query
+//   can see; a warp masks only tiles that cross its diagonal or the
+//   window's end and skips tiles past its own last query.  Slots past
+//   the block's last query are zero-filled (cp.async src-size 0), so a
+//   masked weight 0 never meets a stale value.  Tiles whose queries all
+//   lie at or past q_lens[b] write zeros and exit.  The grid is (H, B,
+//   ceil(C / 64)) from the shapes alone, longest walks first; the host
+//   reads nothing.
+// - Row and chunk independence.  A query's bits depend only on its own
+//   row's q, its absolute position, table and pool: KV tiles are
+//   absolute, rows of a tensor-core tile do not mix, and a walked tile
+//   that is fully masked for a query is an exact identity (alpha = 1,
+//   p = 0).  So a prompt chunked two ways gives the same bits.
+// - CUDA-core walk (ragged_paged_kernel) for f32 queries and other head
+//   dims or page sizes: one block per (row, head, 16 queries), f32 tiles
+//   in shared memory, scalar dot products, one thread per query's
+//   softmax; the same masking and zeros, slower.
 //
 // Numerics shared by all three: NEG_INF = -1e30 (not -inf, so exp(m_prev -
 // m_new) is 0, never NaN, on the first page), masked slots score NEG_INF
@@ -98,8 +129,12 @@ namespace {
 constexpr float kNegInf = -1e30f;
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
-constexpr int kTQ = 16;          // queries per ragged tile
+constexpr int kTQ = 16;          // queries per CUDA-core ragged tile
 constexpr int kMaxDPT = 2;       // head dims per thread in the ragged PV loop
+constexpr int kRaggedQ = 64;     // queries per tensor-core ragged block
+constexpr int kRaggedK = 64;     // slots per ragged KV tile
+constexpr int kRaggedGroups = kRaggedK / 16;   // k-steps of 16 slots a tile
+constexpr int kRaggedRingBytes = 48 * 1024;    // ragged ring budget
 constexpr int kSplitPages = 8;   // pages of a row per decode / verify block
 constexpr int kChunk = 16;       // slots per ring unit (a half-warp's softmax)
 constexpr int kMaxStages = 4;    // ring depth
@@ -110,6 +145,7 @@ constexpr int kPVDims = 4;       // head dims a thread accumulates in p*V
 static_assert(kChunk <= 16, "one half-warp runs a unit's softmax");
 static_assert(kVerifyLanes <= 2 * kThreads / 32, "a half-warp per lane");
 static_assert(kMaxStages <= 4, "cp_async_wait takes depths 0..2");
+static_assert(kRaggedQ == 16 * kWarps, "16 ragged queries a warp");
 
 enum DType { kF32 = 0, kBF16 = 1, kF16 = 2, kI8 = 3 };
 
@@ -168,6 +204,17 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
                "l"(src)
+               : "memory");
+}
+
+// 16 bytes from src, or 16 zero bytes when !full (src-size 0: src is not
+// read, but must be a valid address)
+__device__ __forceinline__ void cp_async16_zfill(void* dst, const void* src,
+                                                 bool full) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  const int n = full ? 16 : 0;
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(n)
                : "memory");
 }
 
@@ -659,20 +706,19 @@ __device__ __forceinline__ void v_frags(const unsigned char* vs,
   ldsm_x4_trans(b, vs + sw.at(slot, ((m >> 1) ? dtB : dtA) * 16));
 }
 
-// An int8 stage (K rows, then V rows) widened exactly to the compute type
-// T in `wide`, both in their swizzled layouts; the block's threads share
-// the 16-byte chunks.
+// An int8 stage (`rows` K rows, then `rows` V rows) widened exactly to the
+// compute type T in `wide`, both in their swizzled layouts; the block's
+// threads share the 16-byte chunks.
 template <typename T>
-__device__ __forceinline__ void widen_unit(const unsigned char* st,
+__device__ __forceinline__ void widen_rows(const unsigned char* st,
                                            unsigned char* wide,
                                            const Swizzle& sw8,
-                                           const Swizzle& sw16) {
+                                           const Swizzle& sw16, int rows) {
   const int cpr = sw8.row_bytes / 16;               // int8 chunks a row
-  for (int i = threadIdx.x; i < 2 * kChunk * cpr; i += kThreads) {
+  for (int i = threadIdx.x; i < 2 * rows * cpr; i += kThreads) {
     const int r = i / cpr, e = (i % cpr) * 16;      // row of K then V
-    const int rr = r % kChunk, half = (r / kChunk) * kChunk;
-    const unsigned char* src =
-        st + (r / kChunk) * kChunk * sw8.row_bytes + sw8.at(rr, e);
+    const int rr = r % rows, half = (r / rows) * rows;
+    const unsigned char* src = st + half * sw8.row_bytes + sw8.at(rr, e);
     const uint4 raw = *reinterpret_cast<const uint4*>(src);
     const int8_t* v = reinterpret_cast<const int8_t*>(&raw);
     uint32_t w[8];
@@ -812,7 +858,7 @@ __device__ __forceinline__ void split_walk_mma(
     const bool on = p0 + j < my_np && pos0 < my_len;
     const unsigned char* kst = ring + (u % stages) * stage_bytes;
     if constexpr (sizeof(KT) == 1) {       // int8: widen, then as 16-bit
-      widen_unit<QT>(kst, wide, sw, sw16);
+      widen_rows<QT>(kst, wide, sw, sw16, kChunk);
       __syncthreads();
       kst = wide;
     }
@@ -1019,6 +1065,295 @@ __global__ void __launch_bounds__(kThreads) paged_verify_combine_kernel(
 }
 
 // ---------------------------------------------------------------- ragged
+// The tensor-core ragged walk (see the note at the top).
+
+// Byte offsets of one ragged block's shared memory.
+struct RaggedLayout {
+  int q, ring, wide, ksc, vsc, total;
+  __host__ __device__ RaggedLayout(int D, int esize, int stages) {
+    int off = 0;
+    q = take(off, kRaggedQ * D * 2);                       // the Q tile
+    ring = take(off, stages * 2 * kRaggedK * D * esize);   // K, V tiles
+    wide = take(off, esize == 1 ? 2 * kRaggedK * D * 2 : 0);  // int8 widened
+    ksc = take(off, stages * kRaggedGroups * 4);  // a stage's K scales
+    vsc = take(off, stages * kRaggedGroups * 4);  // and V scales
+    total = off;
+  }
+};
+
+// Ring stages of the ragged walk: as many as kRaggedRingBytes holds, 2 to
+// kMaxStages.
+int ragged_stages(int D, int esize) {
+  const int s = kRaggedRingBytes / (2 * kRaggedK * D * esize);
+  return s < 2 ? 2 : (s > kMaxStages ? kMaxStages : s);
+}
+
+template <typename QT, typename KT, int D>
+__global__ void __launch_bounds__(kThreads) ragged_paged_mma_kernel(
+    const QT* __restrict__ q, const KT* __restrict__ kp,
+    const KT* __restrict__ vp, const float* __restrict__ ksc,
+    const float* __restrict__ vsc, const int* __restrict__ tables,
+    const int* __restrict__ ctx_lens, const int* __restrict__ q_lens,
+    QT* __restrict__ out, int P, int C, int H, int page, int max_pages,
+    int stages, float scale_log2) {
+  constexpr int NT = D / 8;                // head-dim tiles of O
+  constexpr int NKS = D / 16;              // k-steps of Q K^T
+  constexpr int CPR = D * 2 / 16;          // 16-byte chunks of a 16-bit row
+  constexpr int G = kRaggedGroups;
+  extern __shared__ __align__(16) unsigned char pa_smem[];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, tig = lane & 3;
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int i0 = (gridDim.z - 1 - blockIdx.z) * kRaggedQ;  // longest first
+  const int ctx = ctx_lens[b];
+  const int ql = q_lens[b];
+  const int qlen = ql < 0 ? 0 : (ql > C ? C : ql);
+  const size_t rs = static_cast<size_t>(H) * D;   // a position's stride
+  QT* obase = out + static_cast<size_t>(b) * C * rs +
+              static_cast<size_t>(h) * D;
+  if (i0 >= qlen) {          // every query of the tile is a pad: zeros
+    const int rows = C - i0 < kRaggedQ ? C - i0 : kRaggedQ;
+    for (int i = tid; i < rows * CPR; i += kThreads)
+      reinterpret_cast<uint4*>(obase + (i0 + i / CPR) * rs)[i % CPR] =
+          make_uint4(0, 0, 0, 0);
+    return;
+  }
+  const int nq = qlen - i0 < kRaggedQ ? qlen - i0 : kRaggedQ;
+  const int wslots = max_pages * page;
+  // slots < lim_blk are visible to the tile's last query
+  int lim_blk = ctx + i0 + nq < wslots ? ctx + i0 + nq : wslots;
+  lim_blk = lim_blk < 0 ? 0 : lim_blk;
+  const int ntiles = (lim_blk + kRaggedK - 1) / kRaggedK;
+  const Swizzle sw(D, sizeof(KT)), sw16(D, 2);
+  const int stage_bytes = 2 * kRaggedK * sw.row_bytes;
+  const RaggedLayout L(D, sizeof(KT), stages);
+  unsigned char* qs = pa_smem + L.q;
+  unsigned char* ring = pa_smem + L.ring;
+  unsigned char* wide = pa_smem + L.wide;
+  float* kss = reinterpret_cast<float*>(pa_smem + L.ksc);
+  float* vss = reinterpret_cast<float*>(pa_smem + L.vsc);
+  const int* trow = tables + static_cast<size_t>(b) * max_pages;
+
+  // the Q tile, rows past q_len zero: the first copy group
+  for (int i = tid; i < kRaggedQ * CPR; i += kThreads) {
+    const int r = i / CPR, c = i % CPR;
+    const bool ok = r < nq;
+    const char* src = reinterpret_cast<const char*>(
+        ok ? q + (static_cast<size_t>(b) * C + i0 + r) * rs +
+                 static_cast<size_t>(h) * D
+           : q);
+    cp_async16_zfill(qs + sw16.at(r, c * 16), src + (ok ? c * 16 : 0), ok);
+  }
+  cp_async_commit();
+
+  // KV tile u (slots u * kRaggedK ..) into stage u % stages: each slot
+  // row from its page, rows at or past lim_blk zero; the tile's scales
+  // (one a 16-slot group, read at issue, visible after the next barrier)
+  auto load_tile = [&](int u) {
+    const int st = u % stages, s0 = u * kRaggedK;
+    if (tid < G) {
+      const int s = s0 + 16 * tid;
+      float kv = 1.f, vv = 1.f;
+      if (ksc != nullptr && s < lim_blk) {
+        const int e = trow[s / page];
+        const int phys = e < 0 ? 0 : (e >= P ? P - 1 : e);
+        const size_t ph = static_cast<size_t>(phys) * H + h;
+        kv = ksc[ph];
+        vv = vsc[ph];
+      }
+      kss[st * G + tid] = kv;
+      vss[st * G + tid] = vv;
+    }
+    unsigned char* dst = ring + st * stage_bytes;
+    const int cpr = sw.row_bytes / 16;
+    for (int i = tid; i < kRaggedK * cpr; i += kThreads) {
+      const int r = i / cpr, c = i % cpr;
+      const int s = s0 + r;
+      const bool ok = s < lim_blk;
+      size_t src = 0;
+      if (ok) {
+        const int e = trow[s / page];
+        const int phys = e < 0 ? 0 : (e >= P ? P - 1 : e);
+        src = (static_cast<size_t>(phys) * H + h) * page * D +
+              static_cast<size_t>(s % page) * D;
+      }
+      const int at = sw.at(r, c * 16), off = ok ? c * 16 : 0;
+      cp_async16_zfill(dst + at, reinterpret_cast<const char*>(kp + src) + off,
+                       ok);
+      cp_async16_zfill(dst + stage_bytes / 2 + at,
+                       reinterpret_cast<const char*>(vp + src) + off, ok);
+    }
+  };
+  for (int u = 0; u < stages - 1; ++u) {
+    if (u < ntiles) load_tile(u);
+    cp_async_commit();
+  }
+
+  // this warp's queries wq0 .. wq0 + wn - 1: slots < wlo are visible to
+  // all of them, slots < whi to the last; this thread's rows g and g + 8
+  // see slots < lim[0], lim[1] (0 for a pad row)
+  const int wq0 = i0 + 16 * warp;
+  const int wn = qlen - wq0 < 0 ? 0 : (qlen - wq0 > 16 ? 16 : qlen - wq0);
+  const int wlo = ctx + wq0 + 1 < wslots ? ctx + wq0 + 1 : wslots;
+  const int whi = ctx + wq0 + wn < wslots ? ctx + wq0 + wn : wslots;
+  int lim[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qi = wq0 + g + 8 * r;
+    lim[r] = qi < qlen ? (ctx + qi + 1 < wslots ? ctx + qi + 1 : wslots) : 0;
+  }
+  float o[NT][4];
+#pragma unroll
+  for (int dt = 0; dt < NT; ++dt) o[dt][0] = o[dt][1] = o[dt][2] = o[dt][3] = 0.f;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  const int mq = lane >> 3;                // ldmatrix: this lane's matrix
+
+  for (int u = 0; u < ntiles; ++u) {
+    cp_async_wait(stages - 2);
+    // tile u (and the Q tile) has landed, and every thread is done with
+    // tile u - 1, whose stage the next copies reuse
+    __syncthreads();
+    if (u + stages - 1 < ntiles) load_tile(u + stages - 1);
+    cp_async_commit();
+    const int st = u % stages, s0 = u * kRaggedK;
+    const unsigned char* kst = ring + st * stage_bytes;
+    if constexpr (sizeof(KT) == 1) {       // int8: widen, then as 16-bit
+      widen_rows<QT>(kst, wide, sw, sw16, kRaggedK);
+      __syncthreads();
+      kst = wide;
+    }
+    if (wn == 0 || s0 >= whi) continue;    // no query of the warp sees it
+    const unsigned char* vst = kst + kRaggedK * sw16.row_bytes;
+
+    // S = Q K^T: rows g, g + 8; slots 8nt + 2tig (+1) in s[nt][0 (1)] and
+    // s[nt][2 (3)]
+    float s[2 * G][4];
+#pragma unroll
+    for (int nt = 0; nt < 2 * G; ++nt) s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < NKS; ++ks) {
+      uint32_t a[4];
+      ldsm_x4(a, qs + sw16.at(16 * warp + 8 * (mq & 1) + (lane & 7),
+                              (16 * ks + 8 * (mq >> 1)) * 2));
+#pragma unroll
+      for (int j = 0; j < G; ++j) {
+        uint32_t kb[4];
+        k_frags(kst + 16 * j * sw16.row_bytes, sw16, ks, kb);
+        mma_m16n8k16(QT(), s[2 * j], a, kb[0], kb[1]);
+        mma_m16n8k16(QT(), s[2 * j + 1], a, kb[2], kb[3]);
+      }
+    }
+    // scores in log2 units, masked only where the tile crosses the
+    // warp's diagonal or the window's end
+    const bool masked = s0 + kRaggedK > wlo;
+    float fac[G];
+#pragma unroll
+    for (int j = 0; j < G; ++j)
+      fac[j] = sizeof(KT) == 1 ? __fmul_rn(kss[st * G + j], scale_log2)
+                               : scale_log2;
+    float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+    for (int nt = 0; nt < 2 * G; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = __fmul_rn(s[nt][e], fac[nt >> 1]);
+        if (masked && s0 + 8 * nt + 2 * tig + (e & 1) >= lim[e >> 1])
+          x = kNegInf;
+        s[nt][e] = x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+      }
+    }
+    // the online softmax of rows g and g + 8, in the quad that holds them
+    float alpha[2], ps[2] = {0.f, 0.f};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float mn = fmaxf(m[r], mx[r]);
+      alpha[r] = exp2f(__fsub_rn(m[r], mn));
+      m[r] = mn;
+    }
+#pragma unroll
+    for (int nt = 0; nt < 2 * G; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = exp2f(__fsub_rn(s[nt][e], m[e >> 1]));
+        s[nt][e] = p;
+        ps[e >> 1] = __fadd_rn(ps[e >> 1], p);
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) l[r] = __fmaf_rn(l[r], alpha[r], ps[r]);
+#pragma unroll
+    for (int dt = 0; dt < NT; ++dt) {
+      o[dt][0] = __fmul_rn(o[dt][0], alpha[0]);
+      o[dt][1] = __fmul_rn(o[dt][1], alpha[0]);
+      o[dt][2] = __fmul_rn(o[dt][2], alpha[1]);
+      o[dt][3] = __fmul_rn(o[dt][3], alpha[1]);
+    }
+    // O += P V, one k-step (16 slots) at a time; p rounded to the query
+    // type; an int8 page's V scale in f32 on its own zeroed product
+#pragma unroll
+    for (int j = 0; j < G; ++j) {
+      const uint32_t pa[4] = {pack2(QT(), s[2 * j][0], s[2 * j][1]),
+                              pack2(QT(), s[2 * j][2], s[2 * j][3]),
+                              pack2(QT(), s[2 * j + 1][0], s[2 * j + 1][1]),
+                              pack2(QT(), s[2 * j + 1][2], s[2 * j + 1][3])};
+      const unsigned char* vj = vst + 16 * j * sw16.row_bytes;
+#pragma unroll
+      for (int dt = 0; dt < NT; dt += 2) {
+        uint32_t vb[4];
+        v_frags(vj, sw16, dt, dt + 1, vb);
+        if constexpr (sizeof(KT) == 1) {
+          const float vs = vss[st * G + j];
+          float d0[4] = {0.f, 0.f, 0.f, 0.f}, d1[4] = {0.f, 0.f, 0.f, 0.f};
+          mma_m16n8k16(QT(), d0, pa, vb[0], vb[1]);
+          mma_m16n8k16(QT(), d1, pa, vb[2], vb[3]);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            o[dt][e] = __fmaf_rn(vs, d0[e], o[dt][e]);
+            o[dt + 1][e] = __fmaf_rn(vs, d1[e], o[dt + 1][e]);
+          }
+        } else {
+          mma_m16n8k16(QT(), o[dt], pa, vb[0], vb[1]);
+          mma_m16n8k16(QT(), o[dt + 1], pa, vb[2], vb[3]);
+        }
+      }
+    }
+  }
+  cp_async_wait(0);
+
+  // rows g, g + 8: O / l (zeros for pad rows) into the warp's own rows of
+  // the Q tile, then out in 16-byte stores
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] = __fadd_rn(l[r], __shfl_xor_sync(0xffffffffu, l[r], 1));
+    l[r] = __fadd_rn(l[r], __shfl_xor_sync(0xffffffffu, l[r], 2));
+  }
+  __syncwarp();
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = g + 8 * r;
+    const bool valid = wq0 + row < qlen;
+    const float den = fmaxf(l[r], 1e-20f);
+#pragma unroll
+    for (int dt = 0; dt < NT; ++dt) {
+      const float v0 = valid ? __fdiv_rn(o[dt][2 * r], den) : 0.f;
+      const float v1 = valid ? __fdiv_rn(o[dt][2 * r + 1], den) : 0.f;
+      *reinterpret_cast<uint32_t*>(
+          qs + sw16.at(16 * warp + row, (8 * dt + 2 * tig) * 2)) =
+          pack2(QT(), v0, v1);
+    }
+  }
+  __syncwarp();
+  for (int i = lane; i < 16 * CPR; i += 32) {
+    const int r = i / CPR, c = i % CPR;
+    if (wq0 + r < C)
+      reinterpret_cast<uint4*>(obase + (wq0 + r) * rs)[c] =
+          *reinterpret_cast<const uint4*>(qs + sw16.at(16 * warp + r, c * 16));
+  }
+}
+
 template <typename QT, typename KT>
 __global__ void __launch_bounds__(kThreads) ragged_paged_kernel(
     const QT* __restrict__ q, const KT* __restrict__ kp,
@@ -1270,12 +1605,52 @@ int launch_verify(const void* q, const void* k, const void* v,
                                     scale, stream);
 }
 
+template <typename QT, typename KT, int D>
+int launch_ragged_mma(const void* q, const void* k, const void* v,
+                      const void* ks, const void* vs, const void* tables,
+                      const void* ctx, const void* qlens, void* out, int B,
+                      int P, int C, int H, int page, int max_pages,
+                      float scale, cudaStream_t stream) {
+  const int stages = ragged_stages(D, sizeof(KT));
+  const size_t smem = RaggedLayout(D, sizeof(KT), stages).total;
+  auto kernel = ragged_paged_mma_kernel<QT, KT, D>;
+  if (int rc = set_smem(kernel, smem)) return rc;
+  const dim3 grid(H, B, (C + kRaggedQ - 1) / kRaggedQ);
+  kernel<<<grid, kThreads, smem, stream>>>(
+      static_cast<const QT*>(q), static_cast<const KT*>(k),
+      static_cast<const KT*>(v), static_cast<const float*>(ks),
+      static_cast<const float*>(vs), static_cast<const int*>(tables),
+      static_cast<const int*>(ctx), static_cast<const int*>(qlens),
+      static_cast<QT*>(out), P, C, H, page, max_pages, stages,
+      static_cast<float>(scale * 1.4426950408889634));   // log2(e)
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The tensor-core walk where it applies (16-bit queries, D 64 / 128 /
+// 256, pages of a multiple of 16 slots), else the CUDA-core kernel.
 template <typename QT, typename KT>
 int launch_ragged(const void* q, const void* k, const void* v,
                   const void* ks, const void* vs, const void* tables,
                   const void* ctx, const void* qlens, void* out, int B,
                   int P, int C, int H, int D, int page, int max_pages,
                   float scale, cudaStream_t stream) {
+  if (B == 0 || C == 0 || H == 0) return 0;
+  if constexpr (MmaPair<QT, KT>::value) {
+    if (page % 16 == 0) {
+      if (D == 64)
+        return launch_ragged_mma<QT, KT, 64>(q, k, v, ks, vs, tables, ctx,
+                                             qlens, out, B, P, C, H, page,
+                                             max_pages, scale, stream);
+      if (D == 128)
+        return launch_ragged_mma<QT, KT, 128>(q, k, v, ks, vs, tables, ctx,
+                                              qlens, out, B, P, C, H, page,
+                                              max_pages, scale, stream);
+      if (D == 256)
+        return launch_ragged_mma<QT, KT, 256>(q, k, v, ks, vs, tables, ctx,
+                                              qlens, out, B, P, C, H, page,
+                                              max_pages, scale, stream);
+    }
+  }
   auto kernel = ragged_paged_kernel<QT, KT>;
   const size_t smem = ragged_smem(D, page);
   if (int rc = set_smem(kernel, smem)) return rc;

@@ -5,21 +5,27 @@ call serves a batch where row ``b`` carries ``query_lens[b]`` queries at
 absolute positions ``context_lens[b] + i``: decode rows have
 ``query_len == 1``, prefill rows a prompt chunk, inactive rows 0.
 
-Two implementations share ``ragged_paged_attention``, as in the JAX
-package:
+Three compositions share ``ragged_paged_attention``:
 
-* ``_ragged_reference`` (the default) — the composition the serving
-  engine runs: every position through ``prefix_prefill_attention`` and
-  every row's first position also through the decode kernel
-  (``paged_attention_decode``), kept for rows with ``query_len == 1``;
-  speculative verify rows take their first ``verify_window`` positions
-  from the verify kernel (``paged_attention_verify``), each position at
-  its own length, so they equal sequential decode steps bit for bit.
-* ``use_kernel=True`` — the hand-written CUDA kernel
-  ``ragged_paged_kernel`` (``csrc/paged_attention.cu``), which replaces
-  the Pallas ``_ragged_kernel``: one launch for every row type.  On a
-  CPU tensor its wrapper runs ``_ragged_plain``, the plain PyTorch
-  version; on a CUDA tensor it launches the kernel or raises.
+* the serving composition (the default) — chunk rows (``query_len > 1``,
+  not verify rows within their window) through one launch of the ragged kernel with the
+  other rows' lengths set to 0; decode rows' position 0 from the decode
+  kernel (``paged_attention_decode``); speculative verify rows' first
+  ``verify_window`` positions from the verify kernel
+  (``paged_attention_verify``), each position at its own length, so
+  they equal sequential decode steps bit for bit.
+* ``_ragged_reference`` — the port's copy of the JAX package's
+  composition: every position through the plain fp32 window attention
+  ``prefix_prefill_attention``, decode and verify rows as above.  The
+  tests hold the serving composition to it; on the CPU the two are
+  bitwise equal on valid positions.
+* ``use_kernel=True`` — one launch of the ragged kernel for every row
+  type (no verify rows), as the JAX package's opt-in kernel path.
+
+The ragged kernel's wrapper is ``ragged_kernel``: on a CPU tensor it
+runs ``_ragged_plain``, the plain PyTorch version; on a CUDA tensor it
+launches ``ragged_paged_attention`` (``csrc/paged_attention.cu``, which
+replaces the Pallas ``_ragged_kernel``) or raises.
 
 ``write_ragged_pages`` is the matching scatter: valid positions land at
 the row's absolute slots, pad positions go to the scratch page no live
@@ -72,13 +78,13 @@ def write_ragged_pages(pages, block_tables, kv, context_lens, query_lens,
     return pages
 
 
-def _ragged_reference(q, k_pages, v_pages, block_tables, context_lens,
-                      query_lens, scale=None, verify_rows=None,
-                      verify_window=None):
-    """Per-row-type composition (see module docstring).  The decode
-    kernel runs for ALL rows at ``context_lens + 1`` — chunk and inactive
-    rows' results are discarded — exactly as the JAX reference does.
-    Positions ``i >= query_lens`` hold garbage the caller never reads.
+def _decode_and_verify_rows(out, q, k_pages, v_pages, block_tables,
+                            context_lens, query_lens, scale, verify_rows,
+                            verify_window):
+    """Decode rows' position 0 and verify rows' first ``verify_window``
+    positions of ``out``, in place.  The decode kernel runs for ALL rows
+    at ``context_lens + 1`` and rows with ``query_lens == 1`` keep it, as
+    the JAX reference does.
 
     ``verify_rows [B] bool`` marks speculative verify rows (``query_lens
     = k + 1``: last emitted token + ``k`` drafts).  The verify kernel
@@ -86,8 +92,6 @@ def _ragged_reference(q, k_pages, v_pages, block_tables, context_lens,
     ``j`` at ``min(ctx + j + 1, ctx + max(qlen, 1))`` (the clamp keeps
     short and non-verify rows inside their valid KV; their lanes are
     discarded), and flagged rows take those lanes."""
-    out = prefix_prefill_attention(q, k_pages, v_pages, block_tables,
-                                   context_lens, scale=scale)
     dec = paged_attention_decode(q[:, 0].contiguous(), k_pages, v_pages,
                                  block_tables, (context_lens + 1).int(),
                                  scale=scale)
@@ -105,6 +109,43 @@ def _ragged_reference(q, k_pages, v_pages, block_tables, context_lens,
     sel = verify_rows[:, None, None, None]
     out[:, :w] = torch.where(sel, decv, out[:, :w])
     return out
+
+
+def _ragged_reference(q, k_pages, v_pages, block_tables, context_lens,
+                      query_lens, scale=None, verify_rows=None,
+                      verify_window=None):
+    """The JAX package's composition: every position through the plain
+    fp32 window attention, then decode and verify rows
+    (``_decode_and_verify_rows``).  Positions ``i >= query_lens`` hold
+    garbage the caller never reads."""
+    out = prefix_prefill_attention(q, k_pages, v_pages, block_tables,
+                                   context_lens, scale=scale)
+    return _decode_and_verify_rows(out, q, k_pages, v_pages, block_tables,
+                                   context_lens, query_lens, scale,
+                                   verify_rows, verify_window)
+
+
+def _ragged_serving(q, k_pages, v_pages, block_tables, context_lens,
+                    query_lens, scale=None, verify_rows=None,
+                    verify_window=None):
+    """The serving composition: chunk rows through one ragged-kernel
+    launch (every other row at length 0, so its positions are zeros),
+    then decode and verify rows as in ``_ragged_reference``.  Pad
+    positions of chunk rows are zeros.  A verify row whose length
+    exceeds ``verify_window`` counts as a chunk row too: its positions
+    past the window come from the ragged kernel, as they come from the
+    window attention in ``_ragged_reference``."""
+    chunk = query_lens > 1
+    if verify_rows is not None:
+        chunk = chunk & ~(verify_rows & (query_lens <= int(verify_window)))
+    out = ragged_kernel(q.contiguous(), k_pages, v_pages, block_tables,
+                        context_lens,
+                        torch.where(chunk, query_lens,
+                                    torch.zeros_like(query_lens)),
+                        scale=scale)
+    return _decode_and_verify_rows(out, q, k_pages, v_pages, block_tables,
+                                   context_lens, query_lens, scale,
+                                   verify_rows, verify_window)
 
 
 def _ragged_plain(q, k_pages, v_pages, block_tables, context_lens,
@@ -177,20 +218,22 @@ def ragged_paged_attention(q, k_pages, v_pages, block_tables,
     verify_rows  [B] bool       — optional: speculative verify rows
                                   whose first ``verify_window`` (int)
                                   positions take per-position
-                                  decode-kernel math (``_ragged_reference``)
-    → [B, C, H, D]; positions past ``query_lens`` hold garbage.
+                                  decode-kernel math
+    → [B, C, H, D]; positions past ``query_lens`` are zeros, except a
+      verify row's first ``verify_window`` (finite lanes, never read).
 
-    ``use_kernel=False`` (default) runs the reference composition the
-    serving engine relies on; ``use_kernel=True`` the single-launch
-    kernel (allclose to the reference), which takes no verify rows."""
+    ``use_kernel=False`` (default) runs the serving composition
+    (``_ragged_serving``: chunk rows through the ragged kernel, decode
+    and verify rows through their kernels); ``use_kernel=True`` one
+    launch of the ragged kernel for every row, which takes no verify
+    rows."""
     if use_kernel:
         if verify_rows is not None:
             raise NotImplementedError(
-                "speculative verify rows require the reference "
+                "speculative verify rows require the per-row-type "
                 "composition (per-position decode-kernel parity)")
         return ragged_kernel(q, k_pages, v_pages, block_tables,
                              context_lens, query_lens, scale=scale)
-    return _ragged_reference(q, k_pages, v_pages, block_tables,
-                             context_lens, query_lens, scale=scale,
-                             verify_rows=verify_rows,
-                             verify_window=verify_window)
+    return _ragged_serving(q, k_pages, v_pages, block_tables, context_lens,
+                           query_lens, scale=scale, verify_rows=verify_rows,
+                           verify_window=verify_window)
