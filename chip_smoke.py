@@ -105,10 +105,11 @@ RAGGED_TOL = {"fp32": 1e-4, "bf16": 1e-2, "int8": 1e-2}
 PREFILL_CTX = (0, 512, 1024, 1536, 0, 512, 1024, 1536)
 # CUDA-event medians of the earlier ragged kernel (one block per 16
 # queries, f32 tiles, scalar dot products; now the fp32 path) at the
-# mix of phase 3 on an NVIDIA H100 80GB HBM3 at 700 W, printed beside
-# the redesigned kernel's times: {(case, pages): ms}
+# mix of phase 3 and at (p) on an NVIDIA H100 80GB HBM3 at 700 W,
+# printed beside the redesigned kernel's times: {(case, pages): ms}
 CUDA_CORE_RAGGED_MS = {("mix", "bf16"): 3.9093, ("mix", "fp32"): 3.8235,
-                       ("mix", "int8"): 4.1808}
+                       ("mix", "int8"): 4.1808, ("p", "bf16"): 13.1159,
+                       ("p", "fp32"): 12.5832, ("p", "int8"): 14.0240}
 
 # CUDA-event medians of the earlier decode and verify kernels (one block
 # per (row, head) walking all of the row's pages in order, one page at a

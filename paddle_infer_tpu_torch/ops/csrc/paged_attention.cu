@@ -82,26 +82,32 @@
 //
 // - Tensor-core walk (ragged_paged_mma_kernel): bf16 / f16 queries over
 //   16-bit or int8 pages, D in {64, 128, 256}, page % 16 == 0 — the
-//   serving case.  A block owns (head, row, a tile of kRaggedQ = 64
-//   queries); warp w holds queries 16w..16w+15 as the rows of its
+//   serving case.  A block owns (head, row, a tile of kRaggedQ = 128
+//   queries); each of its 8 warps holds 16 queries as the rows of its
 //   m16n8k16 tiles.  The Q tile sits in shared memory for the whole walk
 //   (fragments by ldmatrix).  KV tiles of kRaggedK = 64 slots, aligned to
-//   the row's slot 0 and gathered page by page through the row's table,
-//   stream through a ring of 2..kMaxStages stages (kRaggedRingBytes) with
-//   16-byte cp.async copies, XOR-swizzled as the decode walk's.  S = Q K^T
-//   in f32; the online softmax runs in registers (exp2, m and l in f32);
-//   p is rounded to the query type as the A operand of P V; O stays in
-//   f32.  int8 tiles are widened once by the block; the K scale of a
-//   page multiplies its score columns, the V scale is applied in f32 to
-//   the page's own zeroed accumulator (a page of 16 is one k-step).
+//   the row's slot 0 and gathered page by page, stream through a ring of
+//   2..kMaxStages stages (kRaggedRingBytes) with 16-byte cp.async
+//   copies, XOR-swizzled as the decode walk's; each 16-slot group's pool
+//   offset is read from the table one tile ahead, so no copy waits on a
+//   table read.  S = Q K^T in f32; the online softmax runs in registers
+//   (ex2 of one FFMA a score, m and l in f32); p is rounded to the query
+//   type as the A operand of P V; O stays in f32.  int8 tiles are widened
+//   once by the block; the K scale of a page multiplies its score
+//   columns, the V scale is applied in f32 to the page's own zeroed
+//   product (a page of 16 is one k-step).  Against other shapes of the
+//   same walk timed on an H100: 128 queries a block halve the L2 reads
+//   of K and V and beat 64; two row tiles a warp spill and lose at
+//   decode-heavy mixes; smaller KV tiles (more blocks an SM) and a
+//   deeper ring gain nothing.
 // - Causal tile walk.  A block walks only the KV tiles its last query
 //   can see; a warp masks only tiles that cross its diagonal or the
 //   window's end and skips tiles past its own last query.  Slots past
 //   the block's last query are zero-filled (cp.async src-size 0), so a
 //   masked weight 0 never meets a stale value.  Tiles whose queries all
 //   lie at or past q_lens[b] write zeros and exit.  The grid is (H, B,
-//   ceil(C / 64)) from the shapes alone, longest walks first; the host
-//   reads nothing.
+//   ceil(C / kRaggedQ)) from the shapes alone, longest walks first; the
+//   host reads nothing.
 // - Row and chunk independence.  A query's bits depend only on its own
 //   row's q, its absolute position, table and pool: KV tiles are
 //   absolute, rows of a tensor-core tile do not mix, and a walked tile
@@ -131,7 +137,8 @@ constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
 constexpr int kTQ = 16;          // queries per CUDA-core ragged tile
 constexpr int kMaxDPT = 2;       // head dims per thread in the ragged PV loop
-constexpr int kRaggedQ = 64;     // queries per tensor-core ragged block
+constexpr int kRaggedQ = 128;    // queries per tensor-core ragged block
+constexpr int kRaggedThreads = 2 * kRaggedQ;   // a warp per 16 queries
 constexpr int kRaggedK = 64;     // slots per ragged KV tile
 constexpr int kRaggedGroups = kRaggedK / 16;   // k-steps of 16 slots a tile
 constexpr int kRaggedRingBytes = 48 * 1024;    // ragged ring budget
@@ -145,7 +152,7 @@ constexpr int kPVDims = 4;       // head dims a thread accumulates in p*V
 static_assert(kChunk <= 16, "one half-warp runs a unit's softmax");
 static_assert(kVerifyLanes <= 2 * kThreads / 32, "a half-warp per lane");
 static_assert(kMaxStages <= 4, "cp_async_wait takes depths 0..2");
-static_assert(kRaggedQ == 16 * kWarps, "16 ragged queries a warp");
+static_assert(kRaggedQ % 16 == 0, "16 ragged queries a warp");
 
 enum DType { kF32 = 0, kBF16 = 1, kF16 = 2, kI8 = 3 };
 
@@ -216,6 +223,13 @@ __device__ __forceinline__ void cp_async16_zfill(void* dst, const void* src,
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
                "l"(src), "r"(n)
                : "memory");
+}
+
+// 2^x, flushing denormal results to 0 (ex2.approx.ftz: a few ulp)
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
 }
 
 __device__ __forceinline__ void cp_async_commit() {
@@ -709,13 +723,13 @@ __device__ __forceinline__ void v_frags(const unsigned char* vs,
 // An int8 stage (`rows` K rows, then `rows` V rows) widened exactly to the
 // compute type T in `wide`, both in their swizzled layouts; the block's
 // threads share the 16-byte chunks.
-template <typename T>
+template <typename T, int NThreads = kThreads>
 __device__ __forceinline__ void widen_rows(const unsigned char* st,
                                            unsigned char* wide,
                                            const Swizzle& sw8,
                                            const Swizzle& sw16, int rows) {
   const int cpr = sw8.row_bytes / 16;               // int8 chunks a row
-  for (int i = threadIdx.x; i < 2 * rows * cpr; i += kThreads) {
+  for (int i = threadIdx.x; i < 2 * rows * cpr; i += NThreads) {
     const int r = i / cpr, e = (i % cpr) * 16;      // row of K then V
     const int rr = r % rows, half = (r / rows) * rows;
     const unsigned char* src = st + half * sw8.row_bytes + sw8.at(rr, e);
@@ -1069,13 +1083,14 @@ __global__ void __launch_bounds__(kThreads) paged_verify_combine_kernel(
 
 // Byte offsets of one ragged block's shared memory.
 struct RaggedLayout {
-  int q, ring, wide, ksc, vsc, total;
+  int q, ring, wide, gb, ksc, vsc, total;
   __host__ __device__ RaggedLayout(int D, int esize, int stages) {
     int off = 0;
     q = take(off, kRaggedQ * D * 2);                       // the Q tile
     ring = take(off, stages * 2 * kRaggedK * D * esize);   // K, V tiles
     wide = take(off, esize == 1 ? 2 * kRaggedK * D * 2 : 0);  // int8 widened
-    ksc = take(off, stages * kRaggedGroups * 4);  // a stage's K scales
+    gb = take(off, stages * kRaggedGroups * 8);   // a stage's group bases
+    ksc = take(off, stages * kRaggedGroups * 4);  // its K scales
     vsc = take(off, stages * kRaggedGroups * 4);  // and V scales
     total = off;
   }
@@ -1083,23 +1098,32 @@ struct RaggedLayout {
 
 // Ring stages of the ragged walk: as many as kRaggedRingBytes holds, 2 to
 // kMaxStages.
-int ragged_stages(int D, int esize) {
-  const int s = kRaggedRingBytes / (2 * kRaggedK * D * esize);
-  return s < 2 ? 2 : (s > kMaxStages ? kMaxStages : s);
+__host__ __device__ constexpr int ragged_stages(int D, int esize) {
+  return kRaggedRingBytes / (2 * kRaggedK * D * esize) < 2 ? 2
+         : kRaggedRingBytes / (2 * kRaggedK * D * esize) > kMaxStages
+             ? kMaxStages
+             : kRaggedRingBytes / (2 * kRaggedK * D * esize);
 }
 
 template <typename QT, typename KT, int D>
-__global__ void __launch_bounds__(kThreads) ragged_paged_mma_kernel(
+__global__ void __launch_bounds__(kRaggedThreads) ragged_paged_mma_kernel(
     const QT* __restrict__ q, const KT* __restrict__ kp,
     const KT* __restrict__ vp, const float* __restrict__ ksc,
     const float* __restrict__ vsc, const int* __restrict__ tables,
     const int* __restrict__ ctx_lens, const int* __restrict__ q_lens,
     QT* __restrict__ out, int P, int C, int H, int page, int max_pages,
-    int stages, float scale_log2) {
+    float scale_log2) {
   constexpr int NT = D / 8;                // head-dim tiles of O
   constexpr int NKS = D / 16;              // k-steps of Q K^T
   constexpr int CPR = D * 2 / 16;          // 16-byte chunks of a 16-bit row
+  constexpr int KCPR = D * sizeof(KT) / 16;  // and of a pool row
   constexpr int G = kRaggedGroups;
+  constexpr int stages = ragged_stages(D, sizeof(KT));
+  // a thread copies chunk tid % KCPR of rows tid / KCPR + k * KSTEP
+  constexpr int KSTEP = kRaggedThreads / KCPR;
+  constexpr int QSTEP = kRaggedThreads / CPR;
+  static_assert(kRaggedK % KSTEP == 0 && kRaggedQ % QSTEP == 0,
+                "whole passes of the block's copies");
   extern __shared__ __align__(16) unsigned char pa_smem[];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, tig = lane & 3;
@@ -1113,7 +1137,7 @@ __global__ void __launch_bounds__(kThreads) ragged_paged_mma_kernel(
               static_cast<size_t>(h) * D;
   if (i0 >= qlen) {          // every query of the tile is a pad: zeros
     const int rows = C - i0 < kRaggedQ ? C - i0 : kRaggedQ;
-    for (int i = tid; i < rows * CPR; i += kThreads)
+    for (int i = tid; i < rows * CPR; i += kRaggedThreads)
       reinterpret_cast<uint4*>(obase + (i0 + i / CPR) * rs)[i % CPR] =
           make_uint4(0, 0, 0, 0);
     return;
@@ -1130,13 +1154,42 @@ __global__ void __launch_bounds__(kThreads) ragged_paged_mma_kernel(
   unsigned char* qs = pa_smem + L.q;
   unsigned char* ring = pa_smem + L.ring;
   unsigned char* wide = pa_smem + L.wide;
+  size_t* gb = reinterpret_cast<size_t*>(pa_smem + L.gb);
   float* kss = reinterpret_cast<float*>(pa_smem + L.ksc);
   float* vss = reinterpret_cast<float*>(pa_smem + L.vsc);
   const int* trow = tables + static_cast<size_t>(b) * max_pages;
 
+  // A tile's 16-slot group g (a group lies in one page) starts at pool
+  // element gb[stage][g]; thread g < G reads tile t's table entry one
+  // iteration before the tile's copies are issued and leaves the base in
+  // the ring (int8: with the page's scales), so no copy waits on a table
+  // read.  Groups at or past lim_blk are never loaded.
+  auto table_entry = [&](int t) {
+    const int s = t * kRaggedK + 16 * tid;
+    return s < lim_blk ? trow[s / page] : 0;
+  };
+  auto phys_page = [&](int e) { return e < 0 ? 0 : (e >= P ? P - 1 : e); };
+  auto group_base = [&](int t, int e) {
+    const int s = t * kRaggedK + 16 * tid;
+    return (static_cast<size_t>(phys_page(e)) * H + h) * page * D +
+           static_cast<size_t>(s % page) * D;
+  };
+  if (tid < G) {
+    for (int t = 0; t < stages; ++t) {
+      const int e = table_entry(t);
+      gb[t * G + tid] = group_base(t, e);
+      if constexpr (sizeof(KT) == 1) {
+        const size_t ph = static_cast<size_t>(phys_page(e)) * H + h;
+        kss[t * G + tid] = ksc[ph];
+        vss[t * G + tid] = vsc[ph];
+      }
+    }
+  }
+
   // the Q tile, rows past q_len zero: the first copy group
-  for (int i = tid; i < kRaggedQ * CPR; i += kThreads) {
-    const int r = i / CPR, c = i % CPR;
+#pragma unroll
+  for (int k = 0; k < kRaggedQ / QSTEP; ++k) {
+    const int r = tid / CPR + k * QSTEP, c = tid % CPR;
     const bool ok = r < nq;
     const char* src = reinterpret_cast<const char*>(
         ok ? q + (static_cast<size_t>(b) * C + i0 + r) * rs +
@@ -1146,38 +1199,21 @@ __global__ void __launch_bounds__(kThreads) ragged_paged_mma_kernel(
   }
   cp_async_commit();
 
-  // KV tile u (slots u * kRaggedK ..) into stage u % stages: each slot
-  // row from its page, rows at or past lim_blk zero; the tile's scales
-  // (one a 16-slot group, read at issue, visible after the next barrier)
+  __syncthreads();                         // the first group bases
+
+  // KV tile u (slots u * kRaggedK ..) into stage u % stages: slot row r
+  // from its group's base, rows at or past lim_blk zero
+  const int lc = tid % KCPR;
   auto load_tile = [&](int u) {
     const int st = u % stages, s0 = u * kRaggedK;
-    if (tid < G) {
-      const int s = s0 + 16 * tid;
-      float kv = 1.f, vv = 1.f;
-      if (ksc != nullptr && s < lim_blk) {
-        const int e = trow[s / page];
-        const int phys = e < 0 ? 0 : (e >= P ? P - 1 : e);
-        const size_t ph = static_cast<size_t>(phys) * H + h;
-        kv = ksc[ph];
-        vv = vsc[ph];
-      }
-      kss[st * G + tid] = kv;
-      vss[st * G + tid] = vv;
-    }
     unsigned char* dst = ring + st * stage_bytes;
-    const int cpr = sw.row_bytes / 16;
-    for (int i = tid; i < kRaggedK * cpr; i += kThreads) {
-      const int r = i / cpr, c = i % cpr;
-      const int s = s0 + r;
-      const bool ok = s < lim_blk;
-      size_t src = 0;
-      if (ok) {
-        const int e = trow[s / page];
-        const int phys = e < 0 ? 0 : (e >= P ? P - 1 : e);
-        src = (static_cast<size_t>(phys) * H + h) * page * D +
-              static_cast<size_t>(s % page) * D;
-      }
-      const int at = sw.at(r, c * 16), off = ok ? c * 16 : 0;
+#pragma unroll
+    for (int k = 0; k < kRaggedK / KSTEP; ++k) {
+      const int r = tid / KCPR + k * KSTEP;
+      const bool ok = s0 + r < lim_blk;
+      const size_t src =
+          ok ? gb[st * G + (r >> 4)] + static_cast<size_t>(r & 15) * D : 0;
+      const int at = sw.at(r, lc * 16), off = ok ? lc * 16 : 0;
       cp_async16_zfill(dst + at, reinterpret_cast<const char*>(kp + src) + off,
                        ok);
       cp_async16_zfill(dst + stage_bytes / 2 + at,
@@ -1204,120 +1240,152 @@ __global__ void __launch_bounds__(kThreads) ragged_paged_mma_kernel(
   }
   float o[NT][4];
 #pragma unroll
-  for (int dt = 0; dt < NT; ++dt) o[dt][0] = o[dt][1] = o[dt][2] = o[dt][3] = 0.f;
+  for (int dt = 0; dt < NT; ++dt)
+    o[dt][0] = o[dt][1] = o[dt][2] = o[dt][3] = 0.f;
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
   const int mq = lane >> 3;                // ldmatrix: this lane's matrix
+  int e_next = 0;                          // thread g < G: the prefetch
+  float ks_next = 1.f, vs_next = 1.f;
 
   for (int u = 0; u < ntiles; ++u) {
     cp_async_wait(stages - 2);
     // tile u (and the Q tile) has landed, and every thread is done with
     // tile u - 1, whose stage the next copies reuse
     __syncthreads();
+    const int st = u % stages, s0 = u * kRaggedK;
+    if constexpr (sizeof(KT) == 1) {       // tile u - 1 + stages's scales
+      if (u > 0 && tid < G && u - 1 + stages < ntiles) {
+        kss[((u - 1) % stages) * G + tid] = ks_next;
+        vss[((u - 1) % stages) * G + tid] = vs_next;
+      }
+    }
     if (u + stages - 1 < ntiles) load_tile(u + stages - 1);
     cp_async_commit();
-    const int st = u % stages, s0 = u * kRaggedK;
+    const bool prefetch = tid < G && u + stages < ntiles;
+    if (prefetch) e_next = table_entry(u + stages);
     const unsigned char* kst = ring + st * stage_bytes;
     if constexpr (sizeof(KT) == 1) {       // int8: widen, then as 16-bit
-      widen_rows<QT>(kst, wide, sw, sw16, kRaggedK);
+      widen_rows<QT, kRaggedThreads>(kst, wide, sw, sw16, kRaggedK);
       __syncthreads();
       kst = wide;
     }
-    if (wn == 0 || s0 >= whi) continue;    // no query of the warp sees it
-    const unsigned char* vst = kst + kRaggedK * sw16.row_bytes;
+    if (wn > 0 && s0 < whi) {              // some query of the warp sees it
+      const unsigned char* vst = kst + kRaggedK * sw16.row_bytes;
 
-    // S = Q K^T: rows g, g + 8; slots 8nt + 2tig (+1) in s[nt][0 (1)] and
-    // s[nt][2 (3)]
-    float s[2 * G][4];
+      // S = Q K^T: rows g, g + 8; slots 8nt + 2tig (+1) in s[nt][0 (1)] and
+      // s[nt][2 (3)]
+      float s[2 * G][4];
 #pragma unroll
-    for (int nt = 0; nt < 2 * G; ++nt) s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
+      for (int nt = 0; nt < 2 * G; ++nt)
+        s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
 #pragma unroll
-    for (int ks = 0; ks < NKS; ++ks) {
-      uint32_t a[4];
-      ldsm_x4(a, qs + sw16.at(16 * warp + 8 * (mq & 1) + (lane & 7),
-                              (16 * ks + 8 * (mq >> 1)) * 2));
+      for (int ks = 0; ks < NKS; ++ks) {
+        uint32_t a[4];
+        ldsm_x4(a, qs + sw16.at(16 * warp + 8 * (mq & 1) + (lane & 7),
+                                (16 * ks + 8 * (mq >> 1)) * 2));
+#pragma unroll
+        for (int j = 0; j < G; ++j) {
+          uint32_t kb[4];
+          k_frags(kst + 16 * j * sw16.row_bytes, sw16, ks, kb);
+          mma_m16n8k16(QT(), s[2 * j], a, kb[0], kb[1]);
+          mma_m16n8k16(QT(), s[2 * j + 1], a, kb[2], kb[3]);
+        }
+      }
+      // masked only where the tile crosses the warp's diagonal or the
+      // window's end
+      if (s0 + kRaggedK > wlo) {
+#pragma unroll
+        for (int nt = 0; nt < 2 * G; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            if (s0 + 8 * nt + 2 * tig + (e & 1) >= lim[e >> 1])
+              s[nt][e] = kNegInf;
+      }
+      // log2-unit factor of each 16-slot group (int8: its page's K scale)
+      // and the rows' maxima in log2 units, from each group's raw maximum
+      // (fac > 0, so the product keeps the order)
+      float fac[G], mx[2] = {kNegInf, kNegInf};
 #pragma unroll
       for (int j = 0; j < G; ++j) {
-        uint32_t kb[4];
-        k_frags(kst + 16 * j * sw16.row_bytes, sw16, ks, kb);
-        mma_m16n8k16(QT(), s[2 * j], a, kb[0], kb[1]);
-        mma_m16n8k16(QT(), s[2 * j + 1], a, kb[2], kb[3]);
+        fac[j] = sizeof(KT) == 1 ? __fmul_rn(kss[st * G + j], scale_log2)
+                                 : scale_log2;
+#pragma unroll
+        for (int r = 0; r < 2; ++r)
+          mx[r] = fmaxf(mx[r], __fmul_rn(fmaxf(fmaxf(s[2 * j][2 * r],
+                                                     s[2 * j][2 * r + 1]),
+                                               fmaxf(s[2 * j + 1][2 * r],
+                                                     s[2 * j + 1][2 * r + 1])),
+                                         fac[j]));
       }
-    }
-    // scores in log2 units, masked only where the tile crosses the
-    // warp's diagonal or the window's end
-    const bool masked = s0 + kRaggedK > wlo;
-    float fac[G];
+      // the online softmax of rows g and g + 8, in the quad that holds
+      // them; alpha is exactly 1 where the maximum stays, so a tile that
+      // is fully masked for a row leaves its sums' bits as they were
+      float alpha[2], ps[2] = {0.f, 0.f};
 #pragma unroll
-    for (int j = 0; j < G; ++j)
-      fac[j] = sizeof(KT) == 1 ? __fmul_rn(kss[st * G + j], scale_log2)
-                               : scale_log2;
-    float mx[2] = {kNegInf, kNegInf};
-#pragma unroll
-    for (int nt = 0; nt < 2 * G; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float x = __fmul_rn(s[nt][e], fac[nt >> 1]);
-        if (masked && s0 + 8 * nt + 2 * tig + (e & 1) >= lim[e >> 1])
-          x = kNegInf;
-        s[nt][e] = x;
-        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        const float mn = fmaxf(m[r], mx[r]);
+        alpha[r] = mn == m[r] ? 1.f : fast_exp2(__fsub_rn(m[r], mn));
+        m[r] = mn;
       }
-    }
-    // the online softmax of rows g and g + 8, in the quad that holds them
-    float alpha[2], ps[2] = {0.f, 0.f};
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      const float mn = fmaxf(m[r], mx[r]);
-      alpha[r] = exp2f(__fsub_rn(m[r], mn));
-      m[r] = mn;
-    }
+      for (int nt = 0; nt < 2 * G; ++nt) {
 #pragma unroll
-    for (int nt = 0; nt < 2 * G; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p = exp2f(__fsub_rn(s[nt][e], m[e >> 1]));
-        s[nt][e] = p;
-        ps[e >> 1] = __fadd_rn(ps[e >> 1], p);
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) l[r] = __fmaf_rn(l[r], alpha[r], ps[r]);
-#pragma unroll
-    for (int dt = 0; dt < NT; ++dt) {
-      o[dt][0] = __fmul_rn(o[dt][0], alpha[0]);
-      o[dt][1] = __fmul_rn(o[dt][1], alpha[0]);
-      o[dt][2] = __fmul_rn(o[dt][2], alpha[1]);
-      o[dt][3] = __fmul_rn(o[dt][3], alpha[1]);
-    }
-    // O += P V, one k-step (16 slots) at a time; p rounded to the query
-    // type; an int8 page's V scale in f32 on its own zeroed product
-#pragma unroll
-    for (int j = 0; j < G; ++j) {
-      const uint32_t pa[4] = {pack2(QT(), s[2 * j][0], s[2 * j][1]),
-                              pack2(QT(), s[2 * j][2], s[2 * j][3]),
-                              pack2(QT(), s[2 * j + 1][0], s[2 * j + 1][1]),
-                              pack2(QT(), s[2 * j + 1][2], s[2 * j + 1][3])};
-      const unsigned char* vj = vst + 16 * j * sw16.row_bytes;
-#pragma unroll
-      for (int dt = 0; dt < NT; dt += 2) {
-        uint32_t vb[4];
-        v_frags(vj, sw16, dt, dt + 1, vb);
-        if constexpr (sizeof(KT) == 1) {
-          const float vs = vss[st * G + j];
-          float d0[4] = {0.f, 0.f, 0.f, 0.f}, d1[4] = {0.f, 0.f, 0.f, 0.f};
-          mma_m16n8k16(QT(), d0, pa, vb[0], vb[1]);
-          mma_m16n8k16(QT(), d1, pa, vb[2], vb[3]);
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            o[dt][e] = __fmaf_rn(vs, d0[e], o[dt][e]);
-            o[dt + 1][e] = __fmaf_rn(vs, d1[e], o[dt + 1][e]);
-          }
-        } else {
-          mma_m16n8k16(QT(), o[dt], pa, vb[0], vb[1]);
-          mma_m16n8k16(QT(), o[dt + 1], pa, vb[2], vb[3]);
+        for (int e = 0; e < 4; ++e) {
+          const float p =
+              fast_exp2(__fmaf_rn(s[nt][e], fac[nt >> 1], -m[e >> 1]));
+          s[nt][e] = p;
+          ps[e >> 1] = __fadd_rn(ps[e >> 1], p);
         }
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) l[r] = __fmaf_rn(l[r], alpha[r], ps[r]);
+#pragma unroll
+      for (int dt = 0; dt < NT; ++dt) {
+        o[dt][0] = __fmul_rn(o[dt][0], alpha[0]);
+        o[dt][1] = __fmul_rn(o[dt][1], alpha[0]);
+        o[dt][2] = __fmul_rn(o[dt][2], alpha[1]);
+        o[dt][3] = __fmul_rn(o[dt][3], alpha[1]);
+      }
+      // O += P V, one k-step (16 slots) at a time; p rounded to the query
+      // type; an int8 page's V scale in f32 on its own zeroed product
+#pragma unroll
+      for (int j = 0; j < G; ++j) {
+        const uint32_t pa[4] = {pack2(QT(), s[2 * j][0], s[2 * j][1]),
+                                pack2(QT(), s[2 * j][2], s[2 * j][3]),
+                                pack2(QT(), s[2 * j + 1][0], s[2 * j + 1][1]),
+                                pack2(QT(), s[2 * j + 1][2], s[2 * j + 1][3])};
+        const unsigned char* vj = vst + 16 * j * sw16.row_bytes;
+#pragma unroll
+        for (int dt = 0; dt < NT; dt += 2) {
+          uint32_t vb[4];
+          v_frags(vj, sw16, dt, dt + 1, vb);
+          if constexpr (sizeof(KT) == 1) {
+            const float vs = vss[st * G + j];
+            float d0[4] = {0.f, 0.f, 0.f, 0.f}, d1[4] = {0.f, 0.f, 0.f, 0.f};
+            mma_m16n8k16(QT(), d0, pa, vb[0], vb[1]);
+            mma_m16n8k16(QT(), d1, pa, vb[2], vb[3]);
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              o[dt][e] = __fmaf_rn(vs, d0[e], o[dt][e]);
+              o[dt + 1][e] = __fmaf_rn(vs, d1[e], o[dt + 1][e]);
+            }
+          } else {
+            mma_m16n8k16(QT(), o[dt], pa, vb[0], vb[1]);
+            mma_m16n8k16(QT(), o[dt + 1], pa, vb[2], vb[3]);
+          }
+        }
+      }
+    }
+    // tile u + stages's group base into tile u's slot, its copies issued
+    // next iteration (int8: its scales, stored next iteration)
+    if (prefetch) {
+      gb[st * G + tid] = group_base(u + stages, e_next);
+      if constexpr (sizeof(KT) == 1) {
+        const size_t ph = static_cast<size_t>(phys_page(e_next)) * H + h;
+        ks_next = ksc[ph];
+        vs_next = vsc[ph];
       }
     }
   }
@@ -1611,17 +1679,17 @@ int launch_ragged_mma(const void* q, const void* k, const void* v,
                       const void* ctx, const void* qlens, void* out, int B,
                       int P, int C, int H, int page, int max_pages,
                       float scale, cudaStream_t stream) {
-  const int stages = ragged_stages(D, sizeof(KT));
-  const size_t smem = RaggedLayout(D, sizeof(KT), stages).total;
+  const size_t smem =
+      RaggedLayout(D, sizeof(KT), ragged_stages(D, sizeof(KT))).total;
   auto kernel = ragged_paged_mma_kernel<QT, KT, D>;
   if (int rc = set_smem(kernel, smem)) return rc;
   const dim3 grid(H, B, (C + kRaggedQ - 1) / kRaggedQ);
-  kernel<<<grid, kThreads, smem, stream>>>(
+  kernel<<<grid, kRaggedThreads, smem, stream>>>(
       static_cast<const QT*>(q), static_cast<const KT*>(k),
       static_cast<const KT*>(v), static_cast<const float*>(ks),
       static_cast<const float*>(vs), static_cast<const int*>(tables),
       static_cast<const int*>(ctx), static_cast<const int*>(qlens),
-      static_cast<QT*>(out), P, C, H, page, max_pages, stages,
+      static_cast<QT*>(out), P, C, H, page, max_pages,
       static_cast<float>(scale * 1.4426950408889634));   // log2(e)
   return static_cast<int>(cudaGetLastError());
 }
