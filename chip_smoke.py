@@ -412,14 +412,16 @@ def check_verify(case, kinds=("fp32", "bf16", "int8"), timed=True):
     return out
 
 
-def prefill_case(case, ctx=PREFILL_CTX):
-    """``case`` with every ragged row a chunk of C queries at the given
-    contexts (cut to the case's window): the prefill-heavy case (p)."""
+def prefill_case(case):
+    """``case`` with every ragged row a chunk of C queries at
+    ``PREFILL_CTX`` (cut to the case's window): the prefill-heavy case
+    (p)."""
     import torch
 
     C = case["qc"].shape[1]
     window = case["tables"].shape[1] * case["page"]
-    cx = [min(c, max(0, window - C)) for c in ctx][:case["qc"].shape[0]]
+    cx = [min(c, max(0, window - C))
+          for c in PREFILL_CTX][:case["qc"].shape[0]]
     dev = case["qc"].device
     return dict(case, ctx=torch.tensor(cx, dtype=torch.int32, device=dev),
                 qlens=torch.full((len(cx),), min(C, window),
@@ -498,7 +500,7 @@ CHUNKINGS = ((700,), (100, 600), (333, 367))
 
 
 def check_chunk_independence(device, kinds=("bf16", "int8", "fp32"), H=32,
-                             D=128, page=16, seed=5):
+                             D=128):
     """One prompt of ``sum(CHUNKINGS[0])`` tokens through the ragged
     kernel, taken as one chunk and as the chunks of each of
     ``CHUNKINGS``: each chunk in its own batch of 4 rows (the prompt in
@@ -510,10 +512,9 @@ def check_chunk_independence(device, kinds=("bf16", "int8", "fp32"), H=32,
 
     from paddle_infer_tpu_torch.ops import ragged_paged_attention as RPA
 
-    n = sum(CHUNKINGS[0])
+    n, B, page = sum(CHUNKINGS[0]), 4, 16
     g = torch.Generator(device=device)
-    g.manual_seed(seed)
-    B = 4
+    g.manual_seed(5)
     max_pages = -(-n // page) + 3
     window = max_pages * page
     P = B * max_pages + 1
@@ -547,9 +548,9 @@ def check_chunk_independence(device, kinds=("bf16", "int8", "fp32"), H=32,
                 start += m
             outs.append(torch.cat(got))
         res[kind] = all(torch.equal(outs[0], o) for o in outs[1:])
+        ways = " / ".join("+".join(map(str, c)) for c in CHUNKINGS)
         print(f"[kernels] ragged chunk independence {kind}: a {n}-token "
-              f"prompt as {' / '.join('+'.join(map(str, c)) for c in CHUNKINGS)}"
-              f": equal={res[kind]}", flush=True)
+              f"prompt as {ways}: equal={res[kind]}", flush=True)
     if not all(res.values()):
         raise AssertionError(f"ragged outputs depend on the chunking: {res}")
     return res

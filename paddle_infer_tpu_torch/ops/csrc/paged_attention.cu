@@ -267,10 +267,11 @@ __host__ __device__ __forceinline__ int ring_rows(int page) {
   return page < kChunk ? page : kChunk;
 }
 
-// Ring stages for units of `rows` rows of K and of V: as many as
-// kRingBytes holds, 2 to kMaxStages.
-int ring_stages(int rows, int D, int esize) {
-  const int s = kRingBytes / (2 * rows * D * esize);
+// Ring stages for units of `rows` rows of K and of V: as many as `bytes`
+// holds, 2 to kMaxStages.
+__host__ __device__ constexpr int ring_stages(int bytes, int rows, int D,
+                                              int esize) {
+  const int s = bytes / (2 * rows * D * esize);
   return s < 2 ? 2 : (s > kMaxStages ? kMaxStages : s);
 }
 
@@ -1096,15 +1097,6 @@ struct RaggedLayout {
   }
 };
 
-// Ring stages of the ragged walk: as many as kRaggedRingBytes holds, 2 to
-// kMaxStages.
-__host__ __device__ constexpr int ragged_stages(int D, int esize) {
-  return kRaggedRingBytes / (2 * kRaggedK * D * esize) < 2 ? 2
-         : kRaggedRingBytes / (2 * kRaggedK * D * esize) > kMaxStages
-             ? kMaxStages
-             : kRaggedRingBytes / (2 * kRaggedK * D * esize);
-}
-
 template <typename QT, typename KT, int D>
 __global__ void __launch_bounds__(kRaggedThreads) ragged_paged_mma_kernel(
     const QT* __restrict__ q, const KT* __restrict__ kp,
@@ -1118,7 +1110,8 @@ __global__ void __launch_bounds__(kRaggedThreads) ragged_paged_mma_kernel(
   constexpr int CPR = D * 2 / 16;          // 16-byte chunks of a 16-bit row
   constexpr int KCPR = D * sizeof(KT) / 16;  // and of a pool row
   constexpr int G = kRaggedGroups;
-  constexpr int stages = ragged_stages(D, sizeof(KT));
+  constexpr int stages =
+      ring_stages(kRaggedRingBytes, kRaggedK, D, sizeof(KT));
   // a thread copies chunk tid % KCPR of rows tid / KCPR + k * KSTEP
   constexpr int KSTEP = kRaggedThreads / KCPR;
   constexpr int QSTEP = kRaggedThreads / CPR;
@@ -1422,6 +1415,7 @@ __global__ void __launch_bounds__(kRaggedThreads) ragged_paged_mma_kernel(
   }
 }
 
+// The CUDA-core ragged walk: f32 queries, other head dims and page sizes.
 template <typename QT, typename KT>
 __global__ void __launch_bounds__(kThreads) ragged_paged_kernel(
     const QT* __restrict__ q, const KT* __restrict__ kp,
@@ -1566,10 +1560,10 @@ size_t ragged_smem(int D, int page) {
 template <typename KT, int NL, bool Mma>
 size_t walk_smem(int D, int page, int* stages) {
   if (Mma) {
-    *stages = ring_stages(kChunk, D, sizeof(KT));
+    *stages = ring_stages(kRingBytes, kChunk, D, sizeof(KT));
     return MmaLayout(D, sizeof(KT), *stages).total;
   }
-  *stages = ring_stages(ring_rows(page), D, sizeof(KT));
+  *stages = ring_stages(kRingBytes, ring_rows(page), D, sizeof(KT));
   return SplitLayout(NL, D, page, sizeof(KT), *stages).total;
 }
 
@@ -1679,8 +1673,10 @@ int launch_ragged_mma(const void* q, const void* k, const void* v,
                       const void* ctx, const void* qlens, void* out, int B,
                       int P, int C, int H, int page, int max_pages,
                       float scale, cudaStream_t stream) {
-  const size_t smem =
-      RaggedLayout(D, sizeof(KT), ragged_stages(D, sizeof(KT))).total;
+  const size_t smem = RaggedLayout(D, sizeof(KT),
+                                   ring_stages(kRaggedRingBytes, kRaggedK, D,
+                                               sizeof(KT)))
+                          .total;
   auto kernel = ragged_paged_mma_kernel<QT, KT, D>;
   if (int rc = set_smem(kernel, smem)) return rc;
   const dim3 grid(H, B, (C + kRaggedQ - 1) / kRaggedQ);

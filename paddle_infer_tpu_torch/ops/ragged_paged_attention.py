@@ -8,12 +8,12 @@ absolute positions ``context_lens[b] + i``: decode rows have
 Three compositions share ``ragged_paged_attention``:
 
 * the serving composition (the default) — chunk rows (``query_len > 1``,
-  not verify rows within their window) through one launch of the ragged kernel with the
-  other rows' lengths set to 0; decode rows' position 0 from the decode
-  kernel (``paged_attention_decode``); speculative verify rows' first
-  ``verify_window`` positions from the verify kernel
-  (``paged_attention_verify``), each position at its own length, so
-  they equal sequential decode steps bit for bit.
+  not verify rows within their window) through one launch of the
+  ragged kernel with the other rows' lengths set to 0; decode rows'
+  position 0 from the decode kernel (``paged_attention_decode``);
+  speculative verify rows' first ``verify_window`` positions from the
+  verify kernel (``paged_attention_verify``), each position at its own
+  length, so they equal sequential decode steps bit for bit.
 * ``_ragged_reference`` — the port's copy of the JAX package's
   composition: every position through the plain fp32 window attention
   ``prefix_prefill_attention``, decode and verify rows as above.  The
