@@ -3,7 +3,13 @@
 
     python3 chip_smoke.py
 
-Phases, in order; any failed check raises and the script exits non-zero:
+Phases, in order; any failed check raises and the script exits non-zero.
+Every serving and training step runs as a replay of one CUDA graph per
+program key (``core/graphs.py``), as a user's call runs it; each graph
+run is repeated under ``disable_graphs()`` (eager) and must give EQUAL
+token streams or losses, and the compile log must hold one capture per
+key and none after warm-up.  A kernel launched from a replay counts once
+per replay, so the launch checks stay exact.
 
 1. card — name and power limit (``nvidia-smi``), TF32 off for matmul
    and cuDNN;
@@ -30,9 +36,11 @@ Phases, in order; any failed check raises and the script exits non-zero:
    seeded on-device generator) behind ``EngineCore``: 8 requests with
    prompts of 1536..1 tokens, 32 new tokens each, 6 greedy and 2
    sampled, driven to completion with launch counts zeroed just before
-   and read just after (the ragged kernel once per layer per step, for
-   the chunk rows); then the paged forward against the dense one on a
-   small input, a profiled short run, and the ragged kernel's opt-in
+   and read just after (the decode and ragged kernels once per layer per
+   step); the same run eager, its streams EQUAL, step p50 and tokens/s
+   side by side; then the paged forward against the dense one on a
+   small input, a profiled short run after a warm one (graph, then
+   eager: the idle shares side by side), and the ragged kernel's opt-in
    single-launch entry point (``ragged_paged_attention(use_kernel=True)``)
    at the serving shapes;
 5. spec — the same LLaMA-7B core shape with ``num_draft_tokens=4``: 8
@@ -40,13 +48,14 @@ Phases, in order; any failed check raises and the script exits non-zero:
    draft source proposing run (a)'s streams (b: streams equal to (a),
    every draft accepted), then ``speculate=True`` with ngram drafts on
    tiled prompts, 2 of 8 requests sampled (c: greedy streams equal to a
-   plain run of the same prompts); the verify kernel launches at least
-   once per layer per step in (b) and (c), the ragged kernel once per
-   layer per step in every run;
+   plain run of the same prompts), each run also eager with EQUAL
+   streams; the verify kernel launches once per layer per step in (b)
+   and (c), the ragged kernel once per layer per step in every run; a
+   profiled speculative run, graph and eager;
 6. gpt — the LLaMA model freed, ``gpt3-6.7b`` at full width and depth
    (random bf16 weights) serves 8 requests with ngram speculation (the
-   ragged kernel once per layer per step), then its paged forward
-   against its dense one;
+   ragged kernel once per layer per step), again eager with EQUAL
+   streams, then its paged forward against its dense one;
 7. train — GPT freed: (1) the flash kernels (forward, dK/dV, dQ) against
    their plain versions at (a) the ERNIE shape B=32, H=12, S=512, D=64
    with 10 % trailing padding as segment ids, dropout 0.1 and 0, fp32
@@ -61,12 +70,13 @@ Phases, in order; any failed check raises and the script exits non-zero:
    (2) ERNIE-3.0-base pretraining at full width and depth through
    ``FleetTrainStep`` (batch 32 x 512, dropout 0.1, AMP O2 bf16, AdamW
    lr 1e-4): 2 warm-up and 20 timed steps, the loss falling and each
-   flash kernel launched once per layer per step, then a profiled train
-   step; (3) ERNIE-3.0-mini (12 heads of 32, a head_dim the flash
-   kernels do not take): 3 steps on plain attention, every loss finite
-   and no flash launch; (4) one step at depth 2, batch 8 with the
-   kernels against the same step with plain attention, fp32 and O2, on
-   three batches;
+   flash kernel launched once per layer per step, then two profiled
+   steps — on the graph, then all again eager from the same state, the
+   20 losses EQUAL (the kernels use no atomics); (3) ERNIE-3.0-mini (12
+   heads of 32, a head_dim the flash kernels do not take): 3 steps on
+   plain attention, every loss finite and no flash launch; (4) eager,
+   one step at depth 2, batch 8 with the kernels against the same step
+   with plain attention, fp32 and O2, on three batches;
 8. the kernels line (one JSON object), the card line, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -77,6 +87,7 @@ from __future__ import annotations
 
 import contextlib
 import gc
+import itertools
 import json
 import re
 import statistics
@@ -124,10 +135,13 @@ SEQUENTIAL_WALK_MS = {("paged_decode", "bf16"): 0.4074,
 
 
 def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60)
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=60)
+    except OSError as e:
+        return f"nvidia-smi failed: {e}"
     return out.stdout.strip().splitlines()[0] if out.stdout else \
         f"nvidia-smi failed: {out.stderr.strip()}"
 
@@ -611,35 +625,90 @@ def build_llama(device, config=None, dtype=None, seed=0):
                             dtype=dtype or torch.bfloat16, seed=seed)
 
 
-def serve(model, device, prompt_lens=PROMPT_LENS, max_new=MAX_NEW,
-          max_model_len=2048, token_budget=512, page_size=16, max_batch=8,
-          prompts=None, sampled=SAMPLED, **core_kw):
-    """Serve one request per prompt length (or per given prompt) through
-    EngineCore, the requests in ``sampled`` sampling and the rest
-    greedy; ``core_kw`` goes to EngineCore (speculation).  Returns the
-    run's numbers.  Raises if a request fails or a stream is off."""
-    import torch
+def eager():
+    """``disable_graphs()``: every step eager inside the block — the only
+    way the port runs a step eagerly on the card; the reference side of
+    each graph-against-eager check."""
+    from paddle_infer_tpu_torch.core.graphs import disable_graphs
 
-    from paddle_infer_tpu_torch.inference.generation import (
-        GenerationConfig, PagedGenerationEngine)
-    from paddle_infer_tpu_torch.serving import EngineCore, RequestState
+    return disable_graphs()
 
-    vocab = model.config.vocab_size
+
+def make_core(model, device, max_model_len=2048, token_budget=512,
+              page_size=16, max_batch=8, **core_kw):
+    """An ``EngineCore`` over a new engine for ``model``; ``core_kw``
+    goes to EngineCore (speculation)."""
+    from paddle_infer_tpu_torch.inference.generation import \
+        PagedGenerationEngine
+    from paddle_infer_tpu_torch.serving import EngineCore
+
     engine = PagedGenerationEngine(model, page_size=page_size,
                                    device=device)
-    core = EngineCore(engine, max_batch=max_batch,
-                      max_model_len=max_model_len,
-                      token_budget=token_budget, prefill_chunk=token_budget,
-                      device=device, **core_kw)
-    finite = []
+    return EngineCore(engine, max_batch=max_batch,
+                      max_model_len=max_model_len, token_budget=token_budget,
+                      prefill_chunk=token_budget, device=device, **core_kw)
+
+
+def drive(core, prompts, max_new, sampled, rid_start):
+    """Submit one request per prompt (those in ``sampled`` sampling, the
+    rest greedy), request ids from ``rid_start`` (each sampled stream is
+    keyed by its rid), and run the core until all are done; returns
+    ``(requests, wall seconds)``."""
+    import torch
+
+    from paddle_infer_tpu_torch.inference.generation import \
+        GenerationConfig
+    from paddle_infer_tpu_torch.serving import request as trequest
+
+    trequest._rid_counter = itertools.count(rid_start)
+    reqs = []
+    t0 = time.perf_counter()
+    for i, p in enumerate(prompts):
+        g = (GenerationConfig(max_new_tokens=max_new, do_sample=True,
+                              temperature=0.8, top_k=50, top_p=0.95,
+                              seed=1234)
+             if i in sampled else GenerationConfig(max_new_tokens=max_new))
+        reqs += core.submit(p, g)
+    for _ in range(2000):
+        if all(r.done for r in reqs):
+            break
+        core.run_once()
+    if core._engine.device.type == "cuda":
+        torch.cuda.synchronize()
+    return reqs, time.perf_counter() - t0
+
+
+def serve(model, device, prompt_lens=PROMPT_LENS, max_new=MAX_NEW,
+          prompts=None, sampled=SAMPLED, rid_start=1, **core_kw):
+    """Serve one request per prompt length (or per given prompt) through
+    EngineCore (``core_kw`` to ``make_core``), on graphs unless inside
+    ``eager()``.  Returns the run's numbers.  Raises if a request fails,
+    a stream is off, a step's logits are not finite, or the compile log
+    shows other than one event for the run's one program key or any
+    after warm-up."""
+    import torch
+
+    from paddle_infer_tpu_torch.core.graphs import graphs_enabled
+    from paddle_infer_tpu_torch.observability import get_compile_log
+    from paddle_infer_tpu_torch.serving import RequestState
+
+    vocab = model.config.vocab_size
+    log = get_compile_log()
+    log.reset()
+    core = make_core(model, device, **core_kw)
+    engine = core._engine
+    # every step ANDs its rows' finiteness into one device flag: a graph
+    # replays the check with the step, and nothing syncs until the end
+    finite = torch.ones((), dtype=torch.bool, device=device)
     step = engine._model_step
 
     def checked_step(params, ids, pos, caches):
         logits, new = step(params, ids, pos, caches)
-        qlens = caches[0][4].long()
+        qlens = caches[0][4]
         rows = torch.arange(ids.shape[0], device=ids.device)
-        last = logits[rows, torch.clamp(qlens - 1, min=0)][qlens > 0]
-        finite.append(bool(torch.isfinite(last).all()))
+        last = logits[rows, torch.clamp(qlens.long() - 1, min=0)]
+        finite.logical_and_((torch.isfinite(last).all(dim=-1)
+                             | (qlens <= 0)).all())
         return logits, new
 
     engine._model_step = checked_step
@@ -647,22 +716,9 @@ def serve(model, device, prompt_lens=PROMPT_LENS, max_new=MAX_NEW,
         rs = np.random.RandomState(0)
         prompts = [rs.randint(0, vocab, (n,)).astype(np.int32)
                    for n in prompt_lens]
-    reqs = []
+    graphs = graphs_enabled(device)
     try:
-        t0 = time.perf_counter()
-        for i, p in enumerate(prompts):
-            g = (GenerationConfig(max_new_tokens=max_new, do_sample=True,
-                                  temperature=0.8, top_k=50, top_p=0.95,
-                                  seed=1234)
-                 if i in sampled else GenerationConfig(max_new_tokens=max_new))
-            reqs += core.submit(p, g)
-        for _ in range(2000):
-            if all(r.done for r in reqs):
-                break
-            core.run_once()
-        if device.type == "cuda":
-            torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+        reqs, wall = drive(core, prompts, max_new, sampled, rid_start)
     finally:
         core.close()
     bad = [(r.rid, r.state.value, repr(r.error)) for r in reqs
@@ -673,8 +729,16 @@ def serve(model, device, prompt_lens=PROMPT_LENS, max_new=MAX_NEW,
         toks = np.asarray(r.tokens)
         if len(toks) != max_new or toks.min() < 0 or toks.max() >= vocab:
             raise AssertionError(f"request {r.rid}: bad stream {toks}")
-    if not all(finite):
+    if not bool(finite):
         raise AssertionError("non-finite last-position logits in a step")
+    events = log.events("serving-decode")
+    summary = log.summary()
+    if len(events) != 1 or summary["post_warmup_decode_compiles"]:
+        raise AssertionError(
+            f"compile log: {len(events)} serving-decode events (keys "
+            f"{sorted({repr(e.key) for e in events})}), "
+            f"{summary['post_warmup_decode_compiles']} after warm-up; want "
+            "exactly one for the run's one key and none after")
     gen = sum(len(r.tokens) for r in reqs)
     spec = core.metrics_snapshot()["speculation"]
     return {"steps": core._step_idx, "wall_s": wall,
@@ -683,6 +747,9 @@ def serve(model, device, prompt_lens=PROMPT_LENS, max_new=MAX_NEW,
             "step_ms": [t["wall_s"] * 1e3 for t in core.step_trace],
             "drafts_proposed": spec["drafts_proposed"],
             "drafts_accepted": spec["drafts_accepted"],
+            "graphs": graphs, "captures": len(events) if graphs else 0,
+            "capture_wall_s": events[0].wall_s,
+            "post_warmup_captures": summary["post_warmup_decode_compiles"],
             "prompts": prompts, "streams": [list(r.tokens) for r in reqs]}
 
 
@@ -749,19 +816,10 @@ def reference_check(model, device, n_prompt=33, n_decode=4, page=16,
     return err, scale
 
 
-def profile_serving(model, device, prompt_lens=(512, 1), max_new=4,
-                    top=12, tag="plain", **serve_kw):
-    """Where a serving step's device time goes: a short run (one chunk
-    step, then decode steps) under ``torch.profiler``; prints the device
-    busy share of the run's wall and the top kernels by self device
-    time, grouped also into matmul / attention-kernel / other."""
+def _profile_rows(prof):
+    """(self device ms, calls, name) of every device-side event."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        stats = serve(model, device, prompt_lens=prompt_lens,
-                      max_new=max_new, **serve_kw)
     rows = []
     for e in prof.key_averages():
         # device-side events only: host ops report their kernels' time
@@ -773,8 +831,38 @@ def profile_serving(model, device, prompt_lens=(512, 1), max_new=4,
             t = getattr(e, "self_cuda_time_total", 0.0)
         if t > 0:
             rows.append((t / 1e3, e.count, e.key))
+    return rows
+
+
+def profile_serving(model, device, prompt_lens=(512, 1), max_new=4,
+                    top=12, tag="plain", prompts=None, sampled=SAMPLED,
+                    **core_kw):
+    """Where a steady serving step's device time goes: one core serves
+    the prompts once (its graph captured there), then again under
+    ``torch.profiler`` (one chunk step, then decode steps, replays
+    only); prints the device busy share of that run's wall and the top
+    kernels by self device time, grouped also into matmul /
+    attention-kernel / other.  Returns the run's numbers."""
+    from torch.profiler import ProfilerActivity, profile
+
+    vocab = model.config.vocab_size
+    if prompts is None:
+        rs = np.random.RandomState(0)
+        prompts = [rs.randint(0, vocab, (n,)).astype(np.int32)
+                   for n in prompt_lens]
+    core = make_core(model, device, **core_kw)
+    try:
+        drive(core, prompts, max_new, sampled, rid_start=1)
+        steps0 = core._step_idx
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            _, wall = drive(core, prompts, max_new, sampled, rid_start=1)
+        steps = core._step_idx - steps0
+    finally:
+        core.close()
+    rows = _profile_rows(prof)
     busy_ms = sum(r[0] for r in rows)
-    wall_ms = stats["wall_s"] * 1e3
+    wall_ms = wall * 1e3
     # a paged kernel's group holds its split walk and its combine
     groups = {"matmul": 0.0, "ragged_paged": 0.0, "paged_decode": 0.0,
               "paged_verify": 0.0, "other": 0.0}
@@ -791,15 +879,32 @@ def profile_serving(model, device, prompt_lens=(512, 1), max_new=4,
             groups["matmul"] += ms
         else:
             groups["other"] += ms
-    print(f"[profile] {tag}: {len(stats['prompts'])} requests, "
-          f"{stats['steps']} steps: "
+    idle = max(0.0, 1 - busy_ms / wall_ms)
+    print(f"[profile] {tag}: {len(prompts)} requests, {steps} steps: "
           f"wall_ms={wall_ms:.1f} device_busy_ms={busy_ms:.1f} "
-          f"idle_share={max(0.0, 1 - busy_ms / wall_ms):.3f} groups_ms="
+          f"idle_share={idle:.3f} groups_ms="
           + json.dumps({k: round(v, 3) for k, v in groups.items()}),
           flush=True)
     for ms, n, name in sorted(rows, reverse=True)[:top]:
         print(f"[profile] {ms:10.3f} ms {n:6d} calls  {name[:110]}",
               flush=True)
+    return {"wall_ms": wall_ms, "busy_ms": busy_ms, "idle_share": idle,
+            "steps": steps}
+
+
+def profile_pair(model, device, tag, card, **kw):
+    """``profile_serving`` on graphs, then eager; one line side by
+    side."""
+    g = profile_serving(model, device, tag=f"{tag} graph", **kw)
+    with eager():
+        e = profile_serving(model, device, tag=f"{tag} eager", **kw)
+    print(f"[profile] {tag} graph vs eager ({card}): idle_share "
+          f"graph={g['idle_share']:.3f} eager={e['idle_share']:.3f} "
+          f"wall_ms_per_step graph={g['wall_ms'] / g['steps']:.2f} "
+          f"eager={e['wall_ms'] / e['steps']:.2f} busy_ms_per_step "
+          f"graph={g['busy_ms'] / g['steps']:.2f} "
+          f"eager={e['busy_ms'] / e['steps']:.2f}", flush=True)
+    return g, e
 
 
 # ---------------------------------------------------------------- phase 5
@@ -839,15 +944,44 @@ def serve_counted(model, device, tag, **kw):
         k.launches = 0
     st = serve(model, device, **kw)
     st["launches"] = {n: k.launches for n, k in _build.KERNELS.items()}
-    steps = np.asarray(st["step_ms"])
     print(f"[{tag}] steps={st['steps']} wall_s={st['wall_s']:.3f} "
           f"generated={st['generated_tokens']} "
           f"tokens_per_s={st['tokens_per_s']:.2f} "
-          f"step_ms_p50={np.median(steps):.1f} "
+          f"step_ms_p50={_p50_after_first(st):.1f} "
           f"drafts_proposed={st['drafts_proposed']} "
           f"drafts_accepted={st['drafts_accepted']} "
+          f"graphs={st['graphs']} captures={st['captures']} "
+          f"post_warmup_captures={st['post_warmup_captures']} "
           f"launches={st['launches']}", flush=True)
     return st
+
+
+def _p50_after_first(st):
+    """Step p50 over the steps after the first (which captures)."""
+    return float(np.median(st["step_ms"][1:] or st["step_ms"]))
+
+
+def eager_twin(model, device, tag, graph_run, card, **kw):
+    """The run of ``graph_run`` again under ``eager()``: raises unless
+    every stream is ``torch.equal`` to the graph run's; prints the two
+    side by side.  Returns the eager run."""
+    import torch
+
+    with eager():
+        e = serve_counted(model, device, f"{tag} eager", **kw)
+    g = graph_run
+    for i, (a, b) in enumerate(zip(g["streams"], e["streams"])):
+        if not torch.equal(torch.tensor(a), torch.tensor(b)):
+            raise AssertionError(f"{tag}: request {i}'s graph stream differs "
+                                 f"from its eager stream:\n{a}\n{b}")
+    print(f"[{tag}] graph vs eager ({card}): step_ms_p50 "
+          f"graph={_p50_after_first(g):.2f} eager={_p50_after_first(e):.2f} "
+          f"tokens_per_s graph={g['tokens_per_s']:.2f} "
+          f"eager={e['tokens_per_s']:.2f} captures={g['captures']} "
+          f"capture_wall_s={g['capture_wall_s']:.3f} "
+          f"post_warmup_captures={g['post_warmup_captures']} "
+          f"streams_equal=True ({len(g['streams'])} requests)", flush=True)
+    return e
 
 
 def _check_ragged_launches(st, L, tag):
@@ -860,28 +994,40 @@ def _check_ragged_launches(st, L, tag):
 
 
 def _check_verify_launches(st, L, tag):
+    """Under speculation every step verifies: one launch a layer a
+    step."""
     n = st["launches"]["paged_verify"]
-    if n < L * st["steps"]:
+    if n != L * st["steps"]:
         raise AssertionError(f"{tag}: paged_verify launched {n} times in "
-                             f"{st['steps']} steps (< {L} per step)")
+                             f"{st['steps']} steps (want {L} per step)")
 
 
-def spec_phase(model, device):
+def spec_phase(model, device, card=""):
     """Runs (a) plain, (b) oracle speculation, (c) ngram speculation on
-    tiled prompts with 2 sampled rows and its plain twin; raises unless
-    (b) equals (a) with every draft accepted and (c)'s greedy streams
-    equal its plain twin's."""
+    tiled prompts with 2 sampled rows and its plain twin, each on graphs
+    and again eager; raises unless (b) equals (a) with every draft
+    accepted, (c)'s greedy streams equal its plain twin's, and every
+    graph run's streams equal its eager run's."""
     L = model.config.num_hidden_layers
     vocab = model.config.vocab_size
     rs = np.random.RandomState(3)
     prompts = [rs.randint(0, vocab, (n,)).astype(np.int32)
                for n in SPEC_PROMPT_LENS]
     spec = dict(speculate=True, num_draft_tokens=NUM_DRAFT)
-    runs = {"a": serve_counted(model, device, "spec a plain",
-                               prompts=prompts, sampled=())}
-    runs["b"] = serve_counted(
-        model, device, "spec b oracle", prompts=prompts, sampled=(),
-        draft_source=OracleDrafts(prompts, runs["a"]["streams"]), **spec)
+    tiled = tiled_prompts(vocab, SPEC_PROMPT_LENS, seed=4)
+    runs, eager_runs = {}, {}
+    plan = [("a", "spec a plain", dict(prompts=prompts, sampled=())),
+            ("b", "spec b oracle", None),
+            ("c_plain", "spec c plain", dict(prompts=tiled)),
+            ("c", "spec c ngram", dict(prompts=tiled, draft_source="ngram",
+                                       **spec))]
+    for name, tag, kw in plan:
+        if kw is None:          # the oracle proposes run (a)'s streams
+            kw = dict(prompts=prompts, sampled=(), draft_source=OracleDrafts(
+                prompts, runs["a"]["streams"]), **spec)
+        runs[name] = serve_counted(model, device, tag, **kw)
+        eager_runs[name] = eager_twin(model, device, tag, runs[name], card,
+                                      **kw)
     if runs["b"]["streams"] != runs["a"]["streams"]:
         raise AssertionError("oracle-speculative greedy streams differ "
                              "from plain ones")
@@ -889,11 +1035,6 @@ def spec_phase(model, device):
             > 0):
         raise AssertionError(f"oracle drafts: {runs['b']['drafts_accepted']}"
                              f" of {runs['b']['drafts_proposed']} accepted")
-    tiled = tiled_prompts(vocab, SPEC_PROMPT_LENS, seed=4)
-    runs["c_plain"] = serve_counted(model, device, "spec c plain",
-                                    prompts=tiled)
-    runs["c"] = serve_counted(model, device, "spec c ngram", prompts=tiled,
-                              draft_source="ngram", **spec)
     greedy = [i for i in range(len(tiled)) if i not in SAMPLED]
     if any(runs["c"]["streams"][i] != runs["c_plain"]["streams"][i]
            for i in greedy):
@@ -903,14 +1044,16 @@ def spec_phase(model, device):
         _check_verify_launches(runs[tag], L, f"spec {tag}")
     for tag, st in runs.items():
         _check_ragged_launches(st, L, f"spec {tag}")
+    runs["eager"] = eager_runs
     return runs
 
 
 # ---------------------------------------------------------------- phase 6
 
-def gpt_phase(device, config=None, dtype=None):
+def gpt_phase(device, config=None, dtype=None, card=""):
     """gpt3-6.7b (or ``config``) at full width and depth: ngram-speculative
-    serving of 8 requests, then paged vs dense logits."""
+    serving of 8 requests on graphs and again eager (equal streams), then
+    paged vs dense logits."""
     import torch
 
     from paddle_infer_tpu_torch.models import GPTConfig, GPTForCausalLM
@@ -931,10 +1074,11 @@ def gpt_phase(device, config=None, dtype=None):
           f"{sum(p.numel() for p in model.parameters()) / 1e9:.2f}B "
           f"{str(next(model.parameters()).dtype)[6:]}", flush=True)
     prompts = tiled_prompts(cfg.vocab_size, SPEC_PROMPT_LENS, seed=5)
-    st = serve_counted(model, device, "gpt ngram", prompts=prompts,
-                       max_model_len=cfg.max_position_embeddings,
-                       speculate=True, num_draft_tokens=NUM_DRAFT,
-                       draft_source="ngram")
+    kw = dict(prompts=prompts, max_model_len=cfg.max_position_embeddings,
+              speculate=True, num_draft_tokens=NUM_DRAFT,
+              draft_source="ngram")
+    st = serve_counted(model, device, "gpt ngram", **kw)
+    eager_twin(model, device, "gpt ngram", st, card, **kw)
     if cuda:
         print(f"[gpt] peak_mem_gb="
               f"{torch.cuda.max_memory_allocated() / 1e9:.1f}", flush=True)
@@ -1317,13 +1461,20 @@ def train_phase(device, cfg=None, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
     counts zeroed just before and read just after.  Raises unless every
     loss is finite, the last five losses average below the first five,
     and each flash kernel launched ``launches_per_step`` times per step
-    (default: once per layer on the card, not checked on the CPU)."""
+    (default: once per layer on the card, not checked on the CPU), and
+    the compile log holds one ``train-step`` event (on graphs: the
+    capture) and none after warm-up."""
     import torch
 
+    from paddle_infer_tpu_torch.core.graphs import graphs_enabled
     from paddle_infer_tpu_torch.models.ernie import ErnieConfig
+    from paddle_infer_tpu_torch.observability import get_compile_log
     from paddle_infer_tpu_torch.ops import _build
 
     cuda = device.type == "cuda"
+    graphs = graphs_enabled(device)
+    log = get_compile_log()
+    log.reset()
     cfg = cfg or ErnieConfig.from_preset("ernie-3.0-base")
     t0 = time.perf_counter()
     step = build_train_step(device, cfg, amp_o2)
@@ -1360,6 +1511,14 @@ def train_phase(device, cfg=None, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
     print("[train] losses " + " ".join(f"{x:.4f}" for x in losses),
           flush=True)
     print(f"[train] launches {launches}", flush=True)
+    events = log.events("train-step")
+    post_warm = log.summary()["post_warmup_compiles"]
+    print(f"[train] graphs={graphs} captures={len(events) if graphs else 0}"
+          f" capture_wall_s={events[0].wall_s if events else 0.0:.3f} "
+          f"post_warmup_captures={post_warm}", flush=True)
+    if len(events) != 1 or post_warm:
+        raise AssertionError(f"compile log: {len(events)} train-step events, "
+                             f"{post_warm} after warm-up (want 1 and 0)")
     if not all(np.isfinite(losses)):
         raise AssertionError("non-finite training loss")
     if not np.mean(losses[-5:]) < np.mean(losses[:5]):
@@ -1374,7 +1533,9 @@ def train_phase(device, cfg=None, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
                 f"(want {launches_per_step} per step)")
     return {"losses": losses, "step_ms": ms, "step_ms_p50": p50,
             "tokens_per_s": tok_s, "mfu": mfu, "peak_mem_gb": peak,
-            "launches": launches, "step": step, "data": data}
+            "launches": launches, "step": step, "data": data,
+            "graphs": graphs, "captures": len(events) if graphs else 0,
+            "capture_wall_s": events[0].wall_s}
 
 
 def small_head_phase(device, cfg=None, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
@@ -1410,6 +1571,7 @@ def small_head_phase(device, cfg=None, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
     if any(launches.values()):
         raise AssertionError(f"flash kernels launched at a head_dim they "
                              f"do not take: {launches}")
+    step.release_graphs()
     return losses
 
 
@@ -1426,7 +1588,14 @@ def step_parity_phase(device, cfg=None, batch=8, seq=TRAIN_SEQ, layers=2,
     step as close to the fp32 step as the plain O2 step is, the two O2
     steps would differ by at most twice that distance (triangle
     inequality).  Prints ``nsp.bias``'s readings (a gradient that
-    cancels: the batch mean of per-row p - y) as a witness."""
+    cancels: the batch mean of per-row p - y) as a witness.  Runs eager
+    (``eager()``): the plain side switches attention in Python, which a
+    replayed graph would not see."""
+    with eager():
+        _step_parity(device, cfg, batch, seq, layers, data_seeds)
+
+
+def _step_parity(device, cfg, batch, seq, layers, data_seeds):
     import torch
 
     from paddle_infer_tpu_torch.models.ernie import ErnieConfig
@@ -1485,7 +1654,7 @@ def step_parity_phase(device, cfg=None, batch=8, seq=TRAIN_SEQ, layers=2,
         del step
 
 
-def profile_train(step, data, steps=2, top=14):
+def profile_train(step, data, steps=2, top=14, tag=""):
     """Where a train step's device time goes: ``steps`` steps under
     ``torch.profiler``; prints the device busy share of the wall and the
     top device ops by self time, grouped into the flash kernels, matmul
@@ -1500,15 +1669,7 @@ def profile_train(step, data, steps=2, top=14):
         for _ in range(steps):
             float(step(*data))
         wall_ms = (time.perf_counter() - t0) * 1e3
-    rows = []
-    for e in prof.key_averages():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        t = getattr(e, "self_device_time_total", None)
-        if t is None:
-            t = getattr(e, "self_cuda_time_total", 0.0)
-        if t > 0:
-            rows.append((t / 1e3, e.count, e.key))
+    rows = _profile_rows(prof)
     busy = sum(r[0] for r in rows)
     groups = {"flash_fwd_kernel": 0.0, "flash_dkdv_kernel": 0.0,
               "flash_dq_kernel": 0.0, "matmul": 0.0, "other": 0.0}
@@ -1522,14 +1683,48 @@ def profile_train(step, data, steps=2, top=14):
             groups["matmul"] += ms
         else:
             groups["other"] += ms
-    print(f"[profile] train: {steps} steps wall_ms={wall_ms:.1f} "
-          f"device_busy_ms={busy:.1f} idle_share="
-          f"{max(0.0, 1 - busy / wall_ms):.3f} groups_ms="
+    idle = max(0.0, 1 - busy / wall_ms)
+    print(f"[profile] train {tag}: {steps} steps wall_ms={wall_ms:.1f} "
+          f"device_busy_ms={busy:.1f} idle_share={idle:.3f} groups_ms="
           + json.dumps({k: round(v, 3) for k, v in groups.items()})
           + f" clocks: {clocks_line()}", flush=True)
     for ms, n, name in sorted(rows, reverse=True)[:top]:
         print(f"[profile] {ms:10.3f} ms {n:6d} calls  {name[:110]}",
               flush=True)
+    return {"wall_ms": wall_ms, "busy_ms": busy, "idle_share": idle}
+
+
+def train_pair(device, card):
+    """Phase 7.2 on graphs, then eager: ``train_phase`` and a profiled
+    pair of steps each; raises unless the 20 losses are EQUAL (the
+    kernels use no atomics, so a replay computes what the eager step
+    computes).  Returns the graph run."""
+    import torch
+
+    runs = {}
+    for mode in ("graph", "eager"):
+        with eager() if mode == "eager" else contextlib.nullcontext():
+            st = train_phase(device)
+            st["profile"] = profile_train(st["step"], st["data"], tag=mode)
+        st["step"].release_graphs()
+        del st["step"], st["data"]
+        gc.collect()
+        torch.cuda.empty_cache()
+        runs[mode] = st
+    g, e = runs["graph"], runs["eager"]
+    equal = torch.equal(torch.tensor(g["losses"]), torch.tensor(e["losses"]))
+    print(f"[train] graph vs eager ({card}): step_ms_p50 "
+          f"graph={g['step_ms_p50']:.2f} eager={e['step_ms_p50']:.2f} "
+          f"tokens_per_s graph={g['tokens_per_s']:.0f} "
+          f"eager={e['tokens_per_s']:.0f} idle_share "
+          f"graph={g['profile']['idle_share']:.3f} "
+          f"eager={e['profile']['idle_share']:.3f} "
+          f"captures={g['captures']} capture_wall_s={g['capture_wall_s']:.3f}"
+          f" losses_equal={equal}", flush=True)
+    if not equal:
+        raise AssertionError("graph train losses differ from eager ones:\n"
+                             f"{g['losses']}\n{e['losses']}")
+    return g
 
 
 # ------------------------------------------------------------------ main
@@ -1583,7 +1778,8 @@ def main() -> int:
             prefill_case(case), tag="p").items()})
     check_chunk_independence(device)
 
-    # phase 4: serve LLaMA-7B; counts zeroed just before, read just after
+    # phase 4: serve LLaMA-7B on graphs; counts zeroed just before, read
+    # just after; then the same run eager, streams EQUAL
     t0 = time.perf_counter()
     model = build_llama(device)
     torch.cuda.synchronize()
@@ -1600,9 +1796,12 @@ def main() -> int:
     print(f"[serve] steps={stats['steps']} wall_s={stats['wall_s']:.3f} "
           f"generated={stats['generated_tokens']} "
           f"tokens_per_s={stats['tokens_per_s']:.2f} "
-          f"step_ms_p50={np.median(stats['step_ms'][1:]):.1f} (steps after "
+          f"step_ms_p50={_p50_after_first(stats):.1f} (steps after "
           f"the first) "
-          f"peak_mem_gb={torch.cuda.max_memory_allocated() / 1e9:.1f}",
+          f"peak_mem_gb={torch.cuda.max_memory_allocated() / 1e9:.1f} "
+          f"captures={stats['captures']} "
+          f"capture_wall_s={stats['capture_wall_s']:.3f} "
+          f"post_warmup_captures={stats['post_warmup_captures']}",
           flush=True)
     print("[serve] ttft_s " + " ".join(
         f"{n}:{t:.3f}" for n, t in zip(PROMPT_LENS, stats["ttft_s"])),
@@ -1611,13 +1810,14 @@ def main() -> int:
                                         for t in stats["step_ms"]),
           flush=True)
     print(f"[serve] launches {launches}", flush=True)
-    if launches["paged_decode"] < L * stats["steps"]:
+    if launches["paged_decode"] != L * stats["steps"]:
         raise AssertionError(
             f"paged_decode launched {launches['paged_decode']} times in "
-            f"{stats['steps']} steps (< {L} per step)")
+            f"{stats['steps']} steps (want {L} per step)")
     _check_ragged_launches(dict(stats, launches=launches), L, "serve")
+    eager_twin(model, device, "serve", stats, card)
     reference_check(model, device)
-    profile_serving(model, device)
+    profile_pair(model, device, "plain", card)
 
     # the ragged kernel's opt-in single-launch entry point (every row
     # type in one launch) at the serving shapes
@@ -1630,11 +1830,11 @@ def main() -> int:
         raise AssertionError("ragged kernel entry point launched nothing")
 
     # phase 5: speculation on the same model; counts zeroed per run
-    runs = spec_phase(model, device)
+    runs = spec_phase(model, device, card)
     tiled = tiled_prompts(model.config.vocab_size, (512, 8), seed=6)
-    profile_serving(model, device, prompts=tiled, max_new=8, tag="spec",
-                    speculate=True, num_draft_tokens=NUM_DRAFT,
-                    draft_source="ngram", sampled=())
+    profile_pair(model, device, "spec", card, prompts=tiled, max_new=8,
+                 speculate=True, num_draft_tokens=NUM_DRAFT,
+                 draft_source="ngram", sampled=())
     by_run = {f"llama {t}": runs[t]["launches"]["paged_verify"]
               for t in ("b", "c")}
 
@@ -1642,7 +1842,7 @@ def main() -> int:
     del model
     gc.collect()
     torch.cuda.empty_cache()
-    gst = gpt_phase(device)
+    gst = gpt_phase(device, card=card)
     by_run["gpt"] = gst["launches"]["paged_verify"]
     launches["paged_verify"] = sum(by_run.values())
 
@@ -1651,8 +1851,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     fres = flash_kernels_phase(device)
     hybrid_vs_flash(device)
-    tst = train_phase(device)
-    profile_train(tst["step"], tst["data"])
+    tst = train_pair(device, card)
     for name in ("flash_fwd", "flash_dkdv", "flash_dq"):
         launches[name] = tst["launches"][name]
         kres[name] = {"bf16": dict(fres[("a", "bf16", 0.1)][name])}

@@ -17,7 +17,11 @@ returns ``bits1 ^ bits2``).
 torch has no full uint32 arithmetic, so words live in int64 tensors and
 every add and shift is masked back to 32 bits.  A key is an int64
 tensor ``[..., 2]`` holding two uint32 words; numpy uint32 keys are
-accepted too.
+accepted too.  Everything a compiled step draws (``fold_in`` by a
+counter, ``bits``, ``uniform``, ``categorical``) runs as tensor ops on
+the key's device and reads nothing back to the host, so a CUDA graph
+can hold it; only the host-side ``KeyStream`` state (``split``) uses
+Python integers.
 """
 from __future__ import annotations
 
@@ -72,11 +76,14 @@ def PRNGKey(seed: int, device="cpu") -> torch.Tensor:
 def fold_in(key, data) -> torch.Tensor:
     """``jax.random.fold_in``; ``key [..., 2]`` and ``data`` (int or
     integer tensor broadcastable to ``key[..., 0]``) fold elementwise,
-    which is also what ``jax.vmap(jax.random.fold_in)`` computes."""
+    which is also what ``jax.vmap(jax.random.fold_in)`` computes.  An
+    int folds in as a scalar operand (no host tensor is made)."""
     key = _as_key(key)
-    data = torch.as_tensor(data, device=key.device).to(torch.int64) & _M
-    y0, y1 = threefry2x32(key[..., 0], key[..., 1],
-                          torch.zeros_like(data), data)
+    if isinstance(data, int):
+        data = data & _M
+    else:
+        data = torch.as_tensor(data, device=key.device).to(torch.int64) & _M
+    y0, y1 = threefry2x32(key[..., 0], key[..., 1], 0, data)
     return torch.stack(torch.broadcast_tensors(y0, y1), dim=-1)
 
 
@@ -116,14 +123,20 @@ def split(key, num: int = 2) -> torch.Tensor:
 
 def bits(key) -> torch.Tensor:
     """Scalar 32-bit ``jax.random.bits(key, dtype=uint32)``: ``b1 ^ b2``
-    of ``threefry(key, (0, 0))``, as a 0-d int64 tensor."""
-    b1, b2 = threefry2x32(*_key_words(key), 0, 0)
-    return torch.tensor(b1 ^ b2, dtype=torch.int64)
+    of ``threefry(key, (0, 0))``, as a 0-d int64 tensor on the key's
+    device."""
+    k = _as_key(key)
+    if tuple(k.shape) != (2,):
+        raise ValueError(f"expected one key [2], got {tuple(k.shape)}")
+    b1, b2 = threefry2x32(k[0], k[1], 0, 0)
+    return b1 ^ b2
 
 
-def seed_from_key(key) -> int:
-    """The uint32 dropout seed drawn from a key (``_seed_from_key``)."""
-    return int(bits(key))
+def seed_from_key(key) -> torch.Tensor:
+    """The uint32 dropout seed drawn from a key (``_seed_from_key``): a
+    0-d int64 tensor on the key's device, which the flash kernels read
+    from device memory."""
+    return bits(key)
 
 
 class KeyStream:
@@ -131,10 +144,10 @@ class KeyStream:
     RNG state (``core/random.py`` there), passed to whoever draws.
 
     ``seed(n)`` sets the key to ``jax.random.key(n)``.  ``next_key()``
-    splits the key (``key, sub = split(key)``, returning ``sub``) or,
-    inside ``trace_key_scope(base)``, returns ``fold_in(base, counter)``
-    with a counter from 0 — what a compiled train step draws for each
-    dropout of its forward."""
+    splits the key (``key, sub = split(key)``, returning ``sub``, on the
+    host) or, inside ``trace_key_scope(base)``, returns ``fold_in(base,
+    counter)`` with a counter from 0 on ``base``'s device — what a
+    compiled train step draws for each dropout of its forward."""
 
     def __init__(self, seed: int = 0):
         self.seed(seed)
@@ -148,9 +161,7 @@ class KeyStream:
         if self._scopes:
             base, counter = self._scopes[-1]
             self._scopes[-1] = (base, counter + 1)
-            k1, k2 = _key_words(base)
-            return torch.tensor(threefry2x32(k1, k2, 0, counter & _M),
-                                dtype=torch.int64)
+            return fold_in(base, counter)
         self.key, sub = split(self.key)
         return sub
 
@@ -170,8 +181,8 @@ def uniform(key, shape=(), minval=0.0, maxval=1.0) -> torch.Tensor:
     bits = random_bits(key, tuple(shape))
     fbits = (bits >> 9) | 0x3F800000
     floats = (fbits.to(torch.int32).view(torch.float32) - 1.0)
-    lo = torch.tensor(minval, dtype=torch.float32, device=floats.device)
-    hi = torch.tensor(maxval, dtype=torch.float32, device=floats.device)
+    lo = torch.full((), minval, dtype=torch.float32, device=floats.device)
+    hi = torch.full((), maxval, dtype=torch.float32, device=floats.device)
     return torch.maximum(lo, floats * (hi - lo) + lo)
 
 

@@ -5,7 +5,8 @@ Port of ``paddle_infer_tpu/inference/generation.py``:
 ``serving.EngineCore`` needs — the native block pool and per-layer
 device page pools (``serving_pool``, ``_ensure_pages``), the parameter
 snapshot (``refresh_params``), one model forward (``_model_step``) and
-the program runner over the pools (``run_paged_program``).  The engine's
+the program runner over the pools (``run_paged_program``, one CUDA
+graph per program key on the card, ``core/graphs.py``).  The engine's
 own ``generate``/``stream``/beam search wait for a later slice
 (ROADMAP.md).
 """
@@ -14,10 +15,10 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Optional
 
-import numpy as np
 import torch
 
 from .. import native, resolve_device
+from ..core.graphs import ProgramCache, StagedInputs
 
 
 @dataclass
@@ -71,7 +72,9 @@ class PagedGenerationEngine:
         self.page_size = int(page_size)
         self._pool = None
         self._k_pages = self._v_pages = None
-        self._compiled = {}
+        self._programs = ProgramCache()
+        self._inputs = {}
+        self._params = None
         self.refresh_params()
         # the first floating parameter decides the KV page dtype
         self._cache_dtype = next(
@@ -83,6 +86,7 @@ class PagedGenerationEngine:
         if self._pool is None or self._pool.num_blocks < need_pages:
             self._pool = native.KVBlockPool(need_pages, self.page_size)
             self._k_pages = self._v_pages = None     # resize device pools
+            self._programs.clear()                   # graphs hold the old
         return self._pool
 
     def _ensure_pages(self):
@@ -95,6 +99,7 @@ class PagedGenerationEngine:
 
             self._k_pages = [alloc() for _ in range(self._num_layers)]
             self._v_pages = [alloc() for _ in range(self._num_layers)]
+            self._programs.clear()
         return self._k_pages, self._v_pages
 
     def _model_step(self, params, ids, position_ids, caches):
@@ -105,22 +110,32 @@ class PagedGenerationEngine:
                 self._model, params, (ids,),
                 {"position_ids": position_ids, "caches": caches})
 
-    def _to_device(self, a):
-        if isinstance(a, dict):
-            return {k: self._to_device(v) for k, v in a.items()}
-        if isinstance(a, torch.Tensor):
-            return a.to(self.device)
-        a = np.asarray(a)
-        if a.dtype == np.uint32:
-            a = a.astype(np.int64)
-        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
-
     # ------------------------------------------------------ serving hooks
     def refresh_params(self):
         """Re-snapshot the model's parameters (the dict every program
-        receives)."""
-        self._params = dict(self._model.named_parameters())
+        receives); the graphs are dropped when a tensor changed."""
+        params = dict(self._model.named_parameters())
+        old = self._params or {}
+        if params.keys() != old.keys() or any(
+                p is not old[n] or p.data_ptr() != old[n].data_ptr()
+                for n, p in params.items()):
+            self._programs.clear()
+        self._params = params
         return self._params
+
+    def release_graphs(self):
+        """Free every captured graph and staging buffer (the owning
+        ``EngineCore`` closes)."""
+        self._programs = ProgramCache()
+        self._inputs.clear()
+
+    def program_inputs(self, key, fields) -> StagedInputs:
+        """The staged host/device inputs of program ``key`` (made once:
+        ``fields`` is ``[(name, shape, numpy dtype), ...]``)."""
+        inp = self._inputs.get(key)
+        if inp is None:
+            inp = self._inputs[key] = StagedInputs(fields, self.device)
+        return inp
 
     def serving_pool(self, num_pages: int):
         """Size the native block pool for a serving session (slots ×
@@ -134,17 +149,25 @@ class PagedGenerationEngine:
         ``builder()`` returns a callable ``fn(params, *args, k_pages,
         v_pages)`` whose LAST two outputs are the pools and whose leading
         outputs are returned to the caller; it is built once per ``key``.
-        Host arrays move to the engine's device.  The pools are updated
-        in place and stay put — where the JAX package donates them into
-        the compiled program and rebinds them from its outputs — so the
-        returned pools are the same buffers."""
-        fn = self._compiled.get(key)
-        if fn is None:
+        On the card each ``(key, argument signature)`` runs as one CUDA
+        graph (``core/graphs.py``): its first call executes eagerly and
+        captures, later calls replay.  The arguments are device tensors,
+        best the key's staged buffers (``program_inputs``), which a
+        replay reads without a copy.  The pools are updated in place and
+        stay put — where the JAX package donates them into the compiled
+        program and rebinds them from its outputs.  Leading outputs of a
+        replay are the graph's static outputs: read them before the next
+        call."""
+        self._ensure_pages()
+        tag = str(key[0]) if isinstance(key, tuple) and key else str(key)
+        site = "serving-decode" if tag == "serve-step" else f"serving-{tag}"
+
+        def make():
             fn = builder()
-            self._compiled[key] = fn
-        k_pages, v_pages = self._ensure_pages()
-        args = tuple(self._to_device(a) for a in args)
+            return lambda *a: fn(self._params, *a, self._k_pages,
+                                 self._v_pages)
+
         with torch.inference_mode():
-            *rest, new_k, new_v = fn(self._params, *args, k_pages, v_pages)
-        self._k_pages, self._v_pages = new_k, new_v
+            *rest, _, _ = self._programs.run(site, key, make, args,
+                                             self.device)
         return rest

@@ -53,6 +53,7 @@ def residual_logits_point_mass(proc_logits, draft):
     ``[batch, vocab]`` with each row's ``draft [batch]`` id masked to
     ``NEG_INF`` (``categorical`` renormalises)."""
     vocab = proc_logits.shape[-1]
-    hit = torch.nn.functional.one_hot(draft.long(), vocab).bool()
+    hit = (torch.arange(vocab, device=proc_logits.device)[None]
+           == draft.long()[:, None])
     return torch.where(hit, torch.full_like(proc_logits, NEG_INF),
                        proc_logits)

@@ -33,15 +33,15 @@ def _draw(key, keys):
 def _dropout(x, key, p=0.5, upscale=True):
     """Counter-hash dropout (``ops/activation.py::_dropout``): keep
     element ``i`` (row-major linear index) iff ``mix32(i * 0x9E3779B1 ^
-    seed) >= thresh``, ``seed = bits(key)``; kept values scaled by
-    ``1 / (1 - p)`` in ``x``'s dtype."""
+    seed) >= thresh``, ``seed = bits(key)`` (a tensor on the key's
+    device); kept values scaled by ``1 / (1 - p)`` in ``x``'s dtype."""
     seed = R.seed_from_key(key)
     lin = torch.arange(x.numel(), dtype=torch.int64,
                        device=x.device).reshape(x.shape)
     keep = _mix32(_mul32(lin, 0x9E3779B1) ^ seed) >= keep_threshold(p)
     scale = (1.0 / (1.0 - float(p))) if upscale else 1.0
-    return torch.where(keep, x * torch.tensor(scale, dtype=x.dtype,
-                                              device=x.device),
+    return torch.where(keep, x * torch.full((), scale, dtype=x.dtype,
+                                            device=x.device),
                        torch.zeros((), dtype=x.dtype, device=x.device))
 
 

@@ -10,10 +10,15 @@ runs at import: the CPU tests import every module on a machine with no
 
 Each C entry point launches on PyTorch's current stream, allocates
 nothing and returns ``cudaGetLastError()``; ``CudaKernel.__call__``
-raises on a non-zero code and otherwise counts the launch.
+raises on a non-zero code and otherwise counts the launch.  A launch
+made while a CUDA graph is being captured runs nothing yet: it counts
+into the capture's tally (``capture_launches``) instead, and each replay
+of that graph adds the tally (``add_launches``), so a kernel's count
+stays the number of times it ran.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import os
 import shutil
@@ -36,6 +41,9 @@ _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
 # ptxas register / shared-memory report per source, from the last build
 BUILD_LOG: Dict[str, str] = {}
+# the launch tally of the graph being captured, if any: process-wide,
+# since a captured backward launches from autograd's device thread
+_tally = None
 
 
 def require_cuda():
@@ -108,8 +116,9 @@ def load(source: str) -> ctypes.CDLL:
 class CudaKernel:
     """One C entry point of a ``csrc`` source plus its launch counter.
 
-    ``launches`` goes up by one per successful launch and nowhere else,
-    so a run can show which kernels its path went through."""
+    ``launches`` goes up by one per successful launch and nowhere else
+    (a launch recorded into a CUDA graph counts once per replay), so a
+    run can show which kernels its path went through."""
 
     def __init__(self, name: str, source: str, symbol: str, argtypes,
                  replaces: str):
@@ -135,7 +144,29 @@ class CudaKernel:
         if rc != 0:
             msg = load(self.source).pit_cuda_error_string(rc).decode()
             raise RuntimeError(f"{self.name}: CUDA error {rc} ({msg})")
-        self.launches += 1
+        if _tally is None:
+            self.launches += 1
+        else:
+            _tally[self] = _tally.get(self, 0) + 1
+
+
+@contextlib.contextmanager
+def capture_launches():
+    """While open, launches are being recorded into a CUDA graph (a
+    capture holds the card to itself): they count into the yielded
+    ``{kernel: launches}`` tally, not into ``launches``."""
+    global _tally
+    prev, _tally = _tally, {}
+    try:
+        yield _tally
+    finally:
+        _tally = prev
+
+
+def add_launches(tally: Dict["CudaKernel", int]):
+    """One replay of a graph whose capture recorded ``tally``."""
+    for kernel, n in tally.items():
+        kernel.launches += n
 
 
 # every kernel of the port, by name (chip_smoke.py enumerates these)

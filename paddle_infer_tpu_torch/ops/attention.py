@@ -28,8 +28,8 @@ def rope(x: torch.Tensor, position_ids: torch.Tensor,
         pos = pos[None, :]
     exps = -torch.arange(0, half, dtype=torch.float32,
                          device=x.device) / half
-    inv = torch.pow(torch.tensor(theta, dtype=torch.float32,
-                                 device=x.device), exps)
+    inv = torch.pow(torch.full((), theta, dtype=torch.float32,
+                               device=x.device), exps)
     ang = pos[:, :, None] * inv[None, None, :]          # [b, s, half]
     cos = torch.cos(ang)[:, :, None, :]                 # [b, s, 1, half]
     sin = torch.sin(ang)[:, :, None, :]

@@ -112,12 +112,19 @@ struct Args {
   float scale;
   int causal;
   int dropout;
-  unsigned seed;
+  const uint32_t* seed_ptr;  // the uint32 seed, in device memory
   unsigned thresh;
   float rescale;  // 1 / (1 - p_drop) in f32
 };
 
 // ------------------------------------------------------------ shared math
+
+// The dropout seed lives in device memory, so a CUDA graph replays a
+// launch with the step's seed; every thread reads the one word once, at
+// kernel entry, and passes it to the hashes in a register.
+__device__ __forceinline__ uint32_t load_seed(const Args& a) {
+  return a.dropout ? __ldg(a.seed_ptr) : 0u;
+}
 
 __device__ __forceinline__ uint32_t mix32(uint32_t x) {
   x ^= x >> 16;
@@ -129,12 +136,12 @@ __device__ __forceinline__ uint32_t mix32(uint32_t x) {
 }
 
 // `dropout_keep` of the plain version: P(keep) = 1 - p_drop.
-__device__ __forceinline__ bool keep_elem(const Args& a, int bh, int row,
-                                          int col) {
+__device__ __forceinline__ bool keep_elem(const Args& a, uint32_t seed,
+                                          int bh, int row, int col) {
   const uint32_t x = static_cast<uint32_t>(row) * 0x9E3779B1u +
                      static_cast<uint32_t>(col) * 0x85EBCA77u +
                      static_cast<uint32_t>(bh) * 0xC2B2AE3Du;
-  return mix32(x ^ a.seed) >= a.thresh;
+  return mix32(x ^ seed) >= a.thresh;
 }
 
 __device__ __forceinline__ bool causal_ok(const Args& a, int row, int col) {
@@ -497,6 +504,7 @@ __global__ void __launch_bounds__(dkdv_threads<D>(), D == 64 ? 2 : 1)
                            const __grid_constant__ CUtensorMap tk,
                            const __grid_constant__ CUtensorMap tv,
                            const __grid_constant__ CUtensorMap tdo, Args a) {
+  const uint32_t seed = load_seed(a);
   using L = DkdvLayout<D>;
   constexpr int STAGES = L::kStages;
   constexpr int TILE = L::kTileB, PANEL = kWgRows * 64;  // elements
@@ -680,7 +688,7 @@ __global__ void __launch_bounds__(dkdv_threads<D>(), D == 64 ? 2 : 1)
           for (int i = 0; i < 32; ++i) {
             const int c = (i >> 2) * 8 + t * 2 + (i & 1);
             bits |= static_cast<uint32_t>(
-                        keep_elem(a, bh, q0 + c, key[(i >> 1) & 1]))
+                        keep_elem(a, seed, bh, q0 + c, key[(i >> 1) & 1]))
                     << i;
           }
           keep[tid] = bits;
@@ -743,6 +751,7 @@ __global__ void __launch_bounds__(128 + kProducer, D == 256 ? 1 : 2)
                          const __grid_constant__ CUtensorMap tk,
                          const __grid_constant__ CUtensorMap tv,
                          const __grid_constant__ CUtensorMap tdo, Args a) {
+  const uint32_t seed = load_seed(a);
   using L = DqLayout<D>;
   constexpr int STAGES = L::kStages, TILE = L::kTileB;
   constexpr int PANEL = kWgRows * 64;  // elements
@@ -874,7 +883,7 @@ __global__ void __launch_bounds__(128 + kProducer, D == 256 ? 1 : 2)
       for (int i = 0; i < 32; ++i) {
         const int c = (i >> 2) * 8 + t * 2 + (i & 1);
         bits |= static_cast<uint32_t>(
-                    keep_elem(a, bh, row[(i >> 1) & 1], k0 + c))
+                    keep_elem(a, seed, bh, row[(i >> 1) & 1], k0 + c))
                 << i;
       }
     }
@@ -975,8 +984,9 @@ __device__ __forceinline__ void fwd_pv(float (&o)[D / 2],
 // element i of the score fragment; hrow[i] holds the row and head terms.
 template <int N>
 __device__ __forceinline__ void keep_bits(uint32_t (&bits)[N / 64],
-                                          const Args& a, int k0,
-                                          const uint32_t (&hrow)[2], int t) {
+                                          const Args& a, uint32_t seed,
+                                          int k0, const uint32_t (&hrow)[2],
+                                          int t) {
   const uint32_t hc = static_cast<uint32_t>(k0 + 2 * t) * 0x85EBCA77u;
 #pragma unroll
   for (int w = 0; w < N / 64; ++w) bits[w] = 0u;
@@ -984,7 +994,7 @@ __device__ __forceinline__ void keep_bits(uint32_t (&bits)[N / 64],
   for (int i = 0; i < N / 2; ++i) {
     const uint32_t c = static_cast<uint32_t>((i >> 2) * 8 + (i & 1));
     const uint32_t x = hrow[(i >> 1) & 1] + hc + c * 0x85EBCA77u;
-    bits[i >> 5] |= static_cast<uint32_t>(mix32(x ^ a.seed) >= a.thresh)
+    bits[i >> 5] |= static_cast<uint32_t>(mix32(x ^ seed) >= a.thresh)
                     << (i & 31);
   }
 }
@@ -1046,6 +1056,7 @@ __global__ void __launch_bounds__(FwdLayout<D>::kThreads,
     flash_fwd_kernel_bf16(const __grid_constant__ CUtensorMap tq,
                           const __grid_constant__ CUtensorMap tk,
                           const __grid_constant__ CUtensorMap tv, Args a) {
+  const uint32_t seed = load_seed(a);
   using L = FwdLayout<D>;
   constexpr int STAGES = L::kStages, N = L::kN, M = L::kM, WGS = L::kWgs;
   constexpr bool kPingPong = WGS == 2;
@@ -1181,7 +1192,7 @@ __global__ void __launch_bounds__(FwdLayout<D>::kThreads,
       wg_fence();
       fwd_qk<D, M, N>(s, sQ, r0, sK(0));
       wg_commit();
-      if (a.dropout) keep_bits<N>(bits, a, 0, hrow, t);
+      if (a.dropout) keep_bits<N>(bits, a, seed, 0, hrow, t);
       const bool mask = needs_mask(0, 0);
       wg_wait0();
       fence_regs(s);
@@ -1204,7 +1215,7 @@ __global__ void __launch_bounds__(FwdLayout<D>::kThreads,
       fwd_pv<D, N>(o, pf, sV(prev));
       wg_commit();
       if (kPingPong) bar_arrive(2 - wg, 2 * 128);
-      if (a.dropout) keep_bits<N>(bits, a, kt * N, hrow, t);
+      if (a.dropout) keep_bits<N>(bits, a, seed, kt * N, hrow, t);
       const bool mask = needs_mask(kt, st);
       wg_wait1();
       fence_regs(s);
@@ -1292,6 +1303,7 @@ __device__ __forceinline__ float dot_rows(const float* x, const float* y) {
 
 template <int D, int T>
 __global__ void __launch_bounds__(4 * T) flash_fwd_kernel_f32(Args a) {
+  const uint32_t seed = load_seed(a);
   constexpr int LDF = D + 1, SLD = T + 1;
   extern __shared__ float fsm[];
   float* sQ = fsm;
@@ -1354,7 +1366,7 @@ __global__ void __launch_bounds__(4 * T) flash_fwd_kernel_f32(Args a) {
     for (int i = 0; i < T / 4; ++i) {
       const int cl = c4 + 4 * i;
       float pa = sv[i];
-      if (a.dropout) pa = keep_elem(a, bh, row, k0 + cl) ? pa * a.rescale : 0.f;
+      if (a.dropout) pa = keep_elem(a, seed, bh, row, k0 + cl) ? pa * a.rescale : 0.f;
       sP[r * SLD + cl] = pa;
     }
     __syncwarp();
@@ -1379,6 +1391,7 @@ __global__ void __launch_bounds__(4 * T) flash_fwd_kernel_f32(Args a) {
 
 template <int D, int T>
 __global__ void __launch_bounds__(4 * T) flash_dkdv_kernel_f32(Args a) {
+  const uint32_t seed = load_seed(a);
   constexpr int LDF = D + 1, SLD = T + 1;
   extern __shared__ float fsm[];
   float* sK = fsm;
@@ -1433,7 +1446,7 @@ __global__ void __launch_bounds__(4 * T) flash_dkdv_kernel_f32(Args a) {
       const float pv = zero ? 0.f : e;
       float d = dot_rows<D>(sO + ql * LDF, sV + kr * LDF), pd = pv;
       if (a.dropout) {
-        const bool kp = keep_elem(a, bh, qrow, key);
+        const bool kp = keep_elem(a, seed, bh, qrow, key);
         pd = kp ? pv * a.rescale : 0.f;
         d = kp ? d * a.rescale : 0.f;
       }
@@ -1466,6 +1479,7 @@ __global__ void __launch_bounds__(4 * T) flash_dkdv_kernel_f32(Args a) {
 
 template <int D, int T>
 __global__ void __launch_bounds__(4 * T) flash_dq_kernel_f32(Args a) {
+  const uint32_t seed = load_seed(a);
   constexpr int LDF = D + 1, SLD = T + 1;
   extern __shared__ float fsm[];
   float* sQ = fsm;
@@ -1514,7 +1528,7 @@ __global__ void __launch_bounds__(4 * T) flash_dq_kernel_f32(Args a) {
       const bool zero = !cz || (kseg && qs != sKs[cl]) || col >= a.sk || !in;
       const float pv = zero ? 0.f : e;
       float d = dot_rows<D>(sO + r * LDF, sV + cl * LDF);
-      if (a.dropout) d = keep_elem(a, bh, row, col) ? d * a.rescale : 0.f;
+      if (a.dropout) d = keep_elem(a, seed, bh, row, col) ? d * a.rescale : 0.f;
       sS[r * SLD + cl] = pv * (d - delta) * a.scale;
     }
     __syncwarp();
@@ -1685,7 +1699,7 @@ int dispatch(int dtype, int kind, int D, int bh_count, const Args& a,
 
 Args make_args(const void* q, const void* k, const void* v, const void* qseg,
                const void* kseg, int Sq, int Sk, int H, float scale,
-               int causal, int dropout, unsigned seed, unsigned thresh,
+               int causal, int dropout, const void* seed, unsigned thresh,
                float rescale) {
   Args a = {};
   a.q = q;
@@ -1699,7 +1713,7 @@ Args make_args(const void* q, const void* k, const void* v, const void* qseg,
   a.scale = scale;
   a.causal = causal;
   a.dropout = dropout;
-  a.seed = seed;
+  a.seed_ptr = static_cast<const uint32_t*>(seed);
   a.thresh = thresh;
   a.rescale = rescale;
   return a;
@@ -1712,7 +1726,7 @@ extern "C" {
 int pit_flash_fwd(int dtype, int D, const void* q, const void* k,
                   const void* v, const void* qseg, const void* kseg, void* o,
                   void* lse, int BH, int Sq, int Sk, int H, float scale,
-                  int causal, int dropout, unsigned seed, unsigned thresh,
+                  int causal, int dropout, const void* seed, unsigned thresh,
                   float rescale, void* stream) {
   Args a = make_args(q, k, v, qseg, kseg, Sq, Sk, H, scale, causal, dropout,
                      seed, thresh, rescale);
@@ -1725,7 +1739,7 @@ int pit_flash_dkdv(int dtype, int D, const void* q, const void* k,
                    const void* v, const void* dout, const void* lse,
                    const void* delta, const void* qseg, const void* kseg,
                    void* dk, void* dv, int BH, int Sq, int Sk, int H,
-                   float scale, int causal, int dropout, unsigned seed,
+                   float scale, int causal, int dropout, const void* seed,
                    unsigned thresh, float rescale, void* stream) {
   Args a = make_args(q, k, v, qseg, kseg, Sq, Sk, H, scale, causal, dropout,
                      seed, thresh, rescale);
@@ -1741,7 +1755,7 @@ int pit_flash_dq(int dtype, int D, const void* q, const void* k,
                  const void* v, const void* dout, const void* lse,
                  const void* delta, const void* qseg, const void* kseg,
                  void* dq, int BH, int Sq, int Sk, int H, float scale,
-                 int causal, int dropout, unsigned seed, unsigned thresh,
+                 int causal, int dropout, const void* seed, unsigned thresh,
                  float rescale, void* stream) {
   Args a = make_args(q, k, v, qseg, kseg, Sq, Sk, H, scale, causal, dropout,
                      seed, thresh, rescale);

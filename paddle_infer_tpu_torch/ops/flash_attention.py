@@ -19,7 +19,10 @@ Dropout is the counter-hash keep mask ``dropout_keep(seed, bh, row,
 col)`` over absolute coordinates, so the forward, both backward
 kernels, the plain versions and the JAX package all draw the same mask
 bit for bit.  uint32 arithmetic runs in int64 tensors (as
-``core/random.py`` does), every product masked back to 32 bits.
+``core/random.py`` does), every product masked back to 32 bits.  The
+seed is a 0-d int64 tensor on q's device (an int is accepted and put
+there): the kernels read it from device memory, so a CUDA graph replays
+them with each step's seed.
 """
 from __future__ import annotations
 
@@ -38,7 +41,7 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (64, 128, 256)
 
 _c = ctypes
-_COMMON = [_c.c_int] * 4 + [_c.c_float, _c.c_int, _c.c_int, _c.c_uint32,
+_COMMON = [_c.c_int] * 4 + [_c.c_float, _c.c_int, _c.c_int, _c.c_void_p,
                             _c.c_uint32, _c.c_float, _c.c_void_p]
 _FWD = _build.register(_build.CudaKernel(
     "flash_fwd", "flash_attention.cu", "pit_flash_fwd",
@@ -84,11 +87,12 @@ def keep_threshold(dropout_p: float) -> int:
 
 def dropout_keep(seed, bh, rows, cols, dropout_p):
     """Deterministic keep mask for attention-probability dropout: a pure
-    hash of ``(seed, bh, row, col)`` (broadcastable ints; absolute
-    folded-head index and q/k coordinates).  P(keep) = 1 - dropout_p."""
+    hash of ``(seed, bh, row, col)`` (broadcastable ints or tensors;
+    absolute folded-head index and q/k coordinates; the seed an int or a
+    0-d tensor).  P(keep) = 1 - dropout_p."""
     x = (_mul32(_u32(rows), 0x9E3779B1) + _mul32(_u32(cols), 0x85EBCA77)
          + _mul32(_u32(bh), 0xC2B2AE3D)) & _M
-    return _mix32(x ^ (int(seed) & _M)) >= keep_threshold(dropout_p)
+    return _mix32(x ^ (seed & _M)) >= keep_threshold(dropout_p)
 
 
 def _keep_grid(seed, bh, sq, sk, dropout_p, device):
@@ -224,10 +228,13 @@ def _check(q, k, v, extra, qseg, kseg, h):
 
 
 def _common(q, k, h, scale, causal, dropout_p, seed):
+    """The kernels' trailing arguments; ``seed`` is ``_prep_seed``'s
+    tensor, whose low 32 bits (little-endian: its first word) the
+    kernels read from device memory."""
     bh, sq, d = q.shape
     p = float(dropout_p)
     return (bh, sq, k.shape[1], h, float(scale), int(bool(causal)),
-            int(p > 0), (int(seed) & _M) if p else 0,
+            int(p > 0), _build.ptr(seed) if p else None,
             keep_threshold(p) if p else 0,
             float(1.0 / (1.0 - p)) if p else 1.0, _build.stream_ptr())
 
@@ -249,6 +256,7 @@ def flash_fwd(q, k, v, qseg, kseg, seed, causal, scale, dropout_p, h):
                               dropout_p, h)
     _on_card(q)
     code = _check(q, k, v, (), qseg, kseg, h)
+    seed = _prep_seed(dropout_p, seed, q.device)
     o = torch.empty_like(q)
     lse = torch.empty(q.shape[:2], dtype=torch.float32, device=q.device)
     p = _build.ptr
@@ -265,6 +273,7 @@ def flash_dkdv(q, k, v, do, lse, delta, qseg, kseg, seed, causal, scale,
                                 causal, scale, dropout_p, h)[1:]
     _on_card(q)
     code = _check(q, k, v, (do, lse, delta), qseg, kseg, h)
+    seed = _prep_seed(dropout_p, seed, q.device)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     p = _build.ptr
     _DKDV(code, q.shape[2], p(q), p(k), p(v), p(do), p(lse), p(delta),
@@ -281,6 +290,7 @@ def flash_dq(q, k, v, do, lse, delta, qseg, kseg, seed, causal, scale,
                                 causal, scale, dropout_p, h)[0]
     _on_card(q)
     code = _check(q, k, v, (do, lse, delta), qseg, kseg, h)
+    seed = _prep_seed(dropout_p, seed, q.device)
     dq = torch.empty_like(q)
     p = _build.ptr
     _DQ(code, q.shape[2], p(q), p(k), p(v), p(do), p(lse), p(delta),
@@ -330,12 +340,18 @@ def _prep_segments(q_segment_ids, kv_segment_ids, b, sq, sk, device):
     return qseg.contiguous(), kseg.contiguous()
 
 
-def _prep_seed(dropout_p, dropout_seed):
+def _prep_seed(dropout_p, dropout_seed, device):
+    """The seed as a 0-d int64 tensor on ``device`` whose low 32 bits are
+    the uint32 seed (a tensor is never read back to the host)."""
     if not dropout_p:
         return None
     if dropout_seed is None:
         raise ValueError("dropout_p > 0 requires a dropout_seed")
-    return int(dropout_seed) & _M
+    if isinstance(dropout_seed, torch.Tensor):
+        return dropout_seed.to(device=device,
+                               dtype=torch.int64).reshape(()).contiguous()
+    return torch.full((), int(dropout_seed) & _M, dtype=torch.int64,
+                      device=device)
 
 
 def _attention(q, k, v, q_segment_ids, kv_segment_ids, dropout_p,
@@ -345,7 +361,7 @@ def _attention(q, k, v, q_segment_ids, kv_segment_ids, dropout_p,
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
     qseg, kseg = _prep_segments(q_segment_ids, kv_segment_ids, b, sq, sk,
                                 q.device)
-    seed = _prep_seed(dropout_p, dropout_seed)
+    seed = _prep_seed(dropout_p, dropout_seed, q.device)
 
     def fold(x):
         return x.permute(0, 2, 1, 3).reshape(b * h, x.shape[1], d) \
@@ -367,7 +383,7 @@ def flash_attention(q, k, v, mask=None, q_segment_ids=None,
     equal) plus ``is_causal`` (offset ``Sk - Sq``); a dense ``mask`` is
     not supported (``ops.attention.sdpa`` takes those to the plain
     path).  ``dropout_p`` drops probabilities with ``dropout_keep``
-    seeded by the uint32 ``dropout_seed``."""
+    seeded by the uint32 ``dropout_seed`` (an int or a 0-d tensor)."""
     if mask is not None:
         raise NotImplementedError("flash kernel: dense mask unsupported — "
                                   "use segment ids")

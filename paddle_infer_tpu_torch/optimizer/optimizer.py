@@ -13,7 +13,10 @@ then the Adam step with bias correction at step ``t``; Adam's own
 ``weight_decay`` is L2 folded into the gradient.  ``multi_precision``
 keeps a float32 master copy of every non-float32 parameter.  Scalars
 enter each product in the operand's dtype, as JAX's weakly typed Python
-scalars do.  Gradient clipping and LR schedulers are not ported yet
+scalars do.  ``lr`` and ``step`` may be device scalars (a CUDA graph of
+the train step reads them from buffers written before each replay);
+every constant is filled on the device, so an update copies nothing from
+the host.  Gradient clipping and LR schedulers are not ported yet
 (ROADMAP.md).
 """
 from __future__ import annotations
@@ -25,7 +28,15 @@ import torch
 
 def _s(x, like: torch.Tensor) -> torch.Tensor:
     """A Python scalar in ``like``'s dtype (JAX's weak typing)."""
-    return torch.tensor(x, dtype=like.dtype, device=like.device)
+    return torch.full((), x, dtype=like.dtype, device=like.device)
+
+
+def _f32(x, device) -> torch.Tensor:
+    """A float32 scalar on ``device``: a tensor is cast (not read back),
+    a Python number filled."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device=device, dtype=torch.float32)
+    return torch.full((), float(x), dtype=torch.float32, device=device)
 
 
 class Optimizer:
@@ -75,19 +86,21 @@ class Optimizer:
         """One update of every ``params[n]`` from ``grads[n]`` (None: a
         zero gradient) and ``state[n]``, in place; returns ``(params,
         state)``.  ``step`` is the 1-based step count of the bias
-        correction."""
-        lr = torch.tensor(self.get_lr() if lr is None else lr,
-                          dtype=torch.float32)
+        correction; it and ``lr`` may be Python numbers or device
+        scalars."""
+        lr = self.get_lr() if lr is None else lr
+        dev = {}                        # per device: (lr, step) float32
         for n, p in params.items():
+            if p.device not in dev:
+                dev[p.device] = (_f32(lr, p.device), _f32(step, p.device))
+            lr_d, step_d = dev[p.device]
             g = grads.get(n)
             g = torch.zeros_like(p) if g is None else g.to(p.dtype)
             if self._weight_decay and self._decay_into_grad():
                 g = g + _s(self._weight_decay, p) * p
             wd = 0.0 if self._decay_into_grad() else \
                 self._named_weight_decay(n)
-            self._update(p, g, state[n], lr.to(p.device), int(step),
-                         torch.tensor(wd, dtype=torch.float32,
-                                      device=p.device))
+            self._update(p, g, state[n], lr_d, step_d, _f32(wd, p.device))
         return params, state
 
 
@@ -115,10 +128,8 @@ class Adam(Optimizer):
         g = grad.to(work.dtype)
         m.copy_(_s(b1, m) * m + _s(1 - b1, g) * g)
         v.copy_(_s(b2, v) * v + _s(1 - b2, g) * (g * g))
-        t = torch.tensor(float(step), dtype=torch.float32, device=m.device)
-        f32 = lambda x: torch.tensor(x, dtype=torch.float32, device=m.device)
-        mhat = m / (1 - f32(b1) ** t)
-        vhat = v / (1 - f32(b2) ** t)
+        mhat = m / (1 - _f32(b1, m.device) ** step)
+        vhat = v / (1 - _f32(b2, m.device) ** step)
         work.copy_(work - lr.to(work.dtype) * mhat / (torch.sqrt(vhat)
                                                       + _s(eps, vhat)))
         if work is not param:

@@ -6,8 +6,14 @@ Port of the one-device subset of ``paddle_infer_tpu/parallel/fleet.py``:
 ``FleetTrainStep``, whose step is the reference's ``step`` /
 ``step_fn``: draw the step key from the ``KeyStream``, run the loss
 under ``trace_key_scope(key)`` and the AMP rule, backward, then the
-optimizer's ``functional_update`` at ``step = step_count``.  PyTorch runs
-it eagerly: there is no compiled program to cache.
+optimizer's ``functional_update`` at ``step = step_count``.  Where the
+reference compiles that whole step into one program, the port runs it
+on the card as one CUDA graph per batch signature (``core/graphs.py``,
+site ``train-step``): the key, the learning rate and the step count
+reach it through staged device buffers written before each replay, the
+batch through static buffers, and the loss comes out of a static
+output.  The CPU, and the card inside ``disable_graphs()``, run it
+eagerly.
 
 Parameters are those of ``model.named_parameters()`` that require grad,
 deduplicated as that call deduplicates them, so a tied weight appears
@@ -17,12 +23,15 @@ DGC) raises ``NotImplementedError`` (ROADMAP.md).
 """
 from __future__ import annotations
 
+import itertools
 from typing import Any, Callable, Dict, Optional
 
 import numpy as np
 import torch
 
 from .. import amp, resolve_device
+from ..core.graphs import ProgramCache, StagedInputs
+from ..observability.compilelog import get_compile_log
 
 _DEGREES = ("dp_degree", "mp_degree", "pp_degree", "sharding_degree",
             "sep_degree", "ep_degree")
@@ -72,6 +81,9 @@ class _FleetState:
 
 
 _state = _FleetState()
+# each FleetTrainStep is its own program: its compile-log key holds its
+# number, so a second model's capture is not a recompile of the first's
+_step_ids = itertools.count()
 
 
 def init(strategy: Optional[DistributedStrategy] = None, devices=None):
@@ -115,6 +127,13 @@ class FleetTrainStep:
         self.device = next(iter(self.params.values())).device
         self.opt_state = None
         self._step_count = 0
+        self._programs = ProgramCache()
+        self._key = ("train-step", next(_step_ids))
+        self._warm = False
+        self._grad_sets = None
+        self._scalars = StagedInputs(
+            [("key", (2,), np.int64), ("lr", (), np.float32),
+             ("step", (), np.int32)], self.device)
 
     def __call__(self, *batch):
         return self.step(*batch)
@@ -124,23 +143,55 @@ class FleetTrainStep:
             x = torch.from_numpy(x)
         return x.to(self.device) if isinstance(x, torch.Tensor) else x
 
-    def step(self, *batch):
-        """Run one step; returns the float32 loss (a 0-d tensor on the
-        model's device) and leaves the parameters updated in place."""
-        if self.opt_state is None:
-            self.opt_state = self.optimizer.functional_init(self.params)
-        tensors = [self._to_device(b) for b in batch]
-        self._step_count += 1
-        key = self.keys.next_key()
+    def _body(self, key, lr, step, *batch):
+        """The whole step on device tensors: grads from None, the loss
+        under the step key's scope and the AMP rule, backward, AdamW."""
         for p in self.params.values():
             p.grad = None
         with self.keys.trace_key_scope(key), \
                 amp.amp_scope(bool(self.strategy.amp),
                               _amp_dtype(self.strategy)):
-            loss = self.loss_fn(self.model, *tensors).float()
+            loss = self.loss_fn(self.model, *batch).float()
         loss.backward()
         grads = {n: p.grad for n, p in self.params.items()}
+        self._grad_sets.append(grads)
         self.optimizer.functional_update(self.params, grads, self.opt_state,
-                                         lr=self.optimizer.get_lr(),
-                                         step=self._step_count)
+                                         lr=lr, step=step)
         return loss.detach()
+
+    def step(self, *batch):
+        """Run one step; returns the float32 loss (a 0-d tensor on the
+        model's device; on the card a graph's static output, so read it
+        before the next step) and leaves the parameters updated in
+        place."""
+        if self.opt_state is None:
+            self.opt_state = self.optimizer.functional_init(self.params)
+        tensors = [self._to_device(b) for b in batch]
+        self._step_count += 1
+        h = self._scalars.begin()
+        h["key"][:] = self.keys.next_key().numpy()
+        h["lr"][()] = self.optimizer.get_lr()
+        h["step"][()] = self._step_count
+        d = self._scalars.upload()
+        self._grad_sets = []
+        loss = self._programs.run(
+            "train-step", self._key, lambda: self._body,
+            (d["key"], d["lr"], d["step"], *tensors), self.device)
+        if len(self._grad_sets) == 2:
+            # this call ran eagerly, then captured: the parameters' grads
+            # are now the graph's, so give them this call's values
+            warm, captured = self._grad_sets
+            for n, g in warm.items():
+                if g is not None:
+                    captured[n].copy_(g)
+        self._grad_sets = None
+        if not self._warm:
+            # one graph per batch signature: a later capture at this
+            # site is a recompile
+            get_compile_log().mark_warm("train-step", self._key)
+            self._warm = True
+        return loss
+
+    def release_graphs(self):
+        """Free the step's graph (its private memory pool)."""
+        self._programs = ProgramCache()

@@ -45,6 +45,7 @@ from .. import resolve_device
 from ..core import random as prng
 from ..inference.generation import (GenerationConfig, PagedGenerationEngine,
                                     _round_up)
+from ..observability.compilelog import get_compile_log
 from .metrics import ServingMetrics
 from .programs import build_mixed_step
 from .request import (DeadlineExceededError, QueueFullError, RejectedError,
@@ -52,6 +53,13 @@ from .request import (DeadlineExceededError, QueueFullError, RejectedError,
 from .speculation import resolve_draft_source
 
 _log = logging.getLogger(__name__)
+
+
+# the samp dict's fields, in the program's order
+_SAMP_FIELDS = (("temperature", np.float32), ("top_k", np.int32),
+                ("top_p", np.float32), ("min_len", np.int32),
+                ("eos", np.int32), ("do_sample", np.bool_),
+                ("pad", np.int32))
 
 
 def _host(t) -> np.ndarray:
@@ -148,6 +156,7 @@ class EngineCore:
         self._slots: List[Optional[dict]] = [None] * self._max_batch
         self.step_trace: List[dict] = []
         self._step_idx = 0
+        self._decode_warm = False
         self._step_lock = threading.RLock()
         self._thread: Optional[threading.Thread] = None
         self._stop_evt = threading.Event()
@@ -260,26 +269,39 @@ class EngineCore:
         # ragged mode pads nothing: reservations are exact
         return max(int(length), 1)
 
-    def _samp_arrays(self, cfgs):
-        n = len(cfgs)
-        samp = {"temperature": np.ones((n,), np.float32),
-                "top_k": np.zeros((n,), np.int32),
-                "top_p": np.ones((n,), np.float32),
-                "min_len": np.zeros((n,), np.int32),
-                "eos": np.full((n,), -1, np.int32),
-                "do_sample": np.zeros((n,), bool),
-                "pad": np.zeros((n,), np.int32)}
-        for i, g in enumerate(cfgs):
-            if g is None:
-                continue
-            samp["temperature"][i] = g.temperature
-            samp["top_k"][i] = g.top_k or 0
-            samp["top_p"][i] = g.top_p
-            samp["min_len"][i] = g.min_length
-            samp["eos"][i] = -1 if g.eos_token_id is None else g.eos_token_id
-            samp["do_sample"][i] = g.do_sample
-            samp["pad"][i] = g.pad_token_id
-        return samp
+    def _input_fields(self):
+        """The mixed step's staged inputs: ``(name, shape, dtype)`` in
+        the program's argument order (``samp.*`` are the samp dict)."""
+        b, C, P = self._max_batch, self._token_budget, self._max_pages
+        fields = [("ids", (b, C), np.int32), ("qlens", (b,), np.int32),
+                  ("ctx", (b,), np.int32), ("steps0", (b,), np.int32),
+                  ("sample_now", (b,), np.bool_)]
+        if self._spec_window > 1:
+            fields.append(("spec", (b,), np.bool_))
+        fields.append(("tables", (b, P), np.int32))
+        fields += [(f"samp.{k}", (b,), dt) for k, dt in _SAMP_FIELDS]
+        return fields + [("keys", (b, 2), np.int64), ("scratch", (), np.int32)]
+
+    @staticmethod
+    def _program_args(dev, spec_window):
+        """The staged device tensors as the program's positional
+        arguments after ``params``."""
+        samp = {k: dev[f"samp.{k}"] for k, _ in _SAMP_FIELDS}
+        head = [dev[n] for n in ("ids", "qlens", "ctx", "steps0",
+                                 "sample_now")]
+        if spec_window > 1:
+            head.append(dev["spec"])
+        return head + [dev["tables"], samp, dev["keys"], dev["scratch"]]
+
+    @staticmethod
+    def _fill_samp(h, i, g: GenerationConfig):
+        h["samp.temperature"][i] = g.temperature
+        h["samp.top_k"][i] = g.top_k or 0
+        h["samp.top_p"][i] = g.top_p
+        h["samp.min_len"][i] = g.min_length
+        h["samp.eos"][i] = -1 if g.eos_token_id is None else g.eos_token_id
+        h["samp.do_sample"][i] = g.do_sample
+        h["samp.pad"][i] = g.pad_token_id
 
     def _admit(self, req: Request, sid: int):
         """Stage a request into slot ``sid``: reserve its KV pages and
@@ -316,21 +338,24 @@ class EngineCore:
         active = [s for s in self._slots if s is not None]
         b = self._max_batch
         C = self._token_budget
-        ids = np.zeros((b, C), np.int32)
-        qlens = np.zeros((b,), np.int32)
-        ctx = np.zeros((b,), np.int32)
-        steps0 = np.zeros((b,), np.int32)
-        sample_now = np.zeros((b,), bool)
-        tables = np.full((b, self._max_pages), self._scratch, np.int32)
-        keys = np.zeros((b, 2), np.int64)
-        cfgs: List[Optional[GenerationConfig]] = [None] * b
-        decode_rows = [s for s in active if s["pending"].size == 0]
-        chunk_rows = [s for s in active if s["pending"].size > 0]
         eng = self._engine
         W = self._spec_window
         mkey = ("serve-step", b, C, self._max_pages, self._pool.num_blocks)
         if W > 1:
             mkey = mkey + (W,)
+        # every per-step array is written straight into the key's staged
+        # buffer (pinned on the card), which one copy moves to the device
+        inputs = eng.program_inputs(mkey, self._input_fields())
+        h = inputs.begin()
+        ids, qlens, ctx = h["ids"], h["qlens"], h["ctx"]
+        steps0, sample_now = h["steps0"], h["sample_now"]
+        h["tables"].fill(self._scratch)
+        h["samp.temperature"].fill(1.0)
+        h["samp.top_p"].fill(1.0)
+        h["samp.eos"].fill(-1)
+        h["scratch"][()] = self._scratch
+        decode_rows = [s for s in active if s["pending"].size == 0]
+        chunk_rows = [s for s in active if s["pending"].size > 0]
         budget = C
         chunk_taken = {}
         for s in decode_rows:
@@ -341,9 +366,9 @@ class EngineCore:
             ctx[i] = s["length"] + s["emitted"] - 1
             steps0[i] = s["emitted"]
             sample_now[i] = True
-            tables[i] = s["table"]
-            keys[i] = s["key"]
-            cfgs[i] = s["g"]
+            h["tables"][i] = s["table"]
+            h["keys"][i] = s["key"]
+            self._fill_samp(h, i, s["g"])
             budget -= 1
         for s in chunk_rows:
             i = s["sid"]
@@ -356,32 +381,25 @@ class EngineCore:
             steps0[i] = s["emitted"]
             # only the chunk holding the prompt's last token samples
             sample_now[i] = n == int(s["pending"].size)
-            tables[i] = s["table"]
-            keys[i] = s["key"]
-            cfgs[i] = s["g"]
+            h["tables"][i] = s["table"]
+            h["keys"][i] = s["key"]
+            self._fill_samp(h, i, s["g"])
             budget -= n
             chunk_taken[i] = n
-        spec, drafted = self._pack_drafts(decode_rows, ids, qlens, budget)
+        drafted = self._pack_drafts(decode_rows, h, budget)
         t0 = time.monotonic()
         n_emit = None
         try:
-            scratch = np.asarray(self._scratch, np.int32)
+            args = self._program_args(inputs.upload(), W)
+            out = eng.run_paged_program(
+                mkey, lambda: build_mixed_step(eng, b, C, self._max_pages,
+                                               spec_window=W), *args)
+            # the one designed sync per step (plus n_emit under
+            # speculation)
             if W > 1:
-                tok, n_emit, fin_out = eng.run_paged_program(
-                    mkey, lambda: build_mixed_step(eng, b, C,
-                                                   self._max_pages,
-                                                   spec_window=W),
-                    ids, qlens, ctx, steps0, sample_now, spec, tables,
-                    self._samp_arrays(cfgs), keys, scratch)
-                n_emit = _host(n_emit)
+                tok, n_emit, fin_out = (_host(t) for t in out)
             else:
-                tok, fin_out = eng.run_paged_program(
-                    mkey, lambda: build_mixed_step(eng, b, C,
-                                                   self._max_pages),
-                    ids, qlens, ctx, steps0, sample_now, tables,
-                    self._samp_arrays(cfgs), keys, scratch)
-            # the one designed sync per step
-            tok, fin_out = _host(tok), _host(fin_out)
+                tok, fin_out = (_host(t) for t in out)
         except Exception as e:
             # the pools were written in place mid-step: every in-flight
             # row's KV is suspect, so fail them all (no replay yet)
@@ -392,6 +410,11 @@ class EngineCore:
                     self._evict(s, RequestState.FAILED, RejectedError(
                         f"in-flight KV state lost: {e!r}"))
             return
+        if not self._decode_warm:
+            # one graph for EVERY composition: after this, any capture on
+            # the serving-decode site is a recompile
+            get_compile_log().mark_warm("serving-decode", mkey)
+            self._decode_warm = True
         wall = time.monotonic() - t0
         self._step_idx += 1
         emitted_decode = 0
@@ -442,18 +465,18 @@ class EngineCore:
             "draft_accepted": draft_accepted,
             "evicted": evicted, "wall_s": wall})
 
-    def _pack_drafts(self, decode_rows, ids, qlens, budget):
+    def _pack_drafts(self, decode_rows, h, budget):
         """Speculative drafts, from leftover budget only, so decode
         packing and prefill pacing are those of ``speculate=False``.  A
         row's drafts stay inside its pool reservation (``k <= remaining
         - 1``) and the window (``k <= W - 1``); sampled rows take
-        history-deterministic proposals only.  Writes the drafts into
-        ``ids``/``qlens`` in place; returns ``(spec[b] bool, {slot:
-        k})``."""
-        spec = np.zeros((self._max_batch,), bool)
+        history-deterministic proposals only.  Writes the drafts into the
+        staged ``ids``/``qlens``/``spec`` in place; returns ``{slot:
+        k}``."""
         drafted = {}
         if not self._speculate:
-            return spec, drafted
+            return drafted
+        ids, qlens, spec = h["ids"], h["qlens"], h["spec"]
         W = self._spec_window
         for s in decode_rows:
             if budget <= 0:
@@ -477,7 +500,7 @@ class EngineCore:
             spec[i] = True
             budget -= k_row
             drafted[i] = k_row
-        return spec, drafted
+        return drafted
 
     # ---------------------------------------------------------- eviction
     def _evict(self, slot: dict, state: RequestState,
@@ -553,5 +576,7 @@ class EngineCore:
                     self._evict(s, RequestState.CANCELLED,
                                 RejectedError("serving engine closed"))
             self._pool.free(self._max_batch)
+            # the key's graph and staging buffers go with the core
+            self._engine.release_graphs()
         finally:
             self._step_lock.release()

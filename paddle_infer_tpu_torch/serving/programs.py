@@ -12,14 +12,19 @@ port in ``core/random.py`` — the reference's bits, so seeded sampled
 streams match it.
 
 The JAX package returns a jitted executable with the pools donated;
-here ``build_mixed_step`` returns an eager callable and the pools are
-updated in place (one CUDA graph per key is queued in ROADMAP.md).
+here ``build_mixed_step`` returns a callable that updates the pools in
+place, and ``PagedGenerationEngine.run_paged_program`` runs it as one
+CUDA graph per program key on the card (``core/graphs.py``; eager on the
+CPU and inside ``disable_graphs()``).  So the step reads nothing back to
+the host: sampled and greedy rows are both computed and picked per row
+on the device.
 """
 from __future__ import annotations
 
 import torch
 
 from ..core import random as prng
+from ..core.graphs import disable_graphs  # noqa: F401  (re-exported)
 from ..inference import spec_accept
 from ..inference.sampling import NEG_INF
 
@@ -37,8 +42,8 @@ def _process_rows(logits, samp, steps):
 
     eos = samp["eos"]
     banned = (eos >= 0) & (steps < samp["min_len"])
-    eos_col = torch.nn.functional.one_hot(
-        torch.clamp(eos, min=0).long(), vocab).bool()
+    eos_col = (torch.arange(vocab, device=logits.device)[None]
+               == torch.clamp(eos, min=0).long()[:, None])
     logits = torch.where(banned[:, None] & eos_col, neg, logits)
 
     t = torch.clamp(samp["temperature"].to(torch.float32), min=1e-6)
@@ -58,7 +63,7 @@ def _process_rows(logits, samp, steps):
     probs = torch.softmax(sorted2, dim=-1)
     cum = torch.cumsum(probs, dim=-1)
     keep = (cum - probs) < samp["top_p"][:, None]
-    keep[:, 0] = True
+    keep[:, 0].fill_(True)
     thresh = torch.where(keep, sorted2, torch.full_like(sorted2, torch.inf)
                          ).amin(dim=-1, keepdim=True)
     return torch.where(logits < thresh, neg, logits)
@@ -66,11 +71,9 @@ def _process_rows(logits, samp, steps):
 
 def _pick_rows(proc, samp, steps, keys):
     """Sample (per-row ``fold_in(key, step)`` stream) or argmax, per row.
-    The draws are skipped when no row samples: greedy rows never read
-    them."""
+    Every row draws, whatever the batch holds (no host read decides), and
+    greedy rows take the argmax, so they stay argmax-exact."""
     greedy = torch.argmax(proc, dim=-1)
-    if not bool(samp["do_sample"].any()):
-        return greedy.to(torch.int32)
     sampled = prng.categorical(prng.fold_in(keys, steps), proc)
     return torch.where(samp["do_sample"], sampled, greedy).to(torch.int32)
 

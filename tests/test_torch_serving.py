@@ -6,8 +6,16 @@ and the port's ``EngineCore(device="cpu")`` on the same tiny LLaMA
 weights, with the request-id counter pinned in both packages (each
 request's sampling key is ``fold_in(PRNGKey(seed), rid)``).  Greedy AND
 seeded-sampled streams must be equal token for token.
+
+At import this module also builds the JAX package's native library under
+a file lock (``_prebuild_jax_native``): the JAX package builds it at
+first use with ``make``, and under ``pytest -n`` a worker that loads it
+while another is still linking it latches "file too short" for its whole
+life, failing every native test it runs after.
 """
+import fcntl
 import itertools
+import os
 
 import numpy as np
 import pytest
@@ -30,6 +38,26 @@ from paddle_infer_tpu_torch.serving import (DeadlineExceededError,
                                             RequestState)
 from paddle_infer_tpu_torch.serving import request as trequest
 from paddle_infer_tpu_torch.weights import from_jax_state_dict
+
+
+
+def _prebuild_jax_native():
+    """Build (or find fresh) and load ``native/libpitnative.so`` while
+    holding an exclusive lock, so every test worker, each collecting this
+    module before running any test, gets the finished library.  The lock
+    lives in the port's git-ignored build directory."""
+    from paddle_infer_tpu import native as jnative
+
+    os.makedirs(native.BUILD_DIR, exist_ok=True)
+    with open(os.path.join(native.BUILD_DIR, "jax-native.lock"), "w") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        try:
+            jnative._load()
+        finally:
+            fcntl.flock(f, fcntl.LOCK_UN)
+
+
+_prebuild_jax_native()
 
 TINY = dict(vocab_size=96, hidden_size=32, num_hidden_layers=2,
             num_attention_heads=4, intermediate_size=64,
