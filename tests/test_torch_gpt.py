@@ -38,6 +38,22 @@ TOL = dict(atol=1e-4, rtol=1e-4)
 
 
 @pytest.fixture(scope="module", autouse=True)
+def _private_jax_compile_log():
+    """The JAX package's compile log is process-wide and the reference's
+    own tests read its ``post_warmup_decode_compiles`` absolutely: a JAX
+    engine here compiling a key that an earlier one marked warm would
+    fail them later in the same worker.  This module's JAX engines log
+    into a private instance, and the shared one is put back after."""
+    from paddle_infer_tpu.observability import compilelog as jcompilelog
+
+    saved = jcompilelog._LOG
+    jcompilelog._LOG = jcompilelog.CompileLog()
+    yield
+    jcompilelog._LOG = saved
+
+
+
+@pytest.fixture(scope="module", autouse=True)
 def _meshless():
     from paddle_infer_tpu.parallel import topology
 
