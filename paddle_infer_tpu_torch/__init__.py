@@ -17,7 +17,9 @@ What is ported so far: the ragged continuous-batching serving path of
 ``PagedGenerationEngine`` → LLaMA/GPT → ragged paged attention), with
 speculative draft/verify serving; and ERNIE pretraining on one device
 (``parallel.FleetTrainStep`` → ``models.ErnieForPretraining`` → the
-flash-attention kernels, ``optimizer.AdamW``, ``amp`` O2).
+flash-attention kernels, ``optimizer.AdamW``, ``amp`` O2).  On the card
+both steps run as one CUDA graph per key (``core/graphs.py``), each
+capture logged by ``observability/compilelog.py``.
 """
 from __future__ import annotations
 
