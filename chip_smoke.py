@@ -1457,13 +1457,18 @@ def train_phase(device, cfg=None, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
                 warmup=TRAIN_WARMUP, steps=TRAIN_STEPS, amp_o2=True,
                 launches_per_step=None):
     """Phase 7.2: ERNIE-3.0-base pretraining (or ``cfg``), ``warmup``
-    steps, then ``steps`` timed steps on the same batch with the launch
-    counts zeroed just before and read just after.  Raises unless every
-    loss is finite, the last five losses average below the first five,
-    and each flash kernel launched ``launches_per_step`` times per step
-    (default: once per layer on the card, not checked on the CPU), and
-    the compile log holds one ``train-step`` event (on graphs: the
-    capture) and none after warm-up."""
+    steps, then ``steps`` timed steps alternating two batches that lie
+    on the device, with the launch counts zeroed just before and read
+    just after.  Raises unless every loss is finite, each batch's losses
+    fall (the mean of its last quarter below that of its first), each
+    flash kernel launched ``launches_per_step`` times per step (default:
+    once per layer on the card, not checked on the CPU), the compile log
+    holds one ``train-step`` event (on graphs: the capture) and none
+    after warm-up, and the caller's batch tensors are unchanged (a
+    replay copies each batch into the graph's own inputs).  ``peak_alloc_gb``
+    is the timed steps' allocation peak, which under graphs leaves out
+    the pool made at capture; ``reserved_gb`` is what the process holds
+    after them, that pool included."""
     import torch
 
     from paddle_infer_tpu_torch.core.graphs import graphs_enabled
@@ -1483,8 +1488,11 @@ def train_phase(device, cfg=None, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
           f"{cfg.hidden_size}, layers {cfg.num_hidden_layers}, vocab "
           f"{cfg.vocab_size}, params {n_params / 1e6:.1f}M fp32, batch "
           f"{batch}x{seq}, amp {'O2 bf16' if amp_o2 else 'off'}", flush=True)
-    data = [torch.from_numpy(a).to(device)
-            for a in pretrain_batch(cfg.vocab_size, batch, seq)]
+    batches = [[torch.from_numpy(a).to(device)
+                for a in pretrain_batch(cfg.vocab_size, batch, seq, seed)]
+               for seed in (0, 1)]
+    kept = [[t.clone() for t in b] for b in batches]
+    data = batches[0]
     for _ in range(warmup):
         step(*data)
     if cuda:
@@ -1493,9 +1501,9 @@ def train_phase(device, cfg=None, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
     for k in _build.KERNELS.values():
         k.launches = 0
     losses, ms = [], []
-    for _ in range(steps):
+    for i in range(steps):
         t = time.perf_counter()
-        losses.append(float(step(*data)))       # syncs on the loss
+        losses.append(float(step(*batches[i % 2])))   # syncs on the loss
         ms.append((time.perf_counter() - t) * 1e3)
     launches = {n: k.launches for n, k in _build.KERNELS.items()}
     p50 = float(np.median(ms))
@@ -1504,10 +1512,13 @@ def train_phase(device, cfg=None, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
         * cfg.hidden_size
     mfu = tok_s * flops_tok / H100_BF16_PEAK
     peak = torch.cuda.max_memory_allocated() / 1e9 if cuda else 0.0
+    held = torch.cuda.memory_reserved() / 1e9 if cuda else 0.0
     print(f"[train] steps={steps} step_ms_p50={p50:.2f} step_ms_min="
           f"{min(ms):.2f} step_ms_max={max(ms):.2f} tokens_per_s="
           f"{tok_s:.0f} mfu={mfu:.4f} (6N+12Lsh per token over "
-          f"{H100_BF16_PEAK:.0e}) peak_mem_gb={peak:.2f}", flush=True)
+          f"{H100_BF16_PEAK:.0e}) peak_alloc_gb={peak:.2f}"
+          f"{' (without the capture pool)' if graphs else ''} "
+          f"reserved_gb={held:.2f}", flush=True)
     print("[train] losses " + " ".join(f"{x:.4f}" for x in losses),
           flush=True)
     print(f"[train] launches {launches}", flush=True)
@@ -1521,9 +1532,15 @@ def train_phase(device, cfg=None, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
                              f"{post_warm} after warm-up (want 1 and 0)")
     if not all(np.isfinite(losses)):
         raise AssertionError("non-finite training loss")
-    if not np.mean(losses[-5:]) < np.mean(losses[:5]):
-        raise AssertionError("training loss did not go down: "
-                             f"{losses[:5]} ... {losses[-5:]}")
+    if not all(torch.equal(t, k) for b, kb in zip(batches, kept)
+               for t, k in zip(b, kb)):
+        raise AssertionError("a train step wrote into the caller's batch")
+    for b in (0, 1):
+        own = losses[b::2]
+        k = max(1, len(own) // 4)
+        if not np.mean(own[-k:]) < np.mean(own[:k]):
+            raise AssertionError(f"training loss on batch {b} did not go "
+                                 f"down: {own}")
     if launches_per_step is None:
         launches_per_step = cfg.num_hidden_layers if cuda else 0
     for name in ("flash_fwd", "flash_dkdv", "flash_dq"):
@@ -1532,7 +1549,8 @@ def train_phase(device, cfg=None, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
                 f"{name} launched {launches[name]} times in {steps} steps "
                 f"(want {launches_per_step} per step)")
     return {"losses": losses, "step_ms": ms, "step_ms_p50": p50,
-            "tokens_per_s": tok_s, "mfu": mfu, "peak_mem_gb": peak,
+            "tokens_per_s": tok_s, "mfu": mfu, "peak_alloc_gb": peak,
+            "reserved_gb": held,
             "launches": launches, "step": step, "data": data,
             "graphs": graphs, "captures": len(events) if graphs else 0,
             "capture_wall_s": events[0].wall_s}
@@ -1720,7 +1738,8 @@ def train_pair(device, card):
           f"graph={g['profile']['idle_share']:.3f} "
           f"eager={e['profile']['idle_share']:.3f} "
           f"captures={g['captures']} capture_wall_s={g['capture_wall_s']:.3f}"
-          f" losses_equal={equal}", flush=True)
+          f" reserved_gb graph={g['reserved_gb']:.2f} "
+          f"eager={e['reserved_gb']:.2f} losses_equal={equal}", flush=True)
     if not equal:
         raise AssertionError("graph train losses differ from eager ones:\n"
                              f"{g['losses']}\n{e['losses']}")

@@ -11,11 +11,13 @@ every later call with the same argument signature.  Each capture is
 recorded in the compile log (``observability/compilelog.py``) with the
 wall time of the call that made it.
 
-A graph bakes in the addresses of everything it touches.  Its tensor
-arguments are the caller's static buffers (``StagedInputs``): a replay
-given other tensors copies them in first.  Whatever the program reads
-besides its arguments (parameters, KV pools, optimizer state) must stay
-where it was, and its owner calls ``ProgramCache.clear()`` when it moves.
+A graph bakes in the addresses of everything it touches.  Its static
+inputs are the ``StagedInputs`` device tensors it was given, which the
+owner rewrites before each replay, and its own copies of every other
+tensor argument, into which each replay copies that call's tensors: a
+caller's tensor is never written.  Whatever the program reads besides
+its arguments (parameters, KV pools, optimizer state) must stay where
+it was, and its owner calls ``ProgramCache.clear()`` when it moves.
 
 The CPU runs every program eagerly, as does the card inside
 ``disable_graphs()`` (the counterpart of ``jax.disable_jit``): there the
@@ -28,6 +30,7 @@ from __future__ import annotations
 import contextlib
 import threading
 import time
+import weakref
 
 import numpy as np
 import torch
@@ -39,6 +42,9 @@ from ..ops import _build
 
 _lock = threading.Lock()
 _disabled = 0
+# id -> device tensor of a live StagedInputs: a graph keeps these as its
+# static inputs and clones every other argument
+_staged = weakref.WeakValueDictionary()
 
 
 @contextlib.contextmanager
@@ -71,6 +77,22 @@ def _flat_tensors(tree, out=None):
         for v in tree:
             _flat_tensors(v, out)
     return out
+
+
+def _is_staged(t) -> bool:
+    return _staged.get(id(t)) is t
+
+
+def _with_tensors(tree, it):
+    """``tree`` with its tensors replaced, in ``_flat_tensors`` order, by
+    the items of ``it``."""
+    if isinstance(tree, torch.Tensor):
+        return next(it)
+    if isinstance(tree, dict):
+        return {k: _with_tensors(v, it) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_with_tensors(v, it) for v in tree)
+    return tree
 
 
 class StagedInputs:
@@ -107,6 +129,8 @@ class StagedInputs:
                 n: self._dev[o:o + nb].view(
                     torch.from_numpy(np.empty(0, dt)).dtype).view(shape)
                 for n, shape, dt, o, nb in layout}
+            for t in self.device.values():
+                _staged[id(t)] = t
         else:
             self.device = {n: torch.from_numpy(a)
                            for n, a in self.host.items()}
@@ -141,8 +165,13 @@ class _Graph:
 
     def replay(self, args):
         for static, a in zip(self.inputs, _flat_tensors(args)):
-            if a.data_ptr() != static.data_ptr():
-                static.copy_(a, non_blocking=True)
+            if a is static:
+                continue
+            if _is_staged(static):
+                raise ValueError("a graph's staged input was replaced by "
+                                 "another tensor; pass the same "
+                                 "StagedInputs tensors every call")
+            static.copy_(a, non_blocking=True)
         self.graph.replay()
         _build.add_launches(self.tally)
         return self.outputs
@@ -150,8 +179,12 @@ class _Graph:
 
 def _capture(fn, args, site, key, sig):
     """Run ``fn(*args)`` eagerly on a side stream (this call's result and
-    the warm-up), then capture it into a graph; record the call."""
+    the warm-up), then capture it into a graph on its static inputs (the
+    staged tensors and clones of the rest); record the call."""
     t0 = time.perf_counter()
+    inputs = [a if _is_staged(a) else a.clone()
+              for a in _flat_tensors(args)]
+    static_args = _with_tensors(args, iter(inputs))
     cur = torch.cuda.current_stream()
     side = torch.cuda.Stream()
     side.wait_stream(cur)
@@ -163,10 +196,10 @@ def _capture(fn, args, site, key, sig):
     graph = torch.cuda.CUDAGraph()
     with _build.capture_launches() as tally:
         with torch.cuda.graph(graph):
-            static_out = fn(*args)
+            static_out = fn(*static_args)
     wall = time.perf_counter() - t0
     get_compile_log().record(site, key, sig, wall)
-    return out, _Graph(graph, _flat_tensors(args), static_out, dict(tally))
+    return out, _Graph(graph, inputs, static_out, dict(tally))
 
 
 class ProgramCache:

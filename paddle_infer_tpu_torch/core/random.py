@@ -123,12 +123,13 @@ def split(key, num: int = 2) -> torch.Tensor:
 
 def bits(key) -> torch.Tensor:
     """Scalar 32-bit ``jax.random.bits(key, dtype=uint32)``: ``b1 ^ b2``
-    of ``threefry(key, (0, 0))``, as a 0-d int64 tensor on the key's
-    device."""
+    of ``threefry(key, (0, 0))``, as an int64 tensor on the key's device
+    (0-d for one key ``[2]``; keys ``[..., 2]`` draw elementwise, as
+    under ``vmap``)."""
     k = _as_key(key)
-    if tuple(k.shape) != (2,):
-        raise ValueError(f"expected one key [2], got {tuple(k.shape)}")
-    b1, b2 = threefry2x32(k[0], k[1], 0, 0)
+    if k.dim() == 0 or k.shape[-1] != 2:
+        raise ValueError(f"expected keys [..., 2], got {tuple(k.shape)}")
+    b1, b2 = threefry2x32(k[..., 0], k[..., 1], 0, 0)
     return b1 ^ b2
 
 
@@ -139,6 +140,36 @@ def seed_from_key(key) -> torch.Tensor:
     return bits(key)
 
 
+# counters derived per vector pass inside a trace_key_scope (an ERNIE
+# forward at 12 layers draws 49)
+_SCOPE_BLOCK = 64
+
+
+class _Scope:
+    """The draws of one ``trace_key_scope(base)``: draw ``i`` is
+    ``fold_in(base, i)``.  Keys and their seeds are derived
+    ``_SCOPE_BLOCK`` counters at a time, in one vector pass each, so a
+    step's dropouts cost a few launches on the device instead of two
+    threefry chains apiece."""
+
+    def __init__(self, base):
+        self.base = base
+        self.counter = 0
+        self.keys = self.seeds = None
+
+    def draw(self):
+        """Row ``counter`` of the key and seed blocks, then advance."""
+        i = self.counter
+        self.counter += 1
+        j = i % _SCOPE_BLOCK
+        if j == 0:
+            ctr = torch.arange(i, i + _SCOPE_BLOCK, dtype=torch.int64,
+                               device=self.base.device)
+            self.keys = fold_in(self.base, ctr)
+            self.seeds = bits(self.keys)
+        return self.keys[j], self.seeds[j]
+
+
 class KeyStream:
     """An explicit stream of keys: the port of the JAX package's global
     RNG state (``core/random.py`` there), passed to whoever draws.
@@ -147,7 +178,9 @@ class KeyStream:
     splits the key (``key, sub = split(key)``, returning ``sub``, on the
     host) or, inside ``trace_key_scope(base)``, returns ``fold_in(base,
     counter)`` with a counter from 0 on ``base``'s device — what a
-    compiled train step draws for each dropout of its forward."""
+    compiled train step draws for each dropout of its forward.
+    ``next_seed()`` is ``seed_from_key(next_key())``, read from the
+    scope's precomputed block inside a scope."""
 
     def __init__(self, seed: int = 0):
         self.seed(seed)
@@ -159,16 +192,19 @@ class KeyStream:
 
     def next_key(self) -> torch.Tensor:
         if self._scopes:
-            base, counter = self._scopes[-1]
-            self._scopes[-1] = (base, counter + 1)
-            return fold_in(base, counter)
+            return self._scopes[-1].draw()[0]
         self.key, sub = split(self.key)
         return sub
+
+    def next_seed(self) -> torch.Tensor:
+        if self._scopes:
+            return self._scopes[-1].draw()[1]
+        return seed_from_key(self.next_key())
 
     @contextlib.contextmanager
     def trace_key_scope(self, key):
         """Derive ``next_key`` from ``key`` (by ``fold_in``) while open."""
-        self._scopes.append((_as_key(key), 0))
+        self._scopes.append(_Scope(_as_key(key)))
         try:
             yield
         finally:

@@ -86,7 +86,6 @@ class PagedGenerationEngine:
         if self._pool is None or self._pool.num_blocks < need_pages:
             self._pool = native.KVBlockPool(need_pages, self.page_size)
             self._k_pages = self._v_pages = None     # resize device pools
-            self._programs.clear()                   # graphs hold the old
         return self._pool
 
     def _ensure_pages(self):
@@ -99,7 +98,7 @@ class PagedGenerationEngine:
 
             self._k_pages = [alloc() for _ in range(self._num_layers)]
             self._v_pages = [alloc() for _ in range(self._num_layers)]
-            self._programs.clear()
+            self._programs.clear()              # graphs hold the old pools
         return self._k_pages, self._v_pages
 
     def _model_step(self, params, ids, position_ids, caches):

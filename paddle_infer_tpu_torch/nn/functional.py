@@ -21,13 +21,14 @@ from ..ops import attention as A
 from ..ops.flash_attention import _mix32, _mul32, keep_threshold
 
 
-def _draw(key, keys):
+def _draw_seed(key, keys):
+    """The dropout seed of ``key``, else the next of ``keys``."""
     if key is not None:
-        return key
+        return R.seed_from_key(key)
     if keys is None:
         raise ValueError("dropout in training needs a key or a KeyStream "
                          "(keys=)")
-    return keys.next_key()
+    return keys.next_seed()
 
 
 def _dropout(x, key, p=0.5, upscale=True):
@@ -35,7 +36,11 @@ def _dropout(x, key, p=0.5, upscale=True):
     element ``i`` (row-major linear index) iff ``mix32(i * 0x9E3779B1 ^
     seed) >= thresh``, ``seed = bits(key)`` (a tensor on the key's
     device); kept values scaled by ``1 / (1 - p)`` in ``x``'s dtype."""
-    seed = R.seed_from_key(key)
+    return _dropout_seeded(x, R.seed_from_key(key), p, upscale)
+
+
+def _dropout_seeded(x, seed, p, upscale):
+    """``_dropout`` given the seed tensor itself."""
     lin = torch.arange(x.numel(), dtype=torch.int64,
                        device=x.device).reshape(x.shape)
     keep = _mix32(_mul32(lin, 0x9E3779B1) ^ seed) >= keep_threshold(p)
@@ -53,8 +58,8 @@ def dropout(x, p=0.5, training=True, mode="upscale_in_train", key=None,
     x = amp.cast(x)
     if p >= 1.0:
         return x * 0.0
-    return _dropout(x, _draw(key, keys), p=float(p),
-                    upscale=(mode == "upscale_in_train"))
+    return _dropout_seeded(x, _draw_seed(key, keys), float(p),
+                           mode == "upscale_in_train")
 
 
 def gelu(x, approximate=False):
@@ -119,15 +124,16 @@ def scaled_dot_product_attention(q, k, v, attn_mask=None, dropout_p=0.0,
                                  q_segment_ids=None, kv_segment_ids=None,
                                  keys=None):
     """``(batch, seq, heads, head_dim)`` attention through
-    ``ops.attention.sdpa``; with dropout in training the key is drawn
+    ``ops.attention.sdpa``; with dropout in training the seed is drawn
     from ``keys``.  Padding and packing masks ride as int32
     ``{q,kv}_segment_ids`` (the flash kernels take those); a dense
     ``attn_mask`` goes to the plain path."""
-    key = None
+    seed = None
     if dropout_p and training:
-        key = _draw(None, keys)
+        seed = _draw_seed(None, keys)
     else:
         dropout_p = 0.0
     q, k, v = amp.cast(q), amp.cast(k), amp.cast(v)
-    return A.sdpa(q, k, v, attn_mask, key, q_segment_ids, kv_segment_ids,
-                  dropout_p=dropout_p, is_causal=is_causal, scale=scale)
+    return A.sdpa(q, k, v, attn_mask, None, q_segment_ids, kv_segment_ids,
+                  dropout_p=dropout_p, is_causal=is_causal, scale=scale,
+                  seed=seed)

@@ -89,13 +89,18 @@ def _attn_impl_choice(q, k, mask):
 
 
 def sdpa(q, k, v, mask=None, key=None, q_segment_ids=None,
-         kv_segment_ids=None, dropout_p=0.0, is_causal=False, scale=None):
+         kv_segment_ids=None, dropout_p=0.0, is_causal=False, scale=None,
+         seed=None):
     """Fused attention over ``(b, s, h, d)``; ``key`` seeds the dropout
-    mask when ``dropout_p`` (its scalar uint32 ``bits``).  A CUDA
-    tensor without a card raises."""
+    mask when ``dropout_p`` (its scalar uint32 ``bits``), or ``seed``,
+    that value as a tensor, given instead.  A CUDA tensor without a card
+    raises."""
     if q.device.type == "cuda":
         _build.require_cuda()
-    seed = R.seed_from_key(key) if dropout_p else None
+    if not dropout_p:
+        seed = None
+    elif seed is None:
+        seed = R.seed_from_key(key)
     if _attn_impl_choice(q, k, mask) == "flash":
         return FA.flash_attention(
             q, k, v, q_segment_ids=q_segment_ids,

@@ -11,8 +11,9 @@ reference compiles that whole step into one program, the port runs it
 on the card as one CUDA graph per batch signature (``core/graphs.py``,
 site ``train-step``): the key, the learning rate and the step count
 reach it through staged device buffers written before each replay, the
-batch through static buffers, and the loss comes out of a static
-output.  The CPU, and the card inside ``disable_graphs()``, run it
+batch through the graph's own input buffers (each replay copies the
+call's batch in; the caller's tensors are never written), and the loss
+comes out of a static output.  The CPU, and the card inside ``disable_graphs()``, run it
 eagerly.
 
 Parameters are those of ``model.named_parameters()`` that require grad,

@@ -24,7 +24,6 @@ from __future__ import annotations
 import torch
 
 from ..core import random as prng
-from ..core.graphs import disable_graphs  # noqa: F401  (re-exported)
 from ..inference import spec_accept
 from ..inference.sampling import NEG_INF
 

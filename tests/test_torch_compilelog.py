@@ -34,6 +34,8 @@ from paddle_infer_tpu_torch.serving import EngineCore, RequestState
 from paddle_infer_tpu_torch.serving import request as trequest
 from paddle_infer_tpu_torch.weights import from_jax_state_dict
 
+from _torch_jax_isolation import _private_jax_compile_log  # noqa: F401
+
 TINY = dict(vocab_size=96, hidden_size=32, num_hidden_layers=2,
             num_attention_heads=4, intermediate_size=64,
             max_position_embeddings=64, num_key_value_heads=2)
@@ -63,22 +65,6 @@ SCRIPTS = {
         ("record", "serving-prefill", ("serve-prefill", 8), SIG_B, 0.0625),
     ],
 }
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _private_jax_compile_log():
-    """The JAX package's compile log is process-wide and the reference's
-    own tests read its ``post_warmup_decode_compiles`` absolutely: a JAX
-    engine here compiling a key that an earlier one marked warm would
-    fail them later in the same worker.  This module's JAX engines log
-    into a private instance, and the shared one is put back after."""
-    from paddle_infer_tpu.observability import compilelog as jcompilelog
-
-    saved = jcompilelog._LOG
-    jcompilelog._LOG = jcompilelog.CompileLog()
-    yield
-    jcompilelog._LOG = saved
-
 
 
 def _play(log, script):

@@ -44,7 +44,6 @@ from paddle_infer_tpu_torch.optimizer import AdamW
 from paddle_infer_tpu_torch.parallel import (DistributedStrategy,
                                              FleetTrainStep, fleet)
 from paddle_infer_tpu_torch.serving import EngineCore, RequestState
-from paddle_infer_tpu_torch.serving import programs
 from paddle_infer_tpu_torch.serving import request as trequest
 
 TINY = dict(vocab_size=96, hidden_size=32, num_hidden_layers=2,
@@ -108,12 +107,31 @@ def test_disable_graphs_nests_and_the_cpu_never_graphs():
     cuda = torch.device("cuda")
     assert G.graphs_enabled(cuda)
     assert not G.graphs_enabled("cpu")
-    with programs.disable_graphs():
+    with G.disable_graphs():
         assert not G.graphs_enabled(cuda)
         with G.disable_graphs():
             assert not G.graphs_enabled(cuda)
         assert not G.graphs_enabled(cuda)
     assert G.graphs_enabled(cuda)
+
+
+def test_graph_static_args_keep_the_argument_tree():
+    """A capture runs on the argument tree with each tensor swapped for
+    its static input, in ``_flat_tensors`` order; the rest is kept."""
+    a, b, c = torch.zeros(2), torch.ones(3), torch.arange(4)
+    args = (a, {"x": b, "n": 5}, [c, "s"], None)
+    flat = G._flat_tensors(args)
+    assert [t is u for t, u in zip(flat, (a, b, c))] == [True] * 3
+    new = [t.clone() for t in flat]
+    out = G._with_tensors(args, iter(new))
+    assert out[0] is new[0] and out[1]["x"] is new[1]
+    assert out[1]["n"] == 5 and out[2][0] is new[2] and out[2][1] == "s"
+    assert out[3] is None and isinstance(out[2], list)
+    # only a live StagedInputs device tensor is kept as its own static
+    # input, and the CPU's are not registered (the CPU never captures)
+    assert not G._is_staged(a)
+    inp = G.StagedInputs([("ids", (2,), np.int32)], "cpu")
+    assert not G._is_staged(inp.device["ids"])
 
 
 def test_staged_inputs_share_one_aligned_buffer_on_the_cpu():
@@ -188,7 +206,8 @@ def test_engine_drops_graphs_when_params_or_pools_move(llama):
     eng.serving_pool(8)                    # big enough: pools stay
     eng._ensure_pages()
     assert eng._programs._graphs == {"probe": marker}
-    eng.serving_pool(16)                   # resized: dropped
+    eng.serving_pool(16)                   # resized: dropped with the
+    eng._ensure_pages()                    # pools they hold
     assert eng._programs._graphs == {}
 
 
@@ -257,8 +276,9 @@ def _train_step(device, cfg=ERNIE, amp_o2=False, seed=3):
         learning_rate=1e-3, parameters=model.parameters()), strategy=st)
 
 
-def _train_batch(device, b=2, s=32, pad=4, vocab=ERNIE["vocab_size"]):
-    rng = np.random.RandomState(0)
+def _train_batch(device, b=2, s=32, pad=4, vocab=ERNIE["vocab_size"],
+                 seed=0):
+    rng = np.random.RandomState(seed)
     ids = rng.randint(0, vocab, (b, s)).astype(np.int32)
     mask = np.ones((b, s), np.int32)
     mask[:, s - pad:] = 0
@@ -310,6 +330,38 @@ def test_dropout_and_flash_plain_tensor_seed_bit_equal_int(seed):
     assert torch.equal(
         FA.flash_attention(qb, kb, vb, dropout_p=0.2, dropout_seed=seed),
         FA.flash_attention(qb, kb, vb, dropout_p=0.2, dropout_seed=tseed))
+
+
+def test_scope_draws_equal_fold_in_across_blocks():
+    """Inside ``trace_key_scope(base)`` draw ``i`` is ``fold_in(base,
+    i)`` and its seed ``seed_from_key`` of that key, past a block's end
+    too, and keys and seeds interleave on one counter."""
+    base = R.fold_in(R.PRNGKey(5), 11)
+    ks = R.KeyStream(0)
+    n = R._SCOPE_BLOCK * 2 + 3
+    with ks.trace_key_scope(base):
+        got = [ks.next_key() if i % 3 else ks.next_seed() for i in range(n)]
+    for i, g in enumerate(got):
+        want = R.fold_in(base, i)
+        assert torch.equal(g, want if i % 3 else R.seed_from_key(want)), i
+    assert torch.equal(R.bits(R.fold_in(base, torch.arange(4))),
+                       torch.stack([R.bits(R.fold_in(base, i))
+                                    for i in range(4)]))
+
+
+def test_scope_derives_a_block_of_seeds_in_one_pass():
+    """A block's draws after the first cost one view each: a step's
+    dropouts add no threefry chain of their own."""
+    base = R.PRNGKey(1)
+
+    def ops(n):
+        ks = R.KeyStream(0)
+        with _NoHostReads() as mode, ks.trace_key_scope(base):
+            for _ in range(n):
+                ks.next_seed()
+        return mode.ops
+
+    assert ops(R._SCOPE_BLOCK) == ops(1) + 2 * (R._SCOPE_BLOCK - 1)
 
 
 def test_dropout_seed_from_key_bit_equal_int_words():
@@ -386,7 +438,7 @@ def test_graph_streams_equal_eager_on_card(cuda_device, speculate):
     L = CARD_LLAMA["num_hidden_layers"]
     assert launches["paged_decode"] == L * len(trace)
     assert launches["ragged_paged_attention"] == L * len(trace)
-    with programs.disable_graphs():
+    with G.disable_graphs():
         eager, _, _ = _card_streams(model, cuda_device, **spec)
     assert graph == eager
 
@@ -438,7 +490,7 @@ def test_train_graph_equals_eager_on_card(cuda_device):
         step = _train_step(cuda_device, CARD_ERNIE, amp_o2=True)
         for kern in _build.KERNELS.values():
             kern.launches = 0
-        with (programs.disable_graphs() if mode == "eager"
+        with (G.disable_graphs() if mode == "eager"
               else contextlib.nullcontext()):
             losses[mode] = torch.stack(
                 [step(*data).clone() for _ in range(6)])
@@ -448,3 +500,26 @@ def test_train_graph_equals_eager_on_card(cuda_device):
                 6 * CARD_ERNIE["num_hidden_layers"], (mode, name)
         step.release_graphs()
     assert torch.equal(losses["graph"], losses["eager"])
+
+
+@pytest.mark.gpu
+def test_train_graph_takes_each_batch_on_card(cuda_device):
+    """Two batches on the card, alternating: the graph's losses equal
+    the eager ones, and the caller's batch tensors are never written
+    (a replay copies each batch into the graph's own inputs)."""
+    batches = [_train_batch(cuda_device, b=2, s=64, pad=6, seed=seed)
+               for seed in (0, 1)]
+    kept = [[t.clone() for t in b] for b in batches]
+    losses = {}
+    for mode in ("graph", "eager"):
+        step = _train_step(cuda_device, CARD_ERNIE, amp_o2=True)
+        with (G.disable_graphs() if mode == "eager"
+              else contextlib.nullcontext()):
+            losses[mode] = torch.stack(
+                [step(*batches[i % 2]).clone() for i in range(6)])
+        torch.cuda.synchronize()
+        step.release_graphs()
+    assert torch.equal(losses["graph"], losses["eager"])
+    assert not torch.equal(losses["graph"][0], losses["graph"][1])
+    for b, kb in zip(batches, kept):
+        assert all(torch.equal(t, k) for t, k in zip(b, kb))

@@ -39,21 +39,7 @@ from paddle_infer_tpu_torch.serving import (DeadlineExceededError,
 from paddle_infer_tpu_torch.serving import request as trequest
 from paddle_infer_tpu_torch.weights import from_jax_state_dict
 
-
-@pytest.fixture(scope="module", autouse=True)
-def _private_jax_compile_log():
-    """The JAX package's compile log is process-wide and the reference's
-    own tests read its ``post_warmup_decode_compiles`` absolutely: a JAX
-    engine here compiling a key that an earlier one marked warm would
-    fail them later in the same worker.  This module's JAX engines log
-    into a private instance, and the shared one is put back after."""
-    from paddle_infer_tpu.observability import compilelog as jcompilelog
-
-    saved = jcompilelog._LOG
-    jcompilelog._LOG = jcompilelog.CompileLog()
-    yield
-    jcompilelog._LOG = saved
-
+from _torch_jax_isolation import _private_jax_compile_log  # noqa: F401
 
 
 def _prebuild_jax_native():

@@ -55,6 +55,8 @@ from paddle_infer_tpu_torch.serving import request as trequest
 from paddle_infer_tpu_torch.serving import speculation as tspec
 from paddle_infer_tpu_torch.weights import from_jax_state_dict
 
+from _torch_jax_isolation import _private_jax_compile_log  # noqa: F401
+
 TOL = dict(rtol=2e-5, atol=2e-5)
 TINY = dict(vocab_size=96, hidden_size=32, num_hidden_layers=2,
             num_attention_heads=4, intermediate_size=64,
@@ -63,22 +65,6 @@ SHAPE = dict(max_batch=3, max_model_len=48, token_budget=16,
              prefill_chunk=16)
 PAGE = 8
 NUM_DRAFT = 4
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _private_jax_compile_log():
-    """The JAX package's compile log is process-wide and the reference's
-    own tests read its ``post_warmup_decode_compiles`` absolutely: a JAX
-    engine here compiling a key that an earlier one marked warm would
-    fail them later in the same worker.  This module's JAX engines log
-    into a private instance, and the shared one is put back after."""
-    from paddle_infer_tpu.observability import compilelog as jcompilelog
-
-    saved = jcompilelog._LOG
-    jcompilelog._LOG = jcompilelog.CompileLog()
-    yield
-    jcompilelog._LOG = saved
-
 
 
 @pytest.fixture(scope="module", autouse=True)
