@@ -649,6 +649,16 @@ def make_core(model, device, max_model_len=2048, token_budget=512,
                       prefill_chunk=token_budget, device=device, **core_kw)
 
 
+def free_memory():
+    """Collect garbage (engines hold reference cycles) and return the
+    caching allocator's free blocks, so a phase starts on a clear card."""
+    import torch
+
+    gc.collect()
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+
+
 def drive(core, prompts, max_new, sampled, rid_start):
     """Submit one request per prompt (those in ``sampled`` sampling, the
     rest greedy), request ids from ``rid_start`` (each sampled stream is
@@ -721,6 +731,10 @@ def serve(model, device, prompt_lens=PROMPT_LENS, max_new=MAX_NEW,
         reqs, wall = drive(core, prompts, max_new, sampled, rid_start)
     finally:
         core.close()
+        # the wrapper closes over the engine (a cycle): drop it and
+        # collect, so this engine's pools leave the card now
+        del engine._model_step
+        free_memory()
     bad = [(r.rid, r.state.value, repr(r.error)) for r in reqs
            if r.state != RequestState.DONE]
     if bad:
@@ -845,21 +859,33 @@ def profile_serving(model, device, prompt_lens=(512, 1), max_new=4,
     attention-kernel / other.  Returns the run's numbers."""
     from torch.profiler import ProfilerActivity, profile
 
+    from paddle_infer_tpu_torch.observability import get_compile_log
+    from paddle_infer_tpu_torch.serving import RequestState
+
     vocab = model.config.vocab_size
     if prompts is None:
         rs = np.random.RandomState(0)
         prompts = [rs.randint(0, vocab, (n,)).astype(np.int32)
                    for n in prompt_lens]
+    # a new engine: its capture is not a recompile of an earlier one's
+    get_compile_log().reset()
     core = make_core(model, device, **core_kw)
     try:
-        drive(core, prompts, max_new, sampled, rid_start=1)
+        warm, _ = drive(core, prompts, max_new, sampled, rid_start=1)
         steps0 = core._step_idx
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            _, wall = drive(core, prompts, max_new, sampled, rid_start=1)
+            reqs, wall = drive(core, prompts, max_new, sampled,
+                               rid_start=1)
         steps = core._step_idx - steps0
     finally:
         core.close()
+        del core
+        free_memory()
+    bad = [(r.rid, r.state.value, repr(r.error)) for r in warm + reqs
+           if r.state != RequestState.DONE]
+    if bad:
+        raise AssertionError(f"profiled requests not DONE: {bad}")
     rows = _profile_rows(prof)
     busy_ms = sum(r[0] for r in rows)
     wall_ms = wall * 1e3
@@ -1726,8 +1752,7 @@ def train_pair(device, card):
             st["profile"] = profile_train(st["step"], st["data"], tag=mode)
         st["step"].release_graphs()
         del st["step"], st["data"]
-        gc.collect()
-        torch.cuda.empty_cache()
+        free_memory()
         runs[mode] = st
     g, e = runs["graph"], runs["eager"]
     equal = torch.equal(torch.tensor(g["losses"]), torch.tensor(e["losses"]))
@@ -1859,15 +1884,13 @@ def main() -> int:
 
     # phase 6: GPT, with the LLaMA model freed first
     del model
-    gc.collect()
-    torch.cuda.empty_cache()
+    free_memory()
     gst = gpt_phase(device, card=card)
     by_run["gpt"] = gst["launches"]["paged_verify"]
     launches["paged_verify"] = sum(by_run.values())
 
     # phase 7: training, GPT freed first
-    gc.collect()
-    torch.cuda.empty_cache()
+    free_memory()
     fres = flash_kernels_phase(device)
     hybrid_vs_flash(device)
     tst = train_pair(device, card)
@@ -1880,11 +1903,9 @@ def main() -> int:
         for (tag, kind, p), rec in fres.items():
             kres[name][f"{tag}/{kind}/dropout{p}"] = rec[name]
     del tst
-    gc.collect()
-    torch.cuda.empty_cache()
+    free_memory()
     small_head_phase(device)
-    gc.collect()
-    torch.cuda.empty_cache()
+    free_memory()
     step_parity_phase(device)
 
     # phase 8: the kernels line, the card line, the result line

@@ -96,9 +96,13 @@ class PagedGenerationEngine:
                 return torch.zeros(pshape, dtype=self._cache_dtype,
                                    device=self.device)
 
-            self._k_pages = [alloc() for _ in range(self._num_layers)]
-            self._v_pages = [alloc() for _ in range(self._num_layers)]
-            self._programs.clear()              # graphs hold the old pools
+            # the graphs hold the old pools: free both before allocating,
+            # and bind the new pools only once both exist
+            self._programs.clear()
+            self._k_pages = self._v_pages = None
+            k = [alloc() for _ in range(self._num_layers)]
+            v = [alloc() for _ in range(self._num_layers)]
+            self._k_pages, self._v_pages = k, v
         return self._k_pages, self._v_pages
 
     def _model_step(self, params, ids, position_ids, caches):
