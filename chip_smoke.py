@@ -52,11 +52,34 @@ per replay, so the launch checks stay exact.
    streams; the verify kernel launches once per layer per step in (b)
    and (c), the ragged kernel once per layer per step in every run; a
    profiled speculative run, graph and eager;
-6. gpt — the LLaMA model freed, ``gpt3-6.7b`` at full width and depth
+6. prefix — the same model with ``enable_prefix_cache=True``
+   (``prefix_cache_headroom_pages=128``): a 1024-token shared prompt
+   plus 8 distinct suffixes of 1..511 tokens, 32 new tokens each, 6
+   greedy and 2 sampled; each core first serves the first prompt twice
+   (4 new tokens, request ids of their own: the graphs are captured
+   there, and with the cache the repeat copies a partial tail page on
+   write, as the first request does again later); the 8 on a core
+   without the cache (cold) and on one with it (warm), on graphs and
+   eager: every stream EQUAL to the cold graph
+   run's, each warm request hitting at least 64 pages, a page copied,
+   one capture per key (serve step, page copy) and none after warm-up,
+   the decode and ragged kernels once per layer per step; TTFT p50 and
+   prefill tokens warm against cold;
+7. int8 — the same model on ``kv_dtype="int8"`` pools: the serve
+   phase's 8 requests on graphs and eager (streams EQUAL; decode and
+   ragged launches exact on int8 pages; pool bytes, step p50 and
+   tokens/s beside the bf16 serve run), paged vs dense logits at int8,
+   the prefix phase at int8, ngram speculation on tiled prompts against
+   int8 plain (greedy streams EQUAL, verify once per layer per step,
+   again eager), the page writer alone at the serving shapes (bf16
+   against int8, eager and as a graph replay, the round trip within
+   ``kv_dequant_error_bound``) and a profiled int8 run whose groups
+   hold the writes' scatters (``kv_write``);
+8. gpt — the LLaMA model freed, ``gpt3-6.7b`` at full width and depth
    (random bf16 weights) serves 8 requests with ngram speculation (the
    ragged kernel once per layer per step), again eager with EQUAL
    streams, then its paged forward against its dense one;
-7. train — GPT freed: (1) the flash kernels (forward, dK/dV, dQ) against
+9. train — GPT freed: (1) the flash kernels (forward, dK/dV, dQ) against
    their plain versions at (a) the ERNIE shape B=32, H=12, S=512, D=64
    with 10 % trailing padding as segment ids, dropout 0.1 and 0, fp32
    and bf16, (b) B=2, H=32, S=4096, D=128 causal bf16, (c) Sq=256 <
@@ -77,8 +100,9 @@ per replay, so the launch checks stay exact.
    plain attention, every loss finite and no flash launch; (4) eager,
    one step at depth 2, batch 8 with the kernels against the same step
    with plain attention, fp32 and O2, on three batches;
-8. the kernels line (one JSON object), the card line, and last
-   ``{"ok": true, "device": {...}}``.
+10. the kernels line (one JSON object; the paged kernels' launches
+    summed over the runs in ``launches_by_run``), the card line, and
+    last ``{"ok": true, "device": {...}}``.
 
 Without a card, or without the repository beside it, it exits non-zero
 before printing any result.  It imports nothing of JAX.
@@ -106,6 +130,16 @@ MAX_NEW = 32
 # spec phase: shorter prompts, so decode steps dominate the run
 SPEC_PROMPT_LENS = (512, 384, 256, 200, 128, 64, 33, 8)
 NUM_DRAFT = 4
+# prefix phase: a shared prompt, then suffixes past it (some not a
+# multiple of the page, 16), the first prompt also served once before
+PREFIX_LEN = 1024
+PREFIX_SUFFIXES = (200, 511, 1, 16, 37, 100, 263, 64)
+PREFIX_HEADROOM = 128                  # prefix_cache_headroom_pages
+PRIMER_RID = 900
+PRIMER_NEW = 4
+# the scatters of the KV page writers (index_put for the payload,
+# scatter_reduce for an int8 pool's scales): the profile's kv_write group
+KV_WRITE_KERNELS = ("index_put", "scatter_gather")
 
 
 # the ragged kernel's tolerance against its plain version (atol = rtol):
@@ -635,15 +669,16 @@ def eager():
 
 
 def make_core(model, device, max_model_len=2048, token_budget=512,
-              page_size=16, max_batch=8, **core_kw):
-    """An ``EngineCore`` over a new engine for ``model``; ``core_kw``
-    goes to EngineCore (speculation)."""
+              page_size=16, max_batch=8, kv_dtype=None, **core_kw):
+    """An ``EngineCore`` over a new engine for ``model`` (its pools int8
+    with ``kv_dtype="int8"``); ``core_kw`` goes to EngineCore
+    (speculation, the prefix cache)."""
     from paddle_infer_tpu_torch.inference.generation import \
         PagedGenerationEngine
     from paddle_infer_tpu_torch.serving import EngineCore
 
     engine = PagedGenerationEngine(model, page_size=page_size,
-                                   device=device)
+                                   kv_dtype=kv_dtype, device=device)
     return EngineCore(engine, max_batch=max_batch,
                       max_model_len=max_model_len, token_budget=token_budget,
                       prefill_chunk=token_budget, device=device, **core_kw)
@@ -657,6 +692,14 @@ def free_memory():
     gc.collect()
     if torch.cuda.is_available():
         torch.cuda.empty_cache()
+
+
+def pool_bytes(engine) -> int:
+    """Bytes of the engine's K and V pools, every layer (payload and
+    scales of an int8 pool)."""
+    flat = [t for pages in engine._k_pages + engine._v_pages
+            for t in (pages if isinstance(pages, tuple) else (pages,))]
+    return sum(t.numel() * t.element_size() for t in flat)
 
 
 def drive(core, prompts, max_new, sampled, rid_start):
@@ -729,6 +772,7 @@ def serve(model, device, prompt_lens=PROMPT_LENS, max_new=MAX_NEW,
     graphs = graphs_enabled(device)
     try:
         reqs, wall = drive(core, prompts, max_new, sampled, rid_start)
+        nbytes = pool_bytes(engine)
     finally:
         core.close()
         # the wrapper closes over the engine (a cycle): drop it and
@@ -764,6 +808,7 @@ def serve(model, device, prompt_lens=PROMPT_LENS, max_new=MAX_NEW,
             "graphs": graphs, "captures": len(events) if graphs else 0,
             "capture_wall_s": events[0].wall_s,
             "post_warmup_captures": summary["post_warmup_decode_compiles"],
+            "pool_bytes": nbytes,
             "prompts": prompts, "streams": [list(r.tokens) for r in reqs]}
 
 
@@ -781,13 +826,48 @@ def plain_attention():
         A._attn_impl_choice = choice
 
 
+@contextlib.contextmanager
+def quantized_kv(page):
+    """Inside the block, dense attention reads K and V as the int8 pools
+    hold them: each ``page``-token page quantized under the slot-0 scale
+    protocol (``quantize_pages``) and dequantized — the dense side of
+    the int8 paged-vs-dense check."""
+    import torch
+
+    from paddle_infer_tpu_torch.nn import functional as PF
+    from paddle_infer_tpu_torch.ops import paged_attention as PA
+
+    def fake(x):
+        b, s, h, d = x.shape
+        n = -(-s // page)
+        pad = x.new_zeros(b, n * page - s, h, d)
+        pages = (torch.cat([x, pad], dim=1).reshape(b * n, page, h, d)
+                 .permute(0, 2, 1, 3))
+        deq = PA.dequantize_pages(PA.quantize_pages(pages))
+        return (deq.permute(0, 2, 1, 3).reshape(b, n * page, h, d)[:, :s]
+                .to(x.dtype))
+
+    sdpa = PF.scaled_dot_product_attention
+    PF.scaled_dot_product_attention = \
+        lambda q, k, v, *a, **kw: sdpa(q, fake(k), fake(v), *a, **kw)
+    try:
+        yield
+    finally:
+        PF.scaled_dot_product_attention = sdpa
+
+
 def reference_check(model, device, n_prompt=33, n_decode=4, page=16,
-                    tol=5e-2):
+                    tol=5e-2, kv_dtype=None):
     """The paged ragged forward (one prompt chunk, then decode steps)
     against the dense causal forward of the same model on the same
     tokens, its attention the plain version: max |logit difference|
-    relative to the logits' magnitude."""
+    relative to the logits' magnitude.  ``kv_dtype="int8"`` runs the
+    paged side on int8 pools and the dense side on the same quantized K
+    and V (``quantized_kv``); the distance to the unquantized dense
+    logits — the protocol's own error — is printed beside."""
     import torch
+
+    from paddle_infer_tpu_torch.ops.paged_attention import KV_SCALE_EPS
 
     cfg = model.config
     L, H = cfg.num_hidden_layers, cfg.num_attention_heads
@@ -802,12 +882,20 @@ def reference_check(model, device, n_prompt=33, n_decode=4, page=16,
     tables = torch.arange(max_pages, dtype=torch.int32,
                           device=device)[None].contiguous()
     scratch = torch.tensor(P - 1, dtype=torch.int32, device=device)
-    pools = [(torch.zeros(P, H, page, D, dtype=dtype, device=device),
-              torch.zeros(P, H, page, D, dtype=dtype, device=device))
-             for _ in range(L)]
+    def pool():
+        if kv_dtype != "int8":
+            return torch.zeros(P, H, page, D, dtype=dtype, device=device)
+        return (torch.zeros(P, H, page, D, dtype=torch.int8, device=device),
+                torch.full((P, H), KV_SCALE_EPS, device=device))
+
+    pools = [(pool(), pool()) for _ in range(L)]
     with torch.inference_mode():
         with plain_attention():
             dense = model(ids).float()
+            if kv_dtype == "int8":
+                fp_dense = dense
+                with quantized_kv(page):
+                    dense = model(ids).float()
         got = []
         for start, qn in [(0, n_prompt)] + [(n_prompt + i, 1)
                                             for i in range(n_decode)]:
@@ -822,9 +910,13 @@ def reference_check(model, device, n_prompt=33, n_decode=4, page=16,
     scale = float(dense.abs().max())
     err = float((paged - dense).abs().max())
     ok = err <= tol * scale
-    print(f"[reference] paged vs dense logits ({n_prompt}-token chunk + "
+    raw = ("" if kv_dtype != "int8" else
+           f" (against unquantized dense K/V: max_abs_err="
+           f"{float((paged - fp_dense).abs().max()):.4e})")
+    print(f"[reference] paged ({kv_dtype or 'model dtype'} pages) vs dense "
+          f"logits ({n_prompt}-token chunk + "
           f"{n_decode} decode steps): max_abs_err={err:.4e} "
-          f"logit_scale={scale:.4e} rel_tol={tol} ok={ok}", flush=True)
+          f"logit_scale={scale:.4e} rel_tol={tol} ok={ok}{raw}", flush=True)
     if not ok:
         raise AssertionError("paged forward disagrees with dense forward")
     return err, scale
@@ -891,7 +983,7 @@ def profile_serving(model, device, prompt_lens=(512, 1), max_new=4,
     wall_ms = wall * 1e3
     # a paged kernel's group holds its split walk and its combine
     groups = {"matmul": 0.0, "ragged_paged": 0.0, "paged_decode": 0.0,
-              "paged_verify": 0.0, "other": 0.0}
+              "paged_verify": 0.0, "kv_write": 0.0, "other": 0.0}
     for ms, _, name in rows:
         low = name.lower()
         if "ragged_paged" in name:
@@ -903,6 +995,8 @@ def profile_serving(model, device, prompt_lens=(512, 1), max_new=4,
         elif any(s in low for s in ("gemm", "xmma", "cutlass", "nvjet",
                                     "matmul", "mm_")):
             groups["matmul"] += ms
+        elif any(s in low for s in KV_WRITE_KERNELS):
+            groups["kv_write"] += ms
         else:
             groups["other"] += ms
     idle = max(0.0, 1 - busy_ms / wall_ms)
@@ -1010,6 +1104,14 @@ def eager_twin(model, device, tag, graph_run, card, **kw):
     return e
 
 
+def _check_decode_launches(st, L, tag):
+    """Decode rows ride the decode kernel: one launch a layer a step."""
+    n = st["launches"]["paged_decode"]
+    if n != L * st["steps"]:
+        raise AssertionError(f"{tag}: paged_decode launched {n} times in "
+                             f"{st['steps']} steps (want {L} per step)")
+
+
 def _check_ragged_launches(st, L, tag):
     """Chunk rows ride the ragged kernel: one launch a layer a step."""
     n = st["launches"]["ragged_paged_attention"]
@@ -1074,7 +1176,280 @@ def spec_phase(model, device, card=""):
     return runs
 
 
-# ---------------------------------------------------------------- phase 6
+# ------------------------------------------------------------ phases 6, 7
+
+def prefix_prompts(vocab, seed=7):
+    """The shared ``PREFIX_LEN``-token prompt plus one distinct suffix
+    per ``PREFIX_SUFFIXES`` length."""
+    rs = np.random.RandomState(seed)
+    shared = rs.randint(0, vocab, (PREFIX_LEN,))
+    return [np.concatenate([shared, rs.randint(0, vocab, (n,))])
+            .astype(np.int32) for n in PREFIX_SUFFIXES]
+
+
+def prefix_run(model, device, prompts, warm, tag, **core_kw):
+    """One core, with the prefix cache when ``warm``, primed by serving
+    ``prompts[0]`` twice under request ids of their own (so the serve
+    step's graph, and with the cache the page copy's, are captured
+    before the measured run, whose TTFTs then hold no capture); then the
+    prompts served with every launch count zeroed just before and read
+    just after.
+    Raises unless every request is DONE with a full stream and the
+    compile log holds one event per key (the serve step; the page copy
+    when a page was copied) and none after warm-up.  Returns the run's
+    numbers: streams, TTFTs, prefill tokens computed, per-request hit
+    pages (admission order), the cache's counters, launches."""
+    from paddle_infer_tpu_torch.observability import get_compile_log
+    from paddle_infer_tpu_torch.ops import _build
+    from paddle_infer_tpu_torch.serving import RequestState
+
+    log = get_compile_log()
+    log.reset()
+    kw = dict(core_kw)
+    if warm:
+        kw.update(enable_prefix_cache=True,
+                  prefix_cache_headroom_pages=PREFIX_HEADROOM)
+    core = make_core(model, device, **kw)
+    hits = []
+    if warm:
+        stage = core._stage_prefix
+
+        def recording(sid, match, length, max_new):
+            out = stage(sid, match, length, max_new)
+            hits.append(len(match.blocks))
+            return out
+
+        core._stage_prefix = recording
+    try:
+        primer = []
+        for i in range(2):
+            primer += drive(core, prompts[:1], PRIMER_NEW, (),
+                            PRIMER_RID + i)[0]
+        steps0, trace0 = core._step_idx, len(core.step_trace)
+        for k in _build.KERNELS.values():
+            k.launches = 0
+        reqs, wall = drive(core, prompts, MAX_NEW, SAMPLED, rid_start=1)
+        launches = {n: k.launches for n, k in _build.KERNELS.items()}
+        steps = core._step_idx - steps0
+        prefill = sum(t["prefill_tokens"] for t in core.step_trace[trace0:])
+        snap = core.metrics_snapshot()
+    finally:
+        core.close()
+        del core
+        free_memory()
+    bad = [(r.rid, r.state.value, repr(r.error)) for r in primer + reqs
+           if r.state != RequestState.DONE
+           or len(r.tokens) != (PRIMER_NEW if r in primer else MAX_NEW)]
+    if bad:
+        raise AssertionError(f"{tag}: requests not DONE in full: {bad}")
+    decode_events = log.events("serving-decode")
+    copy_events = log.events("serving-serve-page-copy")
+    cache = snap.get("prefix_cache") or {}
+    want_copy = 1 if cache.get("cow_copies") else 0
+    post = log.summary()["post_warmup_decode_compiles"]
+    if len(decode_events) != 1 or len(copy_events) != want_copy or post:
+        raise AssertionError(
+            f"{tag}: compile log {len(decode_events)} serve-step and "
+            f"{len(copy_events)} page-copy events, {post} after warm-up; "
+            f"want 1, {want_copy} and 0")
+    ttft = [r.first_token_at - r.arrival for r in reqs]
+    st = {"streams": [list(r.tokens) for r in reqs], "ttft_s": ttft,
+          "steps": steps, "wall_s": wall, "prefill_tokens": prefill,
+          "hits": hits[len(primer):], "cache": cache,
+          "launches": launches}
+    print(f"[{tag}] steps={steps} wall_s={wall:.3f} "
+          f"prefill_tokens={prefill} ttft_p50_s="
+          f"{float(np.median(ttft)):.4f} hit_pages={st['hits']} "
+          f"cow_copies={cache.get('cow_copies', 0)} "
+          f"captures serve-step={len(decode_events)} "
+          f"page-copy={len(copy_events)} post_warmup={post} "
+          f"launches={launches}", flush=True)
+    return st
+
+
+def prefix_phase(model, device, card, kv_dtype=None):
+    """Warm against cold: the ``prefix_prompts`` on a core without the
+    cache (cold) and on one with it, primed (warm), on graphs and again
+    eager.  Raises unless every warm and eager stream EQUALS the cold
+    graph run's, each warm request hit at least ``PREFIX_LEN / 16``
+    pages, a page was copied on write, and the decode and ragged
+    kernels launched once per layer per step.  Returns the runs."""
+    L = model.config.num_hidden_layers
+    name = f"prefix {kv_dtype or 'bf16'}"
+    prompts = prefix_prompts(model.config.vocab_size)
+    kw = dict(kv_dtype=kv_dtype)
+    runs = {"cold": prefix_run(model, device, prompts, False,
+                               f"{name} cold", **kw),
+            "warm": prefix_run(model, device, prompts, True,
+                               f"{name} warm", **kw)}
+    with eager():
+        runs["cold eager"] = prefix_run(model, device, prompts, False,
+                                        f"{name} cold eager", **kw)
+        runs["warm eager"] = prefix_run(model, device, prompts, True,
+                                        f"{name} warm eager", **kw)
+    want = runs["cold"]["streams"]
+    for tag, st in runs.items():
+        for i, (a, b) in enumerate(zip(want, st["streams"])):
+            if not np.array_equal(np.asarray(a), np.asarray(b)):
+                raise AssertionError(f"{name}: request {i}'s {tag} stream "
+                                     f"differs from cold:\n{a}\n{b}")
+        _check_decode_launches(st, L, f"{name} {tag}")
+        _check_ragged_launches(st, L, f"{name} {tag}")
+    for tag in ("warm", "warm eager"):
+        st = runs[tag]
+        if len(st["hits"]) != len(prompts) or min(st["hits"]) < \
+                PREFIX_LEN // 16 or not st["cache"]["cow_copies"]:
+            raise AssertionError(f"{name} {tag}: hit pages {st['hits']}, "
+                                 f"{st['cache']['cow_copies']} copies on "
+                                 "write")
+    w, c = runs["warm"], runs["cold"]
+    print(f"[{name}] warm vs cold ({card}): streams_equal=True "
+          f"(graph and eager, {len(prompts)} requests) ttft_p50_s "
+          f"warm={float(np.median(w['ttft_s'])):.4f} "
+          f"cold={float(np.median(c['ttft_s'])):.4f} prefill_tokens "
+          f"warm={w['prefill_tokens']} cold={c['prefill_tokens']} steps "
+          f"warm={w['steps']} cold={c['steps']} cow_copies="
+          f"{w['cache']['cow_copies']} hit_rate={w['cache']['hit_rate']:.3f}",
+          flush=True)
+    return runs
+
+
+def writer_case(device, B=8, C=512, H=32, D=128, page=16, max_pages=128,
+                seed=5):
+    """The mixed step's K (or V) write at the serving shapes: every row a
+    ``C``-token chunk but two (one decode row, one inactive), pads to the
+    scratch page; returns (kv in bf16, tables, ctx, qlens, scratch,
+    pool pages)."""
+    import torch
+
+    g = torch.Generator(device=device)
+    g.manual_seed(seed)
+    P = B * max_pages + 1
+    kv = torch.randn(B, C, H, D, generator=g, device=device).to(
+        torch.bfloat16)
+    tables = torch.arange(B * max_pages, dtype=torch.int32,
+                          device=device).reshape(B, max_pages)
+    ctx = torch.tensor([0, 512, 1024, 1500, 3, 700, 2000, 0],
+                       dtype=torch.int32, device=device)[:B]
+    qlens = torch.tensor([C, C, C, 48, C, C, 1, 0], dtype=torch.int32,
+                         device=device)[:B]
+    scratch = torch.tensor(P - 1, dtype=torch.int32, device=device)
+    return kv, tables, ctx, qlens, scratch, P
+
+
+def writer_phase(device, card):
+    """The KV page writer (``write_ragged_pages``) alone at the serving
+    shapes: a bf16 pool against an int8 one, CUDA-event medians of one
+    eager call and of one CUDA graph replay of it (as the serve step
+    runs it), and per step (K and V, 32 layers).  The
+    int8 pool's dequantized pages must stay within
+    ``kv_dequant_error_bound`` of the bf16 values written.  Returns the
+    numbers."""
+    import torch
+
+    from paddle_infer_tpu_torch.ops import paged_attention as PA
+    from paddle_infer_tpu_torch.ops import ragged_paged_attention as RPA
+
+    kv, tables, ctx, qlens, scratch, P = writer_case(device)
+    B, C, H, D = kv.shape
+    page = 16
+    bf = torch.zeros(P, H, page, D, dtype=torch.bfloat16, device=device)
+    q8 = (torch.zeros(P, H, page, D, dtype=torch.int8, device=device),
+          torch.full((P, H), PA.KV_SCALE_EPS, device=device))
+    out = {}
+    for kind, pages in (("bf16", bf), ("int8", q8)):
+        def fn(pages=pages):
+            RPA.write_ragged_pages(pages, tables, kv, ctx, qlens, scratch)
+
+        ms = time_ms(fn)
+        # as the serve step runs it: inside a CUDA graph, no host work
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fn()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            fn()
+        out[kind] = {"ms": ms, "graph_ms": time_ms(graph.replay)}
+        del graph
+    # the bytes the write must move: the chunk's values read once, the
+    # touched page slots (and scales) written once
+    tokens = int(qlens.sum())
+    live = tokens * H * D
+    nbytes = {"bf16": live * 2 * 2, "int8": live * (2 + 1) + P * H * 4}
+    # the scratch page (the last) takes duplicate pad writes in either
+    # order: compare the rows' pages only
+    live_q8 = (q8[0][:-1], q8[1][:-1])
+    err = float((PA.dequantize_pages(live_q8) - bf[:-1].float()).abs().max())
+    bound = PA.kv_dequant_error_bound(bf[:-1].float().cpu().numpy(),
+                                      live_q8[1].cpu().numpy())
+    ok = err <= bound
+    for kind, r in out.items():
+        r["bound_ms"] = nbytes[kind] / PEAK_BYTES_S * 1e3
+        print(f"[writer] write_ragged_pages {kind}: ms={r['ms']:.4f} "
+              f"graph_ms={r['graph_ms']:.4f} "
+              f"bytes_bound_ms={r['bound_ms']:.4f}; per step (K and V, "
+              f"32 layers): ms={r['ms'] * 64:.2f} "
+              f"graph_ms={r['graph_ms'] * 64:.2f} ({B}x{C} positions, "
+              f"{tokens} valid; {card})", flush=True)
+    print(f"[writer] int8 round trip max_abs_err={err:.4e} "
+          f"kv_dequant_error_bound={bound:.4e} ok={ok}", flush=True)
+    if not ok:
+        raise AssertionError("int8 pages outside kv_dequant_error_bound")
+    return out
+
+
+def int8_phase(model, device, card, bf16_serve):
+    """The same model on int8 pools: (a) the serve phase's 8 requests on
+    graphs and eager, streams EQUAL, decode and ragged launches exact,
+    pool bytes and step p50 beside the bf16 serve run; (b) paged vs
+    dense logits at int8; (c) the prefix phase at int8; (d) ngram
+    speculation on tiled prompts against int8 plain (greedy streams
+    EQUAL, verify launched once per layer per step); (e) the writer
+    alone (``writer_phase``) and a profiled short int8 run.  Returns
+    the runs."""
+    L = model.config.num_hidden_layers
+    q8 = dict(kv_dtype="int8")
+    st = serve_counted(model, device, "int8 serve", **q8)
+    _check_decode_launches(st, L, "int8 serve")
+    _check_ragged_launches(st, L, "int8 serve")
+    eager_twin(model, device, "int8 serve", st, card, **q8)
+    print(f"[int8] pool bytes bf16={bf16_serve['pool_bytes']} "
+          f"int8={st['pool_bytes']} ratio="
+          f"{bf16_serve['pool_bytes'] / st['pool_bytes']:.4f}; step_ms_p50 "
+          f"bf16={_p50_after_first(bf16_serve):.2f} "
+          f"int8={_p50_after_first(st):.2f}; tokens_per_s "
+          f"bf16={bf16_serve['tokens_per_s']:.2f} "
+          f"int8={st['tokens_per_s']:.2f} ({card})", flush=True)
+    reference_check(model, device, kv_dtype="int8")
+    runs = {"serve": st,
+            "prefix": prefix_phase(model, device, card, kv_dtype="int8")}
+    tiled = tiled_prompts(model.config.vocab_size, SPEC_PROMPT_LENS, seed=4)
+    runs["spec plain"] = serve_counted(model, device, "int8 spec plain",
+                                       prompts=tiled, **q8)
+    spec_kw = dict(prompts=tiled, draft_source="ngram", speculate=True,
+                   num_draft_tokens=NUM_DRAFT, **q8)
+    runs["spec"] = serve_counted(model, device, "int8 spec ngram",
+                                 **spec_kw)
+    eager_twin(model, device, "int8 spec ngram", runs["spec"], card,
+               **spec_kw)
+    greedy = [i for i in range(len(tiled)) if i not in SAMPLED]
+    if any(runs["spec"]["streams"][i] != runs["spec plain"]["streams"][i]
+           for i in greedy):
+        raise AssertionError("int8 ngram-speculative greedy streams differ "
+                             "from int8 plain ones")
+    if not runs["spec"]["drafts_proposed"]:
+        raise AssertionError("int8 spec: no draft was proposed")
+    _check_verify_launches(runs["spec"], L, "int8 spec")
+    for tag in ("spec plain", "spec"):
+        _check_ragged_launches(runs[tag], L, f"int8 {tag}")
+    runs["writer"] = writer_phase(device, card)
+    profile_pair(model, device, "int8", card, **q8)
+    return runs
+
+
+# ---------------------------------------------------------------- phase 8
 
 def gpt_phase(device, config=None, dtype=None, card=""):
     """gpt3-6.7b (or ``config``) at full width and depth: ngram-speculative
@@ -1114,7 +1489,7 @@ def gpt_phase(device, config=None, dtype=None, card=""):
     return st
 
 
-# ---------------------------------------------------------------- phase 7
+# ---------------------------------------------------------------- phase 9
 
 # (a) ERNIE-3.0-base attention with 10 % trailing padding as segment
 # ids, (b) long causal (where the reference itself picks flash), (c)
@@ -1854,10 +2229,7 @@ def main() -> int:
                                         for t in stats["step_ms"]),
           flush=True)
     print(f"[serve] launches {launches}", flush=True)
-    if launches["paged_decode"] != L * stats["steps"]:
-        raise AssertionError(
-            f"paged_decode launched {launches['paged_decode']} times in "
-            f"{stats['steps']} steps (want {L} per step)")
+    _check_decode_launches(dict(stats, launches=launches), L, "serve")
     _check_ragged_launches(dict(stats, launches=launches), L, "serve")
     eager_twin(model, device, "serve", stats, card)
     reference_check(model, device)
@@ -1879,17 +2251,33 @@ def main() -> int:
     profile_pair(model, device, "spec", card, prompts=tiled, max_new=8,
                  speculate=True, num_draft_tokens=NUM_DRAFT,
                  draft_source="ngram", sampled=())
-    by_run = {f"llama {t}": runs[t]["launches"]["paged_verify"]
-              for t in ("b", "c")}
+    by_run = {"paged_verify": {f"llama {t}": runs[t]["launches"][
+        "paged_verify"] for t in ("b", "c")}}
+    for name in ("paged_decode", "ragged_paged_attention"):
+        by_run[name] = {"serve": launches[name]}
 
-    # phase 6: GPT, with the LLaMA model freed first
+    # phase 6: the prefix cache, warm against cold, on bf16 pools
+    pruns = prefix_phase(model, device, card)
+    # phase 7: int8 pools (serve, reference, prefix, speculation, the
+    # writer alone, a profile)
+    iruns = int8_phase(model, device, card, stats)
+    for name in ("paged_decode", "ragged_paged_attention"):
+        by_run[name].update({
+            "prefix warm": pruns["warm"]["launches"][name],
+            "int8 serve": iruns["serve"]["launches"][name],
+            "int8 prefix warm": iruns["prefix"]["warm"]["launches"][name]})
+    by_run["paged_verify"]["int8 spec"] = \
+        iruns["spec"]["launches"]["paged_verify"]
+
+    # phase 8: GPT, with the LLaMA model freed first
     del model
     free_memory()
     gst = gpt_phase(device, card=card)
-    by_run["gpt"] = gst["launches"]["paged_verify"]
-    launches["paged_verify"] = sum(by_run.values())
+    by_run["paged_verify"]["gpt"] = gst["launches"]["paged_verify"]
+    for name, runs_of in by_run.items():
+        launches[name] = sum(runs_of.values())
 
-    # phase 7: training, GPT freed first
+    # phase 9: training, GPT freed first
     free_memory()
     fres = flash_kernels_phase(device)
     hybrid_vs_flash(device)
@@ -1908,7 +2296,7 @@ def main() -> int:
     free_memory()
     step_parity_phase(device)
 
-    # phase 8: the kernels line, the card line, the result line
+    # phase 10: the kernels line, the card line, the result line
     line = []
     for name, k in _build.KERNELS.items():
         rec = kres[name]["bf16"]
@@ -1923,7 +2311,7 @@ def main() -> int:
             "dtype": "bf16",
             "all": {kind: {kk: v for kk, v in r.items()}
                     for kind, r in kres[name].items()},
-            **({"launches_by_run": by_run} if name == "paged_verify"
+            **({"launches_by_run": by_run[name]} if name in by_run
                else {})})
     print(json.dumps({"kernels": line}), flush=True)
     print(f"[card] {card}", flush=True)

@@ -15,8 +15,9 @@ the CPU; on a CUDA tensor it launches the kernel or raises.
 What is ported so far: the ragged continuous-batching serving path of
 ``ROADMAP.md`` slice A (``EngineCore`` → ``build_mixed_step`` →
 ``PagedGenerationEngine`` → LLaMA/GPT → ragged paged attention), with
-speculative draft/verify serving; and ERNIE pretraining on one device
-(``parallel.FleetTrainStep`` → ``models.ErnieForPretraining`` → the
+speculative draft/verify serving, the prefix cache and int8 KV pages;
+and ERNIE pretraining on one device (``parallel.FleetTrainStep`` →
+``models.ErnieForPretraining`` → the
 flash-attention kernels, ``optimizer.AdamW``, ``amp`` O2).  On the card
 both steps run as one CUDA graph per key (``core/graphs.py``), each
 capture logged by ``observability/compilelog.py``.

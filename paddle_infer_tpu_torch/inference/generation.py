@@ -19,6 +19,7 @@ import torch
 
 from .. import native, resolve_device
 from ..core.graphs import ProgramCache, StagedInputs
+from ..ops.paged_attention import KV_SCALE_EPS
 
 
 @dataclass
@@ -48,15 +49,25 @@ class PagedGenerationEngine:
     page pool ``[P, h, page, d]`` per layer (K and V), per-sequence page
     tables from the native block allocator.
 
+    ``kv_dtype="int8"`` stores each pool as an int8 payload with one
+    float32 scale per (page, head) (the slot-0 scale protocol of
+    ``ops/paged_attention.py``): half the page bytes of bf16, a quarter
+    of fp32.  ``None`` keeps pages in the model's dtype.
+
     ``device`` defaults to the card and must be where the model's
     parameters live."""
 
     def __init__(self, model, page_size: int = 16,
                  kv_dtype: Optional[str] = None, device=None):
-        if kv_dtype is not None:
-            raise NotImplementedError(
-                "kv_dtype (int8 KV pools) is not ported yet; see ROADMAP.md "
-                "(int8-KV writers)")
+        if kv_dtype not in (None, "int8"):
+            if kv_dtype == "int4":
+                raise NotImplementedError(
+                    "kv_dtype='int4' is recognized by "
+                    "validate_serving_config but the pool stores int8 "
+                    "payloads only")
+            raise ValueError(
+                f"kv_dtype must be None or 'int8', got {kv_dtype!r}")
+        self._kv_dtype = kv_dtype
         self.device = resolve_device(device)
         first = next(model.parameters())
         if first.device.type != self.device.type:
@@ -89,12 +100,26 @@ class PagedGenerationEngine:
         return self._pool
 
     def _ensure_pages(self):
+        """The per-layer K and V pools ``[P, H, page, D]`` (int8: a
+        ``(payload, [P, H] scales)`` pair each), made at the pool's
+        size."""
         pshape = (self._pool.num_blocks, self._num_heads, self.page_size,
                   self._head_dim)
-        if self._k_pages is None or tuple(self._k_pages[0].shape) != pshape:
+        first = None if self._k_pages is None else self._k_pages[0]
+        if first is not None and isinstance(first, tuple):
+            first = first[0]
+        if first is None or tuple(first.shape) != pshape:
             def alloc():
-                return torch.zeros(pshape, dtype=self._cache_dtype,
-                                   device=self.device)
+                if self._kv_dtype != "int8":
+                    return torch.zeros(pshape, dtype=self._cache_dtype,
+                                       device=self.device)
+                # scales start at the eps floor (never zero): a zeroed
+                # pool dequantizes to zero, and the masked-max writer's
+                # "scale > 0" invariant holds from the first step
+                return (torch.zeros(pshape, dtype=torch.int8,
+                                    device=self.device),
+                        torch.full(pshape[:2], KV_SCALE_EPS,
+                                   dtype=torch.float32, device=self.device))
 
             # the graphs hold the old pools: free both before allocating,
             # and bind the new pools only once both exist

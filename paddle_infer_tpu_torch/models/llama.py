@@ -161,8 +161,9 @@ class LlamaForCausalLM(nn.Module):
         self.eval()
 
     def forward(self, input_ids, position_ids=None, caches=None):
-        """Logits ``[b, s, vocab]``; with ``caches`` (one six-tuple per
-        layer, see ``ParallelSelfAttention._forward_paged``) returns
+        """Logits ``[b, s, vocab]``; with ``caches`` (one paged-cache
+        tuple per layer, see ``ParallelSelfAttention._forward_paged``)
+        returns
         ``(logits, new_caches)``."""
         out = self.llama(input_ids, position_ids=position_ids,
                          caches=caches)

@@ -3,10 +3,12 @@
 Port of ``paddle_infer_tpu/models/transformer_block.py``:
 
 * ``ParallelSelfAttention``: QKV split, RoPE, GQA expansion, and the
-  six- and seven-element-cache ragged branch of ``_forward_paged`` that
+  six- to eight-element-cache ragged branch of ``_forward_paged`` that
   ``serving/programs.build_mixed_step`` drives (the seventh element is
-  the speculative-verify flag).  With no cache the block calls ``sdpa``
-  (``ops/attention.py``) as the JAX block does: on the card the flash
+  the speculative-verify flag, the eighth the decode-row flag); pools
+  are tensors or int8 ``(payload, scales)`` pairs.  With no cache the
+  block calls ``sdpa`` (``ops/attention.py``) as the JAX block does: on
+  the card the flash
   kernels, causal or not, with padding masks as segment ids and
   attention dropout in training.  The legacy 4- and 5-element paged
   caches of the reference are not ported yet (ROADMAP.md) and raise.
@@ -97,24 +99,30 @@ class ParallelSelfAttention(nn.Module):
         ``(k_pages [P,h,page,d], v_pages, tables [b,max_pages],
         positions [b], query_lens [b], scratch_page)``: row ``b``'s
         tokens sit at ``positions[b] + i`` for ``i < query_lens[b]``,
-        pad positions write to the scratch page.  A seventh element
+        pad positions write to the scratch page.  A pool is a tensor or
+        an int8 ``(payload, scales)`` pair.  A seventh element
         ``spec2d [b, W] bool`` (the verify flag broadcast over the draft
-        window, whose width is W) routes flagged rows' first W positions
-        through the verify kernel.  The pools are updated in place;
-        returns ``(out, new_cache)`` with positions advanced."""
-        if len(cache) not in (6, 7):
+        window, whose width is W; None for no verify rows) routes
+        flagged rows' first W positions through the verify kernel, and
+        an eighth ``decode [b] bool`` marks the rows feeding a generated
+        token (without it every one-token row counts as one).  The pools
+        are updated in place; returns ``(out, new_cache)`` with
+        positions advanced."""
+        if len(cache) not in (6, 7, 8):
             raise NotImplementedError(
                 f"{len(cache)}-element paged caches (legacy prefill and "
                 "prefix-cache windowed) are not ported yet; see ROADMAP.md")
         k_pages, v_pages, tables, positions, qlens, scratch = cache[:6]
-        verify = cache[6] if len(cache) == 7 else None
+        verify = cache[6] if len(cache) > 6 else None
+        decode = cache[7] if len(cache) > 7 else None
         b, s = q.shape[0], q.shape[1]
         RPA.write_ragged_pages(k_pages, tables, k, positions, qlens, scratch)
         RPA.write_ragged_pages(v_pages, tables, v, positions, qlens, scratch)
         out = RPA.ragged_paged_attention(
             q, k_pages, v_pages, tables, positions, qlens,
             verify_rows=None if verify is None else verify[:, 0],
-            verify_window=None if verify is None else verify.shape[1])
+            verify_window=None if verify is None else verify.shape[1],
+            decode_rows=decode)
         out = self.out_proj(out.reshape(b, s, self.hidden))
         return out, (k_pages, v_pages, tables, positions + qlens, qlens,
                      scratch) + tuple(cache[6:])

@@ -1,7 +1,8 @@
 """ctypes binding to the paged-KV block allocator (``native/kv_allocator.cc``).
 
 Port of the pool half of ``paddle_infer_tpu/native/__init__.py``
-(``KVBlockPool``).  The C++ source is shared with the JAX package and
+(``KVBlockPool``, with the block-level operations the prefix cache
+uses).  The C++ source is shared with the JAX package and
 read as it is; this module compiles it alone (it needs only the C++
 standard library) with ``g++ -O3 -fPIC -shared -std=c++17`` into the
 port's git-ignored build directory at first use, so a clean checkout
@@ -72,6 +73,12 @@ def _load():
                                  c.POINTER(c.c_int32),
                                  c.POINTER(c.c_int32)], c.c_int32),
             "kv_seq_free": ([c.c_void_p, c.c_int64], None),
+            "kv_block_alloc": ([c.c_void_p], c.c_int32),
+            "kv_block_ref": ([c.c_void_p, c.c_int32], c.c_int32),
+            "kv_block_unref": ([c.c_void_p, c.c_int32], c.c_int32),
+            "kv_block_refcount": ([c.c_void_p, c.c_int32], c.c_int32),
+            "kv_seq_assign": ([c.c_void_p, c.c_int64, c.POINTER(c.c_int32),
+                               c.c_int32, c.c_int32], c.c_int32),
         }
         for name, (argtypes, restype) in sigs.items():
             fn = getattr(lib, name)
@@ -138,6 +145,53 @@ class KVBlockPool:
 
     def free(self, seq_id: int):
         self._lib.kv_seq_free(self._h, seq_id)
+
+    # block-level operations: the prefix cache holds its own reference on
+    # each retained block, independent of any live sequence
+    def alloc_block(self) -> int:
+        """Allocate one block outside any sequence (refcount 1)."""
+        b = self._lib.kv_block_alloc(self._h)
+        if b < 0:
+            raise MemoryError(
+                f"KV pool exhausted ({self.num_blocks} blocks)")
+        return int(b)
+
+    def ref_block(self, block: int) -> int:
+        """Take one more reference on a live block; returns the new
+        refcount.  Raises on a free or out-of-range block."""
+        rc = self._lib.kv_block_ref(self._h, block)
+        if rc < 0:
+            raise ValueError(f"ref of free/out-of-range block {block}")
+        return int(rc)
+
+    def unref_block(self, block: int) -> int:
+        """Drop one reference (the block is freed at zero); returns the
+        new refcount.  Raises on a free or out-of-range block."""
+        rc = self._lib.kv_block_unref(self._h, block)
+        if rc < 0:
+            raise ValueError(f"unref of free/out-of-range block {block}")
+        return int(rc)
+
+    def block_refcount(self, block: int) -> int:
+        """The block's refcount (0 = free)."""
+        rc = self._lib.kv_block_refcount(self._h, block)
+        if rc < 0:
+            raise ValueError(f"block {block} out of range")
+        return int(rc)
+
+    def assign(self, seq_id: int, blocks, num_tokens: int) -> int:
+        """Make ``blocks`` (each ref'd once more) ``seq_id``'s table, its
+        previous blocks released, and its length ``num_tokens``;
+        ``reserve`` grows from there.  Raises, changing nothing, when a
+        block is free or out of range."""
+        blocks = [int(b) for b in blocks]
+        arr = (ctypes.c_int32 * len(blocks))(*blocks)
+        n = self._lib.kv_seq_assign(self._h, seq_id, arr, len(blocks),
+                                    num_tokens)
+        if n < 0:
+            raise ValueError(f"assign with free/out-of-range block in "
+                             f"{blocks}")
+        return int(n)
 
     def close(self):
         if self._h:

@@ -16,16 +16,25 @@ runs the kernel's plain PyTorch version (``_decode_plain``,
 ``_verify_plain``); on a CUDA tensor it launches the kernel or raises.
 
 Quantized pools are ``(int8 payload [P, H, page, D], float32 scales
-[P, H])`` pairs, one scale per (page, head); ``quantize_pages`` builds
-them under the reference's slot-0 scale protocol.  The incremental int8
-writers (``_quantized_scatter``) wait for the int8-KV slice
-(ROADMAP.md); the writers here raise on a quantized pool.
+[P, H])`` pairs, one scale per (page, head).  Scale protocol (the
+reference's): a page's scale is set ONLY by the write landing in slot 0
+(the page's lowest position) — amax over that token's D, divided by
+127, floored at ``KV_SCALE_EPS``.  Every later write into the page
+quantizes with the inherited scale (clipping at ±127).  Slot 0 is the
+lowest position, so a slot-0 rewrite happens only when no earlier token
+of the page is live: the (scales, payload) bits are a pure function of
+the token stream, whatever the chunking of the writes.  That is what
+keeps warm prefix hits and speculative re-writes bitwise equal in the
+quantized domain.  ``quantize_pages`` builds such pools offline; the
+page writers below (``_quantized_scatter``) build them incrementally,
+in plain PyTorch as the JAX package computes them outside Pallas.
 """
 from __future__ import annotations
 
 import ctypes
 import math
 
+import numpy as np
 import torch
 
 from . import _build
@@ -100,11 +109,50 @@ def _page_size(pages) -> int:
     return (pages[0] if is_quantized(pages) else pages).shape[2]
 
 
-def _no_quantized_writer(pages):
-    if is_quantized(pages):
-        raise NotImplementedError(
-            "int8 KV page writers (_quantized_scatter) are not ported yet; "
-            "see ROADMAP.md queue 1 (int8-KV writers)")
+def kv_dequant_error_bound(fp_pages, scales) -> float:
+    """Worst-case elementwise ``|dequantize(quantize(x)) - x|`` over a
+    pool, from the realized per-(page, head) scales of the slot-0
+    protocol: ``scale / 2`` for rounding plus the clipping excess
+    wherever a later token exceeds ``_QMAX * scale``.  Host numpy in
+    (``[P, H, page, D]`` fp values, ``[P, H]`` scales), exact given the
+    data."""
+    fp = np.asarray(fp_pages, np.float32)
+    sc = np.asarray(scales, np.float32)[:, :, None, None]
+    clip = np.maximum(np.abs(fp) - _QMAX * sc, 0.0)
+    return float(np.max(sc / 2.0 + clip)) if fp.size else 0.0
+
+
+def _quantized_scatter(pages, page_idx, slot, kv):
+    """The int8 token scatter, in place: slot-0 landings re-seed their
+    page's scale from the landing token, then every token quantizes with
+    the updated scales and writes the payload.  ``page_idx`` / ``slot``
+    are ``[B]`` or ``[B, S]`` and ``kv`` has matching leading dims +
+    ``[H, D]``.  Returns the pair.
+
+    The scale update is a masked max, not an assignment: pad tokens land
+    on the scratch page at duplicate indices, and the order of duplicate
+    writes is unspecified on the card.  Candidates are -1 except at
+    slot-0 landings; a max over a -1 buffer does not depend on that
+    order, and scales are > 0 by the eps floor, so a surviving -1 keeps
+    the old scale.  Every constant is made on the device (the step runs
+    as a CUDA graph)."""
+    payload, scales = pages
+    h = scales.shape[1]
+    kvf = kv.to(torch.float32)
+    tok = torch.clamp(kvf.abs().amax(dim=-1) / _QMAX,
+                      min=KV_SCALE_EPS)                     # [..., H]
+    cand = torch.where((slot == 0)[..., None], tok,
+                       torch.full_like(tok, -1.0))
+    fresh = torch.full(scales.shape, -1.0, dtype=torch.float32,
+                       device=scales.device)
+    idx = page_idx.long()
+    fresh.scatter_reduce_(0, idx.reshape(-1, 1).expand(-1, h),
+                          cand.reshape(-1, h), "amax")
+    scales.copy_(torch.where(fresh > 0, fresh, scales))
+    sc = scales[idx]                                        # [..., H]
+    q = torch.clamp(torch.round(kvf / sc[..., None]), -_QMAX, _QMAX)
+    payload[idx, :, slot.long()] = q.to(torch.int8)
+    return payload, scales
 
 
 def _gather_window(pages, block_tables):
@@ -297,18 +345,20 @@ def paged_attention_verify(q, k_pages, v_pages, block_tables, lengths,
 
 
 # --------------------------------------------------------- page utilities
-# Plain PyTorch writes (the JAX package left them to XLA).  Pools are
-# updated IN PLACE — JAX donates the pools into the serving executable;
-# here the same buffers simply stay put — and returned for symmetry.
+# Plain PyTorch writes (the JAX package left them to XLA).  Pools, and a
+# quantized pool's payload and scales, are updated IN PLACE — JAX donates
+# the pools into the serving executable; here the same buffers simply
+# stay put — and returned for symmetry.
 
 def write_chunk_pages(pages, block_tables, kv, offsets):
     """Scatter a chunk's K or V ``[B, S, H, D]`` at absolute positions
     ``offsets[b] + i`` (the chunk may start mid-page)."""
-    _no_quantized_writer(pages)
     b, s = kv.shape[:2]
     page = _page_size(pages)
     pos = offsets.long()[:, None] + torch.arange(s, device=kv.device)[None]
     page_idx = torch.gather(block_tables.long(), 1, pos // page)
+    if is_quantized(pages):
+        return _quantized_scatter(pages, page_idx, pos % page, kv)
     pages[page_idx, :, pos % page] = kv.to(pages.dtype)
     return pages
 
@@ -316,11 +366,12 @@ def write_chunk_pages(pages, block_tables, kv, offsets):
 def write_token_page(pages, block_tables, kv, positions):
     """Write one new token's K or V ``[B, H, D]`` at its (page, slot):
     ``positions [B]`` is the 0-based token index in each row."""
-    _no_quantized_writer(pages)
     page = _page_size(pages)
     positions = positions.long()
     page_idx = torch.gather(block_tables.long(), 1,
                             (positions // page)[:, None])[:, 0]
+    if is_quantized(pages):
+        return _quantized_scatter(pages, page_idx, positions % page, kv)
     pages[page_idx, :, positions % page] = kv.to(pages.dtype)
     return pages
 

@@ -8,12 +8,17 @@ absolute positions ``context_lens[b] + i``: decode rows have
 Three compositions share ``ragged_paged_attention``:
 
 * the serving composition (the default) — chunk rows (``query_len > 1``,
-  not verify rows within their window) through one launch of the
-  ragged kernel with the other rows' lengths set to 0; decode rows'
-  position 0 from the decode kernel (``paged_attention_decode``);
+  not verify rows within their window; with ``decode_rows``, every
+  active row not flagged) through one launch of the ragged kernel with
+  the other rows' lengths set to 0; decode rows' position 0 from the
+  decode kernel (``paged_attention_decode``);
   speculative verify rows' first ``verify_window`` positions from the
   verify kernel (``paged_attention_verify``), each position at its own
-  length, so they equal sequential decode steps bit for bit.
+  length, so they equal sequential decode steps bit for bit.  The
+  serving step flags its decode rows: a prompt token then always goes
+  through the ragged kernel and a generated token through the decode
+  kernel, whatever the chunking, which keeps a warm prefix hit bitwise
+  equal to a cold prefill.
 * ``_ragged_reference`` — the port's copy of the JAX package's
   composition: every position through the plain fp32 window attention
   ``prefix_prefill_attention``, decode and verify rows as above.  The
@@ -40,8 +45,9 @@ import torch
 
 from . import _build
 from .paged_attention import (DTYPE_CODES, NEG_INF, _check_kernel_args,
-                              _gather_window, _no_quantized_writer,
-                              _page_size, paged_attention_decode,
+                              _gather_window, _page_size,
+                              _quantized_scatter, is_quantized,
+                              paged_attention_decode,
                               paged_attention_verify,
                               prefix_prefill_attention)
 
@@ -60,8 +66,9 @@ def write_ragged_pages(pages, block_tables, kv, context_lens, query_lens,
     place.  Row ``b``'s token ``i`` lands at absolute position
     ``context_lens[b] + i`` when ``i < query_lens[b]``; pad positions
     (including whole inactive rows) go to ``scratch_page``, slot
-    ``i % page``."""
-    _no_quantized_writer(pages)
+    ``i % page``.  On an int8 pool, pad tokens landing at the scratch
+    page's slot 0 only re-seed the scratch page's scale (a masked max, so
+    deterministically), which no live row reads."""
     b, c = kv.shape[:2]
     page = _page_size(pages)
     max_pages = block_tables.shape[1]
@@ -74,17 +81,26 @@ def write_ragged_pages(pages, block_tables, kv, context_lens, query_lens,
     scratch = torch.as_tensor(scratch_page, device=kv.device).long()
     page_idx = torch.where(valid, page_idx, scratch)
     slot = torch.where(valid, safe_pos % page, (i % page).expand(b, c))
+    if is_quantized(pages):
+        return _quantized_scatter(pages, page_idx, slot, kv)
     pages[page_idx, :, slot] = kv.to(pages.dtype)
     return pages
 
 
+def _decode_mask(query_lens, decode_rows):
+    """Rows whose position 0 comes from the decode kernel: those with
+    ``query_lens == 1``, as in the JAX reference, or, given
+    ``decode_rows [B] bool``, only the flagged ones among them."""
+    one = query_lens == 1
+    return one if decode_rows is None else one & decode_rows
+
+
 def _decode_and_verify_rows(out, q, k_pages, v_pages, block_tables,
                             context_lens, query_lens, scale, verify_rows,
-                            verify_window):
+                            verify_window, decode_rows=None):
     """Decode rows' position 0 and verify rows' first ``verify_window``
     positions of ``out``, in place.  The decode kernel runs for ALL rows
-    at ``context_lens + 1`` and rows with ``query_lens == 1`` keep it, as
-    the JAX reference does.
+    at ``context_lens + 1`` and the rows of ``_decode_mask`` keep it.
 
     ``verify_rows [B] bool`` marks speculative verify rows (``query_lens
     = k + 1``: last emitted token + ``k`` drafts).  The verify kernel
@@ -95,7 +111,7 @@ def _decode_and_verify_rows(out, q, k_pages, v_pages, block_tables,
     dec = paged_attention_decode(q[:, 0].contiguous(), k_pages, v_pages,
                                  block_tables, (context_lens + 1).int(),
                                  scale=scale)
-    is_decode = (query_lens == 1)[:, None, None]
+    is_decode = _decode_mask(query_lens, decode_rows)[:, None, None]
     out[:, 0] = torch.where(is_decode, dec, out[:, 0])
     if verify_rows is None:
         return out
@@ -127,15 +143,16 @@ def _ragged_reference(q, k_pages, v_pages, block_tables, context_lens,
 
 def _ragged_serving(q, k_pages, v_pages, block_tables, context_lens,
                     query_lens, scale=None, verify_rows=None,
-                    verify_window=None):
-    """The serving composition: chunk rows through one ragged-kernel
-    launch (every other row at length 0, so its positions are zeros),
-    then decode and verify rows as in ``_ragged_reference``.  Pad
-    positions of chunk rows are zeros.  A verify row whose length
-    exceeds ``verify_window`` counts as a chunk row too: its positions
-    past the window come from the ragged kernel, as they come from the
-    window attention in ``_ragged_reference``."""
-    chunk = query_lens > 1
+                    verify_window=None, decode_rows=None):
+    """The serving composition: chunk rows (active rows outside
+    ``_decode_mask``) through one ragged-kernel launch (every other row
+    at length 0, so its positions are zeros), then decode and verify
+    rows as in ``_ragged_reference``.  Pad positions of chunk rows are
+    zeros.  A verify row whose length exceeds ``verify_window`` counts
+    as a chunk row too: its positions past the window come from the
+    ragged kernel, as they come from the window attention in
+    ``_ragged_reference``."""
+    chunk = (query_lens > 0) & ~_decode_mask(query_lens, decode_rows)
     if verify_rows is not None:
         chunk = chunk & ~(verify_rows & (query_lens <= int(verify_window)))
     out = ragged_kernel(q.contiguous(), k_pages, v_pages, block_tables,
@@ -145,7 +162,7 @@ def _ragged_serving(q, k_pages, v_pages, block_tables, context_lens,
                         scale=scale)
     return _decode_and_verify_rows(out, q, k_pages, v_pages, block_tables,
                                    context_lens, query_lens, scale,
-                                   verify_rows, verify_window)
+                                   verify_rows, verify_window, decode_rows)
 
 
 def _ragged_plain(q, k_pages, v_pages, block_tables, context_lens,
@@ -205,7 +222,7 @@ def ragged_kernel(q, k_pages, v_pages, block_tables, context_lens,
 def ragged_paged_attention(q, k_pages, v_pages, block_tables,
                            context_lens, query_lens, scale=None,
                            use_kernel=False, verify_rows=None,
-                           verify_window=None):
+                           verify_window=None, decode_rows=None):
     """Mixed-batch ragged attention over paged KV.
 
     q            [B, C, H, D]    — per-row query chunk
@@ -219,6 +236,12 @@ def ragged_paged_attention(q, k_pages, v_pages, block_tables,
                                   whose first ``verify_window`` (int)
                                   positions take per-position
                                   decode-kernel math
+    decode_rows  [B] bool       — optional: the rows feeding a generated
+                                  token; only they (at query_len 1) take
+                                  the decode kernel, so a prompt chunk of
+                                  one token still goes through the ragged
+                                  kernel.  Default: every query_len-1 row
+                                  is a decode row, as in the reference
     → [B, C, H, D]; positions past ``query_lens`` are zeros, except a
       verify row's first ``verify_window`` (finite lanes, never read).
 
@@ -228,7 +251,7 @@ def ragged_paged_attention(q, k_pages, v_pages, block_tables,
     launch of the ragged kernel for every row, which takes no verify
     rows."""
     if use_kernel:
-        if verify_rows is not None:
+        if verify_rows is not None or decode_rows is not None:
             raise NotImplementedError(
                 "speculative verify rows require the per-row-type "
                 "composition (per-position decode-kernel parity)")
@@ -236,4 +259,5 @@ def ragged_paged_attention(q, k_pages, v_pages, block_tables,
                              context_lens, query_lens, scale=scale)
     return _ragged_serving(q, k_pages, v_pages, block_tables, context_lens,
                            query_lens, scale=scale, verify_rows=verify_rows,
-                           verify_window=verify_window)
+                           verify_window=verify_window,
+                           decode_rows=decode_rows)

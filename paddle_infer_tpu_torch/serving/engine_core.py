@@ -22,15 +22,26 @@ With ``speculate=True`` a decode row may also pack up to
 verify row, using only budget left over after decode and prompt
 packing; the step then emits each row's accepted window.
 
+With ``enable_prefix_cache=True`` finished sequences' pages are retained
+in a radix tree (``serving/prefix_cache/``) and matched against new
+prompts at admission: the matched full pages are shared, a matched
+partial tail page is copied on write (``build_page_copy``, one graph),
+and only the uncached suffix enters the mixed steps as chunk rows
+starting at ``ctx = cached``.  A prompt token always goes through the
+ragged kernel and a generated token through the decode kernel, however
+the prompt was split, so a warm stream is bitwise the cold one.  With an
+engine built with ``kv_dtype="int8"`` the pools hold int8 pages under
+the slot-0 scale protocol, with or without the cache.
+
 Slot/pool layout: slot ``s`` reserves native-pool sequence id ``s``; a
 one-page scratch reservation (sequence id ``max_batch``) backs every
 table entry of inactive rows, so their writes land where no live row's
 attention reads.
 
 Not ported yet, rejected at construction (ROADMAP.md): the legacy
-``ragged=False`` programs, prefix caching (and its draft source), int8 KV,
-adapters, grammars, sharded serving, the host KV tier, non-fifo
-scheduling and fault injection; also tracing, journeys and the step log.
+``ragged=False`` programs, adapters, grammars, sharded serving, the host
+KV tier, non-fifo scheduling and fault injection; also tracing,
+journeys and the step log.
 """
 from __future__ import annotations
 
@@ -47,9 +58,11 @@ from ..inference.generation import (GenerationConfig, PagedGenerationEngine,
                                     _round_up)
 from ..observability.compilelog import get_compile_log
 from .metrics import ServingMetrics
-from .programs import build_mixed_step
+from .prefix_cache import PrefixCache
+from .programs import build_mixed_step, build_page_copy
 from .request import (DeadlineExceededError, QueueFullError, RejectedError,
                       Request, RequestQueue, RequestState)
+from .sharded import ShardedConfigError, validate_kv_quant_combo
 from .speculation import resolve_draft_source
 
 _log = logging.getLogger(__name__)
@@ -82,6 +95,8 @@ class EngineCore:
                  num_draft_tokens: int = 4,
                  draft_source="auto",
                  enable_prefix_cache: bool = False,
+                 prefix_cache_watermark: float = 0.5,
+                 prefix_cache_headroom_pages: int = 0,
                  kv_dtype: Optional[str] = None,
                  adapter_store=None,
                  grammar_vocab=None,
@@ -92,8 +107,6 @@ class EngineCore:
                  device=None):
         unported = {
             "ragged=False": not ragged,
-            "enable_prefix_cache": bool(enable_prefix_cache),
-            "kv_dtype": kv_dtype is not None,
             "adapter_store": adapter_store is not None,
             "grammar_vocab": grammar_vocab is not None,
             "serving_mesh": serving_mesh is not None,
@@ -110,13 +123,25 @@ class EngineCore:
         if dev.type != engine.device.type:
             raise ValueError(f"EngineCore device {dev} disagrees with the "
                              f"engine's {engine.device}")
+        # the engine owns the pools, so it owns their dtype: the kwarg
+        # here must agree with it
+        engine_kv = engine._kv_dtype
+        if kv_dtype is not None and kv_dtype != engine_kv:
+            raise ShardedConfigError(
+                f"EngineCore kv_dtype={kv_dtype!r} disagrees with the "
+                f"engine's kv_dtype={engine_kv!r} — pass kv_dtype to "
+                "PagedGenerationEngine (it owns the pools) or drop it "
+                "here")
+        validate_kv_quant_combo(engine_kv, speculate=speculate,
+                                enable_prefix_cache=enable_prefix_cache)
+        self._kv_dtype = engine_kv
         self._engine = engine
         self._max_batch = int(max_batch)
         self._default_timeout = default_timeout_s
         self._metrics = metrics or ServingMetrics()
         self._queue = RequestQueue(max_depth=max_queue)
 
-        page = engine.page_size
+        page = self._page = engine.page_size
         cap = engine._max_positions
         self._max_model_len = min(int(max_model_len or cap), cap)
         # every slot's page table has one fixed width, covering the
@@ -130,6 +155,26 @@ class EngineCore:
         chunk = int(prefill_chunk or budget)
         self._prefill_chunk = max(1, min(chunk, budget))
 
+        engine.refresh_params()
+        # prefix_cache_headroom_pages widens the pool beyond the
+        # worst-case live reservations (slots x max_pages) without
+        # widening any slot's page table: only the radix tree can hold
+        # the extra pages, so a full batch need not evict retained
+        # prefixes (nor blind the tree's drafts) on admission
+        headroom = (max(0, int(prefix_cache_headroom_pages))
+                    if enable_prefix_cache else 0)
+        self._headroom_pages = headroom
+        self._pool = engine.serving_pool(self._max_batch * self._max_pages
+                                         + 1 + headroom)
+        # scratch page: inactive rows' writes land here, reads of live
+        # rows never reach it (attention masks by per-row position)
+        self._pool.free(self._max_batch)
+        self._pool.reserve(self._max_batch, 1)
+        self._scratch = int(self._pool.block_table(self._max_batch)[0])
+        self._prefix_cache: Optional[PrefixCache] = (
+            PrefixCache(self._pool, page, prefix_cache_watermark)
+            if enable_prefix_cache else None)
+
         # in-engine speculative decoding: drafts ride the mixed step as
         # verify rows under leftover budget; the static window W joins
         # the program key, so one program serves every composition
@@ -139,19 +184,11 @@ class EngineCore:
                 raise ValueError("num_draft_tokens must be >= 1")
             self._spec_window = max(
                 2, min(int(num_draft_tokens) + 1, self._token_budget))
-            self._draft_source = resolve_draft_source(draft_source)
+            self._draft_source = resolve_draft_source(
+                draft_source, cache=self._prefix_cache)
         else:
             self._spec_window = 1
             self._draft_source = None
-
-        engine.refresh_params()
-        self._pool = engine.serving_pool(self._max_batch * self._max_pages
-                                         + 1)
-        # scratch page: inactive rows' writes land here, reads of live
-        # rows never reach it (attention masks by per-row position)
-        self._pool.free(self._max_batch)
-        self._pool.reserve(self._max_batch, 1)
-        self._scratch = int(self._pool.block_table(self._max_batch)[0])
 
         self._slots: List[Optional[dict]] = [None] * self._max_batch
         self.step_trace: List[dict] = []
@@ -178,21 +215,55 @@ class EngineCore:
         with self._step_lock:
             return sum(s is not None for s in self._slots)
 
+    @property
+    def prefix_cache(self) -> Optional[PrefixCache]:
+        return self._prefix_cache
+
+    def _kv_quant_info(self) -> Optional[dict]:
+        """The ``kv_quant`` section of the metrics snapshot: bytes per
+        page of the int8 pools against the fp pools the same config
+        would hold.  None (no section) on fp pools."""
+        if self._kv_dtype is None:
+            return None
+        eng = self._engine
+        H, D, page, L = (eng._num_heads, eng._head_dim, self._page,
+                         eng._num_layers)
+        fp_item = eng._cache_dtype.itemsize
+        # k+v per layer: int8 payload plus one f32 scale per (page, head)
+        payload = 2 * H * page * D
+        scale = 2 * H * 4
+        q_page = L * (payload + scale)
+        fp_page = L * 2 * H * page * D * fp_item
+        return {"kv_dtype": self._kv_dtype,
+                "bytes_per_page": int(q_page),
+                "fp_bytes_per_page": int(fp_page),
+                "scale_bytes_per_page": int(L * scale),
+                "resident_page_ratio": fp_page / q_page}
+
     def metrics_snapshot(self) -> dict:
         total = self._pool.num_blocks
         free = self._pool.free_blocks
+        # capacity in PAGES (the pool's unit): bytes-derived counts would
+        # halve under kv_dtype int8 and misstate admission headroom
         return self._metrics.snapshot(
             queue_depth=len(self._queue), active=self.active_count,
             max_batch=self._max_batch,
             kv_pool={"total_blocks": int(total), "free_blocks": int(free),
                      "used_blocks": int(total - free),
-                     "occupancy": (total - free) / total if total else 0.0})
+                     "headroom_pages": int(self._headroom_pages),
+                     "occupancy": (total - free) / total if total else 0.0},
+            prefix_cache=(self._prefix_cache.stats_snapshot()
+                          if self._prefix_cache is not None else None),
+            kv_quant=self._kv_quant_info())
 
     def submit(self, input_ids, config: GenerationConfig = None,
-               timeout_s: Optional[float] = None) -> List[Request]:
+               timeout_s: Optional[float] = None,
+               cache_salt: Optional[str] = None) -> List[Request]:
         """Enqueue one request per row of ``input_ids`` ([b, plen] or
         [plen]).  All-or-nothing: admission errors reject the whole
-        call.  Returns the per-row ``Request`` handles immediately."""
+        call.  Returns the per-row ``Request`` handles immediately.
+        ``cache_salt`` is the rows' prefix-cache tenant: they share
+        cached KV only with requests of the same salt."""
         if self._closed:
             raise RejectedError("serving engine is closed")
         g = config or GenerationConfig()
@@ -215,7 +286,8 @@ class EngineCore:
                     f"exceeds max_model_len {self._max_model_len}")
             rows.append(row)
         timeout_s = self._default_timeout if timeout_s is None else timeout_s
-        reqs = [Request(row, g, timeout_s=timeout_s) for row in rows]
+        reqs = [Request(row, g, timeout_s=timeout_s, cache_salt=cache_salt)
+                for row in rows]
         try:
             self._queue.submit_many(reqs)
         except QueueFullError:
@@ -275,7 +347,7 @@ class EngineCore:
         b, C, P = self._max_batch, self._token_budget, self._max_pages
         fields = [("ids", (b, C), np.int32), ("qlens", (b,), np.int32),
                   ("ctx", (b,), np.int32), ("steps0", (b,), np.int32),
-                  ("sample_now", (b,), np.bool_)]
+                  ("sample_now", (b,), np.bool_), ("decode", (b,), np.bool_)]
         if self._spec_window > 1:
             fields.append(("spec", (b,), np.bool_))
         fields.append(("tables", (b, P), np.int32))
@@ -288,7 +360,7 @@ class EngineCore:
         arguments after ``params``."""
         samp = {k: dev[f"samp.{k}"] for k, _ in _SAMP_FIELDS}
         head = [dev[n] for n in ("ids", "qlens", "ctx", "steps0",
-                                 "sample_now")]
+                                 "sample_now", "decode")]
         if spec_window > 1:
             head.append(dev["spec"])
         return head + [dev["tables"], samp, dev["keys"], dev["scratch"]]
@@ -303,19 +375,123 @@ class EngineCore:
         h["samp.do_sample"][i] = g.do_sample
         h["samp.pad"][i] = g.pad_token_id
 
+    def _match_prefix(self, req: Request, tokens: np.ndarray):
+        """The radix tree's longest cached prefix of ``tokens`` under the
+        request's salt, pinned until ``_release_slot_kv``.  The match is
+        capped at ``len(tokens) - 1`` tokens, so a ragged suffix always
+        fits the slot's table window."""
+        return self._prefix_cache.match(tokens, salt=req.route_salt())
+
+    def _copy_page(self, src: int, dst: int):
+        """Copy one physical page across every layer's pools (the
+        copy-on-write step for a shared partial tail block): one graph
+        for the pool size, ``src`` and ``dst`` staged."""
+        eng = self._engine
+        ckey = ("serve-page-copy", self._pool.num_blocks)
+        inputs = eng.program_inputs(ckey, [("src", (1,), np.int32),
+                                           ("dst", (1,), np.int32)])
+        h = inputs.begin()
+        h["src"][0] = src
+        h["dst"][0] = dst
+        dev = inputs.upload()
+        eng.run_paged_program(ckey, lambda: build_page_copy(eng),
+                              dev["src"], dev["dst"])
+
+    def _stage_prefix(self, sid: int, match, length: int, max_new: int):
+        """Map a match onto slot ``sid``'s sequence: copy the partial
+        tail into a fresh private block, ``assign`` the shared blocks
+        (the sequence takes its own references, so tree eviction never
+        yanks them) and reserve fresh pages for the suffix and the new
+        tokens.  Under pool pressure the match degrades page by page
+        (evicting LRU cache entries first) down to a cold reserve.
+        Returns the cached tokens the slot starts from."""
+        cache = self._prefix_cache
+        pool = self._pool
+        page = self._page
+        while True:
+            cached = match.cached_tokens
+            reserve = max(cached + self._plen(length - cached),
+                          length + max_new)
+            total_pages = -(-reserve // page)
+            cache.ensure_free(total_pages - len(match.blocks))
+            try:
+                cow_dst = None
+                if match.partial_block is not None:
+                    cow_dst = pool.alloc_block()
+                    try:
+                        self._copy_page(match.partial_block, cow_dst)
+                    except BaseException:
+                        pool.unref_block(cow_dst)
+                        raise
+                    cache.on_cow()
+                blocks = list(match.blocks)
+                ntok = len(blocks) * page
+                if cow_dst is not None:
+                    blocks.append(cow_dst)
+                    ntok += match.partial_len
+                try:
+                    if blocks:
+                        pool.assign(sid, blocks, ntok)
+                finally:
+                    if cow_dst is not None:
+                        # drop the allocation ref: on success the
+                        # sequence holds its own; on failure this frees
+                        pool.unref_block(cow_dst)
+                pool.reserve(sid, reserve)
+                return cached
+            except MemoryError:
+                pool.free(sid)
+                if match.cached_tokens == 0:
+                    cache.ensure_free(total_pages)
+                    pool.reserve(sid, reserve)
+                    return 0
+                cache.trim(match, match.cached_tokens - 1)
+
+    def _release_slot_kv(self, sid: int, match, retain_tokens=None,
+                         salt=None):
+        """The ONE path by which KV blocks leave a slot (admission
+        failure, eviction, close): optionally retain the finished
+        sequence's pages in the prefix cache (the tree takes its
+        references before the sequence drops its own), free the pool
+        reservation, unpin the request's match and enforce the cache's
+        watermark."""
+        cache = self._prefix_cache
+        if (cache is not None and retain_tokens is not None
+                and len(retain_tokens) > 0):
+            cache.insert(retain_tokens, self._pool.block_table(sid),
+                         salt=salt)
+        self._pool.free(sid)
+        if cache is not None:
+            if match is not None:
+                cache.release(match)
+            cache.enforce_watermark()
+
     def _admit(self, req: Request, sid: int):
-        """Stage a request into slot ``sid``: reserve its KV pages and
-        queue its prompt as ``pending`` tokens for the next mixed
-        steps."""
+        """Stage a request into slot ``sid``: map its cached prefix (if
+        the core has a prefix cache), reserve its KV pages and queue the
+        uncached suffix as ``pending`` tokens for the next mixed steps,
+        starting at ``ctx = cached``."""
         self._metrics.on_queue_wait(time.monotonic() - req.arrival)
         g = req.config
-        length = int(req.prompt.size)
+        full = req.prompt
+        length = int(full.size)
+        match = None
         try:
             self._pool.free(sid)
-            self._pool.reserve(sid, max(self._plen(length),
-                                        length + g.max_new_tokens))
-        except MemoryError as e:
-            self._pool.free(sid)
+            if self._prefix_cache is not None:
+                match = self._match_prefix(req, full)
+                cached = self._stage_prefix(sid, match, length,
+                                            g.max_new_tokens)
+            else:
+                cached = 0
+                self._pool.reserve(sid, max(self._plen(length),
+                                            length + g.max_new_tokens))
+        except Exception as e:
+            # pool exhaustion, or a failed page copy: this request fails,
+            # the loop goes on
+            if not isinstance(e, MemoryError):
+                _log.exception("admission of request %d failed", req.rid)
+            self._release_slot_kv(sid, match)
             self._metrics.on_failed()
             req._finish(RequestState.FAILED, e)
             return
@@ -326,8 +502,8 @@ class EngineCore:
         req._mark_active()
         self._slots[sid] = {
             "req": req, "sid": sid, "g": g, "length": length, "emitted": 0,
-            "last_tok": 0, "table": table, "key": key,
-            "pending": req.prompt, "ctx": 0}
+            "last_tok": 0, "table": table, "key": key, "match": match,
+            "pending": full[cached:], "ctx": cached}
 
     # -------------------------------------------------- ragged mixed step
     def _mixed_step(self):
@@ -366,6 +542,7 @@ class EngineCore:
             ctx[i] = s["length"] + s["emitted"] - 1
             steps0[i] = s["emitted"]
             sample_now[i] = True
+            h["decode"][i] = True
             h["tables"][i] = s["table"]
             h["keys"][i] = s["key"]
             self._fill_samp(h, i, s["g"])
@@ -402,13 +579,16 @@ class EngineCore:
                 tok, fin_out = (_host(t) for t in out)
         except Exception as e:
             # the pools were written in place mid-step: every in-flight
-            # row's KV is suspect, so fail them all (no replay yet)
+            # row's KV is suspect, so fail them all (no replay yet) and
+            # drop every retained page with them
             _log.exception("mixed step failed")
             self._metrics.on_failed(0)
             for s in list(self._slots):
                 if s is not None:
                     self._evict(s, RequestState.FAILED, RejectedError(
                         f"in-flight KV state lost: {e!r}"))
+            if self._prefix_cache is not None:
+                self._prefix_cache.clear()
             return
         if not self._decode_warm:
             # one graph for EVERY composition: after this, any capture on
@@ -490,7 +670,7 @@ class EngineCore:
             history = np.concatenate(
                 [req.prompt, np.asarray(req.tokens, np.int32)])
             proposal = self._draft_source.propose(
-                history, k_cap, salt=None,
+                history, k_cap, salt=req.route_salt(),
                 deterministic_only=bool(s["g"].do_sample))
             k_row = min(len(proposal), k_cap)
             if k_row <= 0:
@@ -507,7 +687,16 @@ class EngineCore:
                err: Optional[BaseException] = None):
         self._slots[slot["sid"]] = None
         req = slot["req"]
-        self._pool.free(slot["sid"])
+        # retain-on-finish: a DONE row's prompt + emitted tokens but the
+        # last (its KV is never written) hold valid KV in the row's
+        # pages; donate them to the prefix cache.  A cancelled or failed
+        # row may hold partial or garbage KV and is never retained.
+        retain = None
+        if state == RequestState.DONE and self._prefix_cache is not None:
+            retain = np.concatenate(
+                [req.prompt, np.asarray(req.tokens[:-1], np.int32)])
+        self._release_slot_kv(slot["sid"], slot["match"],
+                              retain_tokens=retain, salt=req.route_salt())
         req._finish(state, err)
         if state == RequestState.DONE:
             self._metrics.on_completed(time.monotonic() - req.arrival)
@@ -550,7 +739,7 @@ class EngineCore:
 
     def close(self, timeout: float = 10.0):
         """Stop the loop, cancel everything in flight and release every
-        pool reservation (scratch included)."""
+        pool reservation (scratch and retained prefixes included)."""
         if self._closed:
             return
         self._closed = True
@@ -575,6 +764,8 @@ class EngineCore:
                 if s is not None:
                     self._evict(s, RequestState.CANCELLED,
                                 RejectedError("serving engine closed"))
+            if self._prefix_cache is not None:
+                self._prefix_cache.clear()
             self._pool.free(self._max_batch)
             # the key's graph and staging buffers go with the core
             self._engine.release_graphs()

@@ -3,9 +3,9 @@
 Port of the ``ServingMetrics`` counters the ragged path records in
 ``paddle_infer_tpu/serving/metrics.py``: submitted / rejected, queue
 wait, time to first token, inter-token latency, step wall, finished,
-and the speculative draft counters (``on_spec``, the ``speculation``
-section of ``snapshot``).
-Prometheus exposition and the per-tenant families wait (ROADMAP.md
+the speculative draft counters (``on_spec``, the ``speculation``
+section of ``snapshot``), and the ``prefix_cache`` and ``kv_quant``
+sections the core hands to ``snapshot``.  Prometheus exposition and the per-tenant families wait (ROADMAP.md
 slice B).
 """
 from __future__ import annotations
@@ -134,7 +134,13 @@ class ServingMetrics:
             self.completed += 1
             self.e2e.add(e2e_s)
 
-    def snapshot(self, **extra) -> dict:
+    def snapshot(self, prefix_cache: Optional[Dict] = None,
+                 kv_quant: Optional[Dict] = None, **extra) -> dict:
+        """Every counter and series as a plain dict, with ``extra``
+        (the core's gauges: queue depth, active rows, ``kv_pool``)
+        merged in.  ``prefix_cache`` is ``PrefixCache.stats_snapshot()``
+        and ``kv_quant`` the core's int8 pool byte accounting; each
+        section is present only when its feature is on."""
         with self._lock:
             out = {
                 "submitted": self.submitted,
@@ -172,4 +178,8 @@ class ServingMetrics:
                 "occupancy": self.occupancy.summary(),
             }
         out.update(extra)
+        if prefix_cache is not None:
+            out["prefix_cache"] = dict(prefix_cache)
+        if kv_quant is not None:
+            out["kv_quant"] = dict(kv_quant)
         return out

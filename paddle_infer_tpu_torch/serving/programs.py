@@ -2,7 +2,8 @@
 
 Port of ``paddle_infer_tpu/serving/programs.py``: ``_process_rows``,
 ``_pick_rows`` and ``build_mixed_step``, plain (``spec_window == 1``)
-and speculative draft/verify (``spec_window = W > 1``).  Sampling knobs
+and speculative draft/verify (``spec_window = W > 1``), and
+``build_page_copy`` (the prefix cache's copy-on-write).  Sampling knobs
 ride as per-row tensors (the ``samp`` dict), so one program serves
 every batch composition; greedy rows stay argmax-exact.
 
@@ -85,8 +86,14 @@ def build_mixed_step(engine, max_batch, token_budget, max_pages,
     a prefill chunk, 0 for an inactive row (tables at the scratch page).
 
     ``run(params, ids[b, C], qlens[b], ctx[b], steps0[b], sample_now[b],
-    tables[b, max_pages], samp, keys[b, 2], scratch[], k_pages,
-    v_pages)`` → ``(tok[b], fin[b], k_pages, v_pages)``.
+    decode[b], tables[b, max_pages], samp, keys[b, 2], scratch[],
+    k_pages, v_pages)`` → ``(tok[b], fin[b], k_pages, v_pages)``.  A
+    pool is a tensor or an int8 ``(payload, scales)`` pair.
+
+    ``decode`` flags the rows feeding their last generated token: only
+    they take the decode kernel, so every prompt token goes through the
+    ragged kernel however the prompt was chunked or how much of it a
+    prefix hit served (``ops/ragged_paged_attention.py``).
 
     Each row's next-token logits sit at chunk position ``qlens - 1``;
     ``sample_now`` is False for non-final prefill chunks (the pad id is
@@ -97,8 +104,8 @@ def build_mixed_step(engine, max_batch, token_budget, max_pages,
     ``spec_window = W > 1`` builds the speculative variant (``EngineCore
     speculate=True``).  A speculating decode row packs ``[last_tok,
     d_1..d_k]`` (``k <= W - 1``, ``qlens = k + 1``) and its ``spec`` flag
-    routes its first W positions through the verify kernel (the
-    seven-element cache), so position ``j``'s logits are bit for bit
+    routes its first W positions through the verify kernel (the cache's
+    seventh element), so position ``j``'s logits are bit for bit
     what sequential step ``steps0 + j`` computes.  Greedy rows accept
     the longest draft prefix matching the per-position argmax chain;
     sampled rows accept ``d_j`` with probability ``p_j(d_j)`` (drawn
@@ -109,7 +116,8 @@ def build_mixed_step(engine, max_batch, token_budget, max_pages,
     per-lane work runs over ``[b * W]`` rows at once.
 
     Spec signature: ``run(params, ids, qlens, ctx, steps0, sample_now,
-    spec[b] bool, tables, samp, keys, scratch, k_pages, v_pages)`` →
+    decode, spec[b] bool, tables, samp, keys, scratch, k_pages,
+    v_pages)`` →
     ``(out[b, W], n_emit[b], fin[b], k_pages, v_pages)``: row ``i``
     emits ``out[i, :n_emit[i]]`` (cut at its first eos; 0 when
     ``sample_now`` is off).  Rejected drafts' KV stays in the row's
@@ -119,11 +127,11 @@ def build_mixed_step(engine, max_batch, token_budget, max_pages,
     C = int(token_budget)
     W = int(spec_window)
 
-    def run(params, ids, qlens, ctx, steps0, sample_now, tables, samp,
-            keys, scratch, k_pages, v_pages):
+    def run(params, ids, qlens, ctx, steps0, sample_now, decode, tables,
+            samp, keys, scratch, k_pages, v_pages):
         b = ids.shape[0]
-        caches = [(k_pages[i], v_pages[i], tables, ctx, qlens, scratch)
-                  for i in range(L)]
+        caches = [(k_pages[i], v_pages[i], tables, ctx, qlens, scratch,
+                   None, decode) for i in range(L)]
         i2d = torch.arange(C, dtype=torch.int32,
                            device=ids.device)[None].expand(b, C)
         # pad positions pin to 0 so their (never attended) K/V stays
@@ -142,13 +150,13 @@ def build_mixed_step(engine, max_batch, token_budget, max_pages,
     if W <= 1:
         return run
 
-    def run_spec(params, ids, qlens, ctx, steps0, sample_now, spec, tables,
-                 samp, keys, scratch, k_pages, v_pages):
+    def run_spec(params, ids, qlens, ctx, steps0, sample_now, decode, spec,
+                 tables, samp, keys, scratch, k_pages, v_pages):
         b = ids.shape[0]
         dev = ids.device
         spec2d = spec[:, None].expand(b, W)
         caches = [(k_pages[i], v_pages[i], tables, ctx, qlens, scratch,
-                   spec2d) for i in range(L)]
+                   spec2d, decode) for i in range(L)]
         i2d = torch.arange(C, dtype=torch.int32, device=dev)[None].expand(
             b, C)
         pos2d = torch.where(i2d < qlens[:, None], ctx[:, None] + i2d,
@@ -228,3 +236,25 @@ def build_mixed_step(engine, max_batch, token_budget, max_pages,
                 [c[1] for c in caches])
 
     return run_spec
+
+
+def build_page_copy(engine):
+    """Copy one physical page across every layer's pools: the
+    copy-on-write step for a shared partial tail block.  ``run(params,
+    src[1], dst[1], k_pages, v_pages)`` → ``(src, k_pages, v_pages)``,
+    the pools updated in place.  An int8 pool copies the page's scale
+    row with its payload, so the copy stays bitwise.  ``EngineCore``
+    runs it under one key per pool size, with ``src`` and ``dst`` staged,
+    so every copy-on-write replays one graph on the card."""
+
+    def copy(pages, src, dst):
+        for t in (pages if isinstance(pages, tuple) else (pages,)):
+            t.index_copy_(0, dst, t.index_select(0, src))
+
+    def run(params, src, dst, k_pages, v_pages):
+        s, d = src.long(), dst.long()
+        for pages in list(k_pages) + list(v_pages):
+            copy(pages, s, d)
+        return (src, k_pages, v_pages)
+
+    return run

@@ -35,6 +35,16 @@ class DeadlineExceededError(RejectedError):
     """Per-request deadline passed while queued or mid-decode."""
 
 
+def effective_salt(cache_salt, adapter_id):
+    """The prefix-cache isolation key from a tenant salt and an adapter
+    binding: the adapter id joins the salt whenever one is present, so
+    KV written under one fine-tune is never warm for another.  Salts are
+    opaque hashable keys to the radix tree."""
+    if adapter_id is None:
+        return cache_salt
+    return ("adapter", adapter_id, cache_salt)
+
+
 class RequestState(Enum):
     QUEUED = "queued"
     ACTIVE = "active"
@@ -51,10 +61,14 @@ _rid_counter = itertools.count(1)
 class Request:
     """One serving request (a single sequence row)."""
 
-    def __init__(self, prompt, config, timeout_s: Optional[float] = None):
+    def __init__(self, prompt, config, timeout_s: Optional[float] = None,
+                 cache_salt: Optional[str] = None):
         self.rid = next(_rid_counter)
         self.prompt = np.asarray(prompt, np.int32).reshape(-1)
         self.config = config
+        # prefix-cache isolation domain: requests share cached KV only
+        # with requests carrying the same salt (multi-tenant isolation)
+        self.cache_salt = cache_salt
         self.arrival = time.monotonic()
         self.deadline = (None if timeout_s is None
                          else self.arrival + float(timeout_s))
@@ -65,6 +79,12 @@ class Request:
         self.finished_at: Optional[float] = None
         self._chunks: _queue.Queue = _queue.Queue()
         self._done = threading.Event()
+
+    def route_salt(self):
+        """The key under which this request reads and writes the prefix
+        cache: ``effective_salt(cache_salt, adapter_id)``, with no
+        adapter (adapters are not ported yet)."""
+        return effective_salt(self.cache_salt, None)
 
     # ------------------------------------------------- scheduler side
     def expired(self, now: Optional[float] = None) -> bool:

@@ -15,16 +15,16 @@ Sources:
     after the most recent earlier occurrence of the row's trailing
     n-gram.  A pure function of the row's history, so the only kind
     sampled rows may use.
+  * ``PrefixCacheDraftSource`` — tree drafts: the radix tree's cached
+    continuation of the row's history (``PrefixCache.lookahead``), for
+    greedy rows only (the tree changes under traffic).
   * ``CallableDraftSource`` — any ``fn(history, k) -> tokens`` (a small
     draft model, an oracle); non-deterministic unless declared.
-  * ``AutoDraftSource`` — the reference's prefix-cache lookahead with an
-    ngram fallback.  The prefix cache is not ported yet (ROADMAP.md), so
-    here it is the ngram member alone — what the reference's auto source
-    does on a core without a cache.
+  * ``AutoDraftSource`` — tree lookahead when the core has a prefix
+    cache and the row tolerates non-determinism, ngram otherwise.
 
-``PrefixCacheDraftSource`` waits for the prefix-cache slice.  Sources
-return at most ``k`` ints and may return fewer or none (the row then
-rides the step as a plain decode row).
+Sources return at most ``k`` ints and may return fewer or none (the row
+then rides the step as a plain decode row).
 """
 from __future__ import annotations
 
@@ -70,6 +70,23 @@ class NgramDraftSource:
         return []
 
 
+class PrefixCacheDraftSource:
+    """Radix-tree lookahead drafts (greedy rows only — the tree mutates
+    under concurrent traffic, so proposals are not replay-stable)."""
+
+    name = "prefix_cache"
+    deterministic = False
+
+    def __init__(self, cache):
+        self._cache = cache
+
+    def propose(self, history: Sequence[int], k: int, salt=None,
+                deterministic_only: bool = False) -> List[int]:
+        if deterministic_only or self._cache is None or k <= 0:
+            return []
+        return self._cache.lookahead(history, k, salt=salt)
+
+
 class CallableDraftSource:
     """Wrap ``fn(history, k) -> tokens`` (e.g. a small draft model)."""
 
@@ -91,34 +108,41 @@ class CallableDraftSource:
 
 
 class AutoDraftSource:
-    """The reference's auto source on a core without a prefix cache:
-    ngram prompt-lookup."""
+    """Prefix-cache lookahead when the core has a tree (and the caller
+    tolerates non-determinism), ngram prompt-lookup otherwise."""
 
     name = "auto"
     deterministic = False
 
-    def __init__(self, max_ngram: int = 3):
+    def __init__(self, cache=None, max_ngram: int = 3):
+        self._tree = (PrefixCacheDraftSource(cache)
+                      if cache is not None else None)
         self._ngram = NgramDraftSource(max_ngram=max_ngram)
 
     def propose(self, history: Sequence[int], k: int, salt=None,
                 deterministic_only: bool = False) -> List[int]:
+        if self._tree is not None and not deterministic_only:
+            got = self._tree.propose(history, k, salt=salt)
+            if got:
+                return got
         return self._ngram.propose(history, k)
 
 
-def resolve_draft_source(spec):
+def resolve_draft_source(spec, cache=None):
     """Map an ``EngineCore(draft_source=...)`` argument to a source:
     a name ("auto" | "ngram" | "prefix_cache"), a callable (wrapped as
-    ``CallableDraftSource``), or any object with ``propose``.  With no
-    prefix cache in the port, "prefix_cache" raises the reference's
-    error for a core without one."""
+    ``CallableDraftSource``), or any object with ``propose``.  ``cache``
+    is the core's ``PrefixCache`` (None without one)."""
     if spec is None or spec == "auto":
-        return AutoDraftSource()
+        return AutoDraftSource(cache=cache)
     if spec == "ngram":
         return NgramDraftSource()
     if spec == "prefix_cache":
-        raise ValueError(
-            "draft_source='prefix_cache' needs "
-            "enable_prefix_cache=True")
+        if cache is None:
+            raise ValueError(
+                "draft_source='prefix_cache' needs "
+                "enable_prefix_cache=True")
+        return PrefixCacheDraftSource(cache)
     if callable(spec) and not hasattr(spec, "propose"):
         return CallableDraftSource(spec)
     if hasattr(spec, "propose"):

@@ -259,15 +259,6 @@ def test_write_chunk_and_token_pages_bitwise():
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
-def test_writers_reject_quantized_pools():
-    k, _ = _pools(0)
-    pair = PA.quantize_pages(torch.tensor(k))
-    with pytest.raises(NotImplementedError):
-        PA.write_token_page(pair, torch.zeros(1, MAX_PAGES, dtype=torch.int32),
-                            torch.zeros(1, H, D), torch.zeros(1,
-                                                              dtype=torch.int32))
-
-
 @pytest.mark.parametrize("quantized", [False, True])
 def test_prefix_prefill_attention_matches_jax(quantized):
     k, v = _pools(20)

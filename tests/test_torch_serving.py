@@ -167,9 +167,6 @@ def test_metrics_counted(streams):
 
 @pytest.mark.parametrize("knob", [
     dict(ragged=False),
-    dict(speculate=True, draft_source="prefix_cache",
-         enable_prefix_cache=True),
-    dict(enable_prefix_cache=True), dict(kv_dtype="int8"),
     dict(adapter_store=object()), dict(grammar_vocab=["a"]),
     dict(serving_mesh=object()), dict(kv_host_pages=4),
     dict(sched_policy="slack"), dict(fault_plane=object())])
@@ -187,8 +184,6 @@ def test_entry_points_default_to_the_card(models):
     eng = PagedGenerationEngine(tm, page_size=PAGE, device="cpu")
     with pytest.raises(RuntimeError, match="CUDA"):
         EngineCore(eng, **SHAPE)
-    with pytest.raises(NotImplementedError):
-        PagedGenerationEngine(tm, kv_dtype="int8", device="cpu")
 
 
 def test_rejects_oversized_and_unbatchable(models):
