@@ -75,11 +75,29 @@ per replay, so the launch checks stay exact.
    against int8, eager and as a graph replay, the round trip within
    ``kv_dequant_error_bound``) and a profiled int8 run whose groups
    hold the writes' scatters (``kv_write``);
-8. gpt — the LLaMA model freed, ``gpt3-6.7b`` at full width and depth
+8. generate — the engines' own entry points on the same model (bf16,
+   page 16): ``PagedGenerationEngine.generate`` greedy on 4 right-padded
+   prompts of 1024, 700, 129 and 17 tokens, 32 new tokens each, with
+   scores (a warm-up call captures each key's graph, then the call on
+   replays), EQUAL to ``stream(chunk_size=8)`` and to the call under
+   ``disable_graphs()``; seeded sampling (top-k 50, top-p 0.9,
+   temperature 0.8, repetition penalty 1.1), ``generate`` EQUAL to
+   ``stream``; beam search (4 beams, 16 new tokens, the first two
+   prompts: fewer pages than unshared beams, finite scores); greedy on
+   int8 pools; for every call the decode kernel once per layer per
+   decode step and the flash forward kernel once per layer per prefill,
+   and no capture after each key's first call; prefill ms, decode step
+   p50 graph against eager and tokens/s; the dense ``GenerationEngine``
+   greedy at full depth, its first-step logits within 5 % of the logit
+   scale of the paged engine's; then a beam ``generate`` of that dense
+   engine through ``EngineCore.submit_exclusive`` while 4 batch rows
+   decode: its value EQUAL to the direct call, the batch streams EQUAL
+   to a run without it;
+9. gpt — the LLaMA model freed, ``gpt3-6.7b`` at full width and depth
    (random bf16 weights) serves 8 requests with ngram speculation (the
    ragged kernel once per layer per step), again eager with EQUAL
    streams, then its paged forward against its dense one;
-9. train — GPT freed: (1) the flash kernels (forward, dK/dV, dQ) against
+10. train — GPT freed: (1) the flash kernels (forward, dK/dV, dQ) against
    their plain versions at (a) the ERNIE shape B=32, H=12, S=512, D=64
    with 10 % trailing padding as segment ids, dropout 0.1 and 0, fp32
    and bf16, (b) B=2, H=32, S=4096, D=128 causal bf16, (c) Sq=256 <
@@ -100,9 +118,10 @@ per replay, so the launch checks stay exact.
    plain attention, every loss finite and no flash launch; (4) eager,
    one step at depth 2, batch 8 with the kernels against the same step
    with plain attention, fp32 and O2, on three batches;
-10. the kernels line (one JSON object; the paged kernels' launches
-    summed over the runs in ``launches_by_run``), the card line, and
-    last ``{"ok": true, "device": {...}}``.
+11. the kernels line (one JSON object; the paged kernels' and the
+    flash forward's launches summed over the runs in
+    ``launches_by_run``), the card line, and last ``{"ok": true,
+    "device": {...}}``.
 
 Without a card, or without the repository beside it, it exits non-zero
 before printing any result.  It imports nothing of JAX.
@@ -1451,6 +1470,352 @@ def int8_phase(model, device, card, bf16_serve):
 
 # ---------------------------------------------------------------- phase 8
 
+GEN_PROMPT_LENS = (1024, 700, 129, 17)
+GEN_NEW = 32
+BEAM_NEW = 16
+NUM_BEAMS = 4
+GEN_SAMPLED = dict(do_sample=True, top_k=50, top_p=0.9, temperature=0.8,
+                   repetition_penalty=1.1, seed=1234)
+EXCLUSIVE_LENS = (512, 257, 128, 33)     # batch rows beside the call
+
+
+def gen_prompts(vocab, lens, seed=8):
+    """Right-padded ``[b, max(lens)]`` ids of random tokens and their
+    0/1 mask."""
+    rs = np.random.RandomState(seed)
+    ids = np.zeros((len(lens), max(lens)), np.int32)
+    mask = np.zeros_like(ids)
+    for i, n in enumerate(lens):
+        ids[i, :n] = rs.randint(1, vocab, (n,))
+        mask[i, :n] = 1
+    return ids, mask
+
+
+def _timed_programs(engine):
+    """Time every ``run_paged_program`` call of ``engine`` (the card
+    synced before and after); returns the list the ``(key, ms)`` pairs
+    are appended to.  ``del engine.run_paged_program`` undoes it."""
+    import torch
+
+    inner = engine.run_paged_program
+    calls = []
+    cuda = engine.device.type == "cuda"
+
+    def run(key, builder, *args):
+        if cuda:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = inner(key, builder, *args)
+        if cuda:
+            torch.cuda.synchronize()
+        calls.append((key, (time.perf_counter() - t0) * 1e3))
+        return out
+
+    engine.run_paged_program = run
+    return calls
+
+
+def _gen_times(calls):
+    """(prefill ms, decode step ms p50) of one call's programs: a chunk
+    program's time over its steps."""
+    pre = [ms for k, ms in calls if not k[0].endswith("chunk")]
+    steps = [ms / k[1] for k, ms in calls if k[0].endswith("chunk")]
+    return (float(np.median(pre)) if pre else float("nan"),
+            float(np.median(steps)) if steps else float("nan"))
+
+
+def _check_generate_launches(launches, L, decode_steps, prefills, tag):
+    """Each decode step walks the pages once a layer (the decode kernel),
+    each prefill attends once a layer (the flash forward kernel)."""
+    want = {"paged_decode": L * decode_steps, "flash_fwd": L * prefills}
+    got = {n: launches[n] for n in want}
+    if got != want:
+        raise AssertionError(f"{tag}: launches {got}, want {want}")
+
+
+def gen_counted(engine, calls, fn, tag, L, decode_steps, prefills):
+    """``fn()`` with the launch counts zeroed just before and read just
+    after and the engine's programs timed; checks the launches and
+    returns ``(result, record)``."""
+    from paddle_infer_tpu_torch.ops import _build
+
+    for k in _build.KERNELS.values():
+        k.launches = 0
+    del calls[:]
+    t0 = time.perf_counter()
+    out = fn()
+    wall = time.perf_counter() - t0
+    launches = {n: k.launches for n, k in _build.KERNELS.items()}
+    _check_generate_launches(launches, L, decode_steps, prefills, tag)
+    pre, step = _gen_times(calls)
+    return out, {"wall_s": wall, "prefill_ms": pre, "step_ms": step,
+                 "launches": launches, "programs": len(calls)}
+
+
+def _stream_all(engine, ids, g, mask, chunk):
+    return np.concatenate(list(engine.stream(ids, g, attention_mask=mask,
+                                             chunk_size=chunk)), axis=1)
+
+
+def _first_logits(engine, fn):
+    """The last real prompt position's logits of each row (float32
+    ``[b, V]``) from the first prefill ``fn()`` makes through ``engine``,
+    run eagerly: the paged engine's ``_prefill_logits`` picks position
+    ``length - 1`` of its right-padded rows, the dense engine's prompts
+    are left-padded (the last position)."""
+    paged = hasattr(engine, "_prefill_logits")
+    inner = engine._prefill_logits if paged else engine._model_step
+    got = []
+
+    def record(*a):
+        out = inner(*a)
+        if not got:
+            got.append((out[0] if paged else out[0][:, -1]).float().clone())
+        return out
+
+    name = "_prefill_logits" if paged else "_model_step"
+    setattr(engine, name, record)
+    try:
+        with eager():
+            fn()
+    finally:
+        delattr(engine, name)
+    return got[0]
+
+
+def generate_phase(model, device, card, prompt_lens=GEN_PROMPT_LENS,
+                   max_new=GEN_NEW, beam_new=BEAM_NEW,
+                   exclusive_lens=EXCLUSIVE_LENS):
+    """The engines' own entry points on the serve phase's model:
+    ``PagedGenerationEngine.generate`` greedy (graphs, again as a
+    ``stream``, again eager: EQUAL), seeded sampling (``generate`` EQUAL
+    to ``stream``), beam search (pages shared, scores finite), int8
+    pools; the launches of the decode and flash forward kernels exact
+    for each call and no capture after each key's first call; the dense
+    ``GenerationEngine`` against the paged one; a beam call of a dense
+    engine through ``EngineCore.submit_exclusive`` beside batch rows.
+    Returns ``{"decode": launches, "flash": launches}`` over the counted
+    calls."""
+    from paddle_infer_tpu_torch.core.graphs import graphs_enabled
+    from paddle_infer_tpu_torch.inference.generation import (
+        GenerationConfig, GenerationEngine, PagedGenerationEngine)
+    from paddle_infer_tpu_torch.observability import get_compile_log
+
+    L = model.config.num_hidden_layers
+    vocab = model.config.vocab_size
+    ids, mask = gen_prompts(vocab, prompt_lens)
+    b = len(prompt_lens)
+    log = get_compile_log()
+    log.reset()
+    eng = PagedGenerationEngine(model, page_size=16, device=device)
+    calls = _timed_programs(eng)
+    total = {"decode": 0, "flash": 0}
+
+    graphs = graphs_enabled(device)
+    replays = {"calls": 0}
+
+    def counted(fn, tag, steps, replay=False):
+        """A counted call; ``replay``: every key it runs was captured by
+        an earlier call, so the compile log must not move."""
+        before = log.count()
+        out, rec = gen_counted(eng, calls, fn, tag, L, steps, 1)
+        total["decode"] += rec["launches"]["paged_decode"]
+        total["flash"] += rec["launches"]["flash_fwd"]
+        if replay and graphs:
+            replays["calls"] += 1
+            if log.count() != before:
+                raise AssertionError(f"{tag}: {log.count() - before} "
+                                     "captures after the keys' first call")
+        return out, rec
+
+    def valid(seq, tag):
+        if seq.min() < 0 or seq.max() >= vocab:
+            raise AssertionError(f"{tag}: token outside the vocabulary")
+
+    def gen(g):
+        return lambda: eng.generate(ids, g, attention_mask=mask,
+                                    return_scores=True)
+
+    greedy = GenerationConfig(max_new_tokens=max_new)
+    steps = max_new - 1
+    # each key's first call runs eagerly and captures its graph
+    (seq0, _), first = counted(gen(greedy), "generate greedy warm-up", steps)
+    captured = log.count()
+    (seq, score), rec = counted(gen(greedy), "generate greedy", steps,
+                                replay=True)
+    st, srec = counted(lambda: _stream_all(eng, ids, greedy, mask, 8),
+                       "stream greedy", steps, replay=True)
+    with eager():
+        (eseq, escore), erec = counted(gen(greedy), "generate greedy eager",
+                                       steps)
+    valid(seq, "greedy")
+    if not np.isfinite(score).all():
+        raise AssertionError("greedy scores not finite")
+    for name, other in (("warm-up", seq0), ("stream(chunk_size=8)", st),
+                        ("disable_graphs()", eseq)):
+        if not np.array_equal(other, seq):
+            raise AssertionError(f"greedy generate differs from {name}")
+    if not np.array_equal(escore, score):
+        raise AssertionError("greedy scores differ graph vs eager")
+    if graphs and captured == 0:
+        raise AssertionError("the warm-up call captured no graph")
+    toks = b * max_new
+    print(f"[generate] greedy {b} prompts {list(prompt_lens)}, {max_new} "
+          f"new: stream(chunk_size=8) EQUAL, disable_graphs() EQUAL "
+          f"(tokens and scores), captures={captured} in the warm-up "
+          f"call, 0 in the replays ({card})", flush=True)
+    print(f"[generate] prefill_ms graph={rec['prefill_ms']:.2f} "
+          f"eager={erec['prefill_ms']:.2f} (warm-up, capturing: "
+          f"{first['prefill_ms']:.2f}); decode step p50 ms "
+          f"graph={rec['step_ms']:.3f} eager={erec['step_ms']:.3f} "
+          f"({card})", flush=True)
+    print(f"[generate] tokens_per_s generate={toks / rec['wall_s']:.1f} "
+          f"stream={toks / srec['wall_s']:.1f} "
+          f"eager={toks / erec['wall_s']:.1f} ({card})", flush=True)
+    print(f"[generate] launches per call: paged_decode="
+          f"{rec['launches']['paged_decode']} ({L} layers x {steps} decode "
+          f"steps), flash_fwd={rec['launches']['flash_fwd']} ({L} per "
+          "prefill)", flush=True)
+
+    sampled = GenerationConfig(max_new_tokens=max_new, **GEN_SAMPLED)
+    (sseq, _), _ = counted(gen(sampled), "generate sampled", steps)
+    sst, _ = counted(lambda: _stream_all(eng, ids, sampled, mask, 8),
+                     "stream sampled", steps, replay=True)
+    valid(sseq, "sampled")
+    if not np.array_equal(sseq, sst):
+        raise AssertionError("sampled generate differs from its stream")
+    print(f"[generate] sampled {GEN_SAMPLED}: generate EQUAL stream "
+          f"({card})", flush=True)
+
+    beam = GenerationConfig(max_new_tokens=beam_new, num_beams=NUM_BEAMS)
+
+    def bgen():
+        return eng.generate(ids[:2], beam, attention_mask=mask[:2],
+                            return_scores=True)
+
+    counted(bgen, "beam warm-up", beam_new - 1)
+    (bseq, bscore), brec = counted(bgen, "beam", beam_new - 1, replay=True)
+    stats = eng.last_beam_pool_stats
+    valid(bseq, "beam")
+    if not stats["used_pages"] < stats["unshared_equivalent"]:
+        raise AssertionError(f"beam pages not shared: {stats}")
+    if not np.isfinite(bscore).all():
+        raise AssertionError(f"beam scores not finite: {bscore}")
+    print(f"[generate] beam {NUM_BEAMS} beams x 2 prompts, {beam_new} new: "
+          f"pool {stats}, scores {bscore.tolist()}, tokens_per_s="
+          f"{2 * beam_new / brec['wall_s']:.1f} (best beams), decode step "
+          f"p50 ms={brec['step_ms']:.3f} over {2 * NUM_BEAMS} rows "
+          f"({card})", flush=True)
+    print(f"[generate] {log.count()} captures over the greedy, sampled and "
+          f"beam keys, none in {replays['calls']} calls on captured keys",
+          flush=True)
+    del eng.run_paged_program
+    # the first-step logits of a paged engine, for the dense engine below
+    paged_first = _first_logits(eng, gen(greedy))
+    del eng
+    free_memory()
+
+    q8 = PagedGenerationEngine(model, page_size=16, kv_dtype="int8",
+                               device=device)
+    calls8 = _timed_programs(q8)
+    (qseq, qscore), qrec = gen_counted(
+        q8, calls8, lambda: q8.generate(ids, greedy, attention_mask=mask,
+                                        return_scores=True),
+        "generate int8", L, steps, 1)
+    total["decode"] += qrec["launches"]["paged_decode"]
+    total["flash"] += qrec["launches"]["flash_fwd"]
+    valid(qseq, "int8")
+    if not np.isfinite(qscore).all():
+        raise AssertionError("int8 scores not finite")
+    print(f"[generate] int8 pools greedy: {int((qseq == seq).sum())}/"
+          f"{seq.size} tokens as unquantized pages, prefill_ms="
+          f"{qrec['prefill_ms']:.2f} (capturing) ({card})", flush=True)
+    del q8.run_paged_program, q8
+    free_memory()
+
+    dense = GenerationEngine(model, device=device)
+    dense_first = _first_logits(dense, lambda: dense.generate(
+        ids, greedy, attention_mask=mask))
+    t0 = time.perf_counter()
+    dseq = dense.generate(ids, greedy, attention_mask=mask)
+    dwall = time.perf_counter() - t0
+    valid(dseq, "dense")
+    scale = float(paged_first.abs().max())
+    err = float((dense_first - paged_first).abs().max())
+    print(f"[generate] dense GenerationEngine greedy ({L} layers): "
+          f"first-step logits max_abs_err={err:.4e} logit_scale="
+          f"{scale:.4e} rel_tol=0.05; {int((dseq == seq).sum())}/{seq.size}"
+          f" tokens as the paged engine (no gate: bf16 near-ties); "
+          f"tokens_per_s={toks / dwall:.1f} ({card})", flush=True)
+    if not err <= 0.05 * scale:
+        raise AssertionError("dense first-step logits disagree with paged")
+
+    exclusive_phase(model, device, dense, card, exclusive_lens)
+    del dense
+    free_memory()
+    return total
+
+
+def exclusive_phase(model, device, dense, card, lens):
+    """A beam ``generate`` of ``dense`` submitted through
+    ``EngineCore.submit_exclusive`` while batch rows are in flight: its
+    value EQUAL to the same call made directly, the batch streams EQUAL
+    to a run without it."""
+    from paddle_infer_tpu_torch.inference.generation import \
+        GenerationConfig
+    from paddle_infer_tpu_torch.observability import get_compile_log
+    from paddle_infer_tpu_torch.serving import RequestState
+    from paddle_infer_tpu_torch.serving import request as trequest
+
+    vocab = model.config.vocab_size
+    # two beam prompts as long as the last two batch rows
+    bids, bmask = gen_prompts(vocab, lens[-2:], seed=9)
+    beam = GenerationConfig(max_new_tokens=8, num_beams=NUM_BEAMS)
+    want = dense.generate(bids, beam, attention_mask=bmask,
+                          return_scores=True)
+    rs = np.random.RandomState(10)
+    prompts = [rs.randint(0, vocab, (n,)).astype(np.int32) for n in lens]
+    streams = []
+    for with_call in (False, True):
+        get_compile_log().reset()
+        core = make_core(model, device)
+        trequest._rid_counter = itertools.count(400)
+        try:
+            reqs = [core.submit(p, GenerationConfig(max_new_tokens=16))[0]
+                    for p in prompts]
+            core.run_once()
+            core.run_once()                       # the rows are decoding
+            ex = None
+            if with_call:
+                ex = core.submit_exclusive(lambda: dense.generate(
+                    bids, beam, attention_mask=bmask, return_scores=True))
+            for _ in range(500):
+                if all(r.done for r in reqs) and (ex is None or ex.done):
+                    break
+                core.run_once()
+        finally:
+            core.close()
+            free_memory()
+        bad = [r.rid for r in reqs if r.state != RequestState.DONE]
+        if bad:
+            raise AssertionError(f"exclusive phase: requests {bad} not DONE")
+        streams.append([list(r.tokens) for r in reqs])
+    if ex.state != RequestState.DONE:
+        raise AssertionError(f"exclusive request {ex.state}: {ex.error!r}")
+    if not (np.array_equal(ex.value[0], want[0])
+            and np.array_equal(ex.value[1], want[1])):
+        raise AssertionError("exclusive value differs from the direct call")
+    if streams[0] != streams[1]:
+        raise AssertionError("batch streams changed beside the exclusive "
+                             "call")
+    print(f"[generate] exclusive beam generate ({NUM_BEAMS} beams, 2 "
+          f"prompts) through submit_exclusive beside {len(lens)} batch "
+          f"rows in flight: value EQUAL to the direct call, batch streams "
+          f"EQUAL to a run without it ({card})", flush=True)
+
+
+# ---------------------------------------------------------------- phase 9
+
 def gpt_phase(device, config=None, dtype=None, card=""):
     """gpt3-6.7b (or ``config``) at full width and depth: ngram-speculative
     serving of 8 requests on graphs and again eager (equal streams), then
@@ -1489,7 +1854,7 @@ def gpt_phase(device, config=None, dtype=None, card=""):
     return st
 
 
-# ---------------------------------------------------------------- phase 9
+# --------------------------------------------------------------- phase 10
 
 # (a) ERNIE-3.0-base attention with 10 % trailing padding as segment
 # ids, (b) long causal (where the reference itself picks flash), (c)
@@ -2269,7 +2634,11 @@ def main() -> int:
     by_run["paged_verify"]["int8 spec"] = \
         iruns["spec"]["launches"]["paged_verify"]
 
-    # phase 8: GPT, with the LLaMA model freed first
+    # phase 8: the engines' own entry points on the same model
+    gen = generate_phase(model, device, card)
+    by_run["paged_decode"]["generate"] = gen["decode"]
+
+    # phase 9: GPT, with the LLaMA model freed first
     del model
     free_memory()
     gst = gpt_phase(device, card=card)
@@ -2277,13 +2646,16 @@ def main() -> int:
     for name, runs_of in by_run.items():
         launches[name] = sum(runs_of.values())
 
-    # phase 9: training, GPT freed first
+    # phase 10: training, GPT freed first
     free_memory()
     fres = flash_kernels_phase(device)
     hybrid_vs_flash(device)
     tst = train_pair(device, card)
+    by_run["flash_fwd"] = {"train": tst["launches"]["flash_fwd"],
+                           "generate": gen["flash"]}
     for name in ("flash_fwd", "flash_dkdv", "flash_dq"):
-        launches[name] = tst["launches"][name]
+        launches[name] = sum(by_run[name].values()) if name in by_run \
+            else tst["launches"][name]
         kres[name] = {"bf16": dict(fres[("a", "bf16", 0.1)][name])}
         # SDPA is the same function only at dropout 0
         kres[name]["bf16"]["library_ms"] = \
@@ -2296,7 +2668,7 @@ def main() -> int:
     free_memory()
     step_parity_phase(device)
 
-    # phase 10: the kernels line, the card line, the result line
+    # phase 11: the kernels line, the card line, the result line
     line = []
     for name, k in _build.KERNELS.items():
         rec = kres[name]["bf16"]

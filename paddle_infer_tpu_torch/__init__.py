@@ -15,9 +15,10 @@ the CPU; on a CUDA tensor it launches the kernel or raises.
 What is ported so far: the ragged continuous-batching serving path of
 ``ROADMAP.md`` slice A (``EngineCore`` → ``build_mixed_step`` →
 ``PagedGenerationEngine`` → LLaMA/GPT → ragged paged attention), with
-speculative draft/verify serving, the prefix cache and int8 KV pages;
-and ERNIE pretraining on one device (``parallel.FleetTrainStep`` →
-``models.ErnieForPretraining`` → the
+speculative draft/verify serving, the prefix cache, int8 KV pages and
+exclusive requests; the engines' own ``generate`` / ``stream`` / beam
+search (paged and dense); and ERNIE pretraining on one device
+(``parallel.FleetTrainStep`` → ``models.ErnieForPretraining`` → the
 flash-attention kernels, ``optimizer.AdamW``, ``amp`` O2).  On the card
 both steps run as one CUDA graph per key (``core/graphs.py``), each
 capture logged by ``observability/compilelog.py``.

@@ -115,10 +115,19 @@ def _key_words(key):
 
 def split(key, num: int = 2) -> torch.Tensor:
     """``jax.random.split(key, num)`` in partitionable mode: key ``i``
-    is ``threefry(key, (0, i))`` → ``[num, 2]``."""
+    is ``threefry(key, (0, i))`` → ``[num, 2]``, on the host with
+    Python integers (``split_on_device`` is the same as tensor ops)."""
     k1, k2 = _key_words(key)
     return torch.tensor([threefry2x32(k1, k2, 0, i) for i in range(num)],
                         dtype=torch.int64)
+
+
+def split_on_device(key, num: int = 2) -> torch.Tensor:
+    """``split`` as tensor ops on the key's device, reading nothing back
+    (a CUDA graph can hold it): ``threefry(key, (0, i))`` is
+    ``fold_in(key, i)``."""
+    key = _as_key(key)
+    return fold_in(key, torch.arange(num, device=key.device))
 
 
 def bits(key) -> torch.Tensor:
@@ -225,10 +234,13 @@ def uniform(key, shape=(), minval=0.0, maxval=1.0) -> torch.Tensor:
 def categorical(key, logits: torch.Tensor) -> torch.Tensor:
     """``jax.random.categorical`` over the last axis (Gumbel-max with
     the default low-range gumbel: ``-log(-log(uniform(tiny, 1)))``).
-    ``key [..., 2]`` batches over the leading dims of ``logits``, like
-    ``jax.vmap(lambda k, row: categorical(k, row))``."""
+    ``key [..., 2]`` batches over as many leading dims of ``logits`` as
+    it has, like ``jax.vmap(lambda k, row: categorical(k, row))``; the
+    rest are drawn from each key, so one key ``[2]`` over ``[b, V]``
+    logits is ``jax.random.categorical(key, logits)``."""
     logits = logits.to(torch.float32)
-    u = uniform(_as_key(key, logits.device), (logits.shape[-1],),
+    key = _as_key(key, logits.device)
+    u = uniform(key, tuple(logits.shape[key.dim() - 1:]),
                 minval=_TINY, maxval=1.0)
     g = -torch.log(-torch.log(u))
     return torch.argmax(g + logits, dim=-1)

@@ -92,7 +92,8 @@ class GPTModel(nn.Module):
         self.final_norm = LayerNorm(config.hidden_size,
                                     epsilon=config.layer_norm_eps, **kw)
 
-    def forward(self, input_ids, position_ids=None, caches=None):
+    def forward(self, input_ids, position_ids=None, attention_mask=None,
+                caches=None):
         x = self.word_embeddings(input_ids)
         if position_ids is None:
             # dense forward: positions 0..s-1 (the serving step always
@@ -103,10 +104,10 @@ class GPTModel(nn.Module):
         new_caches = [] if caches is not None else None
         for i, layer in enumerate(self.layers):
             if caches is not None:
-                x, c = layer(x, cache=caches[i])
+                x, c = layer(x, attention_mask, cache=caches[i])
                 new_caches.append(c)
             else:
-                x = layer(x)
+                x = layer(x, attention_mask)
         x = self.final_norm(x)
         return (x, new_caches) if caches is not None else x
 
@@ -131,12 +132,14 @@ class GPTForCausalLM(nn.Module):
                     mod.reset_parameters(gen)
         self.eval()
 
-    def forward(self, input_ids, position_ids=None, caches=None):
-        """Logits ``[b, s, vocab]``; with ``caches`` (one six- or
-        seven-tuple per layer, see
-        ``ParallelSelfAttention._forward_paged``) returns ``(logits,
-        new_caches)``."""
-        out = self.gpt(input_ids, position_ids=position_ids, caches=caches)
+    def forward(self, input_ids, position_ids=None, attention_mask=None,
+                caches=None):
+        """Logits ``[b, s, vocab]``; ``attention_mask`` is additive
+        (broadcast to ``[b, h, s, kv]``).  With ``caches`` (one cache
+        tuple per layer: static, paged or ragged, see
+        ``ParallelSelfAttention``) returns ``(logits, new_caches)``."""
+        out = self.gpt(input_ids, position_ids=position_ids,
+                       attention_mask=attention_mask, caches=caches)
         x, new_caches = out if caches is not None else (out, None)
         logits = torch.matmul(x, self.gpt.word_embeddings.weight.t())
         return (logits, new_caches) if caches is not None else logits

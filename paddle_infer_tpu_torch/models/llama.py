@@ -97,9 +97,9 @@ class LlamaDecoderLayer(nn.Module):
         self.mlp = LlamaMLP(config.hidden_size, config.intermediate_size,
                             **kw)
 
-    def forward(self, x, cache=None, position_ids=None):
-        h = self.self_attn(self.input_layernorm(x), cache=cache,
-                           position_ids=position_ids)
+    def forward(self, x, attn_mask=None, cache=None, position_ids=None):
+        h = self.self_attn(self.input_layernorm(x), attn_mask=attn_mask,
+                           cache=cache, position_ids=position_ids)
         if cache is not None:
             h, new_cache = h
         x = x + h
@@ -123,15 +123,18 @@ class LlamaModel(nn.Module):
         self.norm = RMSNorm(config.hidden_size, epsilon=config.rms_norm_eps,
                             device=device, dtype=dtype)
 
-    def forward(self, input_ids, position_ids=None, caches=None):
+    def forward(self, input_ids, position_ids=None, attention_mask=None,
+                caches=None):
         x = self.embed_tokens(input_ids)
         new_caches = [] if caches is not None else None
         for i, layer in enumerate(self.layers):
             if caches is not None:
-                x, c = layer(x, cache=caches[i], position_ids=position_ids)
+                x, c = layer(x, attn_mask=attention_mask, cache=caches[i],
+                             position_ids=position_ids)
                 new_caches.append(c)
             else:
-                x = layer(x, position_ids=position_ids)
+                x = layer(x, attn_mask=attention_mask,
+                          position_ids=position_ids)
         x = self.norm(x)
         return (x, new_caches) if caches is not None else x
 
@@ -160,13 +163,14 @@ class LlamaForCausalLM(nn.Module):
                     mod.reset_parameters(gen)
         self.eval()
 
-    def forward(self, input_ids, position_ids=None, caches=None):
-        """Logits ``[b, s, vocab]``; with ``caches`` (one paged-cache
-        tuple per layer, see ``ParallelSelfAttention._forward_paged``)
-        returns
-        ``(logits, new_caches)``."""
+    def forward(self, input_ids, position_ids=None, attention_mask=None,
+                caches=None):
+        """Logits ``[b, s, vocab]``; ``attention_mask`` is additive
+        (broadcast to ``[b, h, s, kv]``).  With ``caches`` (one cache
+        tuple per layer: static, paged or ragged, see
+        ``ParallelSelfAttention``) returns ``(logits, new_caches)``."""
         out = self.llama(input_ids, position_ids=position_ids,
-                         caches=caches)
+                         attention_mask=attention_mask, caches=caches)
         if caches is not None:
             x, new_caches = out
             return self.lm_head(x), new_caches

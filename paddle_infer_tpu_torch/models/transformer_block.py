@@ -2,16 +2,22 @@
 
 Port of ``paddle_infer_tpu/models/transformer_block.py``:
 
-* ``ParallelSelfAttention``: QKV split, RoPE, GQA expansion, and the
-  six- to eight-element-cache ragged branch of ``_forward_paged`` that
-  ``serving/programs.build_mixed_step`` drives (the seventh element is
-  the speculative-verify flag, the eighth the decode-row flag); pools
-  are tensors or int8 ``(payload, scales)`` pairs.  With no cache the
-  block calls ``sdpa`` (``ops/attention.py``) as the JAX block does: on
-  the card the flash
-  kernels, causal or not, with padding masks as segment ids and
-  attention dropout in training.  The legacy 4- and 5-element paged
-  caches of the reference are not ported yet (ROADMAP.md) and raise.
+* ``ParallelSelfAttention``: QKV split, RoPE, GQA expansion and three
+  cache forms.  The paged cache of ``_forward_paged``: four elements
+  for the engines' own ``generate`` / ``stream`` / beam programs (a
+  prompt writes its pages and attends causally through ``sdpa``, a
+  token is written and attends through the paged decode kernel), six
+  to eight for the ragged step that ``serving/programs.build_mixed_step``
+  drives (the seventh element is the speculative-verify flag, the
+  eighth the decode-row flag); pools are tensors or int8 ``(payload,
+  scales)`` pairs.  The static cache ``(k_buf, v_buf, index)`` of the
+  dense ``GenerationEngine``, with the ``kv_cache_mask`` bound and an
+  additive ``attn_mask``, on the plain attention path.  With no cache
+  the block calls ``sdpa`` (``ops/attention.py``) as the JAX block
+  does: on the card the flash kernels, causal or not, with padding
+  masks as segment ids and attention dropout in training.  The
+  five-element windowed prefill cache of the reference is not ported
+  yet (ROADMAP.md) and raises.
 * ``ParallelMLP`` (with its act-dropout) and ``ParallelTransformerLayer``
   in both forms: post-LN (ERNIE/BERT, the default, as in the reference)
   and pre-LN (``normalize_before=True``, GPT).  MoE FFNs raise.
@@ -31,6 +37,7 @@ from torch import nn
 from ..nn import functional as PF
 from ..nn.layers import (ColumnParallelLinear, Dropout, LayerNorm,
                          RowParallelLinear)
+from ..ops import paged_attention as PA
 from ..ops import ragged_paged_attention as RPA
 from ..ops.attention import rope
 
@@ -85,8 +92,10 @@ class ParallelSelfAttention(nn.Module):
             rep = self.num_heads // self.num_kv_heads
             k = torch.repeat_interleave(k, rep, dim=2)
             v = torch.repeat_interleave(v, rep, dim=2)
+        if cache is not None and len(cache) >= 4:
+            return self._forward_paged(q, k, v, cache, attn_mask)
         if cache is not None:
-            return self._forward_paged(q, k, v, cache)
+            return self._forward_static(q, k, v, cache, attn_mask)
         out = PF.scaled_dot_product_attention(
             q, k, v, attn_mask=attn_mask,
             dropout_p=self.dropout if self.training else 0.0,
@@ -94,8 +103,46 @@ class ParallelSelfAttention(nn.Module):
             kv_segment_ids=segment_ids, keys=self.keys)
         return self.out_proj(out.reshape(b, s, self.hidden))
 
-    def _forward_paged(self, q, k, v, cache):
-        """Ragged mixed-batch paged step.  ``cache`` is the six-tuple
+    def _forward_static(self, q, k, v, cache, attn_mask):
+        """Static-cache step of the dense engine: ``cache`` is ``(k_buf
+        [b, L, h, d], v_buf, index)``, the chunk lands at slots ``index
+        .. index + s - 1`` (the buffers are updated in place) and
+        attends to the slots ``<= index + i`` (``kv_cache_mask``, which
+        also carries causality within the chunk) plus ``attn_mask``,
+        on the plain attention path as the reference's masked call.
+        Returns ``(out, (k_buf, v_buf, index + s))``."""
+        if len(cache) != 3:
+            raise NotImplementedError(
+                f"{len(cache)}-element caches are not a cache form of the "
+                "port (3: static, 4: paged, 6-8: ragged)")
+        k_buf, v_buf, index = cache
+        b, s = q.shape[0], q.shape[1]
+        slots = index.long() + torch.arange(s, device=q.device)
+        k_buf.index_copy_(1, slots, k.to(k_buf.dtype))
+        v_buf.index_copy_(1, slots, v.to(v_buf.dtype))
+        mask = kv_cache_mask(index, s, k_buf.shape[1])
+        if attn_mask is not None:
+            mask = attn_mask + mask
+        out = PF.scaled_dot_product_attention(q, k_buf, v_buf,
+                                              attn_mask=mask, dropout_p=0.0,
+                                              is_causal=False)
+        out = self.out_proj(out.reshape(b, s, self.hidden))
+        return out, (k_buf, v_buf, index + s)
+
+    def _forward_paged(self, q, k, v, cache, attn_mask=None):
+        """Paged step.  A four-element ``cache`` ``(k_pages, v_pages,
+        tables [b, max_pages], positions [b])`` is the engines' own:
+        ``positions`` counts the tokens each row already holds.  A
+        prompt (``s > 1``, a multiple of the page size, right-padded)
+        writes its pages (``write_prompt_pages``) and attends causally
+        over itself through ``sdpa`` — on an int8 pool over the bytes it
+        just wrote (``gather_prompt_pages``), so it sees what every later
+        reader sees; a token (``s == 1``) is written at its row's
+        position (``write_token_page``) and attends through
+        ``paged_attention_decode``.  Returns ``(out, cache)`` with
+        positions advanced by ``s``.
+
+        Otherwise the ragged mixed-batch step: ``cache`` is the six-tuple
         ``(k_pages [P,h,page,d], v_pages, tables [b,max_pages],
         positions [b], query_lens [b], scratch_page)``: row ``b``'s
         tokens sit at ``positions[b] + i`` for ``i < query_lens[b]``,
@@ -108,10 +155,12 @@ class ParallelSelfAttention(nn.Module):
         token (without it every one-token row counts as one).  The pools
         are updated in place; returns ``(out, new_cache)`` with
         positions advanced."""
+        if len(cache) == 4:
+            return self._forward_pages(q, k, v, cache, attn_mask)
         if len(cache) not in (6, 7, 8):
             raise NotImplementedError(
-                f"{len(cache)}-element paged caches (legacy prefill and "
-                "prefix-cache windowed) are not ported yet; see ROADMAP.md")
+                f"{len(cache)}-element paged caches (the prefix-cache "
+                "windowed prefill) are not ported yet; see ROADMAP.md")
         k_pages, v_pages, tables, positions, qlens, scratch = cache[:6]
         verify = cache[6] if len(cache) > 6 else None
         decode = cache[7] if len(cache) > 7 else None
@@ -126,6 +175,41 @@ class ParallelSelfAttention(nn.Module):
         out = self.out_proj(out.reshape(b, s, self.hidden))
         return out, (k_pages, v_pages, tables, positions + qlens, qlens,
                      scratch) + tuple(cache[6:])
+
+
+    def _forward_pages(self, q, k, v, cache, attn_mask):
+        k_pages, v_pages, tables, positions = cache
+        b, s = q.shape[0], q.shape[1]
+        if s > 1:
+            PA.write_prompt_pages(k_pages, tables, k)
+            PA.write_prompt_pages(v_pages, tables, v)
+            if PA.is_quantized(k_pages):
+                # the dequantized float32 bytes, in the queries' dtype:
+                # the flash kernel takes one dtype (a no-op at fp32)
+                k = PA.gather_prompt_pages(k_pages, tables, s).to(q.dtype)
+                v = PA.gather_prompt_pages(v_pages, tables, s).to(q.dtype)
+            out = PF.scaled_dot_product_attention(
+                q, k, v, attn_mask=attn_mask, dropout_p=0.0, is_causal=True)
+        else:
+            PA.write_token_page(k_pages, tables, k[:, 0], positions)
+            PA.write_token_page(v_pages, tables, v[:, 0], positions)
+            out = PA.paged_attention_decode(q[:, 0].contiguous(), k_pages,
+                                            v_pages, tables,
+                                            positions + 1)[:, None]
+        out = self.out_proj(out.reshape(b, s, self.hidden))
+        return out, (k_pages, v_pages, tables, positions + s)
+
+
+def kv_cache_mask(index, q_len, kv_len):
+    """Additive mask over a static KV buffer (the reference's
+    ``kv_cache_mask`` op): query ``i``, at absolute position ``index +
+    i``, sees slot ``j`` iff ``j <= index + i``; 0 there, -1e9 elsewhere,
+    float32 ``[q_len, kv_len]``."""
+    i = torch.arange(q_len, device=index.device)[:, None]
+    j = torch.arange(kv_len, device=index.device)[None, :]
+    valid = j <= index.long() + i
+    return torch.where(valid, torch.zeros((), device=index.device),
+                       torch.full((), -1e9, device=index.device))
 
 
 class ParallelMLP(nn.Module):

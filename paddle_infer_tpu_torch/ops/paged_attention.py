@@ -4,6 +4,11 @@ Port of ``paddle_infer_tpu/ops/pallas/paged_attention.py``.  KV lives in
 a head-major page pool ``[num_pages, H, page, D]`` indexed by per-row
 page tables from the native allocator (``native.py``).
 
+The page writers (``write_prompt_pages``, ``write_chunk_pages``,
+``write_token_page``) and the prompt-page reader
+(``gather_prompt_pages``) are plain PyTorch, as the JAX package computes
+them outside Pallas.
+
 ``paged_attention_decode`` is the wrapper of the hand-written CUDA
 kernel ``paged_decode_kernel`` (``csrc/paged_attention.cu``), which
 replaces the Pallas ``_decode_kernel``; ``paged_attention_verify`` wraps
@@ -349,6 +354,51 @@ def paged_attention_verify(q, k_pages, v_pages, block_tables, lengths,
 # quantized pool's payload and scales, are updated IN PLACE — JAX donates
 # the pools into the serving executable; here the same buffers simply
 # stay put — and returned for symmetry.
+
+def write_prompt_pages(pages, block_tables, kv):
+    """Scatter an aligned prompt's K or V ``[B, S, H, D]`` into its
+    rows' first ``S / page`` pages (``S`` a multiple of the page size);
+    slots past a row's true length hold whatever the pad tokens gave,
+    which every reader masks by length.  An int8 pool goes through
+    ``_quantized_scatter``, token by token, so its bits are those of
+    the chunk, token and ragged writers for the same tokens."""
+    b, s, h, d = kv.shape
+    page = _page_size(pages)
+    if s % page:
+        raise ValueError(f"prompt length {s} is not a multiple of the "
+                         f"page size {page}")
+    if is_quantized(pages):
+        pos = torch.arange(s, device=kv.device)[None].expand(b, s)
+        page_idx = torch.gather(block_tables.long(), 1, pos // page)
+        return _quantized_scatter(pages, page_idx, pos % page, kv)
+    n = s // page
+    chunks = kv.reshape(b, n, page, h, d).permute(0, 1, 3, 2, 4)
+    idx = block_tables[:, :n].reshape(-1).long()
+    pages.index_copy_(0, idx, chunks.reshape(b * n, h, page, d)
+                      .to(pages.dtype))
+    return pages
+
+
+def gather_prompt_pages(pages, block_tables, s):
+    """An aligned prompt's K or V read back out of its rows' pages as
+    ``[B, S, H, D]``: the companion of ``write_prompt_pages``.  An int8
+    pool dequantizes to float32, so a prefill that attends over it sees
+    exactly what every later reader of the pages sees."""
+    page = _page_size(pages)
+    if s % page:
+        raise ValueError(f"prompt length {s} is not a multiple of the "
+                         f"page size {page}")
+    n = s // page
+    idx = block_tables[:, :n].long()                        # [B, n]
+    if is_quantized(pages):
+        payload, scales = pages
+        g = payload[idx].to(torch.float32) * scales[idx][..., None, None]
+    else:
+        g = pages[idx]
+    # [B, n, H, page, D] -> [B, n, page, H, D] -> [B, S, H, D]
+    return g.permute(0, 1, 3, 2, 4).reshape(idx.shape[0], n * page,
+                                            g.shape[2], g.shape[4])
+
 
 def write_chunk_pages(pages, block_tables, kv, offsets):
     """Scatter a chunk's K or V ``[B, S, H, D]`` at absolute positions

@@ -6,8 +6,9 @@ the default ``ragged=True`` scheduler.  Each ``run_once()`` iteration
 
   1. sweep deadlines — expired queued requests are cancelled, expired
      active rows evicted and their KV pages freed;
-  2. admit queued requests into free slots: admission only reserves KV
-     pages and queues the prompt as ``pending`` tokens;
+  2. run the exclusive calls at the queue head, then admit queued
+     requests into free slots up to the next exclusive call: admission
+     only reserves KV pages and queues the prompt as ``pending`` tokens;
   3. run ONE mixed step (``serving/programs.build_mixed_step``): live
      decode rows feed their last token (packed first), then prompt rows
      feed up to ``prefill_chunk`` pending tokens each, all under the
@@ -33,6 +34,14 @@ the prompt was split, so a warm stream is bitwise the cold one.  With an
 engine built with ``kv_dtype="int8"`` the pools hold int8 pages under
 the slot-0 scale protocol, with or without the cache.
 
+Requests a batch row cannot host (beam search, a repetition penalty)
+go through ``submit_exclusive``: an arbitrary call, queued FIFO with the
+batch requests, that runs alone on the scheduler thread when it reaches
+the queue head, its result in ``req.value``.  The core owns its engine
+(its slots are the engine's sequence ids), so such a call runs on
+another engine — a dense ``GenerationEngine`` over the same model, as
+the reference's HTTP server does.
+
 Slot/pool layout: slot ``s`` reserves native-pool sequence id ``s``; a
 one-page scratch reservation (sequence id ``max_batch``) backs every
 table entry of inactive rows, so their writes land where no live row's
@@ -41,7 +50,7 @@ attention reads.
 Not ported yet, rejected at construction (ROADMAP.md): the legacy
 ``ragged=False`` programs, adapters, grammars, sharded serving, the host
 KV tier, non-fifo scheduling and fault injection; also tracing,
-journeys and the step log.
+journeys, the step log and ``enqueue`` (the fleet router's requeue).
 """
 from __future__ import annotations
 
@@ -81,7 +90,9 @@ def _host(t) -> np.ndarray:
 
 class EngineCore:
     """Continuous-batching scheduler over a ``PagedGenerationEngine``,
-    which the core owns for its lifetime."""
+    which the core owns for its lifetime: a direct ``generate()`` on it
+    would free and re-reserve the slots' sequence ids.  Calls the batch
+    cannot host go through ``submit_exclusive`` with another engine."""
 
     def __init__(self, engine: PagedGenerationEngine, max_batch: int = 8,
                  max_queue: int = 64,
@@ -270,8 +281,8 @@ class EngineCore:
         if not self.batchable(g):
             self._metrics.on_rejected()
             raise RejectedError(
-                "config not batchable (beams/repetition_penalty) and "
-                "exclusive requests are not ported yet")
+                "config not batchable (beams/repetition_penalty); route "
+                "through submit_exclusive")
         ids = np.asarray(input_ids, np.int32)
         if ids.ndim == 1:
             ids = ids[None, :]
@@ -296,6 +307,28 @@ class EngineCore:
         self._metrics.on_submitted(len(reqs))
         return reqs
 
+    def submit_exclusive(self, fn,
+                         timeout_s: Optional[float] = None) -> Request:
+        """Enqueue an arbitrary call to run alone on the scheduler thread,
+        FIFO with batch requests: it runs when it reaches the queue head,
+        before the next mixed step.  Its return value lands in
+        ``req.value``; an exception fails this request only.  The call
+        must not use this core's engine (the core owns its sequence
+        ids): serve beams or a repetition penalty from another engine,
+        such as a dense ``GenerationEngine`` over the same model."""
+        if self._closed:
+            raise RejectedError("serving engine is closed")
+        timeout_s = self._default_timeout if timeout_s is None else timeout_s
+        req = Request(None, GenerationConfig(), timeout_s=timeout_s,
+                      kind="exclusive", exclusive_fn=fn)
+        try:
+            self._queue.submit(req)
+        except QueueFullError:
+            self._metrics.on_rejected_queue_full()
+            raise
+        self._metrics.on_submitted()
+        return req
+
     # ------------------------------------------------------ the step loop
     def run_once(self, wait_s: float = 0.0) -> bool:
         """One scheduler iteration.  Returns True when any request made
@@ -318,10 +351,17 @@ class EngineCore:
                 self._evict(s, RequestState.CANCELLED, DeadlineExceededError(
                     f"request {s['req'].rid} deadline exceeded mid-decode"))
                 progressed = True
-        while None in self._slots:
-            req = self._queue.pop()
-            if req is None:
+        while True:
+            head = self._queue.peek()
+            if head is None or head.kind != "exclusive":
                 break
+            self._run_exclusive(self._queue.pop())
+            progressed = True
+        while None in self._slots:
+            head = self._queue.peek()
+            if head is None or head.kind != "batch":
+                break
+            req = self._queue.pop()
             if req.expired():
                 self._metrics.on_deadline()
                 req._finish(RequestState.CANCELLED, DeadlineExceededError(
@@ -702,6 +742,24 @@ class EngineCore:
             self._metrics.on_completed(time.monotonic() - req.arrival)
         elif state == RequestState.FAILED:
             self._metrics.on_failed()
+
+    def _run_exclusive(self, req: Request):
+        if req.expired():
+            self._metrics.on_deadline()
+            req._finish(RequestState.CANCELLED, DeadlineExceededError(
+                f"request {req.rid} expired in queue"))
+            return
+        start = time.monotonic()
+        self._metrics.on_queue_wait(start - req.arrival)
+        req._mark_active()
+        try:
+            req.value = req.exclusive_fn()
+        except Exception as e:
+            self._metrics.on_failed()
+            req._finish(RequestState.FAILED, e)
+            return
+        req._finish(RequestState.DONE)
+        self._metrics.on_completed(time.monotonic() - req.arrival)
 
     # ---------------------------------------------------- thread control
     def start(self) -> "EngineCore":

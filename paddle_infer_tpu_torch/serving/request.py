@@ -1,7 +1,8 @@
 """Request lifecycle and admission queue of the serving engine.
 
 Port of ``paddle_infer_tpu/serving/request.py`` (the parts the ragged
-single-device path uses).  A ``Request`` is one sequence moving through
+single-device path uses).  A ``Request`` is one sequence, or one
+exclusive engine call, moving through
 QUEUED → ACTIVE → DONE/REJECTED/CANCELLED/FAILED; the scheduler thread
 ``_emit()``s tokens as they decode and consumers read them through
 ``stream()`` or ``result()``.  ``RequestQueue`` is a depth-bounded FIFO
@@ -18,7 +19,7 @@ import queue as _queue
 import threading
 import time
 from enum import Enum
-from typing import List, Optional
+from typing import Callable, List, Optional
 
 import numpy as np
 
@@ -59,13 +60,21 @@ _rid_counter = itertools.count(1)
 
 
 class Request:
-    """One serving request (a single sequence row)."""
+    """One serving request: a single sequence row (``kind="batch"``), or
+    one engine call the continuous batch cannot host
+    (``kind="exclusive"``: ``exclusive_fn`` runs alone on the scheduler
+    thread and its return value lands in ``value``)."""
 
     def __init__(self, prompt, config, timeout_s: Optional[float] = None,
-                 cache_salt: Optional[str] = None):
+                 cache_salt: Optional[str] = None, kind: str = "batch",
+                 exclusive_fn: Optional[Callable] = None):
         self.rid = next(_rid_counter)
-        self.prompt = np.asarray(prompt, np.int32).reshape(-1)
+        self.prompt = (None if prompt is None
+                       else np.asarray(prompt, np.int32).reshape(-1))
         self.config = config
+        self.kind = kind
+        self.exclusive_fn = exclusive_fn
+        self.value = None                  # exclusive_fn's return value
         # prefix-cache isolation domain: requests share cached KV only
         # with requests carrying the same salt (multi-tenant isolation)
         self.cache_salt = cache_salt
@@ -154,6 +163,9 @@ class RequestQueue:
     def __len__(self):
         with self._cond:
             return len(self._q)
+
+    def submit(self, req: Request):
+        self.submit_many([req])
 
     def submit_many(self, reqs: List[Request]):
         """Admit all of ``reqs`` or none.  Raises QueueFullError under

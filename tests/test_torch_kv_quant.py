@@ -11,6 +11,9 @@ head) on the ragged serving path.
   order invariance), and the round trip stays within
   ``kv_dequant_error_bound``;
 * config — ``kv_dtype`` validation and the feature matrix as in JAX;
+* isolation — a worker whose JAX native library load failed while
+  collecting (a parallel build race) recovers it before the serving
+  runs below build their JAX engines;
 * serving — int8 ``EngineCore`` greedy and seeded-sampled streams of
   tiny LLaMA and GPT equal to the JAX int8 ``EngineCore``, plain and
   ngram-speculative (request ids pinned), with equal ``kv_quant``
@@ -46,7 +49,8 @@ from paddle_infer_tpu_torch.serving.programs import build_page_copy
 from paddle_infer_tpu_torch.serving.sharded import (ShardedConfigError,
                                                     validate_kv_quant_combo)
 
-from _torch_jax_isolation import _private_jax_compile_log  # noqa: F401
+from _torch_jax_isolation import (_private_jax_compile_log,  # noqa: F401
+                                  ensure_jax_native)
 from test_torch_speculation import (GREEDY, PAGE, SHAPE, _cfgs, _drive,
                                     _pair, _pinned_globals, _prompts)
 
@@ -263,6 +267,29 @@ def test_kv_dtype_validation():
 
 
 # ------------------------------------------------------------------ serving
+
+def test_latched_jax_native_failure_is_recovered(monkeypatch):
+    """The fault of a parallel run on a tree without the JAX native
+    library: a worker whose load raced another worker's unlocked build
+    while collecting (``tests/test_native.py``'s module-level
+    ``native.available()``) latched "file too short" and every JAX
+    engine it built after failed — the ``runs`` fixture below among
+    them.  That latched state, set up directly: ``ensure_jax_native``
+    clears it under the build lock and loads the finished library."""
+    from paddle_infer_tpu import native as jnative
+
+    monkeypatch.setattr(jnative, "_lib", None)
+    monkeypatch.setattr(jnative, "_load_error",
+                        f"{jnative._LIB_PATH}: file too short")
+    monkeypatch.setattr(jnative, "_build_attempted", True)
+    with pytest.raises(RuntimeError, match="file too short"):
+        jnative.KVBlockPool(4, 4)
+    assert ensure_jax_native(attempts=2, wait_s=0.0)
+    assert jnative.available() and jnative._load_error is None
+    pool = jnative.KVBlockPool(4, 4)
+    assert pool.reserve(0, 5) == 2
+
+
 
 def _serve(core, G, rid_mod):
     rid_mod._rid_counter = itertools.count(700)
