@@ -997,12 +997,23 @@ def profile_serving(model, device, prompt_lens=(512, 1), max_new=4,
            if r.state != RequestState.DONE]
     if bad:
         raise AssertionError(f"profiled requests not DONE: {bad}")
+    res = print_profile(prof, wall, f"{tag}: {len(prompts)} requests, "
+                        f"{steps} steps", top)
+    return dict(res, steps=steps)
+
+
+def print_profile(prof, wall_s, what, top):
+    """Print a profiled run's device busy time against its wall, the
+    idle share, the device time by group (matmul, each attention
+    kernel, the KV writes, other) and the top kernels; returns the
+    numbers."""
     rows = _profile_rows(prof)
     busy_ms = sum(r[0] for r in rows)
-    wall_ms = wall * 1e3
+    wall_ms = wall_s * 1e3
     # a paged kernel's group holds its split walk and its combine
     groups = {"matmul": 0.0, "ragged_paged": 0.0, "paged_decode": 0.0,
-              "paged_verify": 0.0, "kv_write": 0.0, "other": 0.0}
+              "paged_verify": 0.0, "flash_fwd": 0.0, "kv_write": 0.0,
+              "other": 0.0}
     for ms, _, name in rows:
         low = name.lower()
         if "ragged_paged" in name:
@@ -1011,6 +1022,8 @@ def profile_serving(model, device, prompt_lens=(512, 1), max_new=4,
             groups["paged_decode"] += ms
         elif "paged_verify_" in name:
             groups["paged_verify"] += ms
+        elif "flash_fwd" in name:
+            groups["flash_fwd"] += ms
         elif any(s in low for s in ("gemm", "xmma", "cutlass", "nvjet",
                                     "matmul", "mm_")):
             groups["matmul"] += ms
@@ -1019,16 +1032,15 @@ def profile_serving(model, device, prompt_lens=(512, 1), max_new=4,
         else:
             groups["other"] += ms
     idle = max(0.0, 1 - busy_ms / wall_ms)
-    print(f"[profile] {tag}: {len(prompts)} requests, {steps} steps: "
-          f"wall_ms={wall_ms:.1f} device_busy_ms={busy_ms:.1f} "
-          f"idle_share={idle:.3f} groups_ms="
+    print(f"[profile] {what}: wall_ms={wall_ms:.1f} "
+          f"device_busy_ms={busy_ms:.1f} idle_share={idle:.3f} groups_ms="
           + json.dumps({k: round(v, 3) for k, v in groups.items()}),
           flush=True)
     for ms, n, name in sorted(rows, reverse=True)[:top]:
         print(f"[profile] {ms:10.3f} ms {n:6d} calls  {name[:110]}",
               flush=True)
     return {"wall_ms": wall_ms, "busy_ms": busy_ms, "idle_share": idle,
-            "steps": steps}
+            "groups": groups}
 
 
 def profile_pair(model, device, tag, card, **kw):
@@ -1524,6 +1536,21 @@ def _gen_times(calls):
             float(np.median(steps)) if steps else float("nan"))
 
 
+def profile_generate(fn, tag, top=10):
+    """One call of ``fn`` (a ``generate`` on keys already captured)
+    under ``torch.profiler``: ``print_profile``'s lines."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    return print_profile(prof, wall, tag, top)
+
+
 def _check_generate_launches(launches, L, decode_steps, prefills, tag):
     """Each decode step walks the pages once a layer (the decode kernel),
     each prefill attends once a layer (the flash forward kernel)."""
@@ -1672,6 +1699,14 @@ def generate_phase(model, device, card, prompt_lens=GEN_PROMPT_LENS,
     print(f"[generate] tokens_per_s generate={toks / rec['wall_s']:.1f} "
           f"stream={toks / srec['wall_s']:.1f} "
           f"eager={toks / erec['wall_s']:.1f} ({card})", flush=True)
+    pg = profile_generate(gen(greedy), "generate greedy graph")
+    with eager():
+        pe = profile_generate(gen(greedy), "generate greedy eager")
+    print(f"[profile] generate graph vs eager ({card}): idle_share "
+          f"graph={pg['idle_share']:.3f} eager={pe['idle_share']:.3f} "
+          f"busy_ms graph={pg['busy_ms']:.1f} eager={pe['busy_ms']:.1f} "
+          f"wall_ms graph={pg['wall_ms']:.1f} eager={pe['wall_ms']:.1f}",
+          flush=True)
     print(f"[generate] launches per call: paged_decode="
           f"{rec['launches']['paged_decode']} ({L} layers x {steps} decode "
           f"steps), flash_fwd={rec['launches']['flash_fwd']} ({L} per "

@@ -490,7 +490,8 @@ def test_unbatchable_submit_points_to_exclusive(llama):
 
 def test_chip_smoke_generate_phase_on_cpu(llama, monkeypatch):
     """``chip_smoke``'s generate phase (every gate but the launch counts,
-    which count CUDA launches only) at a tiny size on the CPU."""
+    which count CUDA launches only; the profile, which needs CUDA, is
+    stubbed) at a tiny size on the CPU."""
     import os
 
     monkeypatch.syspath_prepend(os.path.dirname(os.path.dirname(
@@ -499,6 +500,9 @@ def test_chip_smoke_generate_phase_on_cpu(llama, monkeypatch):
 
     monkeypatch.setattr(chip_smoke, "_check_generate_launches",
                         lambda *a: None)
+    monkeypatch.setattr(chip_smoke, "profile_generate",
+                        lambda *a: {"idle_share": 0.0, "busy_ms": 0.0,
+                                    "wall_ms": 0.0})
     make_core = chip_smoke.make_core
     monkeypatch.setattr(chip_smoke, "make_core", lambda m, d, **kw: make_core(
         m, d, max_model_len=48, token_budget=16, page_size=PAGE, **kw))
