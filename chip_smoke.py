@@ -65,7 +65,23 @@ per replay, so the launch checks stay exact.
    one capture per key (serve step, page copy) and none after warm-up,
    the decode and ragged kernels once per layer per step; TTFT p50 and
    prefill tokens warm against cold;
-7. int8 — the same model on ``kv_dtype="int8"`` pools: the serve
+7. resilience — the prefix phase's 8 prompts (32 new tokens, 2 sampled)
+   on the same model behind ``EngineSupervisor(watchdog_s=1.0,
+   max_retries=3)`` over a core with the prefix cache: once with no
+   faults after a warm-up request, then on a fresh core over the same
+   engine (so on the captured graph) under a fault script
+   (``resilience_script``: a step fault with the KV intact, a
+   MemoryError at an admission, a raise at the prefix lookup, the
+   prefill site and the page copy, one poisoned row, a step slower than
+   the watchdog, last a step fault that loses the KV); every stream not
+   quarantined EQUAL to its fault-free one, exactly the poisoned row
+   quarantined, the watchdog tripped, one engine restart, the batch
+   halved and grown back, the pool back to its free blocks, no capture
+   after warm-up, the decode and ragged kernels once per layer per
+   clean step (a failed step launches nothing); the counters, both
+   walls and step counts, and the time of ``rebuild_kv_state`` (64
+   pools zeroed in place);
+8. int8 — the same model on ``kv_dtype="int8"`` pools: the serve
    phase's 8 requests on graphs and eager (streams EQUAL; decode and
    ragged launches exact on int8 pages; pool bytes, step p50 and
    tokens/s beside the bf16 serve run), paged vs dense logits at int8,
@@ -75,7 +91,7 @@ per replay, so the launch checks stay exact.
    against int8, eager and as a graph replay, the round trip within
    ``kv_dequant_error_bound``) and a profiled int8 run whose groups
    hold the writes' scatters (``kv_write``);
-8. generate — the engines' own entry points on the same model (bf16,
+9. generate — the engines' own entry points on the same model (bf16,
    page 16): ``PagedGenerationEngine.generate`` greedy on 4 right-padded
    prompts of 1024, 700, 129 and 17 tokens, 32 new tokens each, with
    scores (a warm-up call captures each key's graph, then the call on
@@ -93,11 +109,11 @@ per replay, so the launch checks stay exact.
    engine through ``EngineCore.submit_exclusive`` while 4 batch rows
    decode: its value EQUAL to the direct call, the batch streams EQUAL
    to a run without it;
-9. gpt — the LLaMA model freed, ``gpt3-6.7b`` at full width and depth
+10. gpt — the LLaMA model freed, ``gpt3-6.7b`` at full width and depth
    (random bf16 weights) serves 8 requests with ngram speculation (the
    ragged kernel once per layer per step), again eager with EQUAL
    streams, then its paged forward against its dense one;
-10. train — GPT freed: (1) the flash kernels (forward, dK/dV, dQ) against
+11. train — GPT freed: (1) the flash kernels (forward, dK/dV, dQ) against
    their plain versions at (a) the ERNIE shape B=32, H=12, S=512, D=64
    with 10 % trailing padding as segment ids, dropout 0.1 and 0, fp32
    and bf16, (b) B=2, H=32, S=4096, D=128 causal bf16, (c) Sq=256 <
@@ -118,7 +134,7 @@ per replay, so the launch checks stay exact.
    plain attention, every loss finite and no flash launch; (4) eager,
    one step at depth 2, batch 8 with the kernels against the same step
    with plain attention, fp32 and O2, on three batches;
-11. the kernels line (one JSON object; the paged kernels' and the
+12. the kernels line (one JSON object; the paged kernels' and the
     flash forward's launches summed over the runs in
     ``launches_by_run``), the card line, and last ``{"ok": true,
     "device": {...}}``.
@@ -1207,7 +1223,7 @@ def spec_phase(model, device, card=""):
     return runs
 
 
-# ------------------------------------------------------------ phases 6, 7
+# ---------------------------------------------------------------- phase 6
 
 def prefix_prompts(vocab, seed=7):
     """The shared ``PREFIX_LEN``-token prompt plus one distinct suffix
@@ -1345,6 +1361,239 @@ def prefix_phase(model, device, card, kv_dtype=None):
     return runs
 
 
+# ---------------------------------------------------------------- phase 7
+
+RES_RID = 1000              # the resilience runs' first request id
+RES_WATCHDOG_S = 1.0
+RES_NAN = 3                 # the request whose row the script poisons
+
+
+def resilience_script(rid0=RES_RID):
+    """The faulted run's script, by per-site fire count on its own core
+    (admissions fire ``kv.alloc``, ``prefix.match`` and ``prefill.run``;
+    every mixed step fires ``decode.step``): a step fault with the KV
+    intact, a MemoryError at an admission, one raise each at the prefix
+    lookup, the prefill site and the page copy (a KV-intact replay
+    copies its matched tail on write), one poisoned row, a step slower
+    than the watchdog, and last a step fault that loses the KV."""
+    from paddle_infer_tpu_torch.serving import FaultSpec
+
+    return [FaultSpec("decode.step", at=5),
+            FaultSpec("kv.alloc", at=3, exc="MemoryError"),
+            FaultSpec("prefill.run", at=4),
+            FaultSpec("prefix.match", at=6),
+            FaultSpec("page.copy", at=1),
+            FaultSpec("decode.step", action="nan_rows", at=12,
+                      rid=rid0 + RES_NAN),
+            FaultSpec("decode.step", action="latency", at=15,
+                      delay_s=1.5 * RES_WATCHDOG_S),
+            FaultSpec("decode.step", at=20, lose_kv=True)]
+
+
+def _check_resilience_launches(st, L, tag):
+    """Every clean step launches the decode and ragged kernels once a
+    layer; a step that failed at its fault site launched nothing."""
+    _check_decode_launches(st, L, tag)
+    _check_ragged_launches(st, L, tag)
+
+
+def resilience_run(core, sup, prompts, sampled, max_new, rid0):
+    """Drive ``prompts`` through the supervised core from request id
+    ``rid0``, with every launch count zeroed just before and read just
+    after; returns the run's numbers (the effective batch after every
+    supervised step among them)."""
+    import torch
+
+    from paddle_infer_tpu_torch.inference.generation import \
+        GenerationConfig
+    from paddle_infer_tpu_torch.ops import _build
+    from paddle_infer_tpu_torch.serving import request as trequest
+
+    trequest._rid_counter = itertools.count(rid0)
+    for k in _build.KERNELS.values():
+        k.launches = 0
+    steps0 = core._step_idx
+    reqs = []
+    t0 = time.perf_counter()
+    for i, p in enumerate(prompts):
+        g = (GenerationConfig(max_new_tokens=max_new, do_sample=True,
+                              temperature=0.8, top_k=50, top_p=0.95,
+                              seed=1234)
+             if i in sampled else GenerationConfig(max_new_tokens=max_new))
+        reqs += core.submit(p, g)
+    eff = []
+    for _ in range(4000):
+        if all(r.done for r in reqs):
+            break
+        sup.run_once()
+        eff.append(core.effective_max_batch)
+    if core._engine.device.type == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if not all(r.done for r in reqs):
+        raise AssertionError("resilience: requests did not finish")
+    return {"reqs": reqs, "wall_s": wall, "steps": core._step_idx - steps0,
+            "launches": {n: k.launches for n, k in _build.KERNELS.items()},
+            "effective": eff, "snap": core.metrics_snapshot()}
+
+
+def resilience_phase(model, device, card, max_new=MAX_NEW,
+                     sampled=SAMPLED, script=resilience_script):
+    """Replay through failures on the serve path: the ``prefix_prompts``
+    on a supervised core with the prefix cache, once with no faults
+    (after a warm-up request that captures the serve step's graph, its
+    retained pages then dropped) and
+    once under ``script()`` on a fresh core over the same engine (the
+    first core idle, its cache cleared), which replays the captured
+    graphs.  Raises unless every request not quarantined finishes with a
+    stream EQUAL to its fault-free one, exactly the poisoned row is
+    quarantined, the watchdog tripped, one engine restart, the ladder
+    halved the batch and grew it back to full, the pool's free blocks
+    return to their baseline, no capture followed warm-up, and the
+    faulted run's decode and ragged launches equal its clean steps'
+    (the two failed steps launched nothing).  Returns the runs."""
+    import torch
+
+    from paddle_infer_tpu_torch.observability import get_compile_log
+    from paddle_infer_tpu_torch.serving import (EngineCore,
+                                                EngineSupervisor,
+                                                FaultPlane,
+                                                QuarantinedError,
+                                                RequestState)
+
+    L = model.config.num_hidden_layers
+    prompts = prefix_prompts(model.config.vocab_size)
+    sup_kw = dict(watchdog_s=RES_WATCHDOG_S, max_retries=3,
+                  backoff_base_s=0.0, recover_after=4)
+    cache_kw = dict(enable_prefix_cache=True,
+                    prefix_cache_headroom_pages=PREFIX_HEADROOM)
+    log = get_compile_log()
+    log.reset()
+    clean_core = make_core(model, device, **cache_kw)
+    eng = clean_core._engine
+    cores = [clean_core]
+    rebuilds = []
+    rebuild = eng.rebuild_kv_state
+
+    def timed_rebuild():
+        sync = eng.device.type == "cuda"
+        if sync:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rebuild()
+        if sync:
+            torch.cuda.synchronize()
+        rebuilds.append(time.perf_counter() - t0)
+
+    eng.rebuild_kv_state = timed_rebuild
+    try:
+        sup = EngineSupervisor(clean_core, **sup_kw)
+        baseline = clean_core._pool.free_blocks
+        warm = resilience_run(clean_core, sup, prompts[:1], (), PRIMER_NEW,
+                              PRIMER_RID)
+        # both runs start from an empty cache, so their step counts
+        # differ by what the replays cost
+        clean_core.prefix_cache.clear()
+        clean = resilience_run(clean_core, sup, prompts, sampled, max_new,
+                               RES_RID)
+        clean_core.prefix_cache.clear()
+        clean_free = clean_core._pool.free_blocks
+        post0 = log.summary()["post_warmup_decode_compiles"]
+        events0 = len(log.events("serving-decode"))
+        plane = FaultPlane(script())
+        faulted_core = EngineCore(eng, max_batch=8, max_model_len=2048,
+                                  token_budget=512, prefill_chunk=512,
+                                  fault_plane=plane, device=device,
+                                  **cache_kw)
+        cores.append(faulted_core)
+        fsup = EngineSupervisor(faulted_core, **sup_kw)
+        faulted = resilience_run(faulted_core, fsup, prompts, sampled,
+                                 max_new, RES_RID)
+        faulted_core.prefix_cache.clear()
+        faulted_free = faulted_core._pool.free_blocks
+        post = log.summary()["post_warmup_decode_compiles"] - post0
+        captures = len(log.events("serving-decode")) - events0
+        nbytes = pool_bytes(eng)
+        n_pools = len(eng._k_pages) + len(eng._v_pages)
+    finally:
+        for core in reversed(cores):
+            core.close()
+        del eng.rebuild_kv_state
+        free_memory()
+
+    bad = [(r.rid, r.state.value, repr(r.error))
+           for r in warm["reqs"] + clean["reqs"]
+           if r.state != RequestState.DONE]
+    if bad:
+        raise AssertionError(f"resilience: fault-free requests not DONE: "
+                             f"{bad}")
+    quarantined = {r.rid for r in faulted["reqs"]
+                   if r.state == RequestState.FAILED
+                   and isinstance(r.error, QuarantinedError)}
+    if quarantined != {RES_RID + RES_NAN}:
+        raise AssertionError(f"resilience: quarantined {quarantined}, want "
+                             f"{{{RES_RID + RES_NAN}}}")
+    for i, (a, b) in enumerate(zip(clean["reqs"], faulted["reqs"])):
+        if b.rid in quarantined:
+            if b.tokens != a.tokens[:len(b.tokens)]:
+                raise AssertionError(f"resilience: request {i} delivered "
+                                     "a wrong token before its quarantine")
+            continue
+        if b.state != RequestState.DONE or not np.array_equal(
+                np.asarray(a.tokens), np.asarray(b.tokens)):
+            raise AssertionError(
+                f"resilience: request {i} ({b.state.value}, "
+                f"{b.error!r}) differs from its fault-free stream:\n"
+                f"{a.tokens}\n{b.tokens}")
+    res = faulted["snap"]["resilience"]
+    want_faults = {"decode.step": 4, "kv.alloc": 1, "prefix.match": 1,
+                   "prefill.run": 1, "page.copy": 1}
+    if res["faults_injected"] != want_faults:
+        raise AssertionError(f"resilience: faults injected "
+                             f"{res['faults_injected']}, want {want_faults}")
+    if res["watchdog_trips"] < 1 or res["engine_restarts"] != 1:
+        raise AssertionError(f"resilience: {res['watchdog_trips']} watchdog "
+                             f"trips, {res['engine_restarts']} engine "
+                             "restarts; want >= 1 and 1")
+    eff = faulted["effective"]
+    if min(eff) != 4 or eff[-1] != 8:
+        raise AssertionError(f"resilience: effective batch min {min(eff)}, "
+                             f"last {eff[-1]}; want 4 (halved) and 8")
+    if not baseline == clean_free == faulted_free:
+        raise AssertionError(f"resilience: free blocks {clean_free} / "
+                             f"{faulted_free} after the runs, baseline "
+                             f"{baseline}")
+    if post or captures:
+        raise AssertionError(f"resilience: {captures} serve-step captures "
+                             f"and {post} after warm-up in the faulted run")
+    if len(rebuilds) != 1:
+        raise AssertionError(f"resilience: {len(rebuilds)} pool rebuilds")
+    for tag, st in (("clean", clean), ("faulted", faulted)):
+        _check_resilience_launches(st, L, f"resilience {tag}")
+    counters = {k: res[k] for k in (
+        "request_retries", "requests_quarantined", "engine_restarts",
+        "watchdog_trips", "requests_shed", "faults_injected",
+        "health_state")}
+    print(f"[resilience] counters {json.dumps(counters, sort_keys=True)} "
+          f"failed={faulted['snap']['failed']} "
+          f"completed={faulted['snap']['completed']} "
+          f"effective_batch min={min(eff)} last={eff[-1]}", flush=True)
+    print(f"[resilience] faulted vs fault-free ({card}): wall_s "
+          f"{faulted['wall_s']:.3f} / {clean['wall_s']:.3f}, steps "
+          f"{faulted['steps']} / {clean['steps']} (replay took "
+          f"{faulted['steps'] - clean['steps']} more), streams_equal=True "
+          f"({len(prompts) - 1} requests, 1 quarantined), "
+          f"post_warmup_captures={post} launches faulted="
+          f"{faulted['launches']} clean={clean['launches']}", flush=True)
+    print(f"[resilience] rebuild_kv_state {rebuilds[0] * 1e3:.3f} ms: "
+          f"{n_pools} pools zeroed in place, {nbytes / 1e9:.3f} GB "
+          f"({card})", flush=True)
+    return {"clean": clean, "faulted": faulted, "warm": warm,
+            "rebuild_ms": rebuilds[0] * 1e3, "pool_bytes": nbytes}
+
+
+# ---------------------------------------------------------------- phase 8
+
 def writer_case(device, B=8, C=512, H=32, D=128, page=16, max_pages=128,
                 seed=5):
     """The mixed step's K (or V) write at the serving shapes: every row a
@@ -1480,7 +1729,7 @@ def int8_phase(model, device, card, bf16_serve):
     return runs
 
 
-# ---------------------------------------------------------------- phase 8
+# ---------------------------------------------------------------- phase 9
 
 GEN_PROMPT_LENS = (1024, 700, 129, 17)
 GEN_NEW = 32
@@ -1849,7 +2098,7 @@ def exclusive_phase(model, device, dense, card, lens):
           f"EQUAL to a run without it ({card})", flush=True)
 
 
-# ---------------------------------------------------------------- phase 9
+# --------------------------------------------------------------- phase 10
 
 def gpt_phase(device, config=None, dtype=None, card=""):
     """gpt3-6.7b (or ``config``) at full width and depth: ngram-speculative
@@ -1889,7 +2138,7 @@ def gpt_phase(device, config=None, dtype=None, card=""):
     return st
 
 
-# --------------------------------------------------------------- phase 10
+# --------------------------------------------------------------- phase 11
 
 # (a) ERNIE-3.0-base attention with 10 % trailing padding as segment
 # ids, (b) long causal (where the reference itself picks flash), (c)
@@ -2658,22 +2907,26 @@ def main() -> int:
 
     # phase 6: the prefix cache, warm against cold, on bf16 pools
     pruns = prefix_phase(model, device, card)
-    # phase 7: int8 pools (serve, reference, prefix, speculation, the
+    # phase 7: replay through faults under the supervisor
+    rres = resilience_phase(model, device, card)
+    # phase 8: int8 pools (serve, reference, prefix, speculation, the
     # writer alone, a profile)
     iruns = int8_phase(model, device, card, stats)
     for name in ("paged_decode", "ragged_paged_attention"):
         by_run[name].update({
             "prefix warm": pruns["warm"]["launches"][name],
+            "resilience clean": rres["clean"]["launches"][name],
+            "resilience faulted": rres["faulted"]["launches"][name],
             "int8 serve": iruns["serve"]["launches"][name],
             "int8 prefix warm": iruns["prefix"]["warm"]["launches"][name]})
     by_run["paged_verify"]["int8 spec"] = \
         iruns["spec"]["launches"]["paged_verify"]
 
-    # phase 8: the engines' own entry points on the same model
+    # phase 9: the engines' own entry points on the same model
     gen = generate_phase(model, device, card)
     by_run["paged_decode"]["generate"] = gen["decode"]
 
-    # phase 9: GPT, with the LLaMA model freed first
+    # phase 10: GPT, with the LLaMA model freed first
     del model
     free_memory()
     gst = gpt_phase(device, card=card)
@@ -2681,7 +2934,7 @@ def main() -> int:
     for name, runs_of in by_run.items():
         launches[name] = sum(runs_of.values())
 
-    # phase 10: training, GPT freed first
+    # phase 11: training, GPT freed first
     free_memory()
     fres = flash_kernels_phase(device)
     hybrid_vs_flash(device)
@@ -2703,7 +2956,7 @@ def main() -> int:
     free_memory()
     step_parity_phase(device)
 
-    # phase 11: the kernels line, the card line, the result line
+    # phase 12: the kernels line, the card line, the result line
     line = []
     for name, k in _build.KERNELS.items():
         rec = kres[name]["bf16"]

@@ -481,6 +481,7 @@ class PagedGenerationEngine(GenerationEngine):
         self._requested_pages = num_pages
         self._pool = None
         self._k_pages = self._v_pages = None
+        self._kv_lost = False
         self.last_beam_pool_stats = None
 
     # ----------------------------------------------------------- plumbing
@@ -520,7 +521,45 @@ class PagedGenerationEngine(GenerationEngine):
             k = [alloc() for _ in range(self._num_layers)]
             v = [alloc() for _ in range(self._num_layers)]
             self._k_pages, self._v_pages = k, v
+        elif self._kv_lost:
+            self._zero_pages()
+        self._kv_lost = False
         return self._k_pages, self._v_pages
+
+    def _zero_pages(self):
+        """Reset every pool, in place, to what ``_ensure_pages`` makes:
+        zeros, and int8 scales at the eps floor.  The tensors keep their
+        storage, so every captured graph that holds them stays valid."""
+        with torch.no_grad():
+            for pages in self._k_pages + self._v_pages:
+                if isinstance(pages, tuple):
+                    pages[0].zero_()
+                    pages[1].fill_(KV_SCALE_EPS)
+                else:
+                    pages.zero_()
+
+    # ------------------------------------------------- serving resilience
+    def kv_state_lost(self) -> bool:
+        """True once ``drop_kv_state`` marked the pools lost, until they
+        are rebuilt (their contents, every in-flight row's KV, are
+        gone)."""
+        return self._kv_lost
+
+    def drop_kv_state(self):
+        """Forget the pools' contents — the recovery hook for a failure
+        inside a step that wrote them (``serving/resilience/``).  Where
+        the JAX package drops its donated pools, this only marks them
+        lost: the tensors stay bound, so the graphs that hold them stay
+        valid.  ``kv_state_lost()`` reports True until ``rebuild_kv_state``
+        or the next program call zeroes them."""
+        self._kv_lost = True
+
+    def rebuild_kv_state(self):
+        """Zero the lost pools in place (int8 scales back to the eps
+        floor) once serving recovery has released every in-flight row,
+        so ``kv_state_lost()`` stops reporting a loss already serviced.
+        No pool moves and no graph is recaptured."""
+        self._ensure_pages()
 
     # ------------------------------------------------------ serving hooks
     def refresh_params(self):

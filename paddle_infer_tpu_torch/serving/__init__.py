@@ -1,9 +1,15 @@
-"""Continuous-batching serving plane of the port (ragged path)."""
+"""Continuous-batching serving plane of the port (ragged path), with
+its fault tolerance (``resilience``)."""
 from .engine_core import EngineCore
 from .metrics import ServingMetrics
-from .request import (DeadlineExceededError, QueueFullError, RejectedError,
+from .request import (DeadlineExceededError, LoadShedError,
+                      QuarantinedError, QueueFullError, RejectedError,
                       Request, RequestQueue, RequestState)
+from .resilience import (EngineSupervisor, FaultPlane, FaultSpec,
+                         HealthMonitor, HealthState)
 
 __all__ = ["EngineCore", "ServingMetrics", "DeadlineExceededError",
-           "QueueFullError", "RejectedError", "Request", "RequestQueue",
-           "RequestState"]
+           "LoadShedError", "QuarantinedError", "QueueFullError",
+           "RejectedError", "Request", "RequestQueue", "RequestState",
+           "EngineSupervisor", "FaultPlane", "FaultSpec", "HealthMonitor",
+           "HealthState"]

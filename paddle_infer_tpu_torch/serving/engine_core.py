@@ -47,10 +47,40 @@ one-page scratch reservation (sequence id ``max_batch``) backs every
 table entry of inactive rows, so their writes land where no live row's
 attention reads.
 
+Fault tolerance (``serving/resilience/``): ``fault_plane=`` fires the
+``kv.alloc``, ``prefix.match``, ``page.copy``, ``prefill.run`` and
+``decode.step`` sites, and an ``EngineSupervisor`` (``attach_recovery``)
+turns failures into replays under a retry budget, as in the reference:
+a failed admission is requeued at the queue head, memory pressure
+halves the effective batch (and sheds queued work short of deadline
+headroom), a poisoned row is quarantined while the batch goes on, and a
+failed step replays every in-flight row.  Only an injected fault raised
+before the step's dispatch leaves the pools intact; any other failure
+marks them lost, and recovery releases every slot, clears the prefix
+cache and zeroes the pools in place (``rebuild_kv_state``), so no
+captured graph moves.  A replay re-admits prompt + delivered tokens and
+samples its next token at step ``emitted`` with the same ``fold_in``
+key.  Unlike the reference, which re-prefills the delivered tokens as
+chunk rows, the port keeps each token on its kernel, so a replayed
+stream is bitwise the stream that never failed: the uncached prompt
+goes back through the ragged kernel as chunk rows that sample nothing,
+and the delivered tokens whose KV the row lacks go back one a step
+through the decode kernel as decode rows that sample nothing until the
+last.  With the KV intact and the cache on, the retained pages hold
+all but the last delivered token, so the row re-enters straight as a
+decode row, in the step where the reference samples its one-token
+chunk.  A real device fault (a sticky CUDA error, such as an illegal
+address) poisons the CUDA context: the drop-and-rebuild path cannot
+recover it, and a repeated failure's crash streak sends the engine
+DOWN.  Only injected faults are exercised.
+
 Not ported yet, rejected at construction (ROADMAP.md): the legacy
 ``ragged=False`` programs, adapters, grammars, sharded serving, the host
-KV tier, non-fifo scheduling and fault injection; also tracing,
-journeys, the step log and ``enqueue`` (the fleet router's requeue).
+KV tier (with its fault sites ``kv.swap_out`` / ``kv.swap_in`` and
+park-before-shed: ``park_for_pressure`` returns False) and non-fifo
+scheduling; also tracing (the reference's ``recovery`` spans), journeys,
+the step log (its failed records) and ``enqueue`` (the fleet router's
+requeue).
 """
 from __future__ import annotations
 
@@ -69,8 +99,11 @@ from ..observability.compilelog import get_compile_log
 from .metrics import ServingMetrics
 from .prefix_cache import PrefixCache
 from .programs import build_mixed_step, build_page_copy
-from .request import (DeadlineExceededError, QueueFullError, RejectedError,
+from .request import (DeadlineExceededError, LoadShedError,
+                      QuarantinedError, QueueFullError, RejectedError,
                       Request, RequestQueue, RequestState)
+from .resilience.faultplane import (NULL_PLANE, InjectedFault,
+                                    InjectedMemoryError)
 from .sharded import ShardedConfigError, validate_kv_quant_combo
 from .speculation import resolve_draft_source
 
@@ -82,6 +115,10 @@ _SAMP_FIELDS = (("temperature", np.float32), ("top_k", np.int32),
                 ("top_p", np.float32), ("min_len", np.int32),
                 ("eos", np.int32), ("do_sample", np.bool_),
                 ("pad", np.int32))
+
+# the host KV tier's fault sites: nothing fires them until it is ported
+_TIER_SITES = ("kv.swap_out", "kv.swap_in")
+_NO_TOKENS = np.zeros((0,), np.int32)
 
 
 def _host(t) -> np.ndarray:
@@ -123,7 +160,10 @@ class EngineCore:
             "serving_mesh": serving_mesh is not None,
             "kv_host_pages": int(kv_host_pages) > 0,
             f"sched_policy={sched_policy!r}": sched_policy != "fifo",
-            "fault_plane": fault_plane is not None,
+            "fault sites kv.swap_out / kv.swap_in": any(
+                spec["site"] in _TIER_SITES
+                for spec in getattr(fault_plane, "specs_snapshot",
+                                    list)()),
         }
         asked = [k for k, on in unported.items() if on]
         if asked:
@@ -148,6 +188,14 @@ class EngineCore:
         self._kv_dtype = engine_kv
         self._engine = engine
         self._max_batch = int(max_batch)
+        # resilience plumbing (serving/resilience/): the fault plane is a
+        # no-op unless one is given; a supervisor wires itself in through
+        # attach_recovery() to turn failures into replays
+        self._fault = fault_plane if fault_plane is not None else NULL_PLANE
+        self._recovery = None
+        self._drain_evt = threading.Event()
+        # the degradation ladder's admission ceiling (<= max_batch)
+        self._effective_max_batch = self._max_batch
         self._default_timeout = default_timeout_s
         self._metrics = metrics or ServingMetrics()
         self._queue = RequestQueue(max_depth=max_queue)
@@ -230,6 +278,63 @@ class EngineCore:
     def prefix_cache(self) -> Optional[PrefixCache]:
         return self._prefix_cache
 
+    # ------------------------------------------------ resilience surface
+    @property
+    def max_batch(self) -> int:
+        return self._max_batch
+
+    @property
+    def effective_max_batch(self) -> int:
+        """Slots the scheduler will currently fill (<= max_batch; shrunk
+        by the degradation ladder under memory pressure)."""
+        with self._step_lock:
+            return self._effective_max_batch
+
+    def set_effective_max_batch(self, n: int):
+        with self._step_lock:
+            self._effective_max_batch = max(1, min(int(n), self._max_batch))
+
+    @property
+    def fault_plane(self):
+        return self._fault
+
+    def attach_recovery(self, recovery):
+        """Wire a recovery protocol (``resilience.EngineSupervisor``) into
+        the failure paths: engine failures then replay in-flight requests
+        under a retry budget instead of failing them."""
+        self._recovery = recovery
+
+    def set_draining(self, draining: bool):
+        """While draining, ``submit`` rejects with ``LoadShedError``;
+        in-flight requests keep decoding."""
+        if draining:
+            self._drain_evt.set()
+        else:
+            self._drain_evt.clear()
+
+    @property
+    def draining(self) -> bool:
+        return self._drain_evt.is_set()
+
+    def shed_queued(self, min_headroom_s: float) -> int:
+        """Degradation-ladder load shedding: reject queued requests whose
+        deadline headroom is below ``min_headroom_s`` — under a degraded
+        engine they would burn a prefill and miss their deadline anyway."""
+        shed = self._queue.shed_low_headroom(time.monotonic(),
+                                             min_headroom_s)
+        for r in shed:
+            self._metrics.on_shed()
+            r._finish(RequestState.REJECTED, LoadShedError(
+                f"request {r.rid} shed: deadline headroom below "
+                f"{min_headroom_s:.2f}s under degraded engine"))
+        return len(shed)
+
+    def park_for_pressure(self) -> bool:
+        """The supervisor's park-before-shed hook: preempting a row into
+        the host KV tier.  The tier is not ported yet (ROADMAP.md queue
+        1, item 5), so nothing parks and the ladder always advances."""
+        return False
+
     def _kv_quant_info(self) -> Optional[dict]:
         """The ``kv_quant`` section of the metrics snapshot: bytes per
         page of the int8 pools against the fp pools the same config
@@ -254,9 +359,19 @@ class EngineCore:
     def metrics_snapshot(self) -> dict:
         total = self._pool.num_blocks
         free = self._pool.free_blocks
+        resilience = {"effective_max_batch": self.effective_max_batch,
+                      "draining": self._drain_evt.is_set(),
+                      "faults_injected": self._fault.counts()}
+        rec = self._recovery
+        if rec is not None:
+            resilience.update(rec.health_info())
+        else:
+            resilience.update({"health_state": "healthy",
+                               "health_code": 0})
         # capacity in PAGES (the pool's unit): bytes-derived counts would
         # halve under kv_dtype int8 and misstate admission headroom
         return self._metrics.snapshot(
+            resilience=resilience,
             queue_depth=len(self._queue), active=self.active_count,
             max_batch=self._max_batch,
             kv_pool={"total_blocks": int(total), "free_blocks": int(free),
@@ -277,6 +392,10 @@ class EngineCore:
         cached KV only with requests of the same salt."""
         if self._closed:
             raise RejectedError("serving engine is closed")
+        if self._drain_evt.is_set():
+            self._metrics.on_rejected()
+            raise LoadShedError("serving engine is draining; retry "
+                                "against another replica")
         g = config or GenerationConfig()
         if not self.batchable(g):
             self._metrics.on_rejected()
@@ -318,6 +437,10 @@ class EngineCore:
         such as a dense ``GenerationEngine`` over the same model."""
         if self._closed:
             raise RejectedError("serving engine is closed")
+        if self._drain_evt.is_set():
+            self._metrics.on_rejected()
+            raise LoadShedError("serving engine is draining; retry "
+                                "against another replica")
         timeout_s = self._default_timeout if timeout_s is None else timeout_s
         req = Request(None, GenerationConfig(), timeout_s=timeout_s,
                       kind="exclusive", exclusive_fn=fn)
@@ -357,7 +480,11 @@ class EngineCore:
                 break
             self._run_exclusive(self._queue.pop())
             progressed = True
-        while None in self._slots:
+        # admission honors the degradation ladder: under memory pressure
+        # the supervisor shrinks effective_max_batch below the slot count
+        # and the surplus slots stay empty
+        while (None in self._slots
+               and self.active_count < self._effective_max_batch):
             head = self._queue.peek()
             if head is None or head.kind != "batch":
                 break
@@ -420,12 +547,14 @@ class EngineCore:
         request's salt, pinned until ``_release_slot_kv``.  The match is
         capped at ``len(tokens) - 1`` tokens, so a ragged suffix always
         fits the slot's table window."""
+        self._fault.fire("prefix.match", rid=req.rid)
         return self._prefix_cache.match(tokens, salt=req.route_salt())
 
     def _copy_page(self, src: int, dst: int):
         """Copy one physical page across every layer's pools (the
         copy-on-write step for a shared partial tail block): one graph
         for the pool size, ``src`` and ``dst`` staged."""
+        self._fault.fire("page.copy")
         eng = self._engine
         ckey = ("serve-page-copy", self._pool.num_blocks)
         inputs = eng.program_inputs(ckey, [("src", (1,), np.int32),
@@ -510,40 +639,171 @@ class EngineCore:
         """Stage a request into slot ``sid``: map its cached prefix (if
         the core has a prefix cache), reserve its KV pages and queue the
         uncached suffix as ``pending`` tokens for the next mixed steps,
-        starting at ``ctx = cached``."""
-        self._metrics.on_queue_wait(time.monotonic() - req.arrival)
+        starting at ``ctx = cached``.
+
+        A replay (tokens already delivered) re-admits prompt + delivered
+        tokens and resumes sampling at step ``emitted``.  Each token
+        whose KV the row lacks goes back through the kernel that first
+        wrote it: the uncached prompt as ``pending`` chunk rows, which
+        sample nothing, then the delivered tokens as decode rows, one a
+        step: ``refeed`` unsampled, then ``last_tok``, which samples."""
+        admit_t = time.monotonic()
+        queued_at = req.requeued_at if req.retries else req.arrival
+        self._metrics.on_queue_wait(admit_t - queued_at)
         g = req.config
-        full = req.prompt
+        already = req.emitted
+        full = (req.prompt if already == 0 else np.concatenate(
+            [req.prompt, np.asarray(req.tokens, np.int32)]))
         length = int(full.size)
+        budget = g.max_new_tokens - already
         match = None
         try:
+            self._fault.fire("kv.alloc", rid=req.rid)
             self._pool.free(sid)
             if self._prefix_cache is not None:
                 match = self._match_prefix(req, full)
-                cached = self._stage_prefix(sid, match, length,
-                                            g.max_new_tokens)
+                cached = self._stage_prefix(sid, match, length, budget)
             else:
                 cached = 0
                 self._pool.reserve(sid, max(self._plen(length),
-                                            length + g.max_new_tokens))
+                                            length + budget))
+            table = np.full((self._max_pages,), self._scratch, np.int32)
+            t = self._pool.block_table(sid)[:self._max_pages]
+            table[:len(t)] = np.asarray(t, np.int32)
+            key = prng.fold_in(prng.PRNGKey(g.seed), req.rid).numpy()
+            # ragged admission stages KV only; the site still fires here
+            # so prefill faults route through the admission failure path
+            self._fault.fire("prefill.run", rid=req.rid)
         except Exception as e:
-            # pool exhaustion, or a failed page copy: this request fails,
-            # the loop goes on
-            if not isinstance(e, MemoryError):
+            # pool exhaustion, a failed page copy or an injected fault:
+            # recovery decides between a replay and a failure
+            if not isinstance(e, (MemoryError, InjectedFault)):
                 _log.exception("admission of request %d failed", req.rid)
             self._release_slot_kv(sid, match)
-            self._metrics.on_failed()
-            req._finish(RequestState.FAILED, e)
+            self._admit_failure(req, e)
             return
-        table = np.full((self._max_pages,), self._scratch, np.int32)
-        t = self._pool.block_table(sid)[:self._max_pages]
-        table[:len(t)] = np.asarray(t, np.int32)
-        key = prng.fold_in(prng.PRNGKey(g.seed), req.rid).numpy()
+        n_prompt = int(req.prompt.size)
+        feed = full[max(cached, n_prompt):]
         req._mark_active()
         self._slots[sid] = {
-            "req": req, "sid": sid, "g": g, "length": length, "emitted": 0,
-            "last_tok": 0, "table": table, "key": key, "match": match,
-            "pending": full[cached:], "ctx": cached}
+            "req": req, "sid": sid, "g": g, "length": n_prompt,
+            "emitted": already, "table": table, "key": key,
+            "match": match, "ctx": cached,
+            "pending": full[cached:n_prompt] if cached < n_prompt
+            else _NO_TOKENS,
+            "last_tok": int(feed[-1]) if already else 0,
+            "refeed": feed[:-1] if already else _NO_TOKENS}
+
+    # ---------------------------------------------------- failure paths
+    def _admit_failure(self, req: Request, err: BaseException):
+        """An admission (reservation / prefix / prefill) failed after the
+        slot's KV was released.  Route it through the recovery protocol:
+        memory pressure feeds the degradation ladder, KV loss restarts
+        the engine and replays every in-flight row, and the request
+        itself is requeued under its retry budget or failed.  (The
+        reference first tries to park a victim into the host KV tier on
+        a MemoryError; the port has no tier yet.)"""
+        rec = self._recovery
+        if getattr(err, "lose_kv", False):
+            self._engine.drop_kv_state()
+        if rec is not None:
+            if isinstance(err, MemoryError):
+                # its own ladder — not a crash-streak event
+                rec.on_memory_pressure()
+            else:
+                rec.on_engine_failure(err)
+        if self._engine.kv_state_lost():
+            self._recover_lost_state(err)
+        self._replay_or_fail(req, err)
+
+    def _recover_lost_state(self, err: BaseException):
+        """The pools' contents are lost: count an engine restart, replay
+        or fail every in-flight row, drop every retained cache page and
+        zero the pools in place."""
+        self._metrics.on_engine_restart()
+        rec = self._recovery
+        if rec is not None:
+            rec.on_engine_restart()
+        # release every slot BEFORE clearing the cache: clear() keeps
+        # nodes pinned by live match references, and a node surviving
+        # into the zeroed pools would hand replayed rows stale pages
+        for s in list(self._slots):
+            if s is not None:
+                self._replay_or_fail_slot(s, err, kv_intact=False)
+        if self._prefix_cache is not None:
+            self._prefix_cache.clear()
+        # serviced: zero the pools now (no dispatch may come before the
+        # next failure, and a stale lost flag would re-enter recovery)
+        self._engine.rebuild_kv_state()
+
+    def _replay_or_fail(self, req: Request, err: BaseException):
+        """Requeue ``req`` for replay at the queue head if the recovery
+        protocol grants a retry; otherwise finish it FAILED (quarantined
+        when a retry budget existed and is spent)."""
+        rec = self._recovery
+        if req.expired():
+            self._metrics.on_deadline()
+            req._finish(RequestState.CANCELLED, DeadlineExceededError(
+                f"request {req.rid} deadline exceeded during recovery"))
+            return
+        if rec is not None and rec.request_should_replay(req, err):
+            req._requeue()
+            self._metrics.on_retry()
+            self._queue.push_front(req)
+            return
+        ferr = err
+        if rec is not None:
+            self._metrics.on_quarantined()
+            ferr = QuarantinedError(
+                f"request {req.rid} quarantined after {req.retries} "
+                f"retries: {err!r}")
+        self._metrics.on_failed()
+        req._finish(RequestState.FAILED, ferr)
+
+    def _replay_or_fail_slot(self, s: dict, err: BaseException,
+                             kv_intact: bool):
+        """Slot-holding variant of ``_replay_or_fail``: releases the
+        slot's KV first — retaining in the prefix cache the tokens whose
+        KV is written when the pages are still valid, so the replay
+        computes only the rest."""
+        req = s["req"]
+        rec = self._recovery
+        if req.expired():
+            self._metrics.on_deadline()
+            self._evict(s, RequestState.CANCELLED, DeadlineExceededError(
+                f"request {req.rid} deadline exceeded during recovery"))
+            return
+        if rec is not None and rec.request_should_replay(req, err):
+            self._slots[s["sid"]] = None
+            retain = None
+            if kv_intact and self._prefix_cache is not None:
+                if s["pending"].size:
+                    # mid-prefill: the cached prefix plus the chunks
+                    # consumed so far; the pending suffix was never
+                    # written
+                    retain = req.prompt[:s["ctx"]] if s["ctx"] else None
+                else:
+                    # prompt + the delivered tokens fed so far (the
+                    # last token's KV is written by its own decode step)
+                    fed = s["emitted"] - 1 - s["refeed"].size
+                    retain = np.concatenate(
+                        [req.prompt, np.asarray(req.tokens[:fed],
+                                                np.int32)])
+            self._release_slot_kv(s["sid"], s["match"],
+                                  retain_tokens=retain,
+                                  salt=req.route_salt())
+            req._requeue()
+            self._metrics.on_retry()
+            self._queue.push_front(req)
+            return
+        if rec is not None:
+            self._metrics.on_quarantined()
+            ferr: BaseException = QuarantinedError(
+                f"request {req.rid} quarantined after {req.retries} "
+                f"retries: {err!r}")
+        else:
+            ferr = RejectedError(f"in-flight KV state lost: {err!r}")
+        self._evict(s, RequestState.FAILED, ferr)
 
     # -------------------------------------------------- ragged mixed step
     def _mixed_step(self):
@@ -576,12 +836,20 @@ class EngineCore:
         chunk_taken = {}
         for s in decode_rows:
             i = s["sid"]
-            ids[i, 0] = s["last_tok"]
+            feed = s["refeed"]
+            if feed.size:
+                # a replay feeds back a delivered token whose KV was
+                # lost, through the decode kernel that first wrote it,
+                # and samples nothing
+                ids[i, 0] = feed[0]
+                ctx[i] = s["length"] + s["emitted"] - 1 - feed.size
+            else:
+                ids[i, 0] = s["last_tok"]
+                # the fed token's KV lands at length + emitted - 1
+                ctx[i] = s["length"] + s["emitted"] - 1
+                sample_now[i] = True
             qlens[i] = 1
-            # the fed token's KV lands at length + emitted - 1
-            ctx[i] = s["length"] + s["emitted"] - 1
             steps0[i] = s["emitted"]
-            sample_now[i] = True
             h["decode"][i] = True
             h["tables"][i] = s["table"]
             h["keys"][i] = s["key"]
@@ -596,8 +864,11 @@ class EngineCore:
             qlens[i] = n
             ctx[i] = s["ctx"]
             steps0[i] = s["emitted"]
-            # only the chunk holding the prompt's last token samples
-            sample_now[i] = n == int(s["pending"].size)
+            # only the chunk holding the prompt's last token samples,
+            # and a replay's never (its next token follows the
+            # delivered ones)
+            sample_now[i] = (n == int(s["pending"].size)
+                             and s["emitted"] == 0)
             h["tables"][i] = s["table"]
             h["keys"][i] = s["key"]
             self._fill_samp(h, i, s["g"])
@@ -607,6 +878,8 @@ class EngineCore:
         t0 = time.monotonic()
         n_emit = None
         try:
+            fault = self._fault.fire(
+                "decode.step", rids=[s["req"].rid for s in active])
             args = self._program_args(inputs.upload(), W)
             out = eng.run_paged_program(
                 mkey, lambda: build_mixed_step(eng, b, C, self._max_pages,
@@ -618,17 +891,24 @@ class EngineCore:
             else:
                 tok, fin_out = (_host(t) for t in out)
         except Exception as e:
-            # the pools were written in place mid-step: every in-flight
-            # row's KV is suspect, so fail them all (no replay yet) and
-            # drop every retained page with them
-            _log.exception("mixed step failed")
             self._metrics.on_failed(0)
-            for s in list(self._slots):
-                if s is not None:
-                    self._evict(s, RequestState.FAILED, RejectedError(
-                        f"in-flight KV state lost: {e!r}"))
-            if self._prefix_cache is not None:
-                self._prefix_cache.clear()
+            # only an injection raised before the dispatch provably
+            # leaves the pools intact; any other failure may have
+            # written them mid-step, so every row's KV is suspect
+            injected = isinstance(e, (InjectedFault, InjectedMemoryError))
+            if not injected:
+                _log.exception("mixed step failed")
+            if getattr(e, "lose_kv", False) or not injected:
+                self._engine.drop_kv_state()
+            rec = self._recovery
+            if rec is not None:
+                rec.on_engine_failure(e)
+            if self._engine.kv_state_lost():
+                self._recover_lost_state(e)
+            else:
+                for s in list(self._slots):
+                    if s is not None:
+                        self._replay_or_fail_slot(s, e, kv_intact=True)
             return
         if not self._decode_warm:
             # one graph for EVERY composition: after this, any capture on
@@ -636,6 +916,9 @@ class EngineCore:
             get_compile_log().mark_warm("serving-decode", mkey)
             self._decode_warm = True
         wall = time.monotonic() - t0
+        # injected NaN/inf logits poison the whole row (sampled or
+        # mid-chunk): it is quarantined below, the batch goes on
+        poisoned = set(fault["nan_rids"]) if fault else set()
         self._step_idx += 1
         emitted_decode = 0
         draft_accepted = 0
@@ -649,12 +932,22 @@ class EngineCore:
             if i in chunk_taken:
                 s["pending"] = s["pending"][chunk_taken[i]:]
                 s["ctx"] += chunk_taken[i]
-            if not sample_now[i]:
-                continue            # mid-prompt chunk: nothing to emit
+            elif s["refeed"].size:
+                s["refeed"] = s["refeed"][1:]
             # a speculative step emits the row's accepted window (at
             # least one token when it sampled)
             t_row = (tok[i:i + 1] if n_emit is None
                      else tok[i, :int(n_emit[i])])
+            if req.rid in poisoned or (
+                    sample_now[i] and t_row.size and int(t_row.min()) < 0):
+                self._metrics.on_quarantined()
+                self._evict(s, RequestState.FAILED, QuarantinedError(
+                    f"request {req.rid} quarantined: non-finite logits "
+                    f"in mixed step {self._step_idx}"))
+                evicted.append(req.rid)
+                continue
+            if not sample_now[i]:
+                continue            # mid-prompt chunk or refeed: no emit
             if i in chunk_taken:
                 # prefill complete: this chunk held the prompt's last
                 # token and sampled the row's first token
@@ -684,6 +977,8 @@ class EngineCore:
             "draft_tokens": sum(drafted.values()),
             "draft_accepted": draft_accepted,
             "evicted": evicted, "wall_s": wall})
+        if self._recovery is not None:
+            self._recovery.on_step_ok()
 
     def _pack_drafts(self, decode_rows, h, budget):
         """Speculative drafts, from leftover budget only, so decode
@@ -701,6 +996,8 @@ class EngineCore:
         for s in decode_rows:
             if budget <= 0:
                 break
+            if s["refeed"].size:
+                continue            # a replay's unsampled feed drafts nothing
             i = s["sid"]
             req = s["req"]
             k_cap = min(W - 1, s["g"].max_new_tokens - s["emitted"] - 1,

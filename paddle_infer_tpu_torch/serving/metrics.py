@@ -4,9 +4,11 @@ Port of the ``ServingMetrics`` counters the ragged path records in
 ``paddle_infer_tpu/serving/metrics.py``: submitted / rejected, queue
 wait, time to first token, inter-token latency, step wall, finished,
 the speculative draft counters (``on_spec``, the ``speculation``
-section of ``snapshot``), and the ``prefix_cache`` and ``kv_quant``
-sections the core hands to ``snapshot``.  Prometheus exposition and the per-tenant families wait (ROADMAP.md
-slice B).
+section of ``snapshot``), the resilience counters (engine restarts,
+retries, watchdog trips, quarantines, sheds: the ``resilience``
+section), and the ``prefix_cache`` and ``kv_quant`` sections the core
+hands to ``snapshot``.  Prometheus exposition and the per-tenant
+families wait for ``observability/`` (ROADMAP.md queue 1, item 2).
 """
 from __future__ import annotations
 
@@ -68,6 +70,12 @@ class ServingMetrics:
         self.spec_rows = 0              # row-steps that carried drafts
         self.spec_drafts_proposed = 0
         self.spec_drafts_accepted = 0
+        # fault tolerance (serving/resilience/)
+        self.engine_restarts = 0
+        self.request_retries = 0
+        self.watchdog_trips = 0
+        self.requests_quarantined = 0
+        self.requests_shed = 0
         self.ttft = _Series()
         self.itl = _Series()            # inter-token latency (s)
         self.e2e = _Series()
@@ -134,13 +142,39 @@ class ServingMetrics:
             self.completed += 1
             self.e2e.add(e2e_s)
 
+    # --------------------------------------------- resilience hooks
+    def on_engine_restart(self, n: int = 1):
+        with self._lock:
+            self.engine_restarts += n
+
+    def on_retry(self, n: int = 1):
+        with self._lock:
+            self.request_retries += n
+
+    def on_watchdog_trip(self, n: int = 1):
+        with self._lock:
+            self.watchdog_trips += n
+
+    def on_quarantined(self, n: int = 1):
+        with self._lock:
+            self.requests_quarantined += n
+
+    def on_shed(self, n: int = 1):
+        with self._lock:
+            self.requests_shed += n
+
     def snapshot(self, prefix_cache: Optional[Dict] = None,
-                 kv_quant: Optional[Dict] = None, **extra) -> dict:
+                 kv_quant: Optional[Dict] = None,
+                 resilience: Optional[Dict] = None, **extra) -> dict:
         """Every counter and series as a plain dict, with ``extra``
         (the core's gauges: queue depth, active rows, ``kv_pool``)
         merged in.  ``prefix_cache`` is ``PrefixCache.stats_snapshot()``
         and ``kv_quant`` the core's int8 pool byte accounting; each
-        section is present only when its feature is on."""
+        section is present only when its feature is on.  The
+        ``resilience`` section is always there: the core's gauges
+        (``effective_max_batch``, ``draining``, ``faults_injected`` and
+        the supervisor's ``health_info()``) with this registry's
+        counters."""
         with self._lock:
             out = {
                 "submitted": self.submitted,
@@ -177,6 +211,19 @@ class ServingMetrics:
                 "step_ms": self.step_ms.summary(),
                 "occupancy": self.occupancy.summary(),
             }
+            res = dict(resilience) if resilience is not None else {
+                "health_state": "healthy", "health_code": 0,
+                "effective_max_batch": extra.get("max_batch"),
+                "faults_injected": {}}
+            res.update({
+                "engine_restarts": self.engine_restarts,
+                "request_retries": self.request_retries,
+                "watchdog_trips": self.watchdog_trips,
+                "requests_quarantined": self.requests_quarantined,
+                "requests_shed": self.requests_shed,
+                "loop_exceptions": self.loop_exceptions,
+            })
+            out["resilience"] = res
         out.update(extra)
         if prefix_cache is not None:
             out["prefix_cache"] = dict(prefix_cache)

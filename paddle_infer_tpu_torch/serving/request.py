@@ -6,7 +6,10 @@ exclusive engine call, moving through
 QUEUED → ACTIVE → DONE/REJECTED/CANCELLED/FAILED; the scheduler thread
 ``_emit()``s tokens as they decode and consumers read them through
 ``stream()`` or ``result()``.  ``RequestQueue`` is a depth-bounded FIFO
-with all-or-nothing ``submit_many`` and deadline sweeping.
+with all-or-nothing ``submit_many`` and deadline sweeping; recovery
+requeues a replayed request at its head (``push_front``) and the
+degradation ladder sheds queued requests short of deadline headroom
+(``shed_low_headroom``).
 
 ``_rid_counter`` is module-level, as in the reference, so a test can pin
 request ids in both packages: each request's sampling key is
@@ -34,6 +37,16 @@ class QueueFullError(RejectedError):
 
 class DeadlineExceededError(RejectedError):
     """Per-request deadline passed while queued or mid-decode."""
+
+
+class QuarantinedError(RejectedError):
+    """Poison request: failed the engine past its retry budget (or while
+    the engine is DOWN) and was quarantined instead of requeued."""
+
+
+class LoadShedError(RejectedError):
+    """Dropped by the degradation ladder (too little deadline headroom
+    for the degraded engine) or refused while DRAINING."""
 
 
 def effective_salt(cache_salt, adapter_id):
@@ -86,6 +99,11 @@ class Request:
         self.tokens: List[int] = []        # delivered tokens
         self.first_token_at: Optional[float] = None
         self.finished_at: Optional[float] = None
+        # retry/replay bookkeeping (resilience/supervisor.py): how many
+        # engine failures this request already survived, and when it was
+        # last requeued for replay
+        self.retries = 0
+        self.requeued_at: Optional[float] = None
         self._chunks: _queue.Queue = _queue.Queue()
         self._done = threading.Event()
 
@@ -103,6 +121,13 @@ class Request:
 
     def _mark_active(self):
         self.state = RequestState.ACTIVE
+
+    def _requeue(self):
+        """Return a failed-but-replayable request to QUEUED.  Delivered
+        tokens are kept — replay resumes generation after them (the
+        consumer's stream is never rewound, so no duplicates)."""
+        self.state = RequestState.QUEUED
+        self.requeued_at = time.monotonic()
 
     def _emit(self, toks: np.ndarray):
         """Deliver decoded tokens (1-D array) to the consumer."""
@@ -193,6 +218,31 @@ class RequestQueue:
             if dead:
                 self._q = [r for r in self._q if not r.expired(now)]
             return dead
+
+    def push_front(self, req: Request):
+        """Requeue a replayed request at the queue HEAD — recovery must
+        not send a half-served request to the back of the line.  Bypasses
+        the depth bound: the request was already admitted once and
+        dropping it now would lose its delivered tokens."""
+        with self._cond:
+            self._q.insert(0, req)
+            self._cond.notify_all()
+
+    def shed_low_headroom(self, now: float,
+                          min_headroom_s: float) -> List[Request]:
+        """Drop and return queued batch requests whose deadline headroom
+        is below ``min_headroom_s`` (degradation-ladder load shedding;
+        deadline-less requests are never shed)."""
+
+        def low(r: Request) -> bool:
+            return (r.kind == "batch" and r.deadline is not None
+                    and r.deadline - now < min_headroom_s)
+
+        with self._cond:
+            shed = [r for r in self._q if low(r)]
+            if shed:
+                self._q = [r for r in self._q if not low(r)]
+            return shed
 
     def drain(self) -> List[Request]:
         with self._cond:

@@ -33,6 +33,7 @@ from paddle_infer_tpu_torch.serving import (DeadlineExceededError,
                                             EngineCore, RejectedError,
                                             RequestState)
 from paddle_infer_tpu_torch.serving import request as trequest
+from paddle_infer_tpu_torch.serving.resilience import FaultPlane, FaultSpec
 from paddle_infer_tpu_torch.weights import from_jax_state_dict
 
 from _torch_jax_isolation import _private_jax_compile_log  # noqa: F401
@@ -147,7 +148,9 @@ def test_metrics_counted(streams):
     dict(ragged=False),
     dict(adapter_store=object()), dict(grammar_vocab=["a"]),
     dict(serving_mesh=object()), dict(kv_host_pages=4),
-    dict(sched_policy="slack"), dict(fault_plane=object())])
+    dict(sched_policy="slack"),
+    # the host KV tier's fault sites: a plane that scripts them
+    dict(fault_plane=FaultPlane([FaultSpec("kv.swap_out", at=1)]))])
 def test_unported_knobs_raise(models, knob):
     _, tm = models
     eng = PagedGenerationEngine(tm, page_size=PAGE, device="cpu")
