@@ -42,7 +42,19 @@ per replay, so the launch checks stay exact.
    small input, a profiled short run after a warm one (graph, then
    eager: the idle shares side by side), and the ragged kernel's opt-in
    single-launch entry point (``ragged_paged_attention(use_kernel=True)``)
-   at the serving shapes;
+   at the serving shapes; between them the observability checks on the
+   serve run's core (its streams EQUAL to the eager run's, no capture
+   after warm-up; the step log one mixed / prefill / decode record per
+   step, each with ``bytes_est > 0`` and ``dispatch_s <= wall_s``, and
+   one evict record per request; every trace covering >= 0.95 of its
+   request; every journey's buckets summing to its e2e within 1e-9 s at
+   coverage >= 0.97; the snapshot's Prometheus exposition valid with >= 5
+   histogram families and a ``device_memory`` section; an evidence
+   bundle whose device probe names the card), printing the records by
+   kind, the decode cost model's fit (s/byte, the bandwidth it implies
+   against the HBM peak, its error and correlation), the dispatch / host
+   split of decode steps, the journey buckets, the exposition's size,
+   the step p50 and the decode steps' ``host_s`` share of their wall;
 5. spec — the same LLaMA-7B core shape with ``num_draft_tokens=4``: 8
    greedy requests plain (a), then ``speculate=True`` with an oracle
    draft source proposing run (a)'s streams (b: streams equal to (a),
@@ -78,9 +90,13 @@ per replay, so the launch checks stay exact.
    quarantined, the watchdog tripped, one engine restart, the batch
    halved and grown back, the pool back to its free blocks, no capture
    after warm-up, the decode and ragged kernels once per layer per
-   clean step (a failed step launches nothing); the counters, both
-   walls and step counts, and the time of ``rebuild_kv_state`` (64
-   pools zeroed in place);
+   clean step (a failed step launches nothing); the faulted core's step
+   log one failed record per failed step and per failed admission and a
+   failed evict per failed request, a ``recovery`` span per replay, its
+   exposition valid with ``engine_restarts_total 1`` and the plane's
+   ``faults_injected_total`` counts; the counters, both walls and step
+   counts, and the time of ``rebuild_kv_state`` (64 pools zeroed in
+   place);
 8. int8 — the same model on ``kv_dtype="int8"`` pools: the serve
    phase's 8 requests on graphs and eager (streams EQUAL; decode and
    ragged launches exact on int8 pages; pool bytes, step p50 and
@@ -808,6 +824,12 @@ def serve(model, device, prompt_lens=PROMPT_LENS, max_new=MAX_NEW,
     try:
         reqs, wall = drive(core, prompts, max_new, sampled, rid_start)
         nbytes = pool_bytes(engine)
+        # the core's records, read before close (the observability
+        # phase's input); the snapshot probes the card's allocator
+        obs = {"steplog": core.steplog, "tracer": core.tracer,
+               "journeys": core._journeys, "metrics": core.metrics,
+               "snapshot": core.metrics_snapshot(),
+               "compile_summary": log.summary()}
     finally:
         core.close()
         # the wrapper closes over the engine (a cycle): drop it and
@@ -833,7 +855,7 @@ def serve(model, device, prompt_lens=PROMPT_LENS, max_new=MAX_NEW,
             f"{summary['post_warmup_decode_compiles']} after warm-up; want "
             "exactly one for the run's one key and none after")
     gen = sum(len(r.tokens) for r in reqs)
-    spec = core.metrics_snapshot()["speculation"]
+    spec = obs["snapshot"]["speculation"]
     return {"steps": core._step_idx, "wall_s": wall,
             "generated_tokens": gen, "tokens_per_s": gen / wall,
             "ttft_s": [r.first_token_at - r.arrival for r in reqs],
@@ -843,7 +865,8 @@ def serve(model, device, prompt_lens=PROMPT_LENS, max_new=MAX_NEW,
             "graphs": graphs, "captures": len(events) if graphs else 0,
             "capture_wall_s": events[0].wall_s,
             "post_warmup_captures": summary["post_warmup_decode_compiles"],
-            "pool_bytes": nbytes,
+            "pool_bytes": nbytes, "rids": [r.rid for r in reqs],
+            "obs": obs,
             "prompts": prompts, "streams": [list(r.tokens) for r in reqs]}
 
 
@@ -1175,6 +1198,197 @@ def _check_verify_launches(st, L, tag):
     if n != L * st["steps"]:
         raise AssertionError(f"{tag}: paged_verify launched {n} times in "
                              f"{st['steps']} steps (want {L} per step)")
+
+
+# ------------------------------------------------------- observability
+
+STEP_KINDS = ("mixed", "prefill", "decode")
+
+
+def _p50(xs):
+    return float(np.median(xs)) if xs else float("nan")
+
+
+def check_journeys(journeys, rids, tag):
+    """Every journey of ``rids`` partitions its e2e wall exactly: the
+    attribution buckets, recomputed unrounded from the store's intervals,
+    sum to the journey's window within 1e-9 s, and its coverage is at
+    least 0.97."""
+    from paddle_infer_tpu_torch.observability.journey import attribute
+
+    for rid in rids:
+        summary = journeys.get(rid)
+        j = journeys._find(rid)
+        traces = journeys._traces(j)
+        begin, finish = journeys._window(j, traces)
+        buckets = attribute(journeys._intervals(j, traces, begin, finish),
+                            begin, finish)
+        gap = abs(sum(buckets.values()) - (finish - begin))
+        if gap > 1e-9 or summary["coverage"] < 0.97:
+            raise AssertionError(
+                f"{tag}: journey {rid} buckets sum {gap:.3g} s off its "
+                f"e2e, coverage {summary['coverage']} (want <= 1e-9, "
+                ">= 0.97)")
+
+
+def observability_phase(st, reference_streams, card):
+    """The serve run's records (``serve``'s ``obs``): raises unless its
+    streams EQUAL ``reference_streams`` (the eager run's), no capture
+    followed warm-up, the step log holds one mixed / prefill / decode
+    record per step (each with ``bytes_est > 0`` and ``dispatch_s <=
+    wall_s``) and one evict record per request, every trace covers at
+    least 0.95 of its request, every journey partitions its e2e, the
+    snapshot's exposition validates with at least five histogram
+    families, and the evidence bundle's device probe names the card.
+    Prints the records by kind, the decode cost model's fit, the
+    dispatch / host split of decode steps, the journey buckets, the
+    exposition's size, the step p50 and the decode steps' ``host_s``
+    share."""
+    import tempfile
+
+    import torch
+
+    from paddle_infer_tpu_torch.observability import (capture_bundle,
+                                                      family_names,
+                                                      validate_exposition)
+
+    t0 = time.perf_counter()
+    obs = st["obs"]
+    if st["streams"] != reference_streams:
+        raise AssertionError("observability: the serve streams differ from "
+                             "the eager run's")
+    if st["post_warmup_captures"]:
+        raise AssertionError(f"observability: {st['post_warmup_captures']} "
+                             "captures after warm-up")
+    recs = obs["steplog"].records()
+    steps = [r for r in recs if r["kind"] in STEP_KINDS]
+    evicts = [r for r in recs if r["kind"] == "evict"]
+    if len(steps) != st["steps"] or len(evicts) != len(st["rids"]):
+        raise AssertionError(
+            f"observability: {len(steps)} step records for {st['steps']} "
+            f"steps, {len(evicts)} evict records for {len(st['rids'])} "
+            "requests")
+    bad = [r["seq"] for r in steps
+           if not (r["bytes_est"] > 0 and r["dispatch_s"] <= r["wall_s"])]
+    if bad:
+        raise AssertionError(f"observability: step records {bad} lack "
+                             "bytes_est > 0 or dispatch_s <= wall_s")
+    for rid in st["rids"]:
+        tr = obs["tracer"].get(rid)
+        if tr is None or tr.state != "done" or tr.coverage() < 0.95:
+            raise AssertionError(
+                f"observability: request {rid}'s trace "
+                f"{None if tr is None else (tr.state, tr.coverage())}; "
+                "want done with coverage >= 0.95")
+    check_journeys(obs["journeys"], st["rids"], "observability")
+    snap = obs["snapshot"]
+    text = obs["metrics"].to_prometheus(snap, obs["compile_summary"])
+    problems = validate_exposition(text)
+    n_hist = sum(1 for ln in text.splitlines()
+                 if ln.startswith("# TYPE") and ln.endswith(" histogram"))
+    if problems or n_hist < 5:
+        raise AssertionError(f"observability: exposition problems "
+                             f"{problems[:5]}, {n_hist} histogram families")
+    if not snap.get("device_memory", {}).get("bytes_limit"):
+        raise AssertionError("observability: no device_memory section")
+    with tempfile.TemporaryDirectory() as out:
+        manifest = capture_bundle(
+            out, snapshot=snap, core=type("Recorded", (), {
+                "steplog": obs["steplog"], "tracer": obs["tracer"]})())
+        with open(f"{out}/device_probe.json") as f:
+            probe = json.load(f)
+    if ("manifest.json" not in manifest["files"]
+            or probe.get("device_kind") != torch.cuda.get_device_name(0)):
+        raise AssertionError(f"observability: bundle {manifest}, probe "
+                             f"{probe}")
+    summary = obs["steplog"].summary()
+    model = summary["decode_model"]
+    scale = model["scale_s_per_byte"]
+    decode = [r for r in steps if r["kind"] == "decode"]
+    buckets = obs["journeys"].summary()["bucket_seconds"]
+    kinds = json.dumps(summary["by_kind"], sort_keys=True)
+    print(f"[observability] records {kinds} steps={st['steps']} requests="
+          f"{len(st['rids'])} bytes_est_total={summary['bytes_est_total']:.4g}"
+          f" cost_source={sorted({r['cost_source'] for r in steps})}",
+          flush=True)
+    print(f"[observability] decode model ({card}): n={model['n']} "
+          f"scale_s_per_byte={scale:.6g} implied_GB_s="
+          f"{1e-9 / scale:.1f} (HBM peak {PEAK_BYTES_S / 1e9:.0f}) "
+          f"mean_abs_rel_err={model['mean_abs_rel_err']:.4f} "
+          f"pearson_r={model['pearson_r']}", flush=True)
+    print(f"[observability] decode steps ({card}): dispatch_s_p50="
+          f"{_p50([r['dispatch_s'] for r in decode]):.6f} host_s_p50="
+          f"{_p50([r['host_s'] for r in decode]):.6f} wall_s_p50="
+          f"{_p50([r['wall_s'] for r in decode]):.6f} "
+          f"(n={len(decode)})", flush=True)
+    print("[observability] journey buckets_s " + " ".join(
+        f"{b}={v:.4f}" for b, v in buckets.items() if v) + " coverage="
+        f"{obs['journeys'].summary()['attribution_coverage']}", flush=True)
+    print(f"[observability] exposition {len(text)} bytes, "
+          f"{len(family_names(text))} families ({n_hist} histograms), "
+          f"device_memory={json.dumps(snap['device_memory'], sort_keys=True)}"
+          f" bundle_files={len(manifest['files'])}", flush=True)
+    # host_s holds the step's bookkeeping after its readback, the
+    # recording included: its share of the step's wall is what the
+    # recording can cost the card, which idles through it
+    host_share = (sum(r["host_s"] for r in decode)
+                  / max(sum(r["wall_s"] for r in decode), 1e-12))
+    print(f"[observability] serve step_ms_p50={_p50_after_first(st):.2f} "
+          f"decode host_s_share={host_share:.5f} ({card}); phase took "
+          f"{time.perf_counter() - t0:.2f}s", flush=True)
+
+
+def check_resilience_records(core, plane, reqs, tag):
+    """The faulted core's records: one failed step record per failed
+    step (a raise at ``decode.step``) and one failed ``prefill`` record
+    per failed admission (a fault at any admission site), a failed
+    evict per failed request, a ``recovery`` span per replay of every
+    replayed request, and an exposition that validates with
+    ``engine_restarts_total 1`` and the plane's ``faults_injected_total``
+    counts."""
+    from paddle_infer_tpu_torch.observability import (get_compile_log,
+                                                      validate_exposition)
+    from paddle_infer_tpu_torch.serving import RequestState
+
+    recs = core.steplog.records()
+    counts = plane.counts()
+    raises = sum(sp["fired"] for sp in plane.specs_snapshot()
+                 if sp["site"] == "decode.step" and sp["action"] == "raise")
+    admission = sum(n for site, n in counts.items()
+                    if site != "decode.step")
+    failed_steps = [r for r in recs if r["failed"] and r["chunk_steps"]]
+    failed_admits = [r for r in recs if r["failed"]
+                     and r["kind"] == "prefill" and not r["chunk_steps"]]
+    failed_evicts = [r for r in recs if r["failed"] and r["kind"] == "evict"]
+    n_failed = sum(r.state == RequestState.FAILED for r in reqs)
+    if (len(failed_steps) != raises or len(failed_admits) != admission
+            or len(failed_evicts) != n_failed):
+        raise AssertionError(
+            f"{tag}: {len(failed_steps)} failed step records for "
+            f"{raises} failed steps, {len(failed_admits)} failed "
+            f"admission records for {admission} admission faults, "
+            f"{len(failed_evicts)} failed evicts for {n_failed} failed "
+            "requests")
+    for r in reqs:
+        n = sum(s.name == "recovery" for s in core.tracer.get(r.rid).spans)
+        if n != r.retries:
+            raise AssertionError(f"{tag}: request {r.rid} has {n} recovery "
+                                 f"spans for {r.retries} replays")
+    snap = core.metrics_snapshot()
+    text = core.metrics.to_prometheus(snap, get_compile_log().summary())
+    problems = validate_exposition(text)
+    lines = set(text.splitlines())
+    want = {"engine_restarts_total 1"} | {
+        f'faults_injected_total{{site="{site}"}} {n}'
+        for site, n in counts.items()}
+    if problems or not want <= lines:
+        raise AssertionError(f"{tag}: exposition problems {problems[:5]}, "
+                             f"missing {sorted(want - lines)}")
+    print(f"[{tag}] records: failed steps={len(failed_steps)} failed "
+          f"admissions={len(failed_admits)} failed evicts="
+          f"{len(failed_evicts)} recovery spans="
+          f"{sum(r.retries for r in reqs)} exposition ok "
+          f"({' '.join(sorted(want))})", flush=True)
 
 
 def spec_phase(model, device, card=""):
@@ -1509,6 +1723,8 @@ def resilience_phase(model, device, card, max_new=MAX_NEW,
         fsup = EngineSupervisor(faulted_core, **sup_kw)
         faulted = resilience_run(faulted_core, fsup, prompts, sampled,
                                  max_new, RES_RID)
+        check_resilience_records(faulted_core, plane, faulted["reqs"],
+                                 "resilience")
         faulted_core.prefix_cache.clear()
         faulted_free = faulted_core._pool.free_blocks
         post = log.summary()["post_warmup_decode_compiles"] - post0
@@ -2880,7 +3096,10 @@ def main() -> int:
     print(f"[serve] launches {launches}", flush=True)
     _check_decode_launches(dict(stats, launches=launches), L, "serve")
     _check_ragged_launches(dict(stats, launches=launches), L, "serve")
-    eager_twin(model, device, "serve", stats, card)
+    eager_stats = eager_twin(model, device, "serve", stats, card)
+    # phase 4b: the serve run's step log, traces, journeys, exposition
+    observability_phase(stats, eager_stats["streams"], card)
+    del eager_stats
     reference_check(model, device)
     profile_pair(model, device, "plain", card)
 

@@ -26,21 +26,11 @@ import time
 from collections import deque
 from typing import Dict, List, Optional, Tuple
 
+from .stable import sorted_tree
+
 logger = logging.getLogger("paddle_infer_tpu_torch.observability")
 
 _RING = 512             # events kept for inspection
-
-
-def sorted_tree(obj):
-    """``obj`` rebuilt with dict keys in sorted order (by ``str``, so
-    mixed-type keys still sort); tuples become lists, as JSON renders
-    them.  The port's copy of ``observability/stable.py``'s helper."""
-    if isinstance(obj, dict):
-        return {k: sorted_tree(obj[k])
-                for k in sorted(obj, key=lambda x: (str(type(x)), str(x)))}
-    if isinstance(obj, (list, tuple)):
-        return [sorted_tree(v) for v in obj]
-    return obj
 
 
 def signature_of(args) -> tuple:

@@ -74,13 +74,34 @@ address) poisons the CUDA context: the drop-and-rebuild path cannot
 recover it, and a repeated failure's crash streak sends the engine
 DOWN.  Only injected faults are exercised.
 
+Observability (``observability/``), as in the reference: every request
+gets a trace (``tracer``) whose spans chain edge to edge — queue wait,
+prefix match, each prefill chunk, each decode step, recovery, evict —
+and a journey (a private ``JourneyStore``) whose finish partitions its
+e2e wall into attribution buckets and feeds the per-tenant section of
+the metrics; every step event (mixed step, failed step, failed
+admission, page copy, evict) appends one record to ``steplog`` with its
+analytic bytes and FLOPs (``StepCostModel``).  All of it is host data
+computed from what the step already read back: it adds no device read
+and no graph.  A step's ``dispatch_s`` runs from the dispatch to the
+end of its one readback (device time plus launch), its ``host_s`` is
+the bookkeeping after it; ``wall_s`` fed to the step metrics is the
+former, as before.  A page copy is enqueued without a sync, so its
+record carries the enqueue wall and the next step's ``dispatch_s``
+absorbs the copy.
+
 Not ported yet, rejected at construction (ROADMAP.md): the legacy
 ``ragged=False`` programs, adapters, grammars, sharded serving, the host
 KV tier (with its fault sites ``kv.swap_out`` / ``kv.swap_in`` and
 park-before-shed: ``park_for_pressure`` returns False) and non-fifo
-scheduling; also tracing (the reference's ``recovery`` spans), journeys,
-the step log (its failed records) and ``enqueue`` (the fleet router's
-requeue).
+scheduling; also ``enqueue`` (the fleet router's requeue) and the
+reference's ``tracer=`` / ``steplog=`` / ``journeys=`` /
+``replica_name=`` arguments (the core builds its own, as ``core0``;
+they come with the serving entry point and the fleet).  The step
+log's planner fields (``planned_tokens``, ``planned_chunk_cap``,
+``predicted_wall_s``) and host-tier fields (``parked_rows``,
+``host_pages``) keep their schema defaults until the scheduler and the
+host KV tier are ported.
 """
 from __future__ import annotations
 
@@ -96,6 +117,10 @@ from ..core import random as prng
 from ..inference.generation import (GenerationConfig, PagedGenerationEngine,
                                     _round_up)
 from ..observability.compilelog import get_compile_log
+from ..observability.journey import JourneyStore
+from ..observability.steplog import StepCostModel, StepLog
+from ..observability.tracing import Tracer
+from ..profiler.statistic import memory_stats
 from .metrics import ServingMetrics
 from .prefix_cache import PrefixCache
 from .programs import build_mixed_step, build_page_copy
@@ -119,6 +144,10 @@ _SAMP_FIELDS = (("temperature", np.float32), ("top_k", np.int32),
 # the host KV tier's fault sites: nothing fires them until it is ported
 _TIER_SITES = ("kv.swap_out", "kv.swap_in")
 _NO_TOKENS = np.zeros((0,), np.int32)
+
+_TRACE_STATE = {RequestState.DONE: "done", RequestState.FAILED: "failed",
+                RequestState.CANCELLED: "cancelled",
+                RequestState.REJECTED: "rejected"}
 
 
 def _host(t) -> np.ndarray:
@@ -198,6 +227,12 @@ class EngineCore:
         self._effective_max_batch = self._max_batch
         self._default_timeout = default_timeout_s
         self._metrics = metrics or ServingMetrics()
+        # span-based request tracing: completed traces live in the
+        # tracer's ring; a standalone core's journey store is private
+        self.tracer = Tracer()
+        self.replica_name = "core0"
+        self._journeys = JourneyStore()
+        self._journeys.register(self.replica_name, self.tracer)
         self._queue = RequestQueue(max_depth=max_queue)
 
         page = self._page = engine.page_size
@@ -233,6 +268,9 @@ class EngineCore:
         self._prefix_cache: Optional[PrefixCache] = (
             PrefixCache(self._pool, page, prefix_cache_watermark)
             if enable_prefix_cache else None)
+        # step-level flight recorder, priced by the analytic cost model
+        self.steplog = StepLog()
+        self._cost_model = StepCostModel(engine, self._pool)
 
         # in-engine speculative decoding: drafts ride the mixed step as
         # verify rows under leftover budget; the static window W joins
@@ -327,6 +365,7 @@ class EngineCore:
             r._finish(RequestState.REJECTED, LoadShedError(
                 f"request {r.rid} shed: deadline headroom below "
                 f"{min_headroom_s:.2f}s under degraded engine"))
+            self._trace_queue_drop(r, RequestState.REJECTED, "load-shed")
         return len(shed)
 
     def park_for_pressure(self) -> bool:
@@ -380,16 +419,60 @@ class EngineCore:
                      "occupancy": (total - free) / total if total else 0.0},
             prefix_cache=(self._prefix_cache.stats_snapshot()
                           if self._prefix_cache is not None else None),
-            kv_quant=self._kv_quant_info())
+            kv_quant=self._kv_quant_info(),
+            steplog=self.steplog.summary(),
+            # the one device-memory probe (None on the CPU)
+            device_memory=memory_stats(self._engine.device),
+            journeys=self._journeys.summary())
+
+    # ------------------------------------------------------- trace hooks
+    def _trace_end(self, req: Request, state: RequestState):
+        """Close the request's trace, finalize its journey (its e2e wall
+        partitioned into attribution buckets) and fold the journey into
+        the per-tenant metrics."""
+        st = _TRACE_STATE.get(state, state.value)
+        self.tracer.end(req.rid, st)
+        summary = self._journeys.finalize(req.rid, st)
+        if summary is not None:
+            attained = (state == RequestState.DONE
+                        and (req.deadline is None
+                             or (req.finished_at or req.arrival)
+                             <= req.deadline))
+            self._metrics.on_journey(
+                tenant=req.tenant, e2e_s=summary["e2e_s"],
+                tokens=len(req.tokens), attained=attained,
+                buckets=summary["buckets"],
+                coverage=summary["coverage"],
+                journey_id=summary["journey_id"])
+
+    def _trace_queue_drop(self, req: Request, state: RequestState,
+                          reason: str):
+        """A request that dies in the queue still gets a full trace: one
+        queue_wait span covering its whole life."""
+        now = time.monotonic()
+        self.tracer.add_span(req.rid, "queue_wait", req.arrival, now,
+                             outcome=reason)
+        self._trace_end(req, state)
+
+    def _used_pages(self) -> int:
+        """Pool pages held by any sequence (slots, scratch, retained
+        cache): the step log's resident-KV gauge."""
+        return int(self._pool.num_blocks - self._pool.free_blocks)
+
+    def _degraded(self) -> bool:
+        return self._effective_max_batch < self._max_batch
 
     def submit(self, input_ids, config: GenerationConfig = None,
                timeout_s: Optional[float] = None,
-               cache_salt: Optional[str] = None) -> List[Request]:
+               cache_salt: Optional[str] = None,
+               tenant: Optional[str] = None) -> List[Request]:
         """Enqueue one request per row of ``input_ids`` ([b, plen] or
         [plen]).  All-or-nothing: admission errors reject the whole
         call.  Returns the per-row ``Request`` handles immediately.
         ``cache_salt`` is the rows' prefix-cache tenant: they share
-        cached KV only with requests of the same salt."""
+        cached KV only with requests of the same salt.  ``tenant`` is
+        an accounting label (the per-tenant metrics), never a scheduling
+        input."""
         if self._closed:
             raise RejectedError("serving engine is closed")
         if self._drain_evt.is_set():
@@ -416,7 +499,8 @@ class EngineCore:
                     f"exceeds max_model_len {self._max_model_len}")
             rows.append(row)
         timeout_s = self._default_timeout if timeout_s is None else timeout_s
-        reqs = [Request(row, g, timeout_s=timeout_s, cache_salt=cache_salt)
+        reqs = [Request(row, g, timeout_s=timeout_s, cache_salt=cache_salt,
+                        tenant=tenant)
                 for row in rows]
         try:
             self._queue.submit_many(reqs)
@@ -424,6 +508,11 @@ class EngineCore:
             self._metrics.on_rejected_queue_full(len(reqs))
             raise
         self._metrics.on_submitted(len(reqs))
+        for req in reqs:
+            self.tracer.begin(req.rid, kind="batch",
+                              prompt_len=int(req.prompt.size),
+                              max_new_tokens=g.max_new_tokens)
+            self._journeys.begin(req.rid, self.replica_name, tenant=tenant)
         return reqs
 
     def submit_exclusive(self, fn,
@@ -450,6 +539,8 @@ class EngineCore:
             self._metrics.on_rejected_queue_full()
             raise
         self._metrics.on_submitted()
+        self.tracer.begin(req.rid, kind="exclusive")
+        self._journeys.begin(req.rid, self.replica_name)
         return req
 
     # ------------------------------------------------------ the step loop
@@ -467,6 +558,8 @@ class EngineCore:
             r._finish(RequestState.CANCELLED, DeadlineExceededError(
                 f"request {r.rid} expired after "
                 f"{now - r.arrival:.3f}s in queue"))
+            self._trace_queue_drop(r, RequestState.CANCELLED,
+                                   "deadline-in-queue")
             progressed = True
         for s in list(self._slots):
             if s is not None and s["req"].expired(now):
@@ -493,6 +586,8 @@ class EngineCore:
                 self._metrics.on_deadline()
                 req._finish(RequestState.CANCELLED, DeadlineExceededError(
                     f"request {req.rid} expired in queue"))
+                self._trace_queue_drop(req, RequestState.CANCELLED,
+                                       "deadline-in-queue")
                 continue
             self._admit(req, self._slots.index(None))
             progressed = True
@@ -553,10 +648,14 @@ class EngineCore:
     def _copy_page(self, src: int, dst: int):
         """Copy one physical page across every layer's pools (the
         copy-on-write step for a shared partial tail block): one graph
-        for the pool size, ``src`` and ``dst`` staged."""
+        for the pool size, ``src`` and ``dst`` staged.  Nothing syncs:
+        the step-log record carries the enqueue wall."""
         self._fault.fire("page.copy")
         eng = self._engine
         ckey = ("serve-page-copy", self._pool.num_blocks)
+        clog = get_compile_log()
+        c0 = clog.count()
+        t0 = time.monotonic()
         inputs = eng.program_inputs(ckey, [("src", (1,), np.int32),
                                            ("dst", (1,), np.int32)])
         h = inputs.begin()
@@ -565,6 +664,15 @@ class EngineCore:
         dev = inputs.upload()
         eng.run_paged_program(ckey, lambda: build_page_copy(eng),
                               dev["src"], dev["dst"])
+        wall = time.monotonic() - t0
+        bts, fl, src_tag = self._cost_model.estimate("page_copy",
+                                                     pages_touched=1)
+        self.steplog.record(
+            "page_copy", wall_s=wall, dispatch_s=wall,
+            active_rows=self.active_count,
+            resident_kv_pages=self._used_pages(),
+            bytes_est=bts, flops_est=fl, cost_source=src_tag,
+            compile_events=clog.count() - c0)
 
     def _stage_prefix(self, sid: int, match, length: int, max_new: int):
         """Map a match onto slot ``sid``'s sequence: copy the partial
@@ -649,7 +757,9 @@ class EngineCore:
         step: ``refeed`` unsampled, then ``last_tok``, which samples."""
         admit_t = time.monotonic()
         queued_at = req.requeued_at if req.retries else req.arrival
+        self.tracer.add_span(req.rid, "queue_wait", queued_at, admit_t)
         self._metrics.on_queue_wait(admit_t - queued_at)
+        c0 = get_compile_log().count()
         g = req.config
         already = req.emitted
         full = (req.prompt if already == 0 else np.concatenate(
@@ -663,24 +773,32 @@ class EngineCore:
             if self._prefix_cache is not None:
                 match = self._match_prefix(req, full)
                 cached = self._stage_prefix(sid, match, length, budget)
+                prefill_t = time.monotonic()
+                self.tracer.add_span(
+                    req.rid, "prefix_match", admit_t, prefill_t,
+                    cached_tokens=cached, blocks=len(match.blocks),
+                    cow=int(match.partial_block is not None))
             else:
                 cached = 0
+                prefill_t = admit_t
                 self._pool.reserve(sid, max(self._plen(length),
                                             length + budget))
-            table = np.full((self._max_pages,), self._scratch, np.int32)
-            t = self._pool.block_table(sid)[:self._max_pages]
-            table[:len(t)] = np.asarray(t, np.int32)
-            key = prng.fold_in(prng.PRNGKey(g.seed), req.rid).numpy()
+        except Exception as e:
+            self._admission_failed(req, sid, match, e, admit_t, c0)
+            return
+        table = np.full((self._max_pages,), self._scratch, np.int32)
+        t = self._pool.block_table(sid)[:self._max_pages]
+        table[:len(t)] = np.asarray(t, np.int32)
+        key = prng.fold_in(prng.PRNGKey(g.seed), req.rid).numpy()
+        try:
             # ragged admission stages KV only; the site still fires here
             # so prefill faults route through the admission failure path
             self._fault.fire("prefill.run", rid=req.rid)
         except Exception as e:
-            # pool exhaustion, a failed page copy or an injected fault:
-            # recovery decides between a replay and a failure
-            if not isinstance(e, (MemoryError, InjectedFault)):
-                _log.exception("admission of request %d failed", req.rid)
-            self._release_slot_kv(sid, match)
-            self._admit_failure(req, e)
+            self._admission_failed(
+                req, sid, match, e, admit_t, c0,
+                prefill_tokens=length - cached,
+                prefix_hit_pages=len(match.blocks) if match else 0)
             return
         n_prompt = int(req.prompt.size)
         feed = full[max(cached, n_prompt):]
@@ -692,7 +810,30 @@ class EngineCore:
             "pending": full[cached:n_prompt] if cached < n_prompt
             else _NO_TOKENS,
             "last_tok": int(feed[-1]) if already else 0,
-            "refeed": feed[:-1] if already else _NO_TOKENS}
+            "refeed": feed[:-1] if already else _NO_TOKENS,
+            "span_end": prefill_t}
+
+    def _admission_failed(self, req: Request, sid: int, match,
+                          err: BaseException, admit_t: float, c0: int,
+                          **fields):
+        """Pool exhaustion, a failed prefix lookup or page copy, or an
+        injected fault at admission: release the slot's KV, record the
+        failed ``prefill`` (a span and a step-log record; ``fields`` are
+        the suffix and hit pages once the prefix was staged), then let
+        recovery decide between a replay and a failure."""
+        if not isinstance(err, (MemoryError, InjectedFault)):
+            _log.exception("admission of request %d failed", req.rid)
+        self._release_slot_kv(sid, match)
+        now = time.monotonic()
+        self.tracer.add_span(req.rid, "prefill", admit_t, now, slot=sid,
+                             outcome="failed")
+        self.steplog.record(
+            "prefill", wall_s=now - admit_t, host_s=now - admit_t,
+            kernel="ragged", active_rows=self.active_count,
+            resident_kv_pages=self._used_pages(),
+            compile_events=get_compile_log().count() - c0, failed=True,
+            retries=req.retries, degraded=self._degraded(), **fields)
+        self._admit_failure(req, err)
 
     # ---------------------------------------------------- failure paths
     def _admit_failure(self, req: Request, err: BaseException):
@@ -745,10 +886,15 @@ class EngineCore:
             self._metrics.on_deadline()
             req._finish(RequestState.CANCELLED, DeadlineExceededError(
                 f"request {req.rid} deadline exceeded during recovery"))
+            self._trace_end(req, RequestState.CANCELLED)
             return
         if rec is not None and rec.request_should_replay(req, err):
             req._requeue()
             self._metrics.on_retry()
+            now = time.monotonic()
+            self.tracer.add_span(req.rid, "recovery", now, now,
+                                 retry=req.retries,
+                                 cause=type(err).__name__)
             self._queue.push_front(req)
             return
         ferr = err
@@ -759,6 +905,7 @@ class EngineCore:
                 f"retries: {err!r}")
         self._metrics.on_failed()
         req._finish(RequestState.FAILED, ferr)
+        self._trace_end(req, RequestState.FAILED)
 
     def _replay_or_fail_slot(self, s: dict, err: BaseException,
                              kv_intact: bool):
@@ -794,6 +941,10 @@ class EngineCore:
                                   salt=req.route_salt())
             req._requeue()
             self._metrics.on_retry()
+            now = time.monotonic()
+            self.tracer.add_span(req.rid, "recovery", s["span_end"], now,
+                                 retry=req.retries,
+                                 cause=type(err).__name__)
             self._queue.push_front(req)
             return
         if rec is not None:
@@ -875,6 +1026,12 @@ class EngineCore:
             budget -= n
             chunk_taken[i] = n
         drafted = self._pack_drafts(decode_rows, h, budget)
+        kind = ("mixed" if chunk_taken and decode_rows else
+                ("prefill" if chunk_taken else "decode"))
+        draft_tokens = sum(drafted.values())
+        prefill_tokens = sum(chunk_taken.values())
+        clog = get_compile_log()
+        c0 = clog.count()
         t0 = time.monotonic()
         n_emit = None
         try:
@@ -898,6 +1055,16 @@ class EngineCore:
             injected = isinstance(e, (InjectedFault, InjectedMemoryError))
             if not injected:
                 _log.exception("mixed step failed")
+            self.steplog.record(
+                kind, wall_s=time.monotonic() - t0,
+                active_rows=len(active), decode_rows=len(decode_rows),
+                chunk_steps=1, prefill_tokens=prefill_tokens,
+                prefill_chunk_tokens=prefill_tokens, kernel="ragged",
+                resident_kv_pages=self._used_pages(),
+                compile_events=clog.count() - c0, faults=injected,
+                retries=sum(s["req"].retries for s in active),
+                failed=True, degraded=self._degraded(),
+                draft_tokens=draft_tokens, spec_rows=len(drafted))
             if getattr(e, "lose_kv", False) or not injected:
                 self._engine.drop_kv_state()
             rec = self._recovery
@@ -910,20 +1077,29 @@ class EngineCore:
                     if s is not None:
                         self._replay_or_fail_slot(s, e, kv_intact=True)
             return
+        # the step's wall ends with its readback: the device time plus
+        # the launch, never the recording below
+        t_sync = time.monotonic()
+        wall = t_sync - t0
         if not self._decode_warm:
             # one graph for EVERY composition: after this, any capture on
             # the serving-decode site is a recompile
-            get_compile_log().mark_warm("serving-decode", mkey)
+            clog.mark_warm("serving-decode", mkey)
             self._decode_warm = True
-        wall = time.monotonic() - t0
+        resident = self._used_pages()
+        prefix_hits = sum(len(s["match"].blocks) for s in active
+                          if s["match"] is not None)
         # injected NaN/inf logits poison the whole row (sampled or
         # mid-chunk): it is quarantined below, the batch goes on
         poisoned = set(fault["nan_rids"]) if fault else set()
         self._step_idx += 1
         emitted_decode = 0
+        emitted_prefill = 0
         draft_accepted = 0
         evicted = []
         now = time.monotonic()
+        span_name = ("prefill" if self._prefix_cache is None
+                     else "suffix_prefill")
         for s in active:
             i = s["sid"]
             req = s["req"]
@@ -938,21 +1114,34 @@ class EngineCore:
             # least one token when it sampled)
             t_row = (tok[i:i + 1] if n_emit is None
                      else tok[i, :int(n_emit[i])])
-            if req.rid in poisoned or (
-                    sample_now[i] and t_row.size and int(t_row.min()) < 0):
+            if not sample_now[i]:
+                t_row = t_row[:0]   # mid-prompt chunk or refeed: no emit
+            if req.rid in poisoned or (t_row.size and int(t_row.min()) < 0):
                 self._metrics.on_quarantined()
                 self._evict(s, RequestState.FAILED, QuarantinedError(
                     f"request {req.rid} quarantined: non-finite logits "
                     f"in mixed step {self._step_idx}"))
                 evicted.append(req.rid)
                 continue
-            if not sample_now[i]:
-                continue            # mid-prompt chunk or refeed: no emit
+            if i in chunk_taken:
+                self.tracer.add_span(
+                    req.rid, span_name, s["span_end"], now, slot=i,
+                    plen=chunk_taken[i],
+                    cached_tokens=int(s["ctx"]) - chunk_taken[i],
+                    replay=req.retries)
+            else:
+                self.tracer.add_span(req.rid, "decode", s["span_end"], now,
+                                     step=self._step_idx, chunk_steps=1,
+                                     tokens=int(t_row.size))
+            s["span_end"] = now
+            if not t_row.size:
+                continue
             if i in chunk_taken:
                 # prefill complete: this chunk held the prompt's last
                 # token and sampled the row's first token
                 self._metrics.on_prefill(now - req.arrival)
                 self._metrics.on_tokens(int(t_row.size))
+                emitted_prefill += int(t_row.size)
             else:
                 emitted_decode += int(t_row.size)
                 if i in drafted:
@@ -966,17 +1155,42 @@ class EngineCore:
         if emitted_decode:
             self._metrics.on_tokens(emitted_decode, itl_s=wall)
         if drafted:
-            self._metrics.on_spec(rows=len(drafted),
-                                  proposed=sum(drafted.values()),
+            self._metrics.on_spec(rows=len(drafted), proposed=draft_tokens,
                                   accepted=draft_accepted)
         self._metrics.on_step(wall * 1e3, len(active), b)
         self.step_trace.append({
             "step": self._step_idx, "active": [s["req"].rid for s in active],
             "decode_rows": len(decode_rows),
-            "prefill_tokens": sum(chunk_taken.values()),
-            "draft_tokens": sum(drafted.values()),
+            "prefill_tokens": prefill_tokens,
+            "draft_tokens": draft_tokens,
             "draft_accepted": draft_accepted,
             "evicted": evicted, "wall_s": wall})
+        # verify rows are priced at their true query_len: each draft
+        # token is one more processed position
+        n_tokens = len(decode_rows) + prefill_tokens + draft_tokens
+        bts, fl, src_tag = self._cost_model.estimate(
+            kind, rows=len(active), pages_touched=resident, chunk=1,
+            tokens=n_tokens)
+        ici, ici_saved = self._cost_model.interconnect(n_tokens)
+        end = time.monotonic()
+        # the planner fields (planned_tokens, planned_chunk_cap,
+        # predicted_wall_s) and the host-tier fields (parked_rows,
+        # host_pages) keep their defaults until the SLO scheduler and
+        # the host KV tier are ported
+        self.steplog.record(
+            kind, wall_s=end - t0, dispatch_s=t_sync - t0,
+            host_s=end - t_sync, active_rows=len(active),
+            decode_rows=len(decode_rows), chunk_steps=1,
+            prefill_tokens=prefill_tokens,
+            prefill_chunk_tokens=prefill_tokens, kernel="ragged",
+            emitted_tokens=emitted_decode + emitted_prefill,
+            resident_kv_pages=resident, prefix_hit_pages=prefix_hits,
+            bytes_est=bts, flops_est=fl, ici_bytes_est=ici,
+            ici_bytes_saved_est=ici_saved, cost_source=src_tag,
+            compile_events=clog.count() - c0, faults=fault is not None,
+            retries=sum(s["req"].retries for s in active),
+            degraded=self._degraded(), draft_tokens=draft_tokens,
+            draft_accepted=draft_accepted, spec_rows=len(drafted))
         if self._recovery is not None:
             self._recovery.on_step_ok()
 
@@ -1032,9 +1246,25 @@ class EngineCore:
         if state == RequestState.DONE and self._prefix_cache is not None:
             retain = np.concatenate(
                 [req.prompt, np.asarray(req.tokens[:-1], np.int32)])
+        pages = len(self._pool.block_table(slot["sid"]))
+        t0 = time.monotonic()
         self._release_slot_kv(slot["sid"], slot["match"],
                               retain_tokens=retain, salt=req.route_salt())
+        wall = time.monotonic() - t0
+        bts, fl, src_tag = self._cost_model.estimate("evict",
+                                                     pages_touched=pages)
+        self.steplog.record(
+            "evict", wall_s=wall, host_s=wall,
+            active_rows=self.active_count, pages_freed=pages,
+            resident_kv_pages=self._used_pages(),
+            bytes_est=bts, flops_est=fl, cost_source=src_tag,
+            failed=state == RequestState.FAILED, retries=req.retries,
+            degraded=self._degraded())
         req._finish(state, err)
+        now = time.monotonic()
+        self.tracer.add_span(req.rid, "evict", slot["span_end"], now,
+                             outcome=_TRACE_STATE.get(state, state.value))
+        self._trace_end(req, state)
         if state == RequestState.DONE:
             self._metrics.on_completed(time.monotonic() - req.arrival)
         elif state == RequestState.FAILED:
@@ -1045,8 +1275,11 @@ class EngineCore:
             self._metrics.on_deadline()
             req._finish(RequestState.CANCELLED, DeadlineExceededError(
                 f"request {req.rid} expired in queue"))
+            self._trace_queue_drop(req, RequestState.CANCELLED,
+                                   "deadline-in-queue")
             return
         start = time.monotonic()
+        self.tracer.add_span(req.rid, "queue_wait", req.arrival, start)
         self._metrics.on_queue_wait(start - req.arrival)
         req._mark_active()
         try:
@@ -1054,9 +1287,14 @@ class EngineCore:
         except Exception as e:
             self._metrics.on_failed()
             req._finish(RequestState.FAILED, e)
+            self.tracer.add_span(req.rid, "exclusive", start,
+                                 time.monotonic(), outcome="failed")
+            self._trace_end(req, RequestState.FAILED)
             return
         req._finish(RequestState.DONE)
         self._metrics.on_completed(time.monotonic() - req.arrival)
+        self.tracer.add_span(req.rid, "exclusive", start, time.monotonic())
+        self._trace_end(req, RequestState.DONE)
 
     # ---------------------------------------------------- thread control
     def start(self) -> "EngineCore":
@@ -1106,15 +1344,20 @@ class EngineCore:
             for r in self._queue.drain():
                 r._finish(RequestState.REJECTED, RejectedError(
                     "serving engine closed (scheduler wedged)"))
+                self._trace_queue_drop(r, RequestState.REJECTED,
+                                       "engine-closed")
             for s in list(self._slots):
                 if s is not None:
                     s["req"]._finish(RequestState.FAILED, RejectedError(
                         "serving engine closed while a step was wedged"))
+                    self._trace_end(s["req"], RequestState.FAILED)
             return
         try:
             for r in self._queue.drain():
                 r._finish(RequestState.REJECTED,
                           RejectedError("serving engine closed"))
+                self._trace_queue_drop(r, RequestState.REJECTED,
+                                       "engine-closed")
             for s in list(self._slots):
                 if s is not None:
                     self._evict(s, RequestState.CANCELLED,

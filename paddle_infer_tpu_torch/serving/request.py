@@ -80,7 +80,8 @@ class Request:
 
     def __init__(self, prompt, config, timeout_s: Optional[float] = None,
                  cache_salt: Optional[str] = None, kind: str = "batch",
-                 exclusive_fn: Optional[Callable] = None):
+                 exclusive_fn: Optional[Callable] = None,
+                 tenant: Optional[str] = None):
         self.rid = next(_rid_counter)
         self.prompt = (None if prompt is None
                        else np.asarray(prompt, np.int32).reshape(-1))
@@ -91,6 +92,9 @@ class Request:
         # prefix-cache isolation domain: requests share cached KV only
         # with requests carrying the same salt (multi-tenant isolation)
         self.cache_salt = cache_salt
+        # accounting label only (per-tenant SLO families, journey
+        # attribution): never a scheduling or cache-isolation input
+        self.tenant = tenant
         self.arrival = time.monotonic()
         self.deadline = (None if timeout_s is None
                          else self.arrival + float(timeout_s))
