@@ -320,8 +320,11 @@ per replay, so the launch checks stay exact.
    SDPA, each kernel also beside the earlier mma.sync design's times
    (``MMA_SYNC_FWD_MS``, ``MMA_SYNC_BWD_MS``) and held bit-equal across
    two launches, the forward and SDPA's forward also device-only
-   (``torch.profiler``, and 25 calls back to back), and
-   ``hybrid_attention`` against ``flash_attention`` at (a);
+   (``torch.profiler``, and 25 calls back to back), the float16
+   kernels at (a) and (d) and both 16-bit types at (e), the fine-tuning
+   shape B=32, H=12, S=128, D=64 with 10 % padding, timed at (a) and
+   (e) beside bf16 and SDPA, and ``hybrid_attention`` against
+   ``flash_attention`` at (a);
    (2) ERNIE-3.0-base pretraining at full width and depth through
    ``FleetTrainStep`` (batch 32 x 512, dropout 0.1, AMP O2 bf16, AdamW
    lr 1e-4): 2 warm-up and 20 timed steps, the loss falling and each
@@ -332,6 +335,25 @@ per replay, so the launch checks stay exact.
    plain attention, every loss finite and no flash launch; (4) eager,
    one step at depth 2, batch 8 with the kernels against the same step
    with plain attention, fp32 and O2, on three batches;
+11.5. train recipe — at ERNIE-3.0-base widths: ``[train ft]``
+   ``ErnieForSequenceClassification`` (2 classes, 32 x 128, 10 %
+   padding, dropout 0.1, O2 bf16, AdamW under ``LinearWarmup(
+   PolynomialDecay)`` with ``ClipGradByGlobalNorm(1.0)``), 2 + 20 steps
+   on the graph and eager: every step's rate the schedule's, one
+   capture, none after warm-up, 12 launches of each flash kernel per
+   step, losses EQUAL and falling; ``[train recompute]`` 3 pretraining
+   steps at 32 x 512 with ``recompute`` and 3 without, losses and
+   parameters EQUAL, flash forward 24 per step under recompute, the
+   allocation peaks; ``[train merge]`` ``gradient_merge`` k_steps 2, 24
+   launches of each per step, and at dropout 0 the merged step within
+   PERF.md §2's O2 limits of the plain one; ``[train o1]`` level O1
+   bf16 within 2e-2 of fp32, bf16 flash kernels; ``[train scaler]`` the
+   eager loop with ``auto_cast(level="O1", dtype="float16")`` and
+   ``GradScaler``, an inf at step 3 skipped with the parameters
+   bitwise unchanged, the scale halved, float16 flash kernels 12 per
+   step; ``[train opt]`` SGD, Momentum, Adagrad, RMSProp, Lamb, Lars,
+   Adadelta, Adamax and L1Decay, two steps each at depth 2, finite,
+   graph EQUAL eager, one capture;
 12. the kernels line (one JSON object; every kernel's launches summed
     over the runs in ``launches_by_run``, those of phases 9a–9c and the
     sharded runs' per-shard launches among them; its records at the
@@ -356,8 +378,9 @@ import time
 import numpy as np
 
 PEAK_BYTES_S = 3.35e12                 # H100 SXM HBM3
-PEAK_OPS_S = {"fp32": 67e12, "bf16": 989e12, "int8": 989e12}
-TOL = {"fp32": 1e-4, "bf16": 2e-2, "int8": 2e-2}
+PEAK_OPS_S = {"fp32": 67e12, "bf16": 989e12, "fp16": 989e12,
+              "int8": 989e12}
+TOL = {"fp32": 1e-4, "bf16": 2e-2, "fp16": 2e-2, "int8": 2e-2}
 PROMPT_LENS = (1536, 1024, 700, 512, 257, 128, 33, 1)
 SAMPLED = (2, 5)                       # request indices that sample
 MAX_NEW = 32
@@ -5947,19 +5970,24 @@ def moe_phase(device, card, config=None, dtype=None, prompt_lens=PROMPT_LENS,
 # (a) ERNIE-3.0-base attention with 10 % trailing padding as segment
 # ids, (b) long causal (where the reference itself picks flash), (c)
 # Sq < Sk causal, which exercises the offset Sk - Sq, (d) head_dim 256
-# (the kernels' split accumulators), causal with padding segments
+# (the kernels' split accumulators), causal with padding segments, (e)
+# the fine-tuning shape (ERNIE-3.0-base at 32 x 128, 10 % padding)
 FLASH_SHAPES = {
     "a": dict(B=32, H=12, Sq=512, Sk=512, D=64, causal=False, pad=51),
     "b": dict(B=2, H=32, Sq=4096, Sk=4096, D=128, causal=True, pad=0),
     "c": dict(B=2, H=4, Sq=256, Sk=512, D=64, causal=True, pad=0),
     "d": dict(B=4, H=8, Sq=2000, Sk=2000, D=256, causal=True, pad=200),
+    "e": dict(B=32, H=12, Sq=128, Sk=128, D=64, causal=False, pad=12),
 }
 FLASH_RUNS = (("a", "fp32", 0.1), ("a", "bf16", 0.1), ("a", "fp32", 0.0),
               ("a", "bf16", 0.0), ("b", "bf16", 0.0), ("c", "fp32", 0.1),
               ("c", "bf16", 0.1), ("c", "bf16", 0.0), ("d", "fp32", 0.1),
-              ("d", "bf16", 0.1), ("d", "bf16", 0.0))
+              ("d", "bf16", 0.1), ("d", "bf16", 0.0), ("a", "fp16", 0.1),
+              ("a", "fp16", 0.0), ("d", "fp16", 0.1), ("e", "bf16", 0.1),
+              ("e", "bf16", 0.0), ("e", "fp16", 0.1), ("e", "fp16", 0.0))
 FLASH_TIMED = (("a", "bf16", 0.1), ("a", "bf16", 0.0), ("b", "bf16", 0.0),
-               ("d", "bf16", 0.0))
+               ("d", "bf16", 0.0), ("a", "fp16", 0.0), ("e", "bf16", 0.1),
+               ("e", "bf16", 0.0), ("e", "fp16", 0.1), ("e", "fp16", 0.0))
 FLASH_SEED = 0x5EED1234
 # CUDA-event medians of the earlier bf16 backward kernels (warp-level
 # mma.sync, synchronous tile loads, a head-dim split at D = 256) on an
@@ -6053,7 +6081,8 @@ def check_flash(case, kind, p, timed=True):
 
     from paddle_infer_tpu_torch.ops import flash_attention as FA
 
-    dt = torch.float32 if kind == "fp32" else torch.bfloat16
+    dt = {"fp32": torch.float32, "bf16": torch.bfloat16,
+          "fp16": torch.float16}[kind]
     case = dict(case, itemsize=4 if kind == "fp32" else 2)
     q, k, v, do = (case[n].to(dt) for n in ("q", "k", "v", "do"))
     seg, H, causal, scale = case["seg"], case["H"], case["causal"], \
@@ -6599,6 +6628,584 @@ def train_pair(device, card):
     return g
 
 
+# ------------------------------------------------------- phase 11 recipe
+
+# the fine-tuning run: ERNIE-3.0-base classifying 32 x 128 (about 10 %
+# trailing padding), the schedule of a GLUE-style recipe over 2 + 20
+# steps, and the recompute / merge / O1 / optimizer runs beside it
+FT_BATCH, FT_SEQ, FT_PEAK_LR = 32, 128, 5e-5
+FT_WARMUP, FT_STEPS = 2, 20
+RECIPE_STEPS = 3            # recompute and merge runs: steps per side
+SCALER_STEPS, SCALER_BAD = 6, 2     # eager scaler run; the inf's step
+SCALER_INIT = 2.0 ** 12
+OPT_LAYERS, OPT_BATCH = 2, 8        # [train opt]: depth and batch x 512
+
+
+def finetune_batch(vocab, batch, seq, seed=0):
+    """Random ids, ``seq // 10`` trailing pads per row (mask 0) and a
+    label the first token decides (id below half the vocabulary), so a
+    classifier can learn it."""
+    rng = np.random.RandomState(seed)
+    ids = rng.randint(0, vocab, (batch, seq)).astype(np.int32)
+    mask = np.ones((batch, seq), np.int32)
+    mask[:, seq - max(1, seq // 10):] = 0
+    labels = (ids[:, 0] < vocab // 2).astype(np.int32)
+    return ids, mask, labels
+
+
+def _cls_loss(m, ids, mask, labels):
+    from paddle_infer_tpu_torch.nn import functional as PF
+
+    return PF.cross_entropy(m(ids, attention_mask=mask), labels)
+
+
+def no_decay(name):
+    """AdamW's decay rule of the recipes: no decay for biases and norms."""
+    return not (name.endswith("bias") or "norm" in name)
+
+
+def ft_schedule(peak_lr, steps):
+    """``LinearWarmup(PolynomialDecay(peak, steps), 10)``: the schedule
+    of the fine-tuning run."""
+    from paddle_infer_tpu_torch.optimizer import lr as L
+
+    return L.LinearWarmup(L.PolynomialDecay(peak_lr, steps, end_lr=0.0),
+                          warmup_steps=10, start_lr=0.0, end_lr=peak_lr)
+
+
+def _strategy(device, amp=None, **fields):
+    """``fleet.init`` on ``device`` with a strategy of ``fields`` and,
+    with ``amp`` ("O1" / "O2" / "O1-f16"), that AMP level in bf16 (f16
+    for the last)."""
+    from paddle_infer_tpu_torch.parallel import DistributedStrategy, fleet
+
+    st = DistributedStrategy(**fields)
+    if amp:
+        st.amp = True
+        st.amp_configs = {"level": amp[:2], "dtype":
+                          "float16" if amp.endswith("f16") else "bfloat16"}
+    fleet.init(strategy=st, devices=[device])
+    return st
+
+
+@contextlib.contextmanager
+def flash_dtypes():
+    """The dtypes of q at every call of the three flash wrappers while
+    open (a graph's capture runs them; its replays do not)."""
+    from paddle_infer_tpu_torch.ops import flash_attention as FA
+
+    seen = set()
+    saved = {n: getattr(FA, n) for n in ("flash_fwd", "flash_dkdv",
+                                         "flash_dq")}
+
+    def spy(fn):
+        def call(q, *a, **k):
+            seen.add(str(q.dtype).replace("torch.", ""))
+            return fn(q, *a, **k)
+        return call
+    for n, fn in saved.items():
+        setattr(FA, n, spy(fn))
+    try:
+        yield seen
+    finally:
+        for n, fn in saved.items():
+            setattr(FA, n, fn)
+
+
+def _flash_launches(since=None):
+    """The flash kernels' launch counts (less ``since``'s)."""
+    from paddle_infer_tpu_torch.ops import _build
+
+    return {n: _build.KERNELS[n].launches - (since or {}).get(n, 0)
+            for n in ("flash_fwd", "flash_dkdv", "flash_dq")}
+
+
+def _check_flash_launches(tag, got, steps, per_step):
+    """Each flash kernel launched ``per_step[kernel]`` times per step."""
+    want = {n: per_step[n] * steps for n in got}
+    print(f"[{tag}] flash launches {got} (want {want})", flush=True)
+    if got != want:
+        raise AssertionError(f"{tag}: flash launches {got}, want {want}")
+
+
+def _per_step(L, fwd=1, bwd=1):
+    return {"flash_fwd": fwd * L, "flash_dkdv": bwd * L, "flash_dq": bwd * L}
+
+
+def finetune_run(device, cfg, batch, seq, warmup, steps, peak_lr,
+                 launches_per_step):
+    """ERNIE sequence classification through ``FleetTrainStep``: O2
+    bf16, dropout as ``cfg``, AdamW (weight decay 0.01 but biases and
+    norms, the fine-tuning schedule, ``ClipGradByGlobalNorm(1.0)``),
+    ``warmup`` + ``steps`` steps alternating two fixed batches.  Raises
+    unless every step's learning rate (the value the step's staged
+    buffer held) equals the schedule's host sequence in float32 and
+    differs from the step before's, the compile log holds one ``train-step``
+    event and none after warm-up, each flash kernel launched
+    ``launches_per_step`` per step over the ``steps``, and every loss
+    is finite."""
+    import torch
+
+    from paddle_infer_tpu_torch.models.ernie import \
+        ErnieForSequenceClassification
+    from paddle_infer_tpu_torch.observability import get_compile_log
+    from paddle_infer_tpu_torch.optimizer import AdamW, ClipGradByGlobalNorm
+    from paddle_infer_tpu_torch.parallel import FleetTrainStep
+
+    log = get_compile_log()
+    log.reset()
+    total = warmup + steps
+    st = _strategy(device, amp="O2")
+    model = ErnieForSequenceClassification(cfg, num_classes=2,
+                                           device=device, seed=0)
+    opt = AdamW(learning_rate=ft_schedule(peak_lr, total),
+                weight_decay=0.01, apply_decay_param_fun=no_decay,
+                grad_clip=ClipGradByGlobalNorm(1.0))
+    step = FleetTrainStep(model, _cls_loss, opt, strategy=st)
+    host = ft_schedule(peak_lr, total)
+    want_lr = []
+    for _ in range(total):
+        want_lr.append(float(np.float32(host())))
+        host.step()
+    batches = [[torch.from_numpy(a).to(device)
+                for a in finetune_batch(cfg.vocab_size, batch, seq, seed)]
+               for seed in (0, 1)]
+    losses, lrs, ms = [], [], []
+    for i in range(total):
+        if i == warmup:
+            if device.type == "cuda":
+                torch.cuda.synchronize()
+            t0 = _flash_launches()
+        t = time.perf_counter()
+        losses.append(float(step(*batches[i % 2])))
+        ms.append((time.perf_counter() - t) * 1e3)
+        lrs.append(float(step._scalars.host["lr"]))
+    launches = _flash_launches(t0)
+    events = log.events("train-step")
+    post_warm = log.summary()["post_warmup_compiles"]
+    if lrs != want_lr or any(a == b for a, b in zip(lrs, lrs[1:])):
+        raise AssertionError(f"fine-tuning learning rates {lrs}, want the "
+                             f"schedule's {want_lr}, changing every step")
+    if len(events) != 1 or post_warm:
+        raise AssertionError(f"compile log: {len(events)} train-step "
+                             f"events, {post_warm} after warm-up (want 1, 0)")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"non-finite fine-tuning loss {losses}")
+    _check_flash_launches("train ft", launches, steps,
+                          _per_step(launches_per_step))
+    return {"losses": losses, "lrs": lrs, "step_ms": ms,
+            "step_ms_p50": float(np.median(ms[warmup:])),
+            "launches": launches, "captures": len(events), "step": step,
+            "data": batches[0]}
+
+
+def train_ft(device, card, cfg=None, batch=FT_BATCH, seq=FT_SEQ,
+             warmup=FT_WARMUP, steps=FT_STEPS, peak_lr=FT_PEAK_LR,
+             launches_per_step=None):
+    """``[train ft]``: ``finetune_run`` on the graph, then eager from the
+    same seeds; raises unless the losses are EQUAL and each batch's
+    losses fall (the mean of its last quarter below that of its
+    first)."""
+    from paddle_infer_tpu_torch.models.ernie import ErnieConfig
+
+    cfg = cfg or ErnieConfig.from_preset("ernie-3.0-base")
+    if launches_per_step is None:
+        launches_per_step = cfg.num_hidden_layers if device.type == "cuda" \
+            else 0
+    runs = {}
+    for mode in ("graph", "eager"):
+        with eager() if mode == "eager" else contextlib.nullcontext():
+            st = runs[mode] = finetune_run(device, cfg, batch, seq, warmup,
+                                           steps, peak_lr, launches_per_step)
+            if device.type == "cuda" and mode == "graph":
+                st["profile"] = profile_train(st["step"], st["data"],
+                                              tag="ft graph")
+        st["step"].release_graphs()
+        del st["step"], st["data"]
+        free_memory()
+    g, e = runs["graph"], runs["eager"]
+    equal = g["losses"] == e["losses"]
+    print(f"[train ft] ernie classification {batch}x{seq} O2 bf16 "
+          f"({card}): step_ms_p50 graph={g['step_ms_p50']:.2f} eager="
+          f"{e['step_ms_p50']:.2f} captures={g['captures']} lr "
+          + " ".join(f"{x:.3e}" for x in g["lrs"]) + " losses "
+          + " ".join(f"{x:.4f}" for x in g["losses"])
+          + f" losses_equal={equal}", flush=True)
+    if not equal:
+        raise AssertionError("fine-tuning graph losses differ from eager: "
+                             f"{g['losses']} {e['losses']}")
+    own = g["losses"][warmup:]
+    for b in (0, 1):
+        seq_b = own[b::2]
+        k = max(1, len(seq_b) // 4)
+        if not np.mean(seq_b[-k:]) < np.mean(seq_b[:k]):
+            raise AssertionError(f"fine-tuning loss on batch {b} did not go "
+                                 f"down: {seq_b}")
+    return g
+
+
+def _pretrain_step(device, cfg, strategy, lr=1e-4, seed=0):
+    """ERNIE pretraining on ``device`` through ``FleetTrainStep`` with
+    AdamW at ``lr``, weights and keys seeded by ``seed``."""
+    from paddle_infer_tpu_torch.models.ernie import ErnieForPretraining
+    from paddle_infer_tpu_torch.optimizer import AdamW
+    from paddle_infer_tpu_torch.parallel import FleetTrainStep
+
+    model = ErnieForPretraining(cfg, device=device, seed=seed)
+    opt = AdamW(learning_rate=lr, weight_decay=0.01,
+                apply_decay_param_fun=no_decay)
+    return FleetTrainStep(model, _pretrain_loss, opt, strategy=strategy)
+
+
+def recompute_pair(device, card, cfg=None, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                   steps=RECIPE_STEPS, layers_fwd=None):
+    """``[train recompute]``: ERNIE pretraining O2 bf16 with dropout 0.1,
+    ``steps`` steps with ``recompute`` and ``steps`` without, each on the
+    graph from the same weights and keys.  Raises unless the losses and
+    every parameter after the steps are EQUAL (the same kernels at the
+    same shapes: the recomputed forward gives the bits of the first) and
+    the flash forward launched twice per layer per step under recompute
+    (once otherwise), dK/dV and dQ once.  Prints each run's allocation
+    peak."""
+    import torch
+
+    from paddle_infer_tpu_torch.models.ernie import ErnieConfig
+
+    cfg = cfg or ErnieConfig.from_preset("ernie-3.0-base")
+    L = cfg.num_hidden_layers if device.type == "cuda" else 0
+    data = [torch.from_numpy(a).to(device)
+            for a in pretrain_batch(cfg.vocab_size, batch, seq)]
+    runs = {}
+    for name, fields in (("recompute", {"recompute": True}), ("plain", {})):
+        step = _pretrain_step(device, cfg, _strategy(device, amp="O2",
+                                                     **fields))
+        step.keys.seed(3)
+        free_memory()
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        t0 = _flash_launches()
+        losses, ms = [], []
+        for _ in range(steps):
+            t = time.perf_counter()
+            losses.append(float(step(*data)))
+            ms.append((time.perf_counter() - t) * 1e3)
+        peak = torch.cuda.max_memory_allocated() / 1e9 \
+            if device.type == "cuda" else 0.0
+        _check_flash_launches(f"train recompute {name}", _flash_launches(t0),
+                              steps, _per_step(L, fwd=2 if name ==
+                                               "recompute" else 1))
+        runs[name] = {"losses": losses, "peak_alloc_gb": peak,
+                      "replay_ms": float(np.median(ms[1:])),
+                      "params": {n: p.detach().clone()
+                                 for n, p in step.params.items()}}
+        step.release_graphs()
+        del step
+        free_memory()
+    r, p = runs["recompute"], runs["plain"]
+    same = all(torch.equal(r["params"][n], p["params"][n])
+               for n in p["params"])
+    print(f"[train recompute] {batch}x{seq} O2 bf16 dropout 0.1 ({card}): "
+          f"losses recompute " + " ".join(f"{x:.6f}" for x in r["losses"])
+          + " plain " + " ".join(f"{x:.6f}" for x in p["losses"])
+          + f" losses_equal={r['losses'] == p['losses']} params_equal={same}"
+          f" peak_alloc_gb recompute={r['peak_alloc_gb']:.2f} plain="
+          f"{p['peak_alloc_gb']:.2f} (the graphs' capture pools included)"
+          f" replay_ms recompute={r['replay_ms']:.2f} plain="
+          f"{p['replay_ms']:.2f}", flush=True)
+    if r["losses"] != p["losses"] or not same:
+        raise AssertionError("recompute changed the step's bits")
+    return {k: {kk: v for kk, v in run.items() if kk != "params"}
+            for k, run in runs.items()}
+
+
+def _o2_grads(step, data):
+    """One eager step's loss and float32 gradients (lr 0: the weights
+    stay), keys seeded as every side of a comparison."""
+    step.keys.seed(11)
+    loss = float(step(*data))
+    return loss, {n: q.grad.float().clone() for n, q in step.params.items()}
+
+
+def merge_run(device, card, cfg=None, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+              steps=RECIPE_STEPS, k_steps=2):
+    """``[train merge]``: ERNIE pretraining O2 bf16 with
+    ``gradient_merge`` (``k_steps`` micro-batches of ``batch / k_steps``
+    rows), dropout 0.1, ``steps`` steps on the graph: each flash kernel
+    launched ``k_steps`` times per layer per step.  Then, eager at
+    dropout 0 and lr 0 on one model, whose every row holds the same
+    number of valid tokens (so the mean over micro-batches is the batch
+    mean): the merged step, the plain step and the plain fp32 step;
+    raises unless the merged loss lies within 2e-2 of the plain one and
+    every merged gradient within 5e-2 of the plain one's max-abs or
+    twice the plain O2 step's distance from the fp32 step (PERF.md §2's
+    O2 limits)."""
+    import torch
+
+    from paddle_infer_tpu_torch.models.ernie import ErnieConfig
+
+    cfg = cfg or ErnieConfig.from_preset("ernie-3.0-base")
+    L = cfg.num_hidden_layers if device.type == "cuda" else 0
+    merge = dict(gradient_merge=True,
+                 gradient_merge_configs={"k_steps": k_steps})
+    data = [torch.from_numpy(a).to(device)
+            for a in pretrain_batch(cfg.vocab_size, batch, seq)]
+    step = _pretrain_step(device, cfg, _strategy(device, amp="O2", **merge))
+    t0 = _flash_launches()
+    losses = [float(step(*data)) for _ in range(steps)]
+    _check_flash_launches("train merge", _flash_launches(t0), steps,
+                          _per_step(L, fwd=k_steps, bwd=k_steps))
+    step.release_graphs()
+    del step
+    free_memory()
+    cfg0 = type(cfg)(**dict(vars(cfg), hidden_dropout_prob=0.0,
+                            attention_probs_dropout_prob=0.0))
+    with eager():
+        from paddle_infer_tpu_torch.parallel import FleetTrainStep
+
+        base = _pretrain_step(device, cfg0, _strategy(device), lr=0.0)
+        sides = {}
+        for name, amp, fields in (("merged", "O2", merge),
+                                  ("plain", "O2", {}), ("fp32", None, {})):
+            st = _strategy(device, amp=amp, **fields)
+            sides[name] = _o2_grads(FleetTrainStep(
+                base.model, _pretrain_loss, base.optimizer, strategy=st),
+                data)
+    (lm, gm), (lp, gp), (_, g32) = (sides[n] for n in ("merged", "plain",
+                                                        "fp32"))
+    rel = abs(lm - lp) / abs(lp)
+    worst, where = 0.0, ""
+    for n in gp:
+        allowed = max(5e-2 * float(gp[n].abs().max()),
+                      2 * float((gp[n] - g32[n]).abs().max()), 1e-30)
+        r_ = float((gm[n] - gp[n]).abs().max()) / allowed
+        if r_ > worst:
+            worst, where = r_, n
+    print(f"[train merge] k_steps={k_steps} {batch}x{seq} O2 bf16 ({card}): "
+          f"graph losses " + " ".join(f"{x:.4f}" for x in losses)
+          + f"; dropout 0: loss merged={lm:.6f} plain={lp:.6f} rel="
+          f"{rel:.3e} (tol 2e-2) worst grad err/allowed={worst:.3e} "
+          f"({where})", flush=True)
+    if not all(np.isfinite(losses)) or rel > 2e-2 or worst > 1.0:
+        raise AssertionError("the merged step leaves the plain step's O2 "
+                             "limits")
+    del base, sides
+    free_memory()
+    return {"losses": losses, "rel": rel, "worst": worst}
+
+
+def o1_run(device, card, cfg=None, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+           steps=2):
+    """``[train o1]``: ERNIE pretraining at AMP level O1 in bf16, eager
+    fp32 first (lr 0, so the weights stay) on the same keys, then
+    ``steps`` O1 steps on the graph.  Raises unless the first O1 loss
+    lies within 2e-2 relative of the fp32 one and the flash kernels took
+    bf16 (once per layer per step each)."""
+    import torch
+
+    from paddle_infer_tpu_torch.models.ernie import ErnieConfig
+    from paddle_infer_tpu_torch.parallel import FleetTrainStep
+
+    cfg = cfg or ErnieConfig.from_preset("ernie-3.0-base")
+    L = cfg.num_hidden_layers if device.type == "cuda" else 0
+    data = [torch.from_numpy(a).to(device)
+            for a in pretrain_batch(cfg.vocab_size, batch, seq)]
+    with eager():
+        fp32 = _pretrain_step(device, cfg, _strategy(device), lr=0.0)
+        fp32.keys.seed(5)
+        l32 = float(fp32(*data))
+    step = FleetTrainStep(fp32.model, _pretrain_loss, fp32.optimizer,
+                          strategy=_strategy(device, amp="O1"))
+    step.keys.seed(5)
+    t0 = _flash_launches()
+    with flash_dtypes() as seen:
+        losses = [float(step(*data)) for _ in range(steps)]
+    rel = abs(losses[0] - l32) / abs(l32)
+    print(f"[train o1] {batch}x{seq} bf16 ({card}): loss O1={losses[0]:.6f} "
+          f"fp32={l32:.6f} rel={rel:.3e} (tol 2e-2) flash dtypes "
+          f"{sorted(seen)}", flush=True)
+    _check_flash_launches("train o1", _flash_launches(t0), steps,
+                          _per_step(L))
+    if rel > 2e-2 or (L and seen != {"bfloat16"}):
+        raise AssertionError("the O1 step leaves the fp32 step's limit or "
+                             "its attention was not bf16")
+    step.release_graphs()
+    del step, fp32
+    free_memory()
+    return {"losses": losses, "fp32": l32, "rel": rel}
+
+
+def scaler_run(device, card, cfg=None, batch=FT_BATCH, seq=FT_SEQ,
+               steps=SCALER_STEPS, bad=SCALER_BAD, lr=FT_PEAK_LR):
+    """``[train scaler]``: the eager loop on ERNIE sequence
+    classification, ``auto_cast(level="O1", dtype="float16")`` with
+    ``GradScaler(init_loss_scaling=SCALER_INIT)``, AdamW over
+    ``model.named_parameters()``: ``loss = scaler.scale(loss);
+    loss.backward(); scaler.step(opt); scaler.update();
+    opt.clear_grad()``, with an inf written into one gradient at step
+    ``bad``.  Raises unless that step alone is skipped with every
+    parameter bitwise unchanged, the scale halves there and then counts
+    good steps as the reference's rule does (scales and counters equal
+    the rule's replay), the other steps move the parameters, and the
+    flash kernels took float16, once per layer per step each."""
+    import torch
+
+    from paddle_infer_tpu_torch import amp
+    from paddle_infer_tpu_torch.models.ernie import (
+        ErnieConfig, ErnieForSequenceClassification)
+    from paddle_infer_tpu_torch.nn import functional as PF
+    from paddle_infer_tpu_torch.optimizer import AdamW
+
+    cfg = cfg or ErnieConfig.from_preset("ernie-3.0-base")
+    L = cfg.num_hidden_layers if device.type == "cuda" else 0
+    model = ErnieForSequenceClassification(cfg, num_classes=2,
+                                           device=device, seed=0)
+    opt = AdamW(lr, parameters=model.named_parameters(), weight_decay=0.01,
+                apply_decay_param_fun=no_decay)
+    scaler = amp.GradScaler(init_loss_scaling=SCALER_INIT)
+    ids, mask, labels = (torch.from_numpy(a).to(device) for a in
+                         finetune_batch(cfg.vocab_size, batch, seq))
+    first = next(iter(model.parameters()))
+    rows, want = [], []
+    scale, good = SCALER_INIT, 0                 # the reference's rule
+    t0 = _flash_launches()
+    with flash_dtypes() as seen:
+        for i in range(steps):
+            with amp.auto_cast(level="O1", dtype="float16"):
+                loss = PF.cross_entropy(model(ids, attention_mask=mask),
+                                        labels)
+            scaler.scale(loss).backward()
+            if i == bad:
+                first.grad.view(-1)[0] = float("inf")
+            before = [p.detach().clone() for p in model.parameters()]
+            scaler.step(opt)
+            scaler.update()
+            opt.clear_grad()
+            moved = not all(torch.equal(b, p) for b, p in
+                            zip(before, model.parameters()))
+            rows.append((float(loss.detach()), scaler._found_inf, moved,
+                         scaler.get_loss_scaling(), scaler._good_steps))
+            if i == bad:
+                scale, good = max(scale * 0.5, 1.0), 0
+            else:
+                good += 1
+                if good >= 1000:
+                    scale, good = scale * 2.0, 0
+            want.append((i == bad, i != bad, scale, good))
+    print(f"[train scaler] eager O1 float16 {batch}x{seq} ({card}): "
+          "(loss, skipped, moved, scale, good steps) "
+          + " ".join(f"({l:.4f}, {f}, {m}, {s:g}, {g})"
+                     for l, f, m, s, g in rows)
+          + f" flash dtypes {sorted(seen)}", flush=True)
+    _check_flash_launches("train scaler", _flash_launches(t0), steps,
+                          _per_step(L))
+    got = [(f, m, s, g) for _, f, m, s, g in rows]
+    if got != want or not all(np.isfinite(r[0]) for r in rows):
+        raise AssertionError(f"GradScaler run {got}, want {want}")
+    if L and seen != {"float16"}:
+        raise AssertionError(f"flash kernels took {seen}, want float16")
+    del model, opt
+    free_memory()
+    return rows
+
+
+# [train opt]: the optimizers besides AdamW (and L1Decay), two steps each
+OPT_CASES = (
+    ("SGD", dict(learning_rate=1e-3)),
+    ("Momentum", dict(learning_rate=1e-3, momentum=0.9)),
+    ("Adagrad", dict(learning_rate=1e-3)),
+    ("RMSProp", dict(learning_rate=1e-4, momentum=0.9, centered=True)),
+    ("Lamb", dict(learning_rate=1e-3, lamb_weight_decay=0.01)),
+    ("Lars", dict(learning_rate=1e-2, exclude_from_weight_decay=["bias",
+                                                                  "norm"])),
+    ("Adadelta", dict(learning_rate=1.0)),
+    ("Adamax", dict(learning_rate=1e-3)),
+    ("Adam+L1Decay", dict(learning_rate=1e-4)),
+)
+
+
+def _opt(name, kw):
+    from paddle_infer_tpu_torch import optimizer as O
+    from paddle_infer_tpu_torch.regularizer import L1Decay
+
+    if name == "Adam+L1Decay":
+        return O.Adam(weight_decay=L1Decay(1e-4), **kw)
+    return getattr(O, name)(**kw)
+
+
+def optimizers_run(device, card, cfg=None, layers=OPT_LAYERS,
+                   batch=OPT_BATCH, seq=TRAIN_SEQ, cases=OPT_CASES):
+    """``[train opt]``: each optimizer of ``cases`` for two ERNIE
+    pretraining steps (O2 bf16, dropout 0.1, ERNIE-3.0-base widths at
+    ``layers`` layers) on the graph and again eager from the same seeds.
+    Raises unless every loss and parameter is finite, the losses and
+    parameters of the two runs are EQUAL, and each graph run captured
+    once."""
+    import torch
+
+    from paddle_infer_tpu_torch.models.ernie import (ErnieConfig,
+                                                     ErnieForPretraining)
+    from paddle_infer_tpu_torch.observability import get_compile_log
+    from paddle_infer_tpu_torch.parallel import FleetTrainStep
+
+    base = cfg or ErnieConfig.from_preset("ernie-3.0-base")
+    cfg = type(base)(**dict(vars(base), num_hidden_layers=layers))
+    data = [torch.from_numpy(a).to(device)
+            for a in pretrain_batch(cfg.vocab_size, batch, seq)]
+    log = get_compile_log()
+    out = {}
+    for name, kw in cases:
+        runs = {}
+        for mode in ("graph", "eager"):
+            log.reset()
+            with eager() if mode == "eager" else contextlib.nullcontext():
+                model = ErnieForPretraining(cfg, device=device, seed=0)
+                step = FleetTrainStep(model, _pretrain_loss, _opt(name, kw),
+                                      strategy=_strategy(device, amp="O2"))
+                step.keys.seed(2)
+                losses = [float(step(*data))]
+                t = time.perf_counter()
+                losses.append(float(step(*data)))
+                runs[mode] = (losses, [p.detach().clone()
+                                       for p in step.params.values()],
+                              len(log.events("train-step")),
+                              (time.perf_counter() - t) * 1e3)
+                step.release_graphs()
+                del step, model
+        (lg, pg, cap, ms), (le, pe, _, _) = runs["graph"], runs["eager"]
+        finite = all(np.isfinite(lg)) and all(torch.isfinite(p).all()
+                                              for p in pg)
+        equal = lg == le and all(torch.equal(a, b) for a, b in zip(pg, pe))
+        print(f"[train opt] {name} ({card}): losses "
+              + " ".join(f"{x:.4f}" for x in lg)
+              + f" finite={finite} graph_equals_eager={equal} captures="
+              f"{cap} second_step_ms={ms:.2f}", flush=True)
+        if not (finite and equal and cap == 1):
+            raise AssertionError(f"[train opt] {name} failed")
+        out[name] = lg
+        del runs, pg, pe
+        free_memory()
+    return out
+
+
+def recipe_phase(device, card):
+    """Phase 11.5, the training recipe: fine-tuning (schedule, clip), then
+    recompute, gradient merge, O1, the eager scaler loop and the other
+    optimizers; returns each run's flash launches."""
+    launches = {}
+    for tag, fn in (("train ft", train_ft), ("train recompute",
+                                             recompute_pair),
+                    ("train merge", merge_run), ("train o1", o1_run),
+                    ("train scaler", scaler_run),
+                    ("train opt", optimizers_run)):
+        t0 = _flash_launches()
+        fn(device, card)
+        launches[tag] = _flash_launches(t0)
+        free_memory()
+        lap(tag)
+    return launches
+
+
 # ------------------------------------------------------------------ main
 
 PHASES = ("kernels", "serve", "legacy", "sharded", "gpt", "moe", "train")
@@ -6772,6 +7379,13 @@ def main(argv=None) -> int:
         free_memory()
         step_parity_phase(device)
         lap("train (11)")
+        # phase 11.5: the training recipe (fine-tuning with a schedule and
+        # a clip, recompute, gradient merge, O1, the scaler loop in
+        # float16, the other optimizers)
+        for tag, got in recipe_phase(device, card).items():
+            for name, n in got.items():
+                by_run[name][tag] = n
+        lap("train recipe (11.5)")
 
     # phase 12: the kernels line, the card line, the result line
     launches = {name: sum(runs.values()) for name, runs in by_run.items()}

@@ -22,9 +22,13 @@ exclusive requests, weight-only and int8-activation quantization
 serving and sharded serving over tensor-parallel, replica and expert
 meshes (``serving.sharded``, ``parallel.topology``,
 ``parallel.collective``); the engines' own ``generate`` / ``stream`` /
-beam search (paged and dense); and ERNIE pretraining on one device
-(``parallel.FleetTrainStep`` → ``models.ErnieForPretraining`` → the
-flash-attention kernels, ``optimizer.AdamW``, ``amp`` O2).  On the card
+beam search (paged and dense); and ERNIE pretraining and fine-tuning
+on one device (``parallel.FleetTrainStep`` with recompute, gradient
+merge and AMP O1 / O2, or the eager ``optimizer.step()`` loop with
+``amp.auto_cast`` and ``GradScaler`` → ``models.ErnieForPretraining``,
+``ErnieForMaskedLM``, ``ErnieForSequenceClassification`` → the
+flash-attention kernels in bf16 or f16; the reference's optimizers, LR
+schedulers, clips and regularizers).  On the card
 both steps run as one CUDA graph per key (``core/graphs.py``), each
 capture logged by ``observability/compilelog.py``.
 """

@@ -3,7 +3,9 @@
 Port of ``paddle_infer_tpu/models/ernie.py``: ``ERNIE_PRESETS``,
 ``ErnieConfig``, ``ErnieEmbeddings``, ``ErniePooler``, ``ErnieModel``,
 ``ErnieMLMHead`` (tied to ``word_embeddings.weight``, with
-``decoder_bias``), ``ErnieForPretraining`` and ``ernie_pretrain_loss``,
+``decoder_bias``), the heads ``ErnieForPretraining``,
+``ErnieForMaskedLM`` and ``ErnieForSequenceClassification``, and
+``ernie_pretrain_loss``,
 built from post-LN ``ParallelTransformerLayer`` blocks.  Parameter names
 are the JAX model's ``state_dict()`` keys (``weights.py`` carries them
 over, the tied weight under both its names).
@@ -111,7 +113,7 @@ class ErnieEmbeddings(nn.Module):
             position_ids = torch.arange(s, device=input_ids.device)[None]
         emb = emb + self.position_embeddings(position_ids)
         if token_type_ids is None:
-            tok = amp.cast(self.token_type_embeddings.weight[0])
+            tok = amp.cast(self.token_type_embeddings.weight[0], "slice")
         else:
             tok = self.token_type_embeddings(token_type_ids)
         return self.dropout(self.layer_norm(emb + tok))
@@ -178,32 +180,27 @@ class ErnieMLMHead(nn.Module):
 
     def forward(self, hidden_states):
         x = self.layer_norm(self.activation(self.transform(hidden_states)))
-        logits = torch.matmul(x, amp.cast(self._tied_weight).t())
-        return logits + amp.cast(self.decoder_bias)
+        logits = torch.matmul(amp.cast(x, "matmul"),
+                              amp.cast(self._tied_weight, "matmul").t())
+        return amp.cast(logits, "add") + amp.cast(self.decoder_bias, "add")
 
 
-class ErnieForPretraining(PretrainedMixin, nn.Module):
-    """MLM + next-sentence heads (the BERT-style pretraining objective).
-
-    ``device`` defaults to the card (raising without one); ``seed``
-    drives the on-device ``torch.Generator`` that fills the weights
-    (N(0, ``initializer_range``) matrices, zero biases, LayerNorm 1/0);
-    ``keys`` is the dropout ``KeyStream`` (default ``KeyStream(seed)``).
+class _ErnieHead(PretrainedMixin, nn.Module):
+    """What the ERNIE heads share: the device (the card by default,
+    raising without one), the dropout ``KeyStream`` (``keys``, default
+    ``KeyStream(seed)``) and the seeded fill of the weights once the
+    head's modules exist (N(0, ``initializer_range``) matrices on an
+    on-device ``torch.Generator``, zero biases, LayerNorm 1/0).
     Parameters require grad; the model starts in training mode."""
 
     config_class = ErnieConfig
 
-    def __init__(self, config: ErnieConfig, device=None,
-                 dtype=torch.float32, seed: int = 0, keys=None):
-        super().__init__()
-        device = resolve_device(device)
-        kw = dict(device=device, dtype=dtype)
+    def _setup(self, config, device, seed, keys):
         self.config = config
         self.keys = keys if keys is not None else KeyStream(seed)
-        self.ernie = ErnieModel(config, keys=self.keys, **kw)
-        self.cls = ErnieMLMHead(
-            config, self.ernie.embeddings.word_embeddings.weight, **kw)
-        self.nsp = Linear(config.hidden_size, 2, **kw)
+        return resolve_device(device)
+
+    def _init_weights(self, device, seed):
         gen = torch.Generator(device=device)
         gen.manual_seed(int(seed))
         with torch.no_grad():
@@ -213,16 +210,80 @@ class ErnieForPretraining(PretrainedMixin, nn.Module):
                 if id(p) in norms:
                     p.fill_(1.0 if name.endswith("weight") else 0.0)
                 elif p.dim() >= 2:
-                    p.normal_(0.0, config.initializer_range, generator=gen)
+                    p.normal_(0.0, self.config.initializer_range,
+                              generator=gen)
                 else:
                     p.zero_()
         self.requires_grad_(True)
+
+
+class ErnieForPretraining(_ErnieHead):
+    """MLM + next-sentence heads (the BERT-style pretraining objective):
+    ``forward`` gives ``(mlm logits [b, s, V], nsp logits [b, 2])``."""
+
+    def __init__(self, config: ErnieConfig, device=None,
+                 dtype=torch.float32, seed: int = 0, keys=None):
+        super().__init__()
+        device = self._setup(config, device, seed, keys)
+        kw = dict(device=device, dtype=dtype)
+        self.ernie = ErnieModel(config, keys=self.keys, **kw)
+        self.cls = ErnieMLMHead(
+            config, self.ernie.embeddings.word_embeddings.weight, **kw)
+        self.nsp = Linear(config.hidden_size, 2, **kw)
+        self._init_weights(device, seed)
 
     def forward(self, input_ids, token_type_ids=None, position_ids=None,
                 attention_mask=None):
         seq, pooled = self.ernie(input_ids, token_type_ids, position_ids,
                                  attention_mask)
         return self.cls(seq), self.nsp(pooled)
+
+
+class ErnieForMaskedLM(_ErnieHead):
+    """The MLM head alone (tied to the word embedding): ``forward`` gives
+    the ``[b, s, V]`` logits."""
+
+    def __init__(self, config: ErnieConfig, device=None,
+                 dtype=torch.float32, seed: int = 0, keys=None):
+        super().__init__()
+        device = self._setup(config, device, seed, keys)
+        kw = dict(device=device, dtype=dtype)
+        self.ernie = ErnieModel(config, keys=self.keys, **kw)
+        self.cls = ErnieMLMHead(
+            config, self.ernie.embeddings.word_embeddings.weight, **kw)
+        self._init_weights(device, seed)
+
+    def forward(self, input_ids, token_type_ids=None, position_ids=None,
+                attention_mask=None):
+        seq, _ = self.ernie(input_ids, token_type_ids, position_ids,
+                            attention_mask)
+        return self.cls(seq)
+
+
+class ErnieForSequenceClassification(_ErnieHead):
+    """Dropout and a linear classifier over the pooled output:
+    ``forward`` gives ``[b, num_classes]`` logits.  ``num_classes``
+    rides on the config (default 2), so ``from_pretrained`` rebuilds the
+    head's shape."""
+
+    def __init__(self, config: ErnieConfig, num_classes=None, device=None,
+                 dtype=torch.float32, seed: int = 0, keys=None):
+        super().__init__()
+        if num_classes is not None:
+            config.num_classes = num_classes
+        device = self._setup(config, device, seed, keys)
+        kw = dict(device=device, dtype=dtype)
+        self.ernie = ErnieModel(config, keys=self.keys, **kw)
+        self.dropout = Dropout(config.hidden_dropout_prob, keys=self.keys)
+        self.classifier = Linear(config.hidden_size,
+                                 getattr(config, "num_classes", 2), **kw)
+        self._init_weights(device, seed)
+
+    def forward(self, input_ids, token_type_ids=None, position_ids=None,
+                attention_mask=None):
+        _, pooled = self.ernie(input_ids, token_type_ids, position_ids,
+                               attention_mask)
+        return self.classifier(self.dropout(pooled))
 
 
 def ernie_pretrain_loss(mlm_logits, nsp_logits, mlm_labels, nsp_labels,
@@ -232,4 +293,4 @@ def ernie_pretrain_loss(mlm_logits, nsp_logits, mlm_labels, nsp_labels,
     mlm_loss = masked_lm_loss(mlm_logits, mlm_labels,
                               ignore_index=ignore_index)
     nsp_loss = PF.cross_entropy(nsp_logits, nsp_labels, reduction="mean")
-    return amp.cast(mlm_loss) + amp.cast(nsp_loss)
+    return amp.cast(mlm_loss, "add") + amp.cast(nsp_loss, "add")

@@ -33,14 +33,6 @@ _WEIGHTS_PITS = "model.pits"
 _WEIGHTS_PKL = "model.pdparams"
 _CONFIG = "config.json"
 
-# architectures the JAX package saves that the port cannot build yet
-_UNPORTED = {
-    "ErnieForMaskedLM": "item 13 (the ERNIE heads other than pretraining)",
-    "ErnieForSequenceClassification":
-        "item 13 (the ERNIE heads other than pretraining)",
-}
-
-
 def _read_config(save_dir: str) -> dict:
     with open(os.path.join(save_dir, _CONFIG)) as f:
         return json.load(f)
@@ -54,7 +46,10 @@ class AutoModel:
         "GPTForCausalLM": ("gpt", "GPTForCausalLM"),
         "GPTMoEForCausalLM": ("gpt_moe", "GPTMoEForCausalLM"),
         "LlamaForCausalLM": ("llama", "LlamaForCausalLM"),
+        "ErnieForMaskedLM": ("ernie", "ErnieForMaskedLM"),
         "ErnieForPretraining": ("ernie", "ErnieForPretraining"),
+        "ErnieForSequenceClassification": (
+            "ernie", "ErnieForSequenceClassification"),
     }
 
     @classmethod
@@ -62,10 +57,6 @@ class AutoModel:
         """-> (model class, config dict without 'architecture')."""
         cfg = _read_config(save_dir)
         arch = cfg.pop("architecture", None)
-        if arch in _UNPORTED:
-            raise NotImplementedError(
-                f"{save_dir} holds a {arch}, which the port does not "
-                f"build yet (ROADMAP.md queue 1, {_UNPORTED[arch]})")
         entry = cls._REGISTRY.get(arch)
         if entry is None:
             raise ValueError(

@@ -3,9 +3,9 @@
 Ports of ``paddle_infer_tpu/nn/functional/__init__.py`` (``dropout``,
 ``cross_entropy``, ``scaled_dot_product_attention``, ``gelu``,
 ``tanh``) and the op bodies behind them (``ops/activation.py``
-``_dropout``, ``ops/loss.py`` ``_softmax_ce``).  Every op follows the O2
-rule of ``amp.py``: its float operands go through ``amp.cast``, or
-``amp.black`` for a black-listed op.
+``_dropout``, ``ops/loss.py`` ``_softmax_ce``).  Every op follows the AMP
+rule of ``amp.py``: its float operands go through ``amp.cast`` with the
+name of the reference's dispatch op at that site.
 
 Randomness is explicit: a dropping op takes a ``key`` or a
 ``core.random.KeyStream`` (``keys``) to draw one from.
@@ -55,7 +55,7 @@ def dropout(x, p=0.5, training=True, mode="upscale_in_train", key=None,
     """Hash-RNG dropout; an identity outside training or at ``p == 0``."""
     if not training or p == 0.0:
         return x
-    x = amp.cast(x)
+    x = amp.cast(x, "dropout")
     if p >= 1.0:
         return x * 0.0
     return _dropout_seeded(x, _draw_seed(key, keys), float(p),
@@ -63,28 +63,32 @@ def dropout(x, p=0.5, training=True, mode="upscale_in_train", key=None,
 
 
 def gelu(x, approximate=False):
-    return F.gelu(amp.cast(x), approximate="tanh" if approximate else "none")
+    return F.gelu(amp.cast(x, "gelu"), approximate="tanh" if approximate else "none")
 
 
 def tanh(x):
-    return torch.tanh(amp.cast(x))
+    return torch.tanh(amp.cast(x, "tanh"))
 
 
 def linear(x, weight, bias=None):
-    """``x @ weight + bias`` with Paddle's ``[in, out]`` weight."""
-    out = torch.matmul(amp.cast(x), amp.cast(weight))
-    return out + amp.cast(bias) if bias is not None else out
+    """``x @ weight + bias`` with Paddle's ``[in, out]`` weight: the
+    reference's ``matmul`` then ``add`` (under O1 a low-dtype product plus
+    a float32 bias is float32)."""
+    out = torch.matmul(amp.cast(x, "matmul"), amp.cast(weight, "matmul"))
+    if bias is None:
+        return out
+    return amp.cast(out, "add") + amp.cast(bias, "add")
 
 
 def embedding(ids, weight):
-    return F.embedding(ids.long(), amp.cast(weight))
+    return F.embedding(ids.long(), amp.cast(weight, "gather"))
 
 
 def layer_norm(x, normalized_shape, weight, bias, epsilon):
     """float32 statistics, the input's dtype in and out (under O2 the
     operands are cast to the compute dtype first, as the JAX package's
     dispatcher casts them)."""
-    x, weight, bias = amp.cast(x), amp.cast(weight), amp.cast(bias)
+    x, weight, bias = (amp.cast(t, "layer_norm") for t in (x, weight, bias))
     return F.layer_norm(x.float(), normalized_shape,
                         None if weight is None else weight.float(),
                         None if bias is None else bias.float(),
@@ -97,7 +101,7 @@ def cross_entropy(input, label, ignore_index=-100, reduction="mean",
     [label]`` with the log-sum-exp in float32, 0 at ``ignore_index``;
     ``reduction`` "mean" (over every element, or over the non-ignored
     ones when ``ignore_index`` is not -100), "sum" or "none"."""
-    logits = amp.cast(input)
+    logits = amp.cast(input, "softmax_with_cross_entropy")
     if axis not in (-1, logits.dim() - 1):
         logits = logits.movedim(axis, -1)
     lbl = label.long()
@@ -108,14 +112,14 @@ def cross_entropy(input, label, ignore_index=-100, reduction="mean",
     picked = torch.gather(logits, -1,
                           torch.where(valid, lbl, 0)[..., None])[..., 0]
     loss = torch.where(valid, lse - picked.float(), 0.0)
-    loss = amp.cast(loss)          # the op's squeeze computes under O2
+    loss = amp.cast(loss, "squeeze")
     if reduction == "mean":
         if ignore_index != -100:
             denom = torch.clamp(valid.float().sum(), min=1.0)
-            return amp.black(loss).sum() / denom
-        return amp.black(loss).mean()
+            return amp.cast(loss, "sum").sum() / denom
+        return amp.cast(loss, "mean").mean()
     if reduction == "sum":
-        return amp.black(loss).sum()
+        return amp.cast(loss, "sum").sum()
     return loss
 
 
@@ -133,7 +137,7 @@ def scaled_dot_product_attention(q, k, v, attn_mask=None, dropout_p=0.0,
         seed = _draw_seed(None, keys)
     else:
         dropout_p = 0.0
-    q, k, v = amp.cast(q), amp.cast(k), amp.cast(v)
+    q, k, v = (amp.cast(t, "sdpa") for t in (q, k, v))
     return A.sdpa(q, k, v, attn_mask, None, q_segment_ids, kv_segment_ids,
                   dropout_p=dropout_p, is_causal=is_causal, scale=scale,
                   seed=seed)

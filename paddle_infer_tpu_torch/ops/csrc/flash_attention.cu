@@ -1,5 +1,6 @@
 // Flash attention for Hopper (sm_90a): forward, dK/dV and dQ.  Three
-// kernels per input type, one source, in the (folded) layout
+// kernels per input type (float32, bfloat16, float16), one source, in
+// the (folded) layout
 // q/o/dq [BH, Sq, D], k/v/dk/dv [BH, Sk, D], lse/delta [BH, Sq] f32,
 // segment ids [B, Sq] / [B, Sk] int32 (bh = b * H + h).
 //
@@ -31,7 +32,8 @@
 // dropout, its keep hash (about a dozen integer operations per score)
 // take about as long.  At long causal sequences (S=4096, D=128) and at
 // D=256 the bf16 tensor-core operations bound them (4, 8 and 6 per q-k
-// pair and head dim) over 989 TFLOP/s.  The bf16 design (kernels of the
+// pair and head dim) over 989 TFLOP/s.  The 16-bit design, one template
+// for bf16 and f16 that differ only in the element's encoding (kernels of the
 // earlier design, for comparison: four warps of mma.sync.m16n8k16 with
 // fragments read from padded shared tiles by scalar loads, synchronous
 // tile loads between two __syncthreads per tile, each tile's softmax
@@ -67,7 +69,11 @@
 //     below D = 256, and works out P while its dP product runs;
 //   * host: each kernel instantiation opts into its shared memory once;
 //     the tensor maps are encoded per call (they hold the tensors'
-//     addresses) and passed as __grid_constant__ parameters.
+//     addresses) and passed as __grid_constant__ parameters;
+//   * f16: as bf16, with f16 products and tensor maps.  Its narrower range
+//     shows only where the caller's values leave it (a loss scale too
+//     large gives inf gradients, which GradScaler skips); p and the
+//     score-sized operands lie in [0, 1] or scale with dO, as in bf16.
 // f32 (fp32 parity runs): CUDA cores, four threads per tile row, scores
 // staged in shared memory; tiles of 32 rows at D = 256, so four f32
 // tiles fit.  Head dims 64, 128 and 256.
@@ -83,18 +89,22 @@
 // when a tensor map cannot be encoded).
 #include <cuda.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
 constexpr float kNegInf = -1e30f;
 
-enum DType { kF32 = 0, kBF16 = 1 };
+enum DType { kF32 = 0, kBF16 = 1, kF16 = 2 };
 enum Kind { kFwd = 0, kDkdv = 1, kDq = 2 };
 
 typedef __nv_bfloat16 bf16;
+typedef __half f16;
 
 struct Args {
   const void* q;
@@ -175,21 +185,47 @@ __device__ __forceinline__ float warp_group_sum(float x) {
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
-// ------------------------------------------------------------- bf16 pairs
+// ------------------------------------------------------- 16-bit elements
+// The tensor-core kernels are templates on their element type T, bf16 or
+// f16 (the same tiles, products and maps; only the element's encoding
+// differs): Elem<T> packs a pair of floats into one 32-bit register
+// (round to nearest even; f16 keeps its subnormals), unpacks one, and
+// names the type for a tensor map; wgmma takes the type's name below.
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
+template <typename T>
+struct Elem;
 
-__device__ __forceinline__ float2 unpack_bf16(uint32_t v) {
-  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v));
-}
+template <>
+struct Elem<bf16> {
+  static constexpr CUtensorMapDataType kMap = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  static __device__ __forceinline__ uint32_t pack(float lo, float hi) {
+    __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+  }
+  static __device__ __forceinline__ float2 unpack(uint32_t v) {
+    return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v));
+  }
+};
+
+template <>
+struct Elem<f16> {
+  static constexpr CUtensorMapDataType kMap = CU_TENSOR_MAP_DATA_TYPE_FLOAT16;
+  static __device__ __forceinline__ uint32_t pack(float lo, float hi) {
+    __half2 v = __floats2half2_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+  }
+  static __device__ __forceinline__ float2 unpack(uint32_t v) {
+    return __half22float2(*reinterpret_cast<const __half2*>(&v));
+  }
+};
+
+template <typename T>
+constexpr bool kIsF16 = std::is_same<T, f16>::value;
 
 // -------------------------------------------- Hopper primitives (sm_90a)
-// The bf16 kernels: a producer warp keeps TMA loads in flight into
+// The 16-bit kernels: a producer warp keeps TMA loads in flight into
 // rings of two to four stages completed on mbarriers; consumer
-// warpgroups run wgmma.  A bf16 tile [rows, D] sits in shared memory as
+// warpgroups run wgmma.  A 16-bit tile [rows, D] sits in shared memory as
 // D / 64 panels of [rows, 64] (128 bytes a row), 128-byte swizzled by
 // the TMA unit, each panel 1024-byte aligned.
 
@@ -278,7 +314,9 @@ __device__ __forceinline__ void wg_wait1() {
   asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
 }
 
-// 2^x, subnormal results flushed to zero (p feeds bf16 products).
+// 2^x, float32 subnormal results flushed to zero: p feeds 16-bit
+// products, and below 2^-126 it rounds to zero in bf16 and in f16 alike
+// (f16's smallest subnormal is 2^-24), so the flush changes no operand.
 __device__ __forceinline__ float exp2_ftz(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
@@ -304,7 +342,7 @@ __device__ __forceinline__ uint64_t gmma_desc(uint32_t addr, uint32_t lbo,
 // K-major operand (the product sums over D): 64 rows from r0 of a tile
 // of `rows` rows, k-step kk (head-dim columns 16 kk ..).  Within a
 // 128-byte row a k-step is 32 bytes; eight rows are 1024 bytes.
-__device__ __forceinline__ uint64_t desc_k(const bf16* tile, int rows, int r0,
+__device__ __forceinline__ uint64_t desc_k(const void* tile, int rows, int r0,
                                            int kk) {
   return gmma_desc(smem_u32(tile) + (kk >> 2) * rows * 128 + r0 * 128 +
                        (kk & 3) * 32,
@@ -314,148 +352,183 @@ __device__ __forceinline__ uint64_t desc_k(const bf16* tile, int rows, int r0,
 // MN-major B operand (the product sums over the tile's rows), k-step kk
 // (rows 16 kk ..): N runs along D, one 64-column panel after another
 // (`rows` x 128 bytes apart).
-__device__ __forceinline__ uint64_t desc_mn(const bf16* tile, int rows,
+__device__ __forceinline__ uint64_t desc_mn(const void* tile, int rows,
                                             int kk) {
   return gmma_desc(smem_u32(tile) + kk * 2048, rows * 128, 1024);
 }
 
 // The A operand of k-step kk from a [64 x N] score accumulator (N / 2
-// floats a thread), rounded to bf16 (the accumulator's fragment is the A
+// floats a thread), rounded to T (the accumulator's fragment is the A
 // fragment's layout).
-template <int N>
+template <typename T, int N>
 __device__ __forceinline__ void a_frag(const float (&s)[N], int kk,
                                        uint32_t (&a)[4]) {
-  a[0] = pack_bf16(s[8 * kk], s[8 * kk + 1]);
-  a[1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
-  a[2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
-  a[3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
+  a[0] = Elem<T>::pack(s[8 * kk], s[8 * kk + 1]);
+  a[1] = Elem<T>::pack(s[8 * kk + 2], s[8 * kk + 3]);
+  a[2] = Elem<T>::pack(s[8 * kk + 4], s[8 * kk + 5]);
+  a[3] = Elem<T>::pack(s[8 * kk + 6], s[8 * kk + 7]);
 }
 
+// The wgmma products, one macro per shape with the element type's name
+// (bf16 or f16) pasted into the instruction.
+#define PIT_WGMMA_SS64(TY)                                                                                      \
+  asm volatile(                                                                                                 \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"                                                              \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " {"                                              \
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "                                  \
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "                       \
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"                                                                           \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),         \
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),   \
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), \
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])  \
+      : "l"(da), "l"(db), "r"(accumulate))
+
+#define PIT_WGMMA_SS128(TY)                                                                                     \
+  asm volatile(                                                                                                 \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"                                                              \
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " {"                                             \
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "                                  \
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "                        \
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "                        \
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "                       \
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"                                                                           \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),         \
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),   \
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), \
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), \
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), \
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), \
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), \
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])  \
+      : "l"(da), "l"(db), "r"(accumulate))
+
+#define PIT_WGMMA_RS64(TY)                                                                                      \
+  asm volatile(                                                                                                 \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"                                                              \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " {"                                              \
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "                                  \
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "                       \
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"                                                             \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),         \
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),   \
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), \
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])  \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1))
+
+#define PIT_WGMMA_RS128(TY)                                                                                     \
+  asm volatile(                                                                                                 \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"                                                              \
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " {"                                             \
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "                                  \
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "                        \
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "                        \
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "                       \
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"                                                             \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),         \
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),   \
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), \
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), \
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), \
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), \
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), \
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])  \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1))
+
+#define PIT_WGMMA_RS256(TY)                                                                                             \
+  asm volatile(                                                                                                         \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"                                                                     \
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32." TY "." TY " {"                                                     \
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "                                          \
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "                                \
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "                                \
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "                                \
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "                                \
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "                                \
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "                    \
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "               \
+      "{%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"                                                                \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),                 \
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),           \
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),         \
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),         \
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),         \
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),         \
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),         \
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),         \
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),         \
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),         \
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),         \
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),         \
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),     \
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), \
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]), \
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])  \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1))
+
 // d[64 x 64] (+)= A . B^T, A and B K-major in shared memory
+template <typename T>
 __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
                                          uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(accumulate));
+  if constexpr (kIsF16<T>)
+    PIT_WGMMA_SS64("f16");
+  else
+    PIT_WGMMA_SS64("bf16");
 }
 
 // d[64 x 128] (+)= A . B^T, A and B K-major in shared memory
+template <typename T>
 __device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da,
                                          uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(accumulate));
+  if constexpr (kIsF16<T>)
+    PIT_WGMMA_SS128("f16");
+  else
+    PIT_WGMMA_SS128("bf16");
 }
 
 // d[64 x 64] += A . B, A a register fragment, B MN-major in shared memory
+template <typename T>
 __device__ __forceinline__ void wgmma_rs(float (&d)[32],
                                          const uint32_t (&a)[4], uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  if constexpr (kIsF16<T>)
+    PIT_WGMMA_RS64("f16");
+  else
+    PIT_WGMMA_RS64("bf16");
 }
 
 // d[64 x 128] += A . B, A a register fragment, B MN-major in shared memory
+template <typename T>
 __device__ __forceinline__ void wgmma_rs(float (&d)[64],
                                          const uint32_t (&a)[4], uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  if constexpr (kIsF16<T>)
+    PIT_WGMMA_RS128("f16");
+  else
+    PIT_WGMMA_RS128("bf16");
 }
 
 // d[64 x 256] += A . B, A a register fragment, B MN-major in shared memory
+template <typename T>
 __device__ __forceinline__ void wgmma_rs(float (&d)[128],
                                          const uint32_t (&a)[4], uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
-      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
-      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
-      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
-      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
-      "{%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
-        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
-        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
-        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
-        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
-        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
-        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
-        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
-        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  if constexpr (kIsF16<T>)
+    PIT_WGMMA_RS256("f16");
+  else
+    PIT_WGMMA_RS256("bf16");
 }
 
 // Rows row[0], row[1] of a [64 x D] accumulator (fragment d[4 j + e]:
-// row row[e >> 1], column 8 j + 2 t + (e & 1)) into dst [n, D] as bf16.
-template <int D>
-__device__ __forceinline__ void store_acc_bf16(bf16* dst,
-                                               const float (&d)[D / 2],
-                                               const int (&row)[2], int n,
-                                               int t) {
+// row row[e >> 1], column 8 j + 2 t + (e & 1)) into dst [n, D] as T.
+template <typename T, int D>
+__device__ __forceinline__ void store_acc(T* dst, const float (&d)[D / 2],
+                                          const int (&row)[2], int n, int t) {
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     if (row[i] >= n) continue;
-    bf16* out = dst + static_cast<size_t>(row[i]) * D;
+    T* out = dst + static_cast<size_t>(row[i]) * D;
 #pragma unroll
     for (int j = 0; j < D / 8; ++j)
-      *reinterpret_cast<__nv_bfloat162*>(out + j * 8 + t * 2) =
-          __floats2bfloat162_rn(d[4 * j + 2 * i], d[4 * j + 2 * i + 1]);
+      *reinterpret_cast<uint32_t*>(out + j * 8 + t * 2) =
+          Elem<T>::pack(d[4 * j + 2 * i], d[4 * j + 2 * i + 1]);
   }
 }
 
@@ -468,7 +541,7 @@ __device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
 //   WG 0: S^T = K Q^T, P^T (masked, lse), dV += Pd^T dO;
 //   WG 1: dP^T = V dO^T, dS^T = P^T (dP^T - delta) scale, dK += dS^T Q.
 // Per tile the two swap through shared memory: WG 0 hands over P^T in
-// bf16, WG 1 the dropout keep bits it hashes while its dP^T product
+// T, WG 1 the dropout keep bits it hashes while its dP^T product
 // runs, so each product and each hash runs once.  The
 // producer warp loads K and V once and streams (Q, dO, lse, delta, q
 // segment ids) tiles through the ring.
@@ -487,7 +560,7 @@ struct DkdvLayout {
   // ring depth: as many stages as fit beside K and V (two blocks an SM
   // at D = 64, one above)
   static constexpr int kStages = D == 64 ? 3 : D == 128 ? 4 : 2;
-  static constexpr int kTileB = kWgRows * D * 2;  // one [64, D] bf16 tile
+  static constexpr int kTileB = kWgRows * D * 2;  // one [64, D] 16-bit tile
   static constexpr int kK = 0, kV = kTileB, kQ = 2 * kTileB,
                        kO = kQ + kStages * kTileB, kP = kO + kStages * kTileB,
                        kLse = kP + kStages * kWgRows * kWgRows * 2,
@@ -498,9 +571,9 @@ struct DkdvLayout {
                        kBytes = kBars + (2 * kStages + 1) * 8 + 1024;
 };
 
-template <int D>
+template <typename T, int D>
 __global__ void __launch_bounds__(dkdv_threads<D>(), D == 64 ? 2 : 1)
-    flash_dkdv_kernel_bf16(const __grid_constant__ CUtensorMap tq,
+    flash_dkdv_kernel_16bit(const __grid_constant__ CUtensorMap tq,
                            const __grid_constant__ CUtensorMap tk,
                            const __grid_constant__ CUtensorMap tv,
                            const __grid_constant__ CUtensorMap tdo, Args a) {
@@ -511,9 +584,9 @@ __global__ void __launch_bounds__(dkdv_threads<D>(), D == 64 ? 2 : 1)
   constexpr bool kRebalance = D > 128;  // setmaxnreg: 40 producer, 232
   extern __shared__ unsigned char smem_raw[];
   unsigned char* sm = align1024(smem_raw);
-  bf16* sK = reinterpret_cast<bf16*>(sm + L::kK);
-  bf16* sV = reinterpret_cast<bf16*>(sm + L::kV);
-  uint2* sP = reinterpret_cast<uint2*>(sm + L::kP);  // P^T, bf16
+  T* sK = reinterpret_cast<T*>(sm + L::kK);
+  T* sV = reinterpret_cast<T*>(sm + L::kV);
+  uint2* sP = reinterpret_cast<uint2*>(sm + L::kP);  // P^T, as T
   float* sLse = reinterpret_cast<float*>(sm + L::kLse);  // lse * log2(e)
   float* sDelta = reinterpret_cast<float*>(sm + L::kDelta);
   int* sQs = reinterpret_cast<int*>(sm + L::kQs);
@@ -523,10 +596,10 @@ __global__ void __launch_bounds__(dkdv_threads<D>(), D == 64 ? 2 : 1)
   uint64_t* empty = full + STAGES;
   uint64_t* kvbar = empty + STAGES;
   auto sQ = [&](int s) {
-    return reinterpret_cast<bf16*>(sm + L::kQ + s * TILE);
+    return reinterpret_cast<T*>(sm + L::kQ + s * TILE);
   };
   auto sO = [&](int s) {
-    return reinterpret_cast<bf16*>(sm + L::kO + s * TILE);
+    return reinterpret_cast<T*>(sm + L::kO + s * TILE);
   };
 
   const int bh = blockIdx.y, k0 = blockIdx.x * kWgRows;
@@ -621,7 +694,7 @@ __global__ void __launch_bounds__(dkdv_threads<D>(), D == 64 ? 2 : 1)
       const int q0 = i * kWgRows;
       mbar_wait(&full[s], (it / STAGES) & 1);
       // P^T of the tile in fragment order: [8 col blocks][128 threads]
-      // x 4 bf16
+      // x 4 T
       uint2* Ps = sP + s * kWgRows * kWgRows / 4;
       uint32_t* keep = sKeep + s * 128;
       float sc[32];
@@ -630,7 +703,7 @@ __global__ void __launch_bounds__(dkdv_threads<D>(), D == 64 ? 2 : 1)
         wg_fence();
 #pragma unroll
         for (int kk = 0; kk < D / 16; ++kk)
-          wgmma_ss(sc, desc_k(sK, kWgRows, 0, kk),
+          wgmma_ss<T>(sc, desc_k(sK, kWgRows, 0, kk),
                    desc_k(sQ(s), kWgRows, 0, kk), kk > 0);
         wg_commit();
         wg_wait0();
@@ -650,8 +723,8 @@ __global__ void __launch_bounds__(dkdv_threads<D>(), D == 64 ? 2 : 1)
                                      -sLse[s * kWgRows + c]));
           }
           Ps[j * 128 + tid] =
-              make_uint2(pack_bf16(sc[4 * j], sc[4 * j + 1]),
-                         pack_bf16(sc[4 * j + 2], sc[4 * j + 3]));
+              make_uint2(Elem<T>::pack(sc[4 * j], sc[4 * j + 1]),
+                         Elem<T>::pack(sc[4 * j + 2], sc[4 * j + 3]));
         }
         bar_sync(1 + s, 2 * 128);  // P^T out, the keep bits in
         if (a.dropout) {  // Pd = keep P / (1 - p_drop)
@@ -663,12 +736,12 @@ __global__ void __launch_bounds__(dkdv_threads<D>(), D == 64 ? 2 : 1)
         // dV += Pd^T dO
         uint32_t af[kWgRows / 16][4];
 #pragma unroll
-        for (int kk = 0; kk < kWgRows / 16; ++kk) a_frag(sc, kk, af[kk]);
+        for (int kk = 0; kk < kWgRows / 16; ++kk) a_frag<T>(sc, kk, af[kk]);
         fence_regs(acc);
         wg_fence();
 #pragma unroll
         for (int kk = 0; kk < kWgRows / 16; ++kk)
-          wgmma_rs(acc, af[kk], desc_mn(sO(s), kWgRows, kk));
+          wgmma_rs<T>(acc, af[kk], desc_mn(sO(s), kWgRows, kk));
         wg_commit();
         wg_wait0();
         fence_regs(acc);
@@ -678,7 +751,7 @@ __global__ void __launch_bounds__(dkdv_threads<D>(), D == 64 ? 2 : 1)
         wg_fence();
 #pragma unroll
         for (int kk = 0; kk < D / 16; ++kk)
-          wgmma_ss(sc, desc_k(sV, kWgRows, 0, kk),
+          wgmma_ss<T>(sc, desc_k(sV, kWgRows, 0, kk),
                    desc_k(sO(s), kWgRows, 0, kk), kk > 0);
         wg_commit();
         uint32_t bits = 0xffffffffu;
@@ -700,7 +773,7 @@ __global__ void __launch_bounds__(dkdv_threads<D>(), D == 64 ? 2 : 1)
 #pragma unroll
         for (int j = 0; j < 8; ++j) {
           const uint2 pj = Ps[j * 128 + tid];
-          const float2 lo = unpack_bf16(pj.x), hi = unpack_bf16(pj.y);
+          const float2 lo = Elem<T>::unpack(pj.x), hi = Elem<T>::unpack(pj.y);
           const float pv[4] = {lo.x, lo.y, hi.x, hi.y};
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
@@ -713,19 +786,19 @@ __global__ void __launch_bounds__(dkdv_threads<D>(), D == 64 ? 2 : 1)
         // dK += dS^T Q
         uint32_t af[kWgRows / 16][4];
 #pragma unroll
-        for (int kk = 0; kk < kWgRows / 16; ++kk) a_frag(sc, kk, af[kk]);
+        for (int kk = 0; kk < kWgRows / 16; ++kk) a_frag<T>(sc, kk, af[kk]);
         fence_regs(acc);
         wg_fence();
 #pragma unroll
         for (int kk = 0; kk < kWgRows / 16; ++kk)
-          wgmma_rs(acc, af[kk], desc_mn(sQ(s), kWgRows, kk));
+          wgmma_rs<T>(acc, af[kk], desc_mn(sQ(s), kWgRows, kk));
         wg_commit();
         wg_wait0();
         fence_regs(acc);
       }
       mbar_arrive(&empty[s]);
     }
-    store_acc_bf16<D>(static_cast<bf16*>(wg == 0 ? a.out1 : a.out0) + koff * D,
+    store_acc<T, D>(static_cast<T*>(wg == 0 ? a.out1 : a.out0) + koff * D,
                       acc, key, a.sk, t);
   }
 }
@@ -738,16 +811,16 @@ __global__ void __launch_bounds__(dkdv_threads<D>(), D == 64 ? 2 : 1)
 template <int D>
 struct DqLayout {
   static constexpr int kStages = D == 64 ? 3 : 2;
-  static constexpr int kTileB = kWgRows * D * 2;  // one [64, D] bf16 tile
+  static constexpr int kTileB = kWgRows * D * 2;  // one [64, D] 16-bit tile
   static constexpr int kQ = 0, kO = kTileB, kK = 2 * kTileB,
                        kV = kK + kStages * kTileB, kKs = kV + kStages * kTileB,
                        kBars = kKs + kStages * kWgRows * 4,
                        kBytes = kBars + (2 * kStages + 1) * 8 + 1024;
 };
 
-template <int D>
+template <typename T, int D>
 __global__ void __launch_bounds__(128 + kProducer, D == 256 ? 1 : 2)
-    flash_dq_kernel_bf16(const __grid_constant__ CUtensorMap tq,
+    flash_dq_kernel_16bit(const __grid_constant__ CUtensorMap tq,
                          const __grid_constant__ CUtensorMap tk,
                          const __grid_constant__ CUtensorMap tv,
                          const __grid_constant__ CUtensorMap tdo, Args a) {
@@ -757,17 +830,17 @@ __global__ void __launch_bounds__(128 + kProducer, D == 256 ? 1 : 2)
   constexpr int PANEL = kWgRows * 64;  // elements
   extern __shared__ unsigned char smem_raw[];
   unsigned char* sm = align1024(smem_raw);
-  bf16* sQ = reinterpret_cast<bf16*>(sm + L::kQ);
-  bf16* sO = reinterpret_cast<bf16*>(sm + L::kO);
+  T* sQ = reinterpret_cast<T*>(sm + L::kQ);
+  T* sO = reinterpret_cast<T*>(sm + L::kO);
   int* sKs = reinterpret_cast<int*>(sm + L::kKs);
   uint64_t* full = reinterpret_cast<uint64_t*>(sm + L::kBars);
   uint64_t* empty = full + STAGES;
   uint64_t* qbar = empty + STAGES;
   auto sK = [&](int s) {
-    return reinterpret_cast<bf16*>(sm + L::kK + s * TILE);
+    return reinterpret_cast<T*>(sm + L::kK + s * TILE);
   };
   auto sV = [&](int s) {
-    return reinterpret_cast<bf16*>(sm + L::kV + s * TILE);
+    return reinterpret_cast<T*>(sm + L::kV + s * TILE);
   };
 
   const int bh = blockIdx.y, q0 = blockIdx.x * kWgRows;
@@ -853,12 +926,12 @@ __global__ void __launch_bounds__(128 + kProducer, D == 256 ? 1 : 2)
     wg_fence();
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk)
-      wgmma_ss(sc, desc_k(sQ, kWgRows, 0, kk), desc_k(sK(s), kWgRows, 0, kk),
+      wgmma_ss<T>(sc, desc_k(sQ, kWgRows, 0, kk), desc_k(sK(s), kWgRows, 0, kk),
                kk > 0);
     wg_commit();
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk)
-      wgmma_ss(dp, desc_k(sO, kWgRows, 0, kk), desc_k(sV(s), kWgRows, 0, kk),
+      wgmma_ss<T>(dp, desc_k(sO, kWgRows, 0, kk), desc_k(sV(s), kWgRows, 0, kk),
                kk > 0);
     wg_commit();
     // P = exp(scale s - lse), zero where masked (`_masked_p`), and the
@@ -898,18 +971,18 @@ __global__ void __launch_bounds__(128 + kProducer, D == 256 ? 1 : 2)
     // dQ += dS K
     uint32_t af[kWgRows / 16][4];
 #pragma unroll
-    for (int kk = 0; kk < kWgRows / 16; ++kk) a_frag(sc, kk, af[kk]);
+    for (int kk = 0; kk < kWgRows / 16; ++kk) a_frag<T>(sc, kk, af[kk]);
     fence_regs(acc);
     wg_fence();
 #pragma unroll
     for (int kk = 0; kk < kWgRows / 16; ++kk)
-      wgmma_rs(acc, af[kk], desc_mn(sK(s), kWgRows, kk));
+      wgmma_rs<T>(acc, af[kk], desc_mn(sK(s), kWgRows, kk));
     wg_commit();
     wg_wait0();
     fence_regs(acc);
     mbar_arrive(&empty[s]);
   }
-  store_acc_bf16<D>(static_cast<bf16*>(a.out0) + qoff * D, acc, row, a.sq, t);
+  store_acc<T, D>(static_cast<T*>(a.out0) + qoff * D, acc, row, a.sq, t);
 }
 
 // Forward: one block per (bh, 128 q rows) with two consumer warpgroups
@@ -963,21 +1036,21 @@ constexpr float kNegInf2 = kNegInf * kLog2e;  // NEG_INF in log2 units
 
 // S = Q K^T over D for one warpgroup's 64 rows (from r0 of the M-row Q
 // tile) against a tile of N keys; issued, not committed.
-template <int D, int M, int N>
-__device__ __forceinline__ void fwd_qk(float (&s)[N / 2], const bf16* sQ,
-                                       int r0, const bf16* sK) {
+template <typename T, int D, int M, int N>
+__device__ __forceinline__ void fwd_qk(float (&s)[N / 2], const T* sQ,
+                                       int r0, const T* sK) {
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk)
-    wgmma_ss(s, desc_k(sQ, M, r0, kk), desc_k(sK, N, 0, kk), kk > 0);
+    wgmma_ss<T>(s, desc_k(sQ, M, r0, kk), desc_k(sK, N, 0, kk), kk > 0);
 }
 
 // O += P V over a tile of N keys; issued, not committed.
-template <int D, int N>
+template <typename T, int D, int N>
 __device__ __forceinline__ void fwd_pv(float (&o)[D / 2],
                                        const uint32_t (&pf)[N / 16][4],
-                                       const bf16* sV) {
+                                       const T* sV) {
 #pragma unroll
-  for (int kk = 0; kk < N / 16; ++kk) wgmma_rs(o, pf[kk], desc_mn(sV, N, kk));
+  for (int kk = 0; kk < N / 16; ++kk) wgmma_rs<T>(o, pf[kk], desc_mn(sV, N, kk));
 }
 
 // `keep_elem` for this thread's elements of a tile at k0, bit i for
@@ -1050,10 +1123,10 @@ __device__ __forceinline__ void fwd_softmax(
   }
 }
 
-template <int D>
+template <typename T, int D>
 __global__ void __launch_bounds__(FwdLayout<D>::kThreads,
                                   FwdLayout<D>::kBlocksPerSm)
-    flash_fwd_kernel_bf16(const __grid_constant__ CUtensorMap tq,
+    flash_fwd_kernel_16bit(const __grid_constant__ CUtensorMap tq,
                           const __grid_constant__ CUtensorMap tk,
                           const __grid_constant__ CUtensorMap tv, Args a) {
   const uint32_t seed = load_seed(a);
@@ -1062,7 +1135,7 @@ __global__ void __launch_bounds__(FwdLayout<D>::kThreads,
   constexpr bool kPingPong = WGS == 2;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* sm = align1024(smem_raw);
-  bf16* sQ = reinterpret_cast<bf16*>(sm + L::kQ);
+  T* sQ = reinterpret_cast<T*>(sm + L::kQ);
   int* sKs = reinterpret_cast<int*>(sm + L::kKs);
   // per stage: whether the tile's k segment ids are all one id, and it
   int2* sKu = reinterpret_cast<int2*>(sm + L::kKu);
@@ -1074,10 +1147,10 @@ __global__ void __launch_bounds__(FwdLayout<D>::kThreads,
   uint64_t* vempty = vfull + STAGES;
   uint64_t* qbar = vempty + STAGES;
   auto sK = [&](int s) {
-    return reinterpret_cast<bf16*>(sm + L::kK + s * L::kKB);
+    return reinterpret_cast<T*>(sm + L::kK + s * L::kKB);
   };
   auto sV = [&](int s) {
-    return reinterpret_cast<bf16*>(sm + L::kV + s * L::kKB);
+    return reinterpret_cast<T*>(sm + L::kV + s * L::kKB);
   };
 
   const int bh = blockIdx.y;
@@ -1190,7 +1263,7 @@ __global__ void __launch_bounds__(FwdLayout<D>::kThreads,
     if (nk > 0) {
       mbar_wait(&kfull[0], 0);
       wg_fence();
-      fwd_qk<D, M, N>(s, sQ, r0, sK(0));
+      fwd_qk<T, D, M, N>(s, sQ, r0, sK(0));
       wg_commit();
       if (a.dropout) keep_bits<N>(bits, a, seed, 0, hrow, t);
       const bool mask = needs_mask(0, 0);
@@ -1200,7 +1273,7 @@ __global__ void __launch_bounds__(FwdLayout<D>::kThreads,
                      scale_l2, bits, m, l, corr, t);
       mbar_arrive(&kempty[0]);
 #pragma unroll
-      for (int kk = 0; kk < N / 16; ++kk) a_frag(s, kk, pf[kk]);
+      for (int kk = 0; kk < N / 16; ++kk) a_frag<T>(s, kk, pf[kk]);
     }
     for (int kt = 1; kt < nk; ++kt) {
       const int st = kt % STAGES, prev = (kt - 1) % STAGES;
@@ -1210,9 +1283,9 @@ __global__ void __launch_bounds__(FwdLayout<D>::kThreads,
       // S of this tile and P V of the one before, as two groups
       fence_regs(o);
       wg_fence();
-      fwd_qk<D, M, N>(s, sQ, r0, sK(st));
+      fwd_qk<T, D, M, N>(s, sQ, r0, sK(st));
       wg_commit();
-      fwd_pv<D, N>(o, pf, sV(prev));
+      fwd_pv<T, D, N>(o, pf, sV(prev));
       wg_commit();
       if (kPingPong) bar_arrive(2 - wg, 2 * 128);
       if (a.dropout) keep_bits<N>(bits, a, seed, kt * N, hrow, t);
@@ -1228,7 +1301,7 @@ __global__ void __launch_bounds__(FwdLayout<D>::kThreads,
 #pragma unroll
       for (int i = 0; i < D / 2; ++i) o[i] *= corr[(i >> 1) & 1];
 #pragma unroll
-      for (int kk = 0; kk < N / 16; ++kk) a_frag(s, kk, pf[kk]);
+      for (int kk = 0; kk < N / 16; ++kk) a_frag<T>(s, kk, pf[kk]);
     }
     if (kPingPong && wg == 0) bar_sync(1, 2 * 128);  // WG 1's last turn
     if (nk > 0) {
@@ -1236,7 +1309,7 @@ __global__ void __launch_bounds__(FwdLayout<D>::kThreads,
       mbar_wait(&vfull[last], ((nk - 1) / STAGES) & 1);
       fence_regs(o);
       wg_fence();
-      fwd_pv<D, N>(o, pf, sV(last));
+      fwd_pv<T, D, N>(o, pf, sV(last));
       wg_commit();
       wg_wait0();
       fence_regs(o);
@@ -1258,8 +1331,8 @@ __global__ void __launch_bounds__(FwdLayout<D>::kThreads,
     }
 #pragma unroll
     for (int i = 0; i < D / 2; ++i) o[i] *= mul[(i >> 1) & 1];
-    store_acc_bf16<D>(
-        static_cast<bf16*>(a.out0) + static_cast<size_t>(bh) * a.sq * D, o,
+    store_acc<T, D>(
+        static_cast<T*>(a.out0) + static_cast<size_t>(bh) * a.sq * D, o,
         row, a.sq, t);
   }
 }
@@ -1578,11 +1651,12 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// Tensor map of a bf16 [bh, s, D] tensor read as [rows, 64] panels,
+// Tensor map of a 16-bit [bh, s, D] tensor of type `type` read as
+// [rows, 64] panels,
 // 128-byte swizzled; rows past s read as zeros.  Built per call: the
 // map holds the tensor's address.
-bool make_map(CUtensorMap* map, const void* base, int bh, int s, int D,
-              int rows) {
+bool make_map(CUtensorMap* map, CUtensorMapDataType type, const void* base,
+              int bh, int s, int D, int rows) {
   const EncodeTiled enc = encode_tiled();
   if (enc == nullptr) return false;
   const cuuint64_t dims[3] = {static_cast<cuuint64_t>(D),
@@ -1592,7 +1666,7 @@ bool make_map(CUtensorMap* map, const void* base, int bh, int s, int D,
                                  static_cast<cuuint64_t>(s) * D * 2};
   const cuuint32_t box[3] = {64, static_cast<cuuint32_t>(rows), 1};
   const cuuint32_t elem_strides[3] = {1, 1, 1};
-  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+  return enc(map, type, 3,
              const_cast<void*>(base), dims, strides, box, elem_strides,
              CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
              CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
@@ -1621,45 +1695,54 @@ int launch_one(dim3 grid, int threads, size_t smem, cudaStream_t stream,
 static_assert(FwdLayout<64>::kBytes <= 232448 / FwdLayout<64>::kBlocksPerSm &&
                   FwdLayout<128>::kBytes <= 232448 &&
                   FwdLayout<256>::kBytes <= 232448,
-              "a bf16 forward block exceeds the shared memory of an SM");
+              "a 16-bit forward block exceeds the shared memory of an SM");
 static_assert(DkdvLayout<64>::kBytes <= 232448 / 2 &&
                   DqLayout<64>::kBytes <= 232448 / 2 &&
                   DqLayout<128>::kBytes <= 232448 / 2 &&
                   DkdvLayout<128>::kBytes <= 232448 &&
                   DkdvLayout<256>::kBytes <= 232448 &&
                   DqLayout<256>::kBytes <= 232448,
-              "a bf16 backward block exceeds its share of shared memory");
+              "a 16-bit backward block exceeds its share of shared memory");
+
+// The tensor-core kernels of element type T; they read q, k, v (and dO)
+// through tensor maps.
+template <typename T, int D>
+int launch16(int kind, int bh_count, const Args& a, cudaStream_t stream) {
+  constexpr CUtensorMapDataType ty = Elem<T>::kMap;
+  CUtensorMap m[4];
+  if (kind == kFwd) {
+    using L = FwdLayout<D>;
+    if (!make_map(&m[0], ty, a.q, bh_count, a.sq, D, L::kM) ||
+        !make_map(&m[1], ty, a.k, bh_count, a.sk, D, L::kN) ||
+        !make_map(&m[2], ty, a.v, bh_count, a.sk, D, L::kN))
+      return static_cast<int>(cudaErrorInvalidValue);
+    return launch_one<flash_fwd_kernel_16bit<T, D>>(
+        dim3((a.sq + L::kM - 1) / L::kM, bh_count), L::kThreads, L::kBytes,
+        stream, m[0], m[1], m[2], a);
+  }
+  if (!make_map(&m[0], ty, a.q, bh_count, a.sq, D, kWgRows) ||
+      !make_map(&m[1], ty, a.k, bh_count, a.sk, D, kWgRows) ||
+      !make_map(&m[2], ty, a.v, bh_count, a.sk, D, kWgRows) ||
+      !make_map(&m[3], ty, a.dout, bh_count, a.sq, D, kWgRows))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (kind == kDkdv)
+    return launch_one<flash_dkdv_kernel_16bit<T, D>>(
+        dim3((a.sk + kWgRows - 1) / kWgRows, bh_count), dkdv_threads<D>(),
+        DkdvLayout<D>::kBytes, stream, m[0], m[1], m[2], m[3], a);
+  if (kind == kDq)
+    return launch_one<flash_dq_kernel_16bit<T, D>>(
+        dim3((a.sq + kWgRows - 1) / kWgRows, bh_count), 128 + kProducer,
+        DqLayout<D>::kBytes, stream, m[0], m[1], m[2], m[3], a);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
 
 template <int D>
 int launch(int dtype, int kind, int bh_count, const Args& a,
            cudaStream_t stream) {
   if (dtype == kBF16) {
-    // the bf16 kernels read q, k, v (and dO) through tensor maps
-    CUtensorMap m[4];
-    if (kind == kFwd) {
-      using L = FwdLayout<D>;
-      if (!make_map(&m[0], a.q, bh_count, a.sq, D, L::kM) ||
-          !make_map(&m[1], a.k, bh_count, a.sk, D, L::kN) ||
-          !make_map(&m[2], a.v, bh_count, a.sk, D, L::kN))
-        return static_cast<int>(cudaErrorInvalidValue);
-      return launch_one<flash_fwd_kernel_bf16<D>>(
-          dim3((a.sq + L::kM - 1) / L::kM, bh_count), L::kThreads,
-          L::kBytes, stream, m[0], m[1], m[2], a);
-    }
-    if (!make_map(&m[0], a.q, bh_count, a.sq, D, kWgRows) ||
-        !make_map(&m[1], a.k, bh_count, a.sk, D, kWgRows) ||
-        !make_map(&m[2], a.v, bh_count, a.sk, D, kWgRows) ||
-        !make_map(&m[3], a.dout, bh_count, a.sq, D, kWgRows))
-      return static_cast<int>(cudaErrorInvalidValue);
-    if (kind == kDkdv)
-      return launch_one<flash_dkdv_kernel_bf16<D>>(
-          dim3((a.sk + kWgRows - 1) / kWgRows, bh_count), dkdv_threads<D>(),
-          DkdvLayout<D>::kBytes, stream, m[0], m[1], m[2], m[3], a);
-    if (kind == kDq)
-      return launch_one<flash_dq_kernel_bf16<D>>(
-          dim3((a.sq + kWgRows - 1) / kWgRows, bh_count), 128 + kProducer,
-          DqLayout<D>::kBytes, stream,
-          m[0], m[1], m[2], m[3], a);
+    return launch16<bf16, D>(kind, bh_count, a, stream);
+  } else if (dtype == kF16) {
+    return launch16<f16, D>(kind, bh_count, a, stream);
   } else if (dtype == kF32) {
     constexpr int T = f32_tile<D>();
     const int tiles = kind == kDkdv ? (a.sk + T - 1) / T : (a.sq + T - 1) / T;

@@ -37,7 +37,7 @@ NEG_INF = -1e30
 _M = 0xFFFFFFFF
 
 # the C side's dtype codes (csrc/flash_attention.cu ``DType``)
-DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 HEAD_DIMS = (64, 128, 256)
 
 _c = ctypes
@@ -192,7 +192,7 @@ def _check(q, k, v, extra, qseg, kseg, h):
     kernels' wrappers; returns the dtype code."""
     if q.dtype not in DTYPE_CODES:
         raise TypeError(f"dtype {q.dtype} not supported by the flash "
-                        "kernels (float32, bfloat16)")
+                        "kernels (float32, bfloat16, float16)")
     bh, sq, d = q.shape
     if d not in HEAD_DIMS:
         raise ValueError(f"head_dim {d} not supported by the flash kernels "
@@ -207,8 +207,8 @@ def _check(q, k, v, extra, qseg, kseg, h):
         if t.device != q.device or not t.is_contiguous():
             raise ValueError("kernel inputs must be contiguous on "
                              f"{q.device}")
-    # the bf16 kernels (forward and backward) read q, k, v (and dO) by
-    # TMA (16-byte aligned base addresses)
+    # the 16-bit kernels (forward and backward) read q, k, v (and dO)
+    # by TMA (16-byte aligned base addresses)
     mats = (q, k, v) + tuple(extra[:1])
     if extra and extra[0].shape != q.shape:
         raise ValueError(f"dO {tuple(extra[0].shape)} does not match q "

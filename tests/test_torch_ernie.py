@@ -11,6 +11,10 @@ JAX package on a tiny config (2 layers, hidden 64, 2 heads).
   states.
 * One O2 bf16 step, and AdamW's ``functional_update`` over 3 steps with
   and without ``multi_precision``.
+* The fine-tuning heads ``ErnieForMaskedLM`` (tied to the word
+  embedding) and ``ErnieForSequenceClassification``: eval logits within
+  1e-4 and first-step gradients (dropout 0.1) within 1e-4 of each
+  tensor's max-abs of JAX's.
 """
 import numpy as np
 import pytest
@@ -21,16 +25,21 @@ import jax.numpy as jnp
 
 import paddle_infer_tpu as pit
 from paddle_infer_tpu.models import ErnieConfig as JErnieConfig
+from paddle_infer_tpu.models import ErnieForMaskedLM as JErnieMLM
 from paddle_infer_tpu.models import ErnieForPretraining as JErnie
+from paddle_infer_tpu.models import \
+    ErnieForSequenceClassification as JErnieCls
+from paddle_infer_tpu.models.losses import masked_lm_loss as j_mlm_loss
 from paddle_infer_tpu.models.ernie import ernie_pretrain_loss as j_loss
 from paddle_infer_tpu.parallel import DistributedStrategy as JStrategy
 from paddle_infer_tpu.parallel import FleetTrainStep as JStep
 from paddle_infer_tpu.parallel import fleet as jfleet
 from paddle_infer_tpu_torch import amp
 from paddle_infer_tpu_torch.core.random import KeyStream
-from paddle_infer_tpu_torch.models.ernie import (ErnieConfig,
-                                                 ErnieForPretraining,
-                                                 ernie_pretrain_loss)
+from paddle_infer_tpu_torch.models.ernie import (
+    ErnieConfig, ErnieForMaskedLM, ErnieForPretraining,
+    ErnieForSequenceClassification, ernie_pretrain_loss)
+from paddle_infer_tpu_torch.models.losses import masked_lm_loss
 from paddle_infer_tpu_torch.nn.layers import Embedding, LayerNorm
 from paddle_infer_tpu_torch.optimizer import AdamW
 from paddle_infer_tpu_torch.parallel import (DistributedStrategy,
@@ -239,13 +248,111 @@ def test_adamw_functional_update_matches_jax(multi_precision):
                                        atol=1e-6, rtol=1e-6)
 
 
+HEADS = {
+    "mlm": (lambda: JErnieMLM(JErnieConfig(**CFG)),
+            lambda keys: ErnieForMaskedLM(ErnieConfig(**CFG), device="cpu",
+                                          keys=keys)),
+    "cls": (lambda: JErnieCls(JErnieConfig(**CFG), num_classes=3),
+            lambda keys: ErnieForSequenceClassification(
+                ErnieConfig(**CFG), num_classes=3, device="cpu", keys=keys)),
+}
+
+
+def _head_pair(head):
+    jm = HEADS[head][0]()
+    state = {k: np.asarray(v.numpy()) for k, v in jm.state_dict().items()}
+    tm = HEADS[head][1](KeyStream(5))
+    from_jax_state_dict(tm, state)
+    return jm, tm, state
+
+
+def _head_losses(head):
+    """(JAX loss fn, port loss fn, labels) of a head: the masked LM loss
+    over the padded batch's labels, or cross-entropy over 3 classes."""
+    ids, mask, labels, _ = _batch()
+    if head == "cls":
+        labels = np.array([2, 0], np.int32)
+
+        def jl(m, ids, mask, labels):
+            return pit.nn.functional.cross_entropy(
+                m(ids, attention_mask=mask), labels)
+
+        def tl(m, ids, mask, labels):
+            from paddle_infer_tpu_torch.nn import functional as PF
+
+            return PF.cross_entropy(m(ids, attention_mask=mask), labels)
+        return jl, tl, (ids, mask, labels)
+
+    def jl(m, ids, mask, labels):
+        return j_mlm_loss(m(ids, attention_mask=mask), labels)
+
+    def tl(m, ids, mask, labels):
+        return masked_lm_loss(m(ids, attention_mask=mask), labels)
+    return jl, tl, (ids, mask, labels)
+
+
+@pytest.mark.parametrize("head", sorted(HEADS))
+def test_head_eval_logits_match_jax(head):
+    jm, tm, state = _head_pair(head)
+    if head == "mlm":
+        assert tm.cls._tied_weight is \
+            tm.ernie.embeddings.word_embeddings.weight
+        assert "cls._tied_weight" in state
+    jm.eval()
+    tm.eval()
+    ids, mask, _, _ = _batch()
+    want = jm(pit.Tensor(ids), attention_mask=pit.Tensor(mask))
+    with torch.no_grad():
+        got = tm(torch.tensor(ids), attention_mask=torch.tensor(mask))
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-4,
+                               rtol=1e-4)
+
+
+@pytest.mark.parametrize("head", sorted(HEADS))
+def test_head_first_step_grads_match_jax(head):
+    """The first step's gradients with dropout 0.1, the JAX side by
+    ``jax.grad`` of its step's pure loss under the same key; the tied MLM
+    weight's gradient sums its two uses on both sides.  The MLM head
+    leaves the pooler out of its loss: JAX's gradient there is zeros, the
+    port's None (which the update takes as zeros)."""
+    jm, tm, _ = _head_pair(head)
+    jm.train()
+    jl, tl, batch = _head_losses(head)
+    jfleet.init(is_collective=True, strategy=JStrategy(),
+                devices=jax.devices()[:1])
+    fleet.init(strategy=DistributedStrategy(), devices=["cpu"])
+    jstep = JStep(jm, jl, pit.optimizer.AdamW(learning_rate=LR,
+                                              parameters=jm.parameters()))
+    tstep = FleetTrainStep(tm, tl, AdamW(learning_rate=LR))
+    pit.seed(9)
+    tm.keys.seed(9)
+    key = pit.core.random.next_key()
+    arrays = tuple(jnp.asarray(a) for a in batch)
+    pure = jstep._pure_loss({})
+    jg = jax.grad(lambda p: pure(p, jstep.buffers, key, arrays)[0])(
+        jstep.params)
+    with tstep.keys.trace_key_scope(tstep.keys.next_key()):
+        loss = tstep.loss_fn(tstep.model, *(torch.tensor(a) for a in batch))
+    loss.backward()
+    assert set(jg) == set(tstep.params)
+    for n, p in tstep.params.items():
+        want = np.asarray(jg[n])
+        if p.grad is None:
+            assert n.startswith("ernie.pooler.") and head == "mlm", n
+            assert not want.any(), n
+            continue
+        scale = max(float(np.abs(want).max()), 1e-12)
+        err = float(np.abs(p.grad.numpy() - want).max())
+        assert err <= 1e-4 * scale, (n, err, scale)
+
+
 def test_unported_strategy_raises():
     st = DistributedStrategy()
     st.hybrid_configs = dict(st.hybrid_configs, mp_degree=2)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         fleet.init(strategy=st, devices=["cpu"])
     st = DistributedStrategy()
-    st.recompute = True
+    st.sharding = True
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         fleet.init(strategy=st, devices=["cpu"])
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -265,6 +265,22 @@ def test_sdpa_choice_on_cuda_tensors(d):
     assert TA._attn_impl_choice(q, q, None) == want
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16, torch.float64,
+                                   torch.int32])
+def test_wrapper_dtype_check(dtype):
+    """The kernels' wrappers take float32, bfloat16 and float16 (the 16-bit
+    kernels are one template) and refuse any other dtype before a
+    launch."""
+    q = torch.zeros(4, 8, 64, dtype=dtype)
+    if dtype in (torch.float32, torch.bfloat16, torch.float16):
+        assert TFA._check(q, q, q, (), None, None, 2) == \
+            TFA.DTYPE_CODES[dtype]
+    else:
+        with pytest.raises(TypeError, match="float16"):
+            TFA._check(q, q, q, (), None, None, 2)
+
+
 @pytest.mark.parametrize("entry", ["flash", "hybrid", "sdpa"])
 def test_entry_points_raise_on_cuda_without_a_card(entry, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -291,18 +307,19 @@ def cuda_device():
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
 @pytest.mark.parametrize("d", [64, 128, 256])
-def test_backward_kernels_ragged_on_card(cuda_device, d):
-    """``flash_dkdv`` and ``flash_dq`` in bf16 against ``_grads_reference``
-    (float32, on the same bf16-rounded inputs) at Sq=33, Sk=77: ragged
-    tiles on both sides, the causal offset Sk - Sq, segment ids and
-    dropout 0.1; tolerance 2e-2, bf16's (the kernels round p and dS to
-    bf16 for the tensor cores).  A second launch on the same inputs
-    gives the same bits."""
+def test_backward_kernels_ragged_on_card(cuda_device, d, dtype):
+    """``flash_dkdv`` and ``flash_dq`` in bf16 and f16 against
+    ``_grads_reference`` (float32, on the same rounded inputs) at Sq=33,
+    Sk=77: ragged tiles on both sides, the causal offset Sk - Sq, segment
+    ids and dropout 0.1; tolerance 2e-2, bf16's (the kernels round p and
+    dS to the input type for the tensor cores).  A second launch on the
+    same inputs gives the same bits."""
     b, h, sq, sk = 2, 3, 33, 77
     rng = np.random.RandomState(d)
     mk = lambda s: torch.tensor(rng.randn(b * h, s, d).astype(np.float32),
-                                device=cuda_device).to(torch.bfloat16)
+                                device=cuda_device).to(dtype)
     q, k, v, do = mk(sq), mk(sk), mk(sk), mk(sq)
     qseg, kseg = (torch.tensor(_pad_segments(b, s, n, seed),
                                device=cuda_device)
@@ -328,15 +345,16 @@ def test_backward_kernels_ragged_on_card(cuda_device, d):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
 @pytest.mark.parametrize("d", [64, 128, 256])
-def test_forward_kernel_ragged_on_card(cuda_device, d):
-    """``flash_fwd`` in bf16 against ``_fwd_reference`` (float32, on the
-    same bf16-rounded inputs) at Sq=33, Sk=77 (ragged tiles on both
+def test_forward_kernel_ragged_on_card(cuda_device, d, dtype):
+    """``flash_fwd`` in bf16 and f16 against ``_fwd_reference`` (float32,
+    on the same rounded inputs) at Sq=33, Sk=77 (ragged tiles on both
     sides) and at Sq=200, Sk=333 (several key tiles per block), causal
     with the offset Sk - Sq, segment ids and dropout 0.1; one q segment
     id matches no key, so that row is dead and must come out 0.  o and
-    lse at 2e-2, bf16's tolerance (the kernel rounds p to bf16 for the
-    tensor cores).  A second launch on the same inputs gives the same
+    lse at 2e-2, bf16's tolerance (the kernel rounds p to the input type
+    for the tensor cores).  A second launch on the same inputs gives the same
     bits."""
     b, h = 2, 3
     rng = np.random.RandomState(d + 1)
@@ -344,7 +362,7 @@ def test_forward_kernel_ragged_on_card(cuda_device, d):
                h=h)
     for sq, sk in ((33, 77), (200, 333)):
         mk = lambda s: torch.tensor(rng.randn(b * h, s, d).astype(
-            np.float32), device=cuda_device).to(torch.bfloat16)
+            np.float32), device=cuda_device).to(dtype)
         q, k, v = mk(sq), mk(sk), mk(sk)
         qseg, kseg = (torch.tensor(_pad_segments(b, s, n, seed),
                                    device=cuda_device)

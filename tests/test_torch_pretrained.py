@@ -11,8 +11,10 @@
   ``ml_dtypes``.
 * The reference's ``model.pdparams`` pickle fallback loads.
 * A directory holding another architecture raises the reference's
-  "holds a X, not a Y"; the architectures the port does not build yet
-  raise ``NotImplementedError`` naming ROADMAP.md.
+  "holds a X, not a Y".  ErnieForMaskedLM and
+  ErnieForSequenceClassification, unported until the training recipe's
+  slice, load through ``AutoModel`` with the JAX model's logits and save
+  back into the JAX package.
 """
 import json
 import os
@@ -27,6 +29,7 @@ from paddle_infer_tpu import native as jnative
 from paddle_infer_tpu.core.tensor import Tensor
 from paddle_infer_tpu.models import AutoModel as JAutoModel
 from paddle_infer_tpu.models import ErnieConfig as JErnieConfig
+from paddle_infer_tpu.models import ErnieForMaskedLM as JErnieMLM
 from paddle_infer_tpu.models import ErnieForPretraining as JErnie
 from paddle_infer_tpu.models import \
     ErnieForSequenceClassification as JErnieCls
@@ -204,16 +207,31 @@ def test_architecture_checked(tmp_path):
 @pytest.mark.parametrize("arch", ["ErnieForMaskedLM",
                                   "ErnieForSequenceClassification"])
 def test_unported_architectures_raise(tmp_path, arch):
+    """The two ERNIE heads that raised here until the training recipe's
+    slice ported them: a JAX-saved directory now loads through
+    ``AutoModel`` (``num_classes`` riding on the config) with logits
+    allclose to the JAX model's, ``AutoConfig`` reads the config, and the
+    port's save loads back into the JAX package with the same logits."""
+    pit.seed(2)
     if arch == "ErnieForSequenceClassification":
-        pit.seed(2)
-        JErnieCls(JErnieConfig(**ERNIE), num_classes=5).save_pretrained(
-            str(tmp_path))
+        jm = JErnieCls(JErnieConfig(**ERNIE), num_classes=5)
     else:
-        with open(tmp_path / "config.json", "w") as f:
-            json.dump({"architecture": arch, "hidden_size": 32}, f)
-    for load in (AutoModel.from_pretrained, AutoConfig.from_pretrained):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            load(str(tmp_path))
+        jm = JErnieMLM(JErnieConfig(**ERNIE))
+    jm.eval()
+    jm.save_pretrained(str(tmp_path / "jax"))
+    tm = AutoModel.from_pretrained(str(tmp_path / "jax"), device="cpu")
+    assert type(tm).__name__ == arch
+    cfg = AutoConfig.from_pretrained(str(tmp_path / "jax"))
+    assert type(cfg).__name__ == "ErnieConfig"
+    if arch == "ErnieForSequenceClassification":
+        assert cfg.num_classes == 5 and tm.classifier.weight.shape == (32, 5)
+    want = _jax_logits(jm, _ids())
+    for a, b in zip(_port_logits(tm, _ids()), want):
+        np.testing.assert_allclose(a, b, **TOL)
+    tm.save_pretrained(str(tmp_path / "port"))
+    back = JAutoModel.from_pretrained(str(tmp_path / "port"))
+    for a, b in zip(_jax_logits(back, _ids()), want):
+        np.testing.assert_allclose(a, b, **TOL)
 
 
 def test_unknown_architecture_raises(tmp_path):
