@@ -2,16 +2,16 @@
 """Drive the PyTorch port (``paddle_infer_tpu_torch``) on one NVIDIA card.
 
     python3 chip_smoke.py [kernels] [serve] [legacy] [sharded] [gpt] [moe]
-                          [train]
+                          [train] [hapi] [moe_train]
 
 With no argument every phase runs (the driver's run).  Named phases
 run alone, after card and build: ``kernels`` is phase 3, ``serve``
 phases 4 to 9c but 9d, ``legacy`` phase 9d (on its own LLaMA-7B, after
 its own ragged serve run), ``sharded`` phase 9s (always on its own
-8-layer LLaMA-7B, with its own one-device serve run to compare against,
+4-layer LLaMA-7B, with its own one-device serve run to compare against,
 and the ep run (d) after the MoE phase's serve run (a)), ``gpt`` 10,
-``moe`` 10a, ``train`` 11; the kernels line (12) needs ``kernels`` and
-``train``.
+``moe`` 10a, ``train`` 11 and 11.5, ``hapi`` 11.6, ``moe_train``
+11.7; the kernels line (12) needs ``kernels`` and ``train``.
 
 Phases, in order; any failed check raises and the script exits non-zero.
 Every serving and training step runs as a replay of one CUDA graph per
@@ -243,7 +243,7 @@ per replay, so the launch checks stay exact.
    agreement with the dense ``generate``, two seeded sampled calls of
    8 tokens EQUAL), then a 4-layer fp32 copy drafting for itself, EQUAL
    to it alone;
-9s. sharded — LLaMA-7B's widths at ``SHARD_LAYERS`` (8) of its 32
+9s. sharded — LLaMA-7B's widths at ``SHARD_LAYERS`` (4) of its 32
    layers (the default run's time limit; its own model and one-device
    serve run) over meshes of ``cuda:0`` repeated
    (``build_sharded_engine``, ``EngineCore(serving_mesh=)``): the decode,
@@ -300,7 +300,7 @@ per replay, so the launch checks stay exact.
    ragged kernel once per layer per step), again eager with EQUAL
    streams, then its paged forward against its dense one;
 10a. moe — GPT freed, ``gpt-moe-6.7b-8e`` (``gpt3-6.7b``'s widths, 8
-   experts of FFN 16384, GShard top-2, capacity factor 2.0, 16 of its 32
+   experts of FFN 16384, GShard top-2, capacity factor 2.0, 8 of its 32
    layers, random bf16 weights) behind the serve core: (a) the serve
    prompts on graphs and eager, EQUAL, the decode and ragged kernels
    once a layer a step, the routing (per-expert tokens, drops, aux)
@@ -354,6 +354,31 @@ per replay, so the launch checks stay exact.
    step; ``[train opt]`` SGD, Momentum, Adagrad, RMSProp, Lamb, Lars,
    Adadelta, Adamax and L1Decay, two steps each at depth 2, finite,
    graph EQUAL eager, one capture;
+11.6. hapi — ``hapi.Model`` over ``ErnieForSequenceClassification`` at
+   ``ernie-3.0-base`` widths and depth (2 classes, fp32: the reference
+   ``Model`` has no AMP), 32 x 128, on a seeded synthetic set whose
+   first token decides the label (512 training and 128 held-out rows),
+   loaded by ``io.DataLoader(shuffle=True, num_workers=2)`` worker
+   processes; ``prepare(AdamW + LinearWarmup, CrossEntropyLoss,
+   Accuracy)``, ``fit`` for 2 epochs with ``EarlyStopping``,
+   ``LRSchedulerCallback`` and a checkpoint directory, ``evaluate``,
+   ``predict``, ``save`` / ``load`` into a fresh model, ``summary``: the
+   loss falls, held-out accuracy at least 0.9, the loaded model's
+   predictions EQUAL, the workers distinct processes, the f32 flash
+   kernels 12 each per training batch and the forward 12 per evaluation
+   or prediction batch; step p50, the loader's batches/s alone beside
+   the fit's, peak memory (the eager loop has no graph: one run);
+11.7. moe_train — ``GPTMoEForCausalLM`` at ``gpt-moe-6.7b-8e`` widths
+   (hidden 4096, 32 heads of 128, 8 experts of FFN 16384, gshard top-2,
+   factor 2.0, vocab 50304) and 1 layer (2 ran out of the card's memory
+   at the graph's capture), 8 x 1024, O2 bf16, AdamW,
+   ``gpt_lm_loss + 0.01 * moe_aux_loss()`` through ``FleetTrainStep``,
+   2 + 10 steps on the graph, then eager from the same seed: losses and
+   every parameter EQUAL, one capture and none after warm-up, every
+   expert and gate tensor moved, the aux loss finite and above 0, the
+   bf16 flash kernels causal at head_dim 128 once per layer per step;
+   step p50, the expert products' TFLOP/s, routed and dropped
+   assignments per layer, peak memory;
 12. the kernels line (one JSON object; every kernel's launches summed
     over the runs in ``launches_by_run``, those of phases 9a–9c and the
     sharded runs' per-shard launches among them; its records at the
@@ -369,11 +394,13 @@ import contextlib
 import gc
 import itertools
 import json
+import os
 import re
 import statistics
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 
@@ -5178,7 +5205,7 @@ def legacy_phase(model, device, card, serve_st=None,
 
 # -------------------------------------------------------- phase 9s: sharded
 
-SHARD_LAYERS = 8            # the sharded phase's depth (of llama-7b's 32)
+SHARD_LAYERS = 4            # the sharded phase's depth (of llama-7b's 32)
 SHARD_RUNS = (("mp2", dict(mp=2)), ("mp2dp2", dict(mp=2, dp_replicas=2)),
               ("mp2 int8-wire", dict(mp=2, quantized_allreduce="int8")))
 # the kernels at the shapes one shard gives them: (rows, heads) of the
@@ -5615,11 +5642,13 @@ def gpt_phase(device, config=None, dtype=None, card=""):
 
 # gpt-moe-6.7b-8e: gpt3-6.7b's widths (hidden 4096, 32 heads of 128, an
 # FFN of 16384 per expert, vocab 50304, 2048 positions) with MoEConfig's
-# defaults (8 experts, GShard top-2, capacity factor 2.0), bf16, at 16
+# defaults (8 experts, GShard top-2, capacity factor 2.0), bf16, at 8
 # of its 32 layers: a layer holds 1.14B parameters (2.28 GB), so 32 of
-# them and the serve core's pools pass 80 GB; the other 16 would be a
-# second card's pipeline stage.  Widths and the expert count are whole
-MOE_LAYERS = 16
+# them and the serve core's pools pass 80 GB; 16 ran until the default
+# run, with the high-level API and MoE training phases added, passed
+# 1100 s (8 since).
+# Widths and the expert count are whole
+MOE_LAYERS = 8
 # run (c): 64 slots an expert.  Only a step's real tokens route (at most
 # token_budget = 512; pads take no slot), about 128 an expert a full
 # prompt step (top-1 and top-2): the default's 2048 never drops, 0.25's
@@ -5971,23 +6000,30 @@ def moe_phase(device, card, config=None, dtype=None, prompt_lens=PROMPT_LENS,
 # ids, (b) long causal (where the reference itself picks flash), (c)
 # Sq < Sk causal, which exercises the offset Sk - Sq, (d) head_dim 256
 # (the kernels' split accumulators), causal with padding segments, (e)
-# the fine-tuning shape (ERNIE-3.0-base at 32 x 128, 10 % padding)
+# the fine-tuning shape (ERNIE-3.0-base at 32 x 128, 10 % padding; the
+# ``[hapi]`` phase runs it in fp32), (f) the ``[moe_train]`` step's
+# causal attention (gpt-moe-6.7b-8e's 32 heads of 128 at 8 x 1024)
 FLASH_SHAPES = {
     "a": dict(B=32, H=12, Sq=512, Sk=512, D=64, causal=False, pad=51),
     "b": dict(B=2, H=32, Sq=4096, Sk=4096, D=128, causal=True, pad=0),
     "c": dict(B=2, H=4, Sq=256, Sk=512, D=64, causal=True, pad=0),
     "d": dict(B=4, H=8, Sq=2000, Sk=2000, D=256, causal=True, pad=200),
     "e": dict(B=32, H=12, Sq=128, Sk=128, D=64, causal=False, pad=12),
+    "f": dict(B=8, H=32, Sq=1024, Sk=1024, D=128, causal=True, pad=0),
 }
 FLASH_RUNS = (("a", "fp32", 0.1), ("a", "bf16", 0.1), ("a", "fp32", 0.0),
               ("a", "bf16", 0.0), ("b", "bf16", 0.0), ("c", "fp32", 0.1),
               ("c", "bf16", 0.1), ("c", "bf16", 0.0), ("d", "fp32", 0.1),
               ("d", "bf16", 0.1), ("d", "bf16", 0.0), ("a", "fp16", 0.1),
               ("a", "fp16", 0.0), ("d", "fp16", 0.1), ("e", "bf16", 0.1),
-              ("e", "bf16", 0.0), ("e", "fp16", 0.1), ("e", "fp16", 0.0))
+              ("e", "bf16", 0.0), ("e", "fp16", 0.1), ("e", "fp16", 0.0),
+              ("e", "fp32", 0.1), ("e", "fp32", 0.0), ("f", "bf16", 0.1),
+              ("f", "bf16", 0.0))
 FLASH_TIMED = (("a", "bf16", 0.1), ("a", "bf16", 0.0), ("b", "bf16", 0.0),
                ("d", "bf16", 0.0), ("a", "fp16", 0.0), ("e", "bf16", 0.1),
-               ("e", "bf16", 0.0), ("e", "fp16", 0.1), ("e", "fp16", 0.0))
+               ("e", "bf16", 0.0), ("e", "fp16", 0.1), ("e", "fp16", 0.0),
+               ("e", "fp32", 0.1), ("e", "fp32", 0.0), ("f", "bf16", 0.1),
+               ("f", "bf16", 0.0))
 FLASH_SEED = 0x5EED1234
 # CUDA-event medians of the earlier bf16 backward kernels (warp-level
 # mma.sync, synchronous tile loads, a head-dim split at D = 256) on an
@@ -6689,8 +6725,8 @@ def _strategy(device, amp=None, **fields):
 
 
 @contextlib.contextmanager
-def flash_dtypes():
-    """The dtypes of q at every call of the three flash wrappers while
+def flash_calls():
+    """``(dtype, head_dim, causal)`` of every flash wrapper call while
     open (a graph's capture runs them; its replays do not)."""
     from paddle_infer_tpu_torch.ops import flash_attention as FA
 
@@ -6698,13 +6734,15 @@ def flash_dtypes():
     saved = {n: getattr(FA, n) for n in ("flash_fwd", "flash_dkdv",
                                          "flash_dq")}
 
-    def spy(fn):
+    def spy(name, fn):
         def call(q, *a, **k):
-            seen.add(str(q.dtype).replace("torch.", ""))
+            causal = a[5] if name == "flash_fwd" else a[8]
+            seen.add((name, str(q.dtype).replace("torch.", ""),
+                      int(q.shape[-1]), bool(causal)))
             return fn(q, *a, **k)
         return call
     for n, fn in saved.items():
-        setattr(FA, n, spy(fn))
+        setattr(FA, n, spy(n, fn))
     try:
         yield seen
     finally:
@@ -7018,8 +7056,9 @@ def o1_run(device, card, cfg=None, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
                           strategy=_strategy(device, amp="O1"))
     step.keys.seed(5)
     t0 = _flash_launches()
-    with flash_dtypes() as seen:
+    with flash_calls() as calls:
         losses = [float(step(*data)) for _ in range(steps)]
+    seen = {c[1] for c in calls}
     rel = abs(losses[0] - l32) / abs(l32)
     print(f"[train o1] {batch}x{seq} bf16 ({card}): loss O1={losses[0]:.6f} "
           f"fp32={l32:.6f} rel={rel:.3e} (tol 2e-2) flash dtypes "
@@ -7069,7 +7108,7 @@ def scaler_run(device, card, cfg=None, batch=FT_BATCH, seq=FT_SEQ,
     rows, want = [], []
     scale, good = SCALER_INIT, 0                 # the reference's rule
     t0 = _flash_launches()
-    with flash_dtypes() as seen:
+    with flash_calls() as calls:
         for i in range(steps):
             with amp.auto_cast(level="O1", dtype="float16"):
                 loss = PF.cross_entropy(model(ids, attention_mask=mask),
@@ -7092,6 +7131,7 @@ def scaler_run(device, card, cfg=None, batch=FT_BATCH, seq=FT_SEQ,
                 if good >= 1000:
                     scale, good = scale * 2.0, 0
             want.append((i == bad, i != bad, scale, good))
+    seen = {c[1] for c in calls}
     print(f"[train scaler] eager O1 float16 {batch}x{seq} ({card}): "
           "(loss, skipped, moved, scale, good steps) "
           + " ".join(f"({l:.4f}, {f}, {m}, {s:g}, {g})"
@@ -7206,9 +7246,528 @@ def recipe_phase(device, card):
     return launches
 
 
+# ------------------------------------------------- phases 11.6 and 11.7
+
+HAPI_TRAIN_ROWS = 512
+HAPI_EVAL_ROWS = 128
+HAPI_BATCH = 32
+HAPI_SEQ = 128
+HAPI_EPOCHS = 2
+HAPI_PEAK_LR = 1e-4
+HAPI_WORKERS = 2
+HAPI_ACC_BAR = 0.9
+MOE_TRAIN_LAYERS = 1        # of gpt-moe-6.7b-8e's 32: 2 ran out of memory (PERF.md §4)
+MOE_TRAIN_BATCH = 8
+MOE_TRAIN_SEQ = 1024
+MOE_TRAIN_WARMUP = 2
+MOE_TRAIN_STEPS = 10
+MOE_TRAIN_LR = 1e-4
+MOE_AUX_COEF = 0.01
+
+
+class MarkedRows:
+    """A synthetic classification set made from a seed: random token rows
+    of ``seq`` ids in ``[3, vocab)`` whose first token, 1 or 2, is the
+    marker that decides the label (0 or 1).  Items are numpy, so the
+    loader's workers build batches without torch; a module-level class,
+    so a fork server's workers can unpickle it."""
+
+    def __init__(self, n, seq, vocab, seed):
+        rng = np.random.RandomState(seed)
+        self.labels = rng.randint(0, 2, n).astype(np.int64)
+        self.ids = rng.randint(3, vocab, (n, seq)).astype(np.int64)
+        self.ids[:, 0] = self.labels + 1
+
+    def __len__(self):
+        return len(self.labels)
+
+    def __getitem__(self, i):
+        return self.ids[i], self.labels[i]
+
+
+class _HapiProbe:
+    """A ``hapi`` callback: each training batch's wall (its loss read
+    back included), loss and flash launches, and each epoch's training
+    wall (up to its last batch: the epoch's evaluation is left out)."""
+
+    def __init__(self):
+        self.batch_ms, self.losses, self.batch_launches = [], [], []
+        self.epoch_s = []
+
+    def set_model(self, model):
+        self.model = model
+
+    def set_params(self, params):
+        self.params = params
+
+    def __getattr__(self, name):
+        if name.startswith("on_"):
+            return lambda *a, **k: None
+        raise AttributeError(name)
+
+    def on_epoch_begin(self, epoch, logs=None):
+        self._epoch_t = time.perf_counter()
+
+    def on_train_batch_begin(self, step, logs=None):
+        self._t, self._l = time.perf_counter(), _flash_launches()
+
+    def on_train_batch_end(self, step, logs=None):
+        self._end = time.perf_counter()
+        self.batch_ms.append((self._end - self._t) * 1e3)
+        self.losses.append(logs["loss"])
+        self.batch_launches.append(_flash_launches(self._l))
+
+    def on_epoch_end(self, epoch, logs=None):
+        self.epoch_s.append(self._end - self._epoch_t)
+
+
+def profile_hapi(hm, batches, steps=2):
+    """Where a ``hapi`` training batch's time goes: ``steps`` calls of
+    ``Model.train_batch`` under ``torch.profiler`` (``profile_train``:
+    device busy and idle share, flash / matmul / other), then each of
+    ``batches`` once more through the body of ``train_batch`` on the
+    host clock, the card synchronized between its parts: forward and
+    loss, ``backward``, the optimizer's ``step`` and ``clear_grad``, the
+    read back.  Prints both; returns the profile and the parts' medians
+    in ms."""
+    import torch
+
+    prof = profile_train(lambda *b: hm.train_batch(list(b))[0],
+                         batches[0], steps=steps, tag="hapi eager")
+    sync = torch.cuda.synchronize
+    parts = {"forward": [], "backward": [], "optimizer": [], "read": []}
+    net, opt = hm.network, hm._optimizer
+    net.train()
+    for b in batches:
+        sync()
+        t0 = time.perf_counter()
+        ins, labs = hm._batch(b, None)
+        out = net(*ins)
+        loss = hm._loss(out, *labs)
+        sync()
+        t1 = time.perf_counter()
+        loss.backward()
+        sync()
+        t2 = time.perf_counter()
+        opt.step()
+        opt.clear_grad()
+        sync()
+        t3 = time.perf_counter()
+        hm._read_back(loss, out, labs)
+        t4 = time.perf_counter()
+        for k, a, z in (("forward", t0, t1), ("backward", t1, t2),
+                        ("optimizer", t2, t3), ("read", t3, t4)):
+            parts[k].append((z - a) * 1e3)
+    med = {k: float(np.median(v)) for k, v in parts.items()}
+    print(f"[profile] hapi split ({len(batches)} batches, synchronized "
+          "between parts, ms p50): " + " ".join(
+              f"{k}={v:.2f}" for k, v in med.items())
+          + f" sum={sum(med.values()):.2f}", flush=True)
+    return dict(prof, split_ms=med)
+
+
+def hapi_phase(device, card, cfg=None, train_rows=HAPI_TRAIN_ROWS,
+               eval_rows=HAPI_EVAL_ROWS, batch=HAPI_BATCH, seq=HAPI_SEQ,
+               epochs=HAPI_EPOCHS, workers=HAPI_WORKERS,
+               acc_bar=HAPI_ACC_BAR, peak_lr=HAPI_PEAK_LR,
+               launches_per_batch=None):
+    """Phase 11.6, ``[hapi]``: ``hapi.Model`` over
+    ``ErnieForSequenceClassification`` (fp32, the reference ``Model`` has
+    no AMP) fed by ``io.DataLoader(shuffle=True, num_workers=2)`` worker
+    processes: ``prepare(AdamW + LinearWarmup, CrossEntropyLoss,
+    Accuracy)``, ``fit`` with ``EarlyStopping``, ``LRSchedulerCallback``
+    and a checkpoint directory, ``evaluate``, ``predict``, ``save`` /
+    ``load`` into a fresh model, ``summary``.  The eager loop has no
+    graph, so it runs once.  Raises unless the loss falls, held-out
+    accuracy reaches ``acc_bar``, the loaded model's predictions are
+    EQUAL to the trained one's, the loader's workers are processes other
+    than this one, and the flash kernels (f32) launch
+    ``launches_per_batch`` each per training batch and the forward that
+    many per evaluation or prediction batch."""
+    import tempfile
+
+    import torch
+
+    from paddle_infer_tpu_torch import io as pio
+    from paddle_infer_tpu_torch import nn as pnn
+    from paddle_infer_tpu_torch.hapi import (EarlyStopping,
+                                             LRSchedulerCallback, Model)
+    from paddle_infer_tpu_torch.io.worker import default_start_method
+    from paddle_infer_tpu_torch.metric import Accuracy
+    from paddle_infer_tpu_torch.models.ernie import (
+        ErnieConfig, ErnieForSequenceClassification)
+    from paddle_infer_tpu_torch.optimizer import AdamW
+    from paddle_infer_tpu_torch.optimizer import lr as L
+
+    cfg = cfg or ErnieConfig.from_preset("ernie-3.0-base")
+    if launches_per_batch is None:
+        launches_per_batch = cfg.num_hidden_layers \
+            if device.type == "cuda" else 0
+    train = pio.DataLoader(MarkedRows(train_rows, seq, cfg.vocab_size, 0),
+                           batch_size=batch, shuffle=True,
+                           num_workers=workers)
+    held = pio.DataLoader(MarkedRows(eval_rows, seq, cfg.vocab_size, 1),
+                          batch_size=batch, num_workers=workers)
+    n_train, n_eval = len(train), len(held)
+    start_method = default_start_method()
+    caught = warnings.catch_warnings(record=True)
+    seen = caught.__enter__()
+    warnings.simplefilter("always")
+    # the loader on its own, two epochs: the first starts the workers'
+    # fork server (a CUDA process's start method), the second forks its
+    # workers from it, as each of the fit's epochs does
+    walls = []
+    for seed in (0, 1):
+        np.random.seed(seed)
+        stamps = [time.perf_counter()]
+        for _ in train:
+            stamps.append(time.perf_counter())
+        walls.append(stamps)
+    loader_first_s = walls[0][-1] - walls[0][0]
+    loader_bps = n_train / (walls[1][-1] - walls[1][0])
+    loader_steady = (n_train - 1) / (walls[1][-1] - walls[1][1])
+    loader_pids = set(train.last_worker_pids)
+
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    model = ErnieForSequenceClassification(cfg, num_classes=2,
+                                           device=device, seed=0)
+    total = epochs * n_train
+    sched = L.LinearWarmup(L.PolynomialDecay(peak_lr, total, end_lr=0.0),
+                           warmup_steps=max(1, total // 8), start_lr=0.0,
+                           end_lr=peak_lr)
+    hm = Model(model)
+    hm.prepare(optimizer=AdamW(learning_rate=sched,
+                               parameters=model.parameters(),
+                               weight_decay=0.01),
+               loss=pnn.CrossEntropyLoss(), metrics=Accuracy())
+    probe = _HapiProbe()
+    stop = EarlyStopping(monitor="eval_loss", patience=1)
+    lr_cb = LRSchedulerCallback(by_step=True)
+    with tempfile.TemporaryDirectory() as ckpt:
+        np.random.seed(1)
+        t0 = _flash_launches()
+        t = time.perf_counter()
+        hist = hm.fit(train, eval_data=held, epochs=epochs, log_freq=8,
+                      verbose=1, save_dir=ckpt,
+                      callbacks=[probe, stop, lr_cb])
+        fit_s = time.perf_counter() - t
+        fit_launches = _flash_launches(t0)
+        saved = sorted(os.listdir(ckpt))
+        fit_pids = set(train.last_worker_pids)
+        t0 = _flash_launches()
+        t = time.perf_counter()
+        logs = hm.evaluate(held)
+        eval_s = time.perf_counter() - t
+        eval_launches = _flash_launches(t0)
+        t0 = _flash_launches()
+        preds = hm.predict(held)
+        pred_launches = _flash_launches(t0)
+        path = os.path.join(ckpt, "trained")
+        hm.save(path)
+        fresh = ErnieForSequenceClassification(cfg, num_classes=2,
+                                               device=device, seed=7)
+        hm2 = Model(fresh).prepare(loss=pnn.CrossEntropyLoss())
+        hm2.load(path, reset_optimizer=True)
+        preds2 = hm2.predict(held)
+    caught.__exit__(None, None, None)
+    forks = sorted({str(w.message)[:80] for w in seen
+                    if "fork" in str(w.message)})
+    peak = torch.cuda.max_memory_allocated() / 1e9 \
+        if device.type == "cuda" else 0.0
+    rows = hm.summary(input_size=(batch, seq), dtype="int64")
+    equal = len(preds) == len(preds2) == n_eval and all(
+        np.array_equal(a, b) for a, b in zip(preds, preds2))
+    steps = len(probe.batch_ms)
+    p50 = float(np.median(probe.batch_ms[1:] or probe.batch_ms))
+    half = len(probe.batch_ms) // 2
+    spread = " ".join(f"{np.min(x):.2f}/{np.median(x):.2f}/{np.max(x):.2f}"
+                      for x in (probe.batch_ms[1:half] or [0.0],
+                                probe.batch_ms[half:] or [0.0]))
+    fit_bps = steps / sum(probe.epoch_s)
+    per = _per_step(launches_per_batch)
+    print(f"[hapi] ernie-3.0-base classification fp32 {batch}x{seq}, "
+          f"{train_rows} + {eval_rows} rows, {epochs} epochs, {workers} "
+          f"worker processes ({card}): step_ms_p50={p50:.2f} (min / "
+          f"p50 / max by epoch {spread}; host load {os.getloadavg()[0]:.2f} "
+          f"on {len(os.sched_getaffinity(0))} cores) fit "
+          f"{fit_s:.2f}s loader: first epoch {loader_first_s:.2f}s, then "
+          f"batches_per_s={loader_bps:.1f} (after its first batch "
+          f"{loader_steady:.1f}); fit batches_per_s={fit_bps:.2f} (after "
+          f"the first, {1e3 / p50:.2f}) peak_gb={peak:.2f} "
+          f"start_method={start_method} history "
+          + " ".join(f"{x:.4f}" for x in hist["loss"])
+          + f" eval {logs} eval_s={eval_s:.2f} stopped_epoch="
+          f"{stop.stopped_epoch} checkpoints={saved} predictions_equal="
+          f"{equal} summary_rows={len(rows['layers'])} params="
+          f"{rows['total_params']} loader_pids={sorted(loader_pids)} "
+          f"fit_pids={sorted(fit_pids)} this={os.getpid()} fork "
+          f"warnings {forks}", flush=True)
+    print(f"[hapi] flash launches fit {fit_launches} evaluate "
+          f"{eval_launches} predict {pred_launches}; per training batch "
+          f"{probe.batch_launches[0]}", flush=True)
+    k = max(1, len(probe.losses) // 8)
+    if not (hist["loss"][-1] < hist["loss"][0] and np.mean(
+            probe.losses[-k:]) < np.mean(probe.losses[:k])):
+        raise AssertionError(f"hapi: the loss did not fall: epochs "
+                             f"{hist['loss']}, batches {probe.losses}")
+    if not logs.get("acc", 0.0) >= acc_bar:
+        raise AssertionError(f"hapi: held-out accuracy {logs} < {acc_bar}")
+    if not equal:
+        raise AssertionError("hapi: predictions after load differ")
+    for pids in (loader_pids, fit_pids):
+        if not pids or len(pids) > workers or os.getpid() in pids:
+            raise AssertionError(f"hapi: loader pids {pids}, want up to "
+                                 f"{workers} worker processes, not this "
+                                 f"one ({os.getpid()})")
+    bad = [b for b in probe.batch_launches if b != per]
+    want_fit = {k: v * steps for k, v in per.items()}
+    want_fit["flash_fwd"] += launches_per_batch * len(hist["loss"]) * n_eval
+    want_eval = {"flash_fwd": launches_per_batch * n_eval, "flash_dkdv": 0,
+                 "flash_dq": 0}
+    if bad or fit_launches != want_fit or eval_launches != want_eval \
+            or pred_launches != want_eval:
+        raise AssertionError(
+            f"hapi: flash launches per batch {bad[:2]} (want {per}), fit "
+            f"{fit_launches} (want {want_fit}), evaluate {eval_launches} "
+            f"/ predict {pred_launches} (want {want_eval})")
+    if "final.pdparams" not in saved or "0.pdparams" not in saved:
+        raise AssertionError(f"hapi: checkpoints {saved}")
+    if device.type == "cuda":
+        # after the checks: these batches train the model further
+        profile_hapi(hm, list(held))
+    del hm, hm2, model, fresh
+    return {"step_ms_p50": p50, "launches": {
+        k: fit_launches[k] + eval_launches[k] + pred_launches[k]
+        for k in fit_launches}}
+
+
+def _moe_lm_loss(m, ids, labels):
+    from paddle_infer_tpu_torch.models import gpt_lm_loss
+
+    return gpt_lm_loss(m(ids), labels) + MOE_AUX_COEF * m.moe_aux_loss()
+
+
+def _is_moe_tensor(name):
+    return name.rsplit(".", 1)[-1] in ("gate_weight", "w1", "b1", "w2", "b2")
+
+
+def moe_train_run(device, config, batch, seq, warmup, steps, trained=None,
+                  seed=0):
+    """``GPTMoEForCausalLM`` through ``FleetTrainStep``: O2 bf16, AdamW,
+    ``gpt_lm_loss + 0.01 * moe_aux_loss()``, ``warmup + steps`` steps on
+    one seeded batch; returns the losses, step walls, flash launches over
+    the timed steps, captures, the final parameters on the host, the last
+    aux loss and each MoE layer's routing.  With ``trained`` (another
+    run's final parameters from the same seed), ``moved`` lists the gate
+    and expert tensors whose initial values differ from those."""
+    import torch
+
+    from paddle_infer_tpu_torch.models import GPTMoEForCausalLM
+    from paddle_infer_tpu_torch.observability import get_compile_log
+    from paddle_infer_tpu_torch.optimizer import AdamW
+    from paddle_infer_tpu_torch.parallel import FleetTrainStep
+
+    log = get_compile_log()
+    log.reset()
+    model = GPTMoEForCausalLM(config, device=device, seed=seed)
+    model.train()
+    step = FleetTrainStep(model, _moe_lm_loss,
+                          AdamW(learning_rate=MOE_TRAIN_LR,
+                                weight_decay=0.01,
+                                apply_decay_param_fun=no_decay),
+                          strategy=_strategy(device, amp="O2"))
+    moe_names = sorted(n for n in step.params if _is_moe_tensor(n))
+    moved = None if trained is None else [
+        n for n in moe_names if not torch.equal(
+            step.params[n].detach(), trained[n].to(device))]
+    rng = np.random.RandomState(seed)
+    ids = torch.from_numpy(rng.randint(
+        0, config.vocab_size, (batch, seq)).astype(np.int64)).to(device)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    losses, ms = [], []
+    with flash_calls() as calls, warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        for i in range(warmup + steps):
+            if i == warmup:
+                t0 = _flash_launches()
+            t = time.perf_counter()
+            losses.append(float(step(ids, ids)))
+            ms.append((time.perf_counter() - t) * 1e3)
+    launches = _flash_launches(t0)
+    # autograd warns when a capture reuses a gradient accumulator that an
+    # earlier step's graph (made on another stream) still holds
+    stream_warnings = sorted({str(w.message)[:120] for w in seen
+                              if "AccumulateGrad" in str(w.message)})
+    aux = float(model.moe_aux_loss().detach())
+    peak = torch.cuda.max_memory_allocated() / 1e9 \
+        if device.type == "cuda" else 0.0
+    out = {"losses": losses, "step_ms": ms,
+           "step_ms_p50": float(np.median(ms[warmup:])),
+           "launches": launches, "calls": sorted(calls),
+           "captures": len(log.events("train-step")),
+           "post_warm": log.summary()["post_warmup_compiles"],
+           "aux": aux, "moved": moved, "moe_names": moe_names,
+           "stream_warnings": stream_warnings,
+           "peak_gb": peak, "n_params": sum(p.numel() for p in
+                                            step.params.values())}
+    step.release_graphs()
+    out["final"] = {n: p.detach().to("cpu", copy=True)
+                    for n, p in step.params.items()}
+    out["routing"] = _moe_routing(model, ids)
+    del step, model
+    free_memory()
+    return out
+
+
+def _moe_routing(model, ids):
+    """Each MoE layer's ``(routed, dropped)`` assignments on ``ids``: one
+    more O2 forward without grad, each layer's input caught by a hook and
+    routed as the layer routes it."""
+    import torch
+
+    from paddle_infer_tpu_torch import amp
+    from paddle_infer_tpu_torch.parallel import moe as M
+
+    seen = []
+
+    def hook(layer, inputs):
+        x = amp.cast(inputs[0], "fused_moe")
+        xt = x.reshape(-1, x.shape[-1])
+        gw = amp.cast(layer.gate_weight, "fused_moe")
+        cap = M._capacity(xt.shape[0], layer.num_experts,
+                          layer.capacity_factor, layer.top_k)
+        r = M.route(M._gate_logits(xt, gw), layer.gate_kind, layer.top_k,
+                    cap)
+        seen.append((int(r.keep.sum()), int((~r.keep).sum())))
+
+    layers = [m for m in model.modules() if isinstance(m, M.MoELayer)]
+    handles = [m.register_forward_pre_hook(hook) for m in layers]
+    try:
+        with torch.no_grad(), amp.amp_scope(True, torch.bfloat16, "O2"):
+            model(ids)
+    finally:
+        for h in handles:
+            h.remove()
+    return seen
+
+
+def expert_tflops(device, config, batch, seq, reps=5):
+    """The expert products of one layer at the step's shapes (bf16
+    ``[E, C, d] x [E, d, f]`` and back, forward and backward) timed with
+    CUDA events: ``(ms, TFLOP/s)``."""
+    import torch
+
+    from paddle_infer_tpu_torch.parallel import moe as M
+
+    e, d, f = config.num_experts, config.hidden_size, \
+        config.intermediate_size
+    c = M._capacity(batch * seq, e, config.moe_capacity_factor,
+                    config.moe_top_k)
+    g = torch.Generator(device=device).manual_seed(0)
+    mk = (lambda *s: (torch.randn(*s, generator=g, device=device) * 0.02)
+          .to(torch.bfloat16).requires_grad_(True))
+    x, w1, b1, w2, b2 = mk(e, c, d), mk(e, d, f), mk(e, f), mk(e, f, d), \
+        mk(e, d)
+    dy = torch.randn(e, c, d, generator=g, device=device).to(torch.bfloat16)
+
+    def run():
+        out = M._expert_ffn(x, w1, b1, w2, b2, "gelu")
+        torch.autograd.grad(out, (x, w1, w2), dy)
+
+    ms = time_ms(run, reps=reps, warmup=1)
+    flops = 3 * 2 * 2 * e * c * d * f
+    return ms, flops / (ms * 1e-3) / 1e12
+
+
+def moe_train_phase(device, card, config=None, batch=MOE_TRAIN_BATCH,
+                    seq=MOE_TRAIN_SEQ, warmup=MOE_TRAIN_WARMUP,
+                    steps=MOE_TRAIN_STEPS, launches_per_step=None):
+    """Phase 11.7, ``[moe_train]``: ``gpt-moe-6.7b-8e`` at
+    ``MOE_TRAIN_LAYERS`` layers through ``FleetTrainStep`` on one CUDA
+    graph, then the same seeds eager.  Raises unless the losses and every
+    parameter of the graph run are EQUAL to eager's, there is one capture
+    and none after warm-up, every expert and gate tensor moved, the aux
+    loss is finite and above 0, the flash kernels ran in bf16, causal at
+    head_dim 128, once per layer per step each, and autograd gave no
+    warning that a step reused a gradient accumulator made on another
+    stream."""
+    import torch
+
+    config = config or moe_config(MOE_TRAIN_LAYERS)
+    if launches_per_step is None:
+        launches_per_step = config.num_hidden_layers \
+            if device.type == "cuda" else 0
+    g = moe_train_run(device, config, batch, seq, warmup, steps)
+    lap("moe_train graph")
+    with eager():
+        e = moe_train_run(device, config, batch, seq, warmup, steps,
+                          trained=g["final"])
+    lap("moe_train eager")
+    equal_losses = g["losses"] == e["losses"]
+    equal_params = all(torch.equal(g["final"][n], e["final"][n])
+                       for n in g["final"])
+    g["final"] = e["final"] = None
+    per = _per_step(launches_per_step)
+    ms_e, tflops = expert_tflops(device, config, batch, seq) \
+        if device.type == "cuda" else (0.0, 0.0)
+    routed = [r for r, _ in e["routing"]]
+    dropped = [dr for _, dr in e["routing"]]
+    print(f"[moe_train] gpt-moe-6.7b-8e x{config.num_hidden_layers} "
+          f"({g['n_params'] / 1e9:.3f}B params) {batch}x{seq} O2 bf16 AdamW, "
+          f"loss + {MOE_AUX_COEF} aux ({card}): step_ms_p50 graph="
+          f"{g['step_ms_p50']:.2f} eager={e['step_ms_p50']:.2f} captures="
+          f"{g['captures']} post_warmup={g['post_warm']} losses "
+          + " ".join(f"{x:.4f}" for x in g["losses"])
+          + f" losses_equal={equal_losses} params_equal={equal_params} "
+          f"aux={g['aux']:.6f}/{e['aux']:.6f} moved={len(e['moved'])}/"
+          f"{len(e['moe_names'])} routed={routed} dropped={dropped} "
+          f"peak_gb graph={g['peak_gb']:.2f} eager={e['peak_gb']:.2f} "
+          f"expert_products_ms={ms_e:.3f} expert_tflops={tflops:.1f} "
+          f"flash {g['launches']} calls {g['calls']} AccumulateGrad "
+          f"stream warnings {g['stream_warnings'] + e['stream_warnings']}",
+          flush=True)
+    if g["stream_warnings"] or e["stream_warnings"]:
+        raise AssertionError(f"moe_train: autograd reused a gradient "
+                             f"accumulator across streams: "
+                             f"{g['stream_warnings'] + e['stream_warnings']}")
+    if not (equal_losses and equal_params):
+        raise AssertionError(f"moe_train: graph run differs from eager "
+                             f"(losses {g['losses']} / {e['losses']}, "
+                             f"params equal {equal_params})")
+    if g["captures"] != 1 or g["post_warm"]:
+        raise AssertionError(f"moe_train: {g['captures']} captures, "
+                             f"{g['post_warm']} after warm-up")
+    if e["moved"] != e["moe_names"] or not e["moe_names"]:
+        raise AssertionError(
+            "moe_train: expert / gate tensors that did not move: "
+            f"{sorted(set(e['moe_names']) - set(e['moved']))}")
+    for r in (g, e):
+        if not (np.isfinite(r["aux"]) and r["aux"] > 0):
+            raise AssertionError(f"moe_train: aux loss {r['aux']}")
+        if not all(np.isfinite(r["losses"])):
+            raise AssertionError(f"moe_train: losses {r['losses']}")
+        _check_flash_launches("moe_train", r["launches"], steps, per)
+    if device.type == "cuda":
+        want = {(n, "bfloat16", config.hidden_size
+                 // config.num_attention_heads, True)
+                for n in ("flash_fwd", "flash_dkdv", "flash_dq")}
+        for r in (g, e):
+            if set(r["calls"]) != want:
+                raise AssertionError(f"moe_train: flash calls {r['calls']}, "
+                                     f"want {sorted(want)}")
+    launches = {k: g["launches"][k] + e["launches"][k]
+                for k in g["launches"]}
+    return {"step_ms_p50": g["step_ms_p50"], "launches": launches,
+            "tflops": tflops}
+
+
 # ------------------------------------------------------------------ main
 
-PHASES = ("kernels", "serve", "legacy", "sharded", "gpt", "moe", "train")
+PHASES = ("kernels", "serve", "legacy", "sharded", "gpt", "moe", "train",
+          "hapi", "moe_train")
 _RUN_T0 = [0.0]
 
 
@@ -7341,7 +7900,7 @@ def main(argv=None) -> int:
         free_memory()
         lap("gpt (10)")
     if "moe" in want or "sharded" in want:
-        # phase 10a: GPT-MoE (16 of gpt3-6.7b's layers, 8 experts), GPT
+        # phase 10a: GPT-MoE (8 of gpt3-6.7b's layers, 8 experts), GPT
         # freed; the sharded phase's ep=2 run (d) on its model after (a)
         mres = moe_phase(device, card, ep_run=(
             (lambda m, st, prompts, max_new: sharded_ep_run(
@@ -7386,6 +7945,24 @@ def main(argv=None) -> int:
             for name, n in got.items():
                 by_run[name][tag] = n
         lap("train recipe (11.5)")
+    if "hapi" in want:
+        # phase 11.6: the high-level API over ERNIE fine-tuning, fed by
+        # the DataLoader's worker processes (f32 flash kernels)
+        hres = hapi_phase(device, card)
+        for name, n in hres["launches"].items():
+            by_run[name]["hapi"] = n
+        del hres
+        free_memory()
+        lap("hapi (11.6)")
+    if "moe_train" in want:
+        # phase 11.7: GPT-MoE training through FleetTrainStep, graph and
+        # eager (bf16 flash kernels, causal at head_dim 128)
+        mtres = moe_train_phase(device, card)
+        for name, n in mtres["launches"].items():
+            by_run[name]["moe_train"] = n
+        del mtres
+        free_memory()
+        lap("moe_train (11.7)")
 
     # phase 12: the kernels line, the card line, the result line
     launches = {name: sum(runs.values()) for name, runs in by_run.items()}

@@ -28,7 +28,10 @@ merge and AMP O1 / O2, or the eager ``optimizer.step()`` loop with
 ``amp.auto_cast`` and ``GradScaler`` → ``models.ErnieForPretraining``,
 ``ErnieForMaskedLM``, ``ErnieForSequenceClassification`` → the
 flash-attention kernels in bf16 or f16; the reference's optimizers, LR
-schedulers, clips and regularizers).  On the card
+schedulers, clips and regularizers); GPT and GPT-MoE training through
+the same step (``models.gpt_lm_loss`` plus ``moe_aux_loss()``); and the
+high-level API: ``hapi.Model`` with its callbacks over ``io.DataLoader``
+worker processes, and ``metric``.  On the card
 both steps run as one CUDA graph per key (``core/graphs.py``), each
 capture logged by ``observability/compilelog.py``.
 """

@@ -17,8 +17,12 @@ bitwise.  ``load_tensors`` returns CPU tensors over a copy-on-write
 mapping of the file: nothing is read until a tensor is used, and moving
 one to the card is its one copy.
 
-``load`` also reads the reference's ``.pdparams`` fallback (a pickle of
-``{name: np.ndarray}``, written when its native library is missing).
+``save`` and ``load`` are the reference's ``paddle.save`` /
+``paddle.load`` (``paddle_infer_tpu/framework/io.py``): a ``.pits`` path
+holds a flat ``{name: tensor}`` dict in the tensor store; any other path
+a pickle in which every tensor became a numpy array (a bfloat16 one
+widened to float32, which numpy can hold), so a ``.pdparams`` or
+``.pdopt`` file written by either package loads in the other.
 """
 from __future__ import annotations
 
@@ -131,3 +135,38 @@ def load(path: str):
         return load_tensors(path)
     with open(path, "rb") as f:
         return pickle.load(f)
+
+
+def _to_saveable(obj):
+    """``obj`` with every tensor as a CPU numpy array (bfloat16 widened
+    to float32); containers recurse."""
+    if isinstance(obj, torch.Tensor):
+        t = obj.detach()
+        if t.dtype == torch.bfloat16:
+            t = t.float()
+        return t.cpu().numpy()
+    if isinstance(obj, dict):
+        return {k: _to_saveable(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        t = type(obj) if type(obj) in (list, tuple) else list
+        return t(_to_saveable(v) for v in obj)
+    return obj
+
+
+def save(obj, path: str, protocol: int = 4):
+    """Write ``obj``: a flat ``{name: tensor}`` dict to a ``.pits`` store,
+    anything else as a pickle of numpy arrays (``paddle.save``)."""
+    d = os.path.dirname(path)
+    if d:
+        os.makedirs(d, exist_ok=True)
+    if path.endswith(PITS_SUFFIX):
+        if not (isinstance(obj, dict) and all(
+                isinstance(v, (torch.Tensor, np.ndarray))
+                for v in obj.values())):
+            raise TypeError(
+                f"{PITS_SUFFIX} format stores flat name->tensor dicts; "
+                "use a .pdparams pickle path for nested objects")
+        save_tensors(path, {k: torch.as_tensor(v) for k, v in obj.items()})
+        return
+    with open(path, "wb") as f:
+        pickle.dump(_to_saveable(obj), f, protocol=protocol)

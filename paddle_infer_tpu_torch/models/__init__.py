@@ -6,7 +6,8 @@ from .bert import (BertConfig, BertForPretraining,
 from .ernie import (ERNIE_PRESETS, ErnieConfig, ErnieForMaskedLM,
                     ErnieForPretraining, ErnieForSequenceClassification,
                     ErnieModel, ernie_pretrain_loss)
-from .gpt import GPT_PRESETS, GPTConfig, GPTForCausalLM, GPTModel
+from .gpt import (GPT_PRESETS, GPTConfig, GPTForCausalLM, GPTModel,
+                  gpt_lm_loss)
 from .gpt_moe import GPTMoEForCausalLM, GPTMoEModel, MoEConfig
 from .llama import (LLAMA_PRESETS, LlamaConfig, LlamaDecoderLayer,
                     LlamaForCausalLM, LlamaMLP, LlamaModel)
@@ -19,6 +20,6 @@ __all__ = ["AutoConfig", "AutoModel", "PretrainedMixin",
            "ErnieForPretraining", "ErnieForSequenceClassification",
            "ErnieModel", "ernie_pretrain_loss",
            "GPT_PRESETS", "GPTConfig", "GPTForCausalLM", "GPTModel",
-           "GPTMoEForCausalLM", "GPTMoEModel", "MoEConfig",
+           "gpt_lm_loss", "GPTMoEForCausalLM", "GPTMoEModel", "MoEConfig",
            "LLAMA_PRESETS", "LlamaConfig", "LlamaDecoderLayer",
            "LlamaForCausalLM", "LlamaMLP", "LlamaModel"]

@@ -6,18 +6,28 @@ LayerNorm and an LM head tied to the word embedding.  Parameter names
 match the JAX model's ``state_dict()`` keys one to one
 (``weights.py`` carries them over).  Like the LLaMA port, the model is
 built on its device in its dtype and filled from a seeded
-``torch.Generator`` there.  Dropout is an identity at inference and is
-not kept.  With ``num_experts > 1`` in the config every block's FFN is
-a ``parallel.moe.MoELayer`` (``models/gpt_moe.py`` names that
-configuration) and ``moe_aux_loss()`` sums their load-balancing losses.
+``torch.Generator`` there.  With ``num_experts > 1`` in the config
+every block's FFN is a ``parallel.moe.MoELayer`` (``models/gpt_moe.py``
+names that configuration) and ``moe_aux_loss()`` sums their
+load-balancing losses, differentiably.
+
+The model trains as the reference's does: its parameters require grad
+(every serving path runs its forward under ``inference_mode``), and in
+training mode (``model.train()``; it is built in eval mode) the
+embedding dropout and each block's attention, residual and MLP dropouts
+draw their keys from the model's ``KeyStream`` (``keys``) in the JAX
+order, as ERNIE's do.  ``gpt_lm_loss`` is the shifted causal-LM loss;
+``FleetTrainStep`` takes it, plus ``c * moe_aux_loss()`` for a GPT-MoE.
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
 
-from .. import resolve_device
-from ..nn.layers import Embedding, LayerNorm, VocabParallelEmbedding
+from .. import amp, resolve_device
+from ..core.random import KeyStream
+from ..nn.layers import Dropout, Embedding, LayerNorm, VocabParallelEmbedding
+from .losses import masked_lm_loss
 from .pretrained import PretrainedMixin
 from .transformer_block import ParallelTransformerLayer
 
@@ -73,10 +83,11 @@ class GPTConfig:
 
 
 class GPTModel(nn.Module):
-    """Backbone: word + position embeddings, N pre-LN causal blocks,
-    final LayerNorm."""
+    """Backbone: word + position embeddings, their dropout, N pre-LN
+    causal blocks, final LayerNorm."""
 
-    def __init__(self, config: GPTConfig, device=None, dtype=torch.float32):
+    def __init__(self, config: GPTConfig, keys=None, device=None,
+                 dtype=torch.float32):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
         self.config = config
@@ -84,17 +95,20 @@ class GPTModel(nn.Module):
             config.vocab_size, config.hidden_size, **kw)
         self.position_embeddings = Embedding(
             config.max_position_embeddings, config.hidden_size, **kw)
+        self.dropout = Dropout(config.hidden_dropout_prob, keys=keys)
         self.layers = nn.ModuleList([
             ParallelTransformerLayer(
                 config.hidden_size, config.num_attention_heads,
-                config.intermediate_size, dropout=0.0,
+                config.intermediate_size,
+                dropout=config.hidden_dropout_prob,
+                attn_dropout=config.attention_probs_dropout_prob,
                 activation=config.hidden_act, normalize_before=True,
                 causal=True, layer_norm_eps=config.layer_norm_eps,
                 num_experts=getattr(config, "num_experts", 1),
                 moe_gate=getattr(config, "moe_gate", "gshard"),
                 moe_top_k=getattr(config, "moe_top_k", 2),
                 moe_capacity_factor=getattr(config, "moe_capacity_factor",
-                                            2.0), **kw)
+                                            2.0), keys=keys, **kw)
             for _ in range(config.num_hidden_layers)])
         self.final_norm = LayerNorm(config.hidden_size,
                                     epsilon=config.layer_norm_eps, **kw)
@@ -118,13 +132,20 @@ class GPTModel(nn.Module):
 
     def forward(self, input_ids, position_ids=None, attention_mask=None,
                 caches=None):
+        # the last forward's aux losses hold its autograd graph and, through
+        # it, the parameters' gradient accumulators: let them go before this
+        # forward reads a parameter, so its backward makes its own (on the
+        # stream a CUDA graph's capture runs on, not the warm-up's)
+        for layer in self.layers:
+            if getattr(layer.mlp, "l_aux", None) is not None:
+                layer.mlp.l_aux = None
         x = self.word_embeddings(input_ids)
         if position_ids is None:
             # dense forward: positions 0..s-1 (the serving step always
             # passes its per-row positions)
             position_ids = torch.arange(input_ids.shape[1],
                                         device=input_ids.device)[None]
-        x = x + self.position_embeddings(position_ids)
+        x = self.dropout(x + self.position_embeddings(position_ids))
         new_caches = [] if caches is not None else None
         for i, layer in enumerate(self.layers):
             if caches is not None:
@@ -140,22 +161,27 @@ class GPTForCausalLM(PretrainedMixin, nn.Module):
     """Backbone plus an LM head tied to ``word_embeddings``.
 
     ``device`` defaults to the card (raising without one); ``seed``
-    drives the on-device ``torch.Generator`` that fills the weights."""
+    drives the on-device ``torch.Generator`` that fills the weights and
+    seeds the dropout ``KeyStream`` (``keys``) unless one is given.
+    Parameters require grad; the model starts in eval mode."""
 
     config_class = GPTConfig
 
     def __init__(self, config: GPTConfig, device=None, dtype=torch.float32,
-                 seed: int = 0):
+                 seed: int = 0, keys=None):
         super().__init__()
         device = resolve_device(device)
         self.config = config
-        self.gpt = GPTModel(config, device=device, dtype=dtype)
+        self.keys = keys if keys is not None else KeyStream(seed)
+        self.gpt = GPTModel(config, keys=self.keys, device=device,
+                            dtype=dtype)
         gen = torch.Generator(device=device)
         gen.manual_seed(int(seed))
         with torch.no_grad():
             for mod in self.modules():
                 if hasattr(mod, "reset_parameters"):
                     mod.reset_parameters(gen)
+        self.requires_grad_(True)
         self.eval()
 
     def moe_aux_loss(self):
@@ -173,3 +199,10 @@ class GPTForCausalLM(PretrainedMixin, nn.Module):
         x, new_caches = out if caches is not None else (out, None)
         logits = self.gpt.word_embeddings.logits(x)
         return (logits, new_caches) if caches is not None else logits
+
+
+def gpt_lm_loss(logits, labels, ignore_index=-100):
+    """Shifted causal-LM loss: token t+1 predicted from the prefix up to
+    t, the mean over labels that are not ``ignore_index``."""
+    return masked_lm_loss(amp.cast(logits[:, :-1], "slice"),
+                          labels[:, 1:], ignore_index=ignore_index)

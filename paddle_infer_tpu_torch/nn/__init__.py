@@ -2,5 +2,9 @@
 as the reference's ``nn`` does."""
 from ..optimizer.clip import (ClipGradByGlobalNorm, ClipGradByNorm,
                               ClipGradByValue)
+from .layers import (CrossEntropyLoss, Dropout, Embedding, LayerNorm,
+                     Linear, ReLU, Sequential)
 
-__all__ = ["ClipGradByGlobalNorm", "ClipGradByNorm", "ClipGradByValue"]
+__all__ = ["ClipGradByGlobalNorm", "ClipGradByNorm", "ClipGradByValue",
+           "CrossEntropyLoss", "Dropout", "Embedding", "LayerNorm", "Linear",
+           "ReLU", "Sequential"]

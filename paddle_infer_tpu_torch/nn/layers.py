@@ -3,7 +3,8 @@
 Ports of ``paddle_infer_tpu/parallel/mp_layers.py``
 (``ColumnParallelLinear``, ``RowParallelLinear``,
 ``VocabParallelEmbedding``) and ``nn/layers_common.py`` (``Linear``,
-``Embedding``, ``Dropout``, ``RMSNorm``, ``LayerNorm``).  The tensor-parallel layers keep their names and their
+``Embedding``, ``Dropout``, ``RMSNorm``, ``LayerNorm``, and for the
+high-level API ``ReLU``, ``Sequential`` and ``CrossEntropyLoss``).  The tensor-parallel layers keep their names and their
 Paddle weight layout ``[in, out]`` so state dicts carry over one to one.
 
 Under a serving mesh (``parallel/topology.py``; an engine built with
@@ -39,6 +40,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .. import amp
 from ..parallel import collective, topology
 from . import functional as PF
 
@@ -136,7 +138,8 @@ class VocabParallelEmbedding(Embedding):
         slices are gathered."""
         sh = mesh_shards(self)
         if sh is None:
-            return torch.matmul(x, self.weight.t())
+            return torch.matmul(amp.cast(x, "matmul"),
+                                amp.cast(self.weight, "matmul").t())
         return sh.tied_logits(x)
 
 
@@ -208,6 +211,53 @@ class Dropout(nn.Module):
     def forward(self, x):
         return PF.dropout(x, p=self.p, training=self.training,
                           mode=self.mode, keys=self.keys)
+
+
+class ReLU(nn.Module):
+    """``max(x, 0)`` (``nn/layers_common.py`` ``ReLU``)."""
+
+    def forward(self, x):
+        return F.relu(amp.cast(x, "relu"))
+
+
+class Sequential(nn.Sequential):
+    """Layers applied in order (``nn/layers_common.py`` ``Sequential``):
+    named ``"0"``, ``"1"``, ... or by ``(name, layer)`` pairs, given as
+    arguments or as one list of pairs."""
+
+    def __init__(self, *layers):
+        if len(layers) == 1 and isinstance(layers[0], (list, tuple)) and \
+                layers[0] and isinstance(layers[0][0], (list, tuple)):
+            layers = tuple(layers[0])
+        super().__init__()
+        for i, layer in enumerate(layers):
+            if isinstance(layer, tuple):
+                self.add_module(layer[0], layer[1])
+            else:
+                self.add_module(str(i), layer)
+
+
+class CrossEntropyLoss(nn.Module):
+    """Softmax cross-entropy over the last axis with integer labels
+    (``nn/layers_common.py`` ``CrossEntropyLoss``), through
+    ``functional.cross_entropy``.  Class weights, soft labels and
+    ``use_softmax=False`` are not ported (ROADMAP.md item 14, the ``nn``
+    surface) and raise."""
+
+    def __init__(self, weight=None, ignore_index=-100, reduction="mean",
+                 soft_label=False, axis=-1, use_softmax=True):
+        super().__init__()
+        if weight is not None or soft_label or not use_softmax:
+            raise NotImplementedError(
+                "CrossEntropyLoss with weight, soft_label or use_softmax="
+                "False is not ported; see ROADMAP.md item 14")
+        self.ignore_index = ignore_index
+        self.reduction = reduction
+        self.axis = axis
+
+    def forward(self, input, label):
+        return PF.cross_entropy(input, label, ignore_index=self.ignore_index,
+                                reduction=self.reduction, axis=self.axis)
 
 
 # ------------------------------------------------------------ mesh shards

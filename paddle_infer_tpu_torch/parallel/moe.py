@@ -46,7 +46,24 @@ engine's placement splits them so shard e holds experts ``e·E/ep ..
 buffer to the shards that own its experts (``global_scatter``, the
 token -> expert all-to-all), runs each shard's experts there and brings
 the outputs back for the combine (``global_gather``); off a mesh both
-are identities.  Not ported yet: the MoE backward (ROADMAP.md item 13).
+are identities.
+
+Training: the layer is differentiable end to end, as the reference's
+``fused_moe`` is through its VJP.  Gradients reach the gate weights
+through the combine's gate probabilities and the aux loss's mean
+probabilities, the tokens through the dispatch scatter (``index_copy_``
+into the fresh buffer, which autograd records; the trash row and empty
+slots take no gradient) and the combine gather, and the experts through
+their ``bmm``s.  The aux loss's token fractions come from the hard
+one-hot picks and carry no gradient, as the reference's one-hot mask
+does not.  In training every token routes (no ``valid`` mask).  Under
+the AMP rule every float operand is cast as the reference's dispatcher
+casts the ``fused_moe`` op's (all of them to the low dtype at O2; the
+router still scores in float32).  Parameters are created frozen, as
+every layer of the port; a training model turns them on
+(``GPTForCausalLM``).  The expert-parallel all-to-alls have no backward
+yet: a mesh trains nothing until the mesh training (ROADMAP.md §1 step
+4).
 """
 from __future__ import annotations
 
@@ -57,6 +74,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .. import amp
 from . import topology
 
 
@@ -412,8 +430,10 @@ class MoELayer(nn.Module):
         self.b2.zero_()
 
     def forward(self, x):
-        out, aux = fused_moe(x, self.gate_weight, self.w1, self.b1, self.w2,
-                             self.b2, gate=self.gate_kind, top_k=self.top_k,
+        x, gate_w, w1, b1, w2, b2 = (amp.cast(t, "fused_moe") for t in (
+            x, self.gate_weight, self.w1, self.b1, self.w2, self.b2))
+        out, aux = fused_moe(x, gate_w, w1, b1, w2, b2,
+                             gate=self.gate_kind, top_k=self.top_k,
                              capacity_factor=self.capacity_factor,
                              activation=self.activation)
         self.l_aux = aux
