@@ -2,7 +2,7 @@
 """Drive the PyTorch port (``paddle_infer_tpu_torch``) on one NVIDIA card.
 
     python3 chip_smoke.py [kernels] [serve] [legacy] [sharded] [gpt] [moe]
-                          [train] [hapi] [moe_train]
+                          [train] [hapi] [moe_train] [mesh_train]
 
 With no argument every phase runs (the driver's run).  Named phases
 run alone, after card and build: ``kernels`` is phase 3, ``serve``
@@ -11,7 +11,8 @@ its own ragged serve run), ``sharded`` phase 9s (always on its own
 4-layer LLaMA-7B, with its own one-device serve run to compare against,
 and the ep run (d) after the MoE phase's serve run (a)), ``gpt`` 10,
 ``moe`` 10a, ``train`` 11 and 11.5, ``hapi`` 11.6, ``moe_train``
-11.7; the kernels line (12) needs ``kernels`` and ``train``.
+11.7, ``mesh_train`` 11.8; the kernels line (12) needs ``kernels`` and
+``train``.
 
 Phases, in order; any failed check raises and the script exits non-zero.
 Every serving and training step runs as a replay of one CUDA graph per
@@ -264,9 +265,12 @@ per replay, so the launch checks stay exact.
    forward once per shard a layer a prefill, the decode kernel once per
    shard a layer a step, the prefill logits of (a) and (b) within 5 % of
    the logit scale of one device's, as their serve runs' first-step
-   logits; (c)'s distances printed); (d), after
-   phase 10a's serve run: ``gpt-moe-6.7b-8e`` at ep=2, the routing of
-   every step EQUAL to ep=1's, the ``ep_alltoall`` bytes;
+   logits; (c)'s distances printed); (f) LoRA (three adapter rows of
+   the eight) and int8 activations at mp=2, each against its own
+   one-device run as (a): graph EQUAL eager, the kernels once per shard
+   a layer a step, the first step's logits within 5 %, the uploads;
+   (d), after phase 10a's serve run: ``gpt-moe-6.7b-8e`` at ep=2, the
+   routing of every step EQUAL to ep=1's, the ``ep_alltoall`` bytes;
 9a. weight_only — LLaMA-7B built again from the serve model's seed and
    weight-only quantized per channel at int8, then at int4 (the
    server's ``--weight_only``): the serve cell on graphs, then the model
@@ -300,7 +304,7 @@ per replay, so the launch checks stay exact.
    ragged kernel once per layer per step), again eager with EQUAL
    streams, then its paged forward against its dense one;
 10a. moe — GPT freed, ``gpt-moe-6.7b-8e`` (``gpt3-6.7b``'s widths, 8
-   experts of FFN 16384, GShard top-2, capacity factor 2.0, 8 of its 32
+   experts of FFN 16384, GShard top-2, capacity factor 2.0, 4 of its 32
    layers, random bf16 weights) behind the serve core: (a) the serve
    prompts on graphs and eager, EQUAL, the decode and ragged kernels
    once a layer a step, the routing (per-expert tokens, drops, aux)
@@ -355,7 +359,7 @@ per replay, so the launch checks stay exact.
    Adadelta, Adamax and L1Decay, two steps each at depth 2, finite,
    graph EQUAL eager, one capture;
 11.6. hapi — ``hapi.Model`` over ``ErnieForSequenceClassification`` at
-   ``ernie-3.0-base`` widths and depth (2 classes, fp32: the reference
+   ``ernie-3.0-base`` widths, 6 of its 12 layers (2 classes, fp32: the reference
    ``Model`` has no AMP), 32 x 128, on a seeded synthetic set whose
    first token decides the label (512 training and 128 held-out rows),
    loaded by ``io.DataLoader(shuffle=True, num_workers=2)`` worker
@@ -379,6 +383,22 @@ per replay, so the launch checks stay exact.
    bf16 flash kernels causal at head_dim 128 once per layer per step;
    step p50, the expert products' TFLOP/s, routed and dropped
    assignments per layer, peak memory;
+11.8. mesh_train — hybrid-parallel training through ``FleetTrainStep``
+   on meshes of the card repeated: the flash kernels against their plain
+   versions at the shapes one shard gives them (``MESH_FLASH_SHAPES``),
+   then (a) ERNIE-3.0-base at dp=2 x mp=2, 32 x 512, O2, dropout 0.1:
+   at dropout 0 the first step within PERF.md §2's O2 limits of the
+   one-device step, then 2 + 10 graph steps and 3 eager ones EQUAL to
+   the graph's first three, one capture, each flash kernel once per
+   shard a layer a step, idle share and peak; (b) ZeRO stages 1–3 at
+   dp=2 x sharding=2, fp32, one eager step each EQUAL to dp=2 alone (a
+   stage changes the placement, not the arithmetic), the recorded specs
+   equal to the reference's rules; (c) ``PipelineStack`` at pp=2 (12 blocks,
+   4 micro-batches, interleave 1 and 2) within 1e-4 of the sequential
+   stack; (d) ring and Ulysses attention at sep=2 (B=2, H=12, S=4096,
+   D=64, causal bf16) within 2e-2 of unsplit ``sdpa``, Ulysses' flash
+   kernels once per shard; (e) ``gpt-moe-6.7b-8e`` x1 at ep=2, its first
+   step within the O2 limits of ep=1, then 2 + 5 graph steps;
 12. the kernels line (one JSON object; every kernel's launches summed
     over the runs in ``launches_by_run``, those of phases 9a–9c and the
     sharded runs' per-shard launches among them; its records at the
@@ -5430,8 +5450,10 @@ def sharded_phase(model, device, card, single=None,
     warm = cold with the prefix cache and speculative = plain at mp=2
     (EQUAL); (c) the int8 wire at mp=2 on graphs and eager (EQUAL), its
     bytes saved in the ledger, the step log and the exposition; then
-    ``generate`` per mesh (``shard_generate``).  Returns the runs by tag
-    with their launches."""
+    ``generate`` per mesh (``shard_generate``); then (f) LoRA and int8
+    activations at mp=2 (``sharded_quant_runs``; ``model`` takes the
+    LoRA wrappers in place).  Returns the runs by tag with their
+    launches."""
     import torch
 
     from paddle_infer_tpu_torch.observability import (render_prometheus,
@@ -5554,7 +5576,87 @@ def sharded_phase(model, device, card, single=None,
           flush=True)
     for tag, rec in gen.items():
         runs[f"generate {tag}"] = {"launches": rec["launches"]}
+    runs.update(sharded_quant_runs(model, device, card, **serve_kw))
     runs["kernels"] = kres
+    return runs
+
+
+# (f) LoRA and int8 activations at mp=2: three adapter rows among the
+# serve cell's eight requests
+SHARD_LORA_IDS = ("s0", None, None, "s1", None, None, "s2", None)
+
+
+def sharded_quant_runs(model, device, card, prompt_lens=PROMPT_LENS,
+                       max_new=MAX_NEW):
+    """(f) LoRA (three adapter rows; ``model`` is converted in place) and
+    int8 activations (a fresh model of ``model``'s config, calibrated on
+    two serve prompts) at mp=2 on the serve cell, each against its
+    single-device run as (a) holds mp=2: the decode and ragged kernels
+    once per shard a layer a step, graph EQUAL to eager, one capture and
+    none after warm-up, the first step's logits within the bar.  Returns
+    the runs by tag."""
+    import torch
+
+    from paddle_infer_tpu_torch.quantization import (QAT, QuantedLayer,
+                                                     convert_int8)
+    from paddle_infer_tpu_torch.serving import (ServingMesh,
+                                                adapter_layer_spec)
+
+    L = model.config.num_hidden_layers
+    mp2 = ServingMesh(mp=2)
+    spec = adapter_layer_spec(model)
+    made = lora_adapters(spec, sorted(a for a in SHARD_LORA_IDS if a), 101)
+    lora_kw = dict(adapter_ids=SHARD_LORA_IDS, adapter_slots=LORA_SLOTS)
+    am = QAT().quantize(build_llama(device, config=model.config))
+    am.eval()
+    with torch.no_grad():
+        for i in INT8_CAL_PROMPTS:
+            am(torch.as_tensor(serve_prompts(am.config.vocab_size,
+                                             prompt_lens)[i][None],
+                               device=device))
+    for m in am.modules():
+        if isinstance(m, QuantedLayer):
+            m._calibrating = False
+    am = convert_int8(am)
+    runs = {}
+    for kind, m in (("lora", model), ("int8", am)):
+        def kw(**more):
+            base = dict(prompt_lens=prompt_lens, max_new=max_new, **more)
+            if kind == "lora":
+                base.update(lora_kw, adapter_store=lora_store(spec, made))
+            return base
+
+        single = serve_counted(m, device, f"sharded {kind} single", **kw())
+        st = serve_counted(m, device, f"sharded {kind} mp2",
+                           **kw(serving_mesh=mp2))
+        _check_shard_launches(st, L, 2, f"sharded {kind} mp2")
+        ev = eager_twin(m, device, f"sharded {kind} mp2", st, card,
+                        **kw(serving_mesh=mp2))
+        scale = float(single["first_logits"].abs().max())
+        lerr = float((st["first_logits"] - single["first_logits"])
+                     .abs().max())
+        uploads = (st["obs"]["snapshot"].get("adapters") or {}).get(
+            "uploads", 0)
+        print(f"[sharded {kind} mp2] ({card}) step_ms_p50 graph="
+              f"{_p50_after_first(st):.2f} eager={_p50_after_first(ev):.2f}"
+              f" (one device {_p50_after_first(single):.2f}); first step's "
+              f"logits max_abs={lerr:.4e} of scale {scale:.4e} (bar "
+              f"{SHARD_LOGIT_BAR}); uploads={uploads}; post_warmup_captures="
+              f"{st['post_warmup_captures']}; tokens agreeing with one "
+              f"device {_agreement(single['streams'], st['streams'])} of "
+              f"{max_new}", flush=True)
+        if not lerr <= SHARD_LOGIT_BAR * scale:
+            raise AssertionError(f"sharded {kind} mp2: first step's logits "
+                                 f"{lerr} past {SHARD_LOGIT_BAR} x {scale}")
+        if kind == "lora" and uploads < 3:
+            raise AssertionError(f"sharded lora mp2: {uploads} uploads")
+        for t, r in (("single", single), ("mp2", st), ("mp2 eager", ev)):
+            r["obs"] = None
+            runs[f"{kind} {t}"] = r
+        del single, st, ev
+        free_memory()
+    del am
+    free_memory()
     return runs
 
 
@@ -5642,13 +5744,13 @@ def gpt_phase(device, config=None, dtype=None, card=""):
 
 # gpt-moe-6.7b-8e: gpt3-6.7b's widths (hidden 4096, 32 heads of 128, an
 # FFN of 16384 per expert, vocab 50304, 2048 positions) with MoEConfig's
-# defaults (8 experts, GShard top-2, capacity factor 2.0), bf16, at 8
+# defaults (8 experts, GShard top-2, capacity factor 2.0), bf16, at 4
 # of its 32 layers: a layer holds 1.14B parameters (2.28 GB), so 32 of
 # them and the serve core's pools pass 80 GB; 16 ran until the default
 # run, with the high-level API and MoE training phases added, passed
-# 1100 s (8 since).
+# 1100 s, 8 until the mesh training phase pushed it past again (4 since).
 # Widths and the expert count are whole
-MOE_LAYERS = 8
+MOE_LAYERS = 4
 # run (c): 64 slots an expert.  Only a step's real tokens route (at most
 # token_budget = 512; pads take no slot), about 128 an expert a full
 # prompt step (top-1 and top-2): the default's 2048 never drops, 0.25's
@@ -7248,6 +7350,10 @@ def recipe_phase(device, card):
 
 # ------------------------------------------------- phases 11.6 and 11.7
 
+# ernie-3.0-base's widths at 6 of its 12 layers: the eager loop is host
+# bound, so the depth sets the phase's wall (12 until the mesh training
+# phase pushed the default run past 1100 s)
+HAPI_LAYERS = 6
 HAPI_TRAIN_ROWS = 512
 HAPI_EVAL_ROWS = 128
 HAPI_BATCH = 32
@@ -7399,7 +7505,8 @@ def hapi_phase(device, card, cfg=None, train_rows=HAPI_TRAIN_ROWS,
     from paddle_infer_tpu_torch.optimizer import AdamW
     from paddle_infer_tpu_torch.optimizer import lr as L
 
-    cfg = cfg or ErnieConfig.from_preset("ernie-3.0-base")
+    cfg = cfg or ErnieConfig.from_preset("ernie-3.0-base",
+                                     num_hidden_layers=HAPI_LAYERS)
     if launches_per_batch is None:
         launches_per_batch = cfg.num_hidden_layers \
             if device.type == "cuda" else 0
@@ -7486,7 +7593,8 @@ def hapi_phase(device, card, cfg=None, train_rows=HAPI_TRAIN_ROWS,
                                 probe.batch_ms[half:] or [0.0]))
     fit_bps = steps / sum(probe.epoch_s)
     per = _per_step(launches_per_batch)
-    print(f"[hapi] ernie-3.0-base classification fp32 {batch}x{seq}, "
+    print(f"[hapi] ernie-3.0-base x{cfg.num_hidden_layers} classification "
+          f"fp32 {batch}x{seq}, "
           f"{train_rows} + {eval_rows} rows, {epochs} epochs, {workers} "
           f"worker processes ({card}): step_ms_p50={p50:.2f} (min / "
           f"p50 / max by epoch {spread}; host load {os.getloadavg()[0]:.2f} "
@@ -7764,10 +7872,486 @@ def moe_train_phase(device, card, config=None, batch=MOE_TRAIN_BATCH,
             "tflops": tflops}
 
 
+# ------------------------------------------------------------ mesh_train
+
+MESH_BATCH, MESH_SEQ = 32, 512          # (a), (b), (c): ERNIE-3.0-base cell
+MESH_WARMUP, MESH_STEPS, MESH_EAGER = 2, 10, 3
+PIPE_LAYERS, PIPE_MICRO, PIPE_REPS = 12, 4, 1
+SEP_SHAPE = dict(B=2, H=12, S=4096, D=64)
+MOE_EP_WARMUP, MOE_EP_STEPS = 2, 5
+O2_LOSS_TOL, O2_GRAD_TOL = 2e-2, 5e-2   # PERF.md §2's O2 limits
+# the flash kernels at the shapes one mesh shard gives them, bf16: (a)'s
+# dp=2 x mp=2 shard of ERNIE-3.0-base (16 rows, 6 heads, dropout 0.1),
+# (d)'s Ulysses shard (6 of 12 heads over the whole 4096 sequence) and
+# (e)'s attention (ep splits the experts only)
+MESH_FLASH_SHAPES = {
+    "mesh a": dict(B=16, H=6, Sq=512, Sk=512, D=64, causal=False, pad=51),
+    "mesh d": dict(B=2, H=6, Sq=4096, Sk=4096, D=64, causal=True, pad=0),
+    "mesh e": dict(B=8, H=32, Sq=1024, Sk=1024, D=128, causal=True, pad=0),
+}
+MESH_FLASH_RUNS = (("mesh a", "bf16", 0.1), ("mesh d", "bf16", 0.0),
+                   ("mesh e", "bf16", 0.0))
+
+
+def _ms(device, fn, reps):
+    """A call's median time: CUDA events on the card (``time_ms``), the
+    host's clock elsewhere (a CPU rehearsal)."""
+    if device.type == "cuda":
+        return time_ms(fn, reps=reps, warmup=1)
+    fn()
+    walls = []
+    for _ in range(reps):
+        t = time.perf_counter()
+        fn()
+        walls.append((time.perf_counter() - t) * 1e3)
+    return float(np.median(walls))
+
+
+def _mesh_init(device, n, amp=None, stage=None, **degrees):
+    """``fleet.init`` over ``device`` repeated ``n`` times with the
+    hybrid ``degrees``, AMP O2 bf16 with ``amp``, ZeRO ``stage``."""
+    from paddle_infer_tpu_torch.parallel import DistributedStrategy, fleet
+
+    st = DistributedStrategy()
+    st.hybrid_configs = dict(st.hybrid_configs, **degrees)
+    if amp:
+        st.amp = True
+        st.amp_configs = {"level": "O2", "dtype": "bfloat16"}
+    if stage:
+        st.sharding = True
+        st.sharding_configs = {"stage": stage}
+    fleet.init(strategy=st, devices=[device] * n)
+    return st
+
+
+def _grads_close(tag, want, got, ltol, gtol):
+    """``(loss, grads)`` pairs: the loss within ``ltol`` relative, each
+    gradient within ``gtol`` of its max-abs; prints the worst."""
+    (lw, gw), (lg, gg) = want, got
+    rel = abs(lg - lw) / abs(lw)
+    worst = max((float((gg[n] - gw[n]).abs().max())
+                 / max(float(gw[n].abs().max()), 1e-30), n) for n in gw)
+    print(f"[{tag}] loss one-device={lw:.6f} mesh={lg:.6f} rel={rel:.3e} "
+          f"(tol {ltol}); worst grad err over max-abs {worst[0]:.3e} "
+          f"({worst[1]}, tol {gtol})", flush=True)
+    if not (rel <= ltol and worst[0] <= gtol):
+        raise AssertionError(f"{tag}: mesh step off the one-device step")
+
+
+def _first_step(step, data, seed=11):
+    """One step's loss and float32 gradients from seeded keys."""
+    step.keys.seed(seed)
+    loss = float(step(*data))
+    return loss, {n: p.grad.float().clone() for n, p in step.params.items()}
+
+
+def mesh_ernie(device, card, cfg=None, batch=MESH_BATCH, seq=MESH_SEQ,
+               warmup=MESH_WARMUP, steps=MESH_STEPS, eager_steps=MESH_EAGER,
+               launches_per_step=None):
+    """(a) ERNIE-3.0-base pretraining at dp=2 x mp=2 on ``device``
+    repeated, O2 bf16, AdamW, dropout 0.1: ``warmup`` + ``steps`` steps
+    on the graph, then ``eager_steps`` eager steps from the same weights
+    and keys, EQUAL to the graph run's first steps (losses and the
+    parameters after them); one capture, none after warm-up; the flash
+    kernels once per (dp, mp) shard a layer a step.  At dropout 0 the
+    first step's loss and gradients within the O2 limits of the
+    one-device step on the same weights and keys."""
+    import torch
+
+    from paddle_infer_tpu_torch.models.ernie import ErnieConfig
+    from paddle_infer_tpu_torch.observability import get_compile_log
+
+    cfg = cfg or ErnieConfig.from_preset("ernie-3.0-base")
+    cuda = device.type == "cuda"
+    L = cfg.num_hidden_layers
+    shards = 4
+    data = [torch.from_numpy(a).to(device)
+            for a in pretrain_batch(cfg.vocab_size, batch, seq)]
+    # parity at dropout 0: the one-device step against the mesh step
+    cfg0 = ErnieConfig(**dict(vars(cfg), hidden_dropout_prob=0.0,
+                              attention_probs_dropout_prob=0.0))
+    runs = []
+    for n, deg in ((1, {}), (4, dict(dp_degree=2, mp_degree=2))):
+        step = _pretrain_step(device, cfg0, _mesh_init(device, n, amp=True,
+                                                       **deg), lr=0.0)
+        with eager():
+            runs.append(_first_step(step, data))
+        del step
+        free_memory()
+    _grads_close("mesh_train a parity", runs[0], runs[1], O2_LOSS_TOL,
+                 O2_GRAD_TOL)
+    del runs
+    free_memory()
+
+    def run(n_steps):
+        log = get_compile_log()
+        log.reset()
+        step = _pretrain_step(device, cfg, _mesh_init(
+            device, 4, amp=True, dp_degree=2, mp_degree=2))
+        step.keys.seed(3)
+        if cuda:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        losses, ms, kept, t0 = [], [], None, None
+        for i in range(n_steps):
+            if i == warmup:
+                t0 = _flash_launches()
+            t = time.perf_counter()
+            losses.append(float(step(*data)))
+            ms.append((time.perf_counter() - t) * 1e3)
+            if i + 1 == eager_steps:
+                kept = {n: p.detach().clone()
+                        for n, p in step.params.items()}
+        return {"losses": losses, "ms": ms, "kept": kept,
+                "launches": _flash_launches(t0) if t0 else None,
+                "captures": len(log.events("train-step")),
+                "post_warm": log.summary()["post_warmup_compiles"],
+                "peak_gb": torch.cuda.max_memory_allocated() / 1e9
+                if cuda else 0.0, "step": step}
+
+    g = run(warmup + steps)
+    prof = profile_train(g["step"], data, steps=2, tag="mesh a dp2 x mp2") \
+        if cuda else {"idle_share": 0.0}
+    g["step"].release_graphs()
+    g["step"] = None
+    free_memory()
+    with eager():
+        e = run(eager_steps)
+    e["step"] = None
+    free_memory()
+    same_losses = g["losses"][:eager_steps] == e["losses"]
+    same_params = all(torch.equal(g["kept"][n], e["kept"][n])
+                      for n in e["kept"])
+    per_step = {n: v / steps for n, v in g["launches"].items()}
+    p50 = float(np.median(g["ms"][warmup:]))
+    print(f"[mesh_train a] ernie-3.0-base dp=2 x mp=2 on one card "
+          f"({card}) {batch}x{seq} O2 bf16 AdamW dropout 0.1: step_ms_p50="
+          f"{p50:.2f} idle_share={prof['idle_share']:.3f} losses "
+          + " ".join(f"{x:.4f}" for x in g["losses"])
+          + f" graph_vs_eager losses_equal={same_losses} params_equal="
+          f"{same_params} (first {eager_steps} steps) captures="
+          f"{g['captures']} post_warmup={g['post_warm']} flash launches a "
+          f"step {per_step} = {L} layers x {shards} shards "
+          f"({ {n: v / shards for n, v in per_step.items()} } per shard) "
+          f"peak_gb={g['peak_gb']:.2f}", flush=True)
+    if not (same_losses and same_params):
+        raise AssertionError("mesh_train a: graph run differs from eager")
+    if g["captures"] != 1 or g["post_warm"]:
+        raise AssertionError(f"mesh_train a: {g['captures']} captures, "
+                             f"{g['post_warm']} after warm-up")
+    if not all(np.isfinite(g["losses"])):
+        raise AssertionError(f"mesh_train a: losses {g['losses']}")
+    per = launches_per_step if launches_per_step is not None else (
+        L * shards if cuda else 0)
+    _check_flash_launches("mesh_train a", g["launches"], steps,
+                          _per_step(per))
+    return {"step_ms_p50": p50, "idle_share": prof["idle_share"],
+            "launches": {n: v + (e["launches"] or {}).get(n, 0)
+                         for n, v in g["launches"].items()}}
+
+
+def _zero_expected(p, stage, size=2):
+    """The reference's ZeRO rules for parameter ``p`` at ``stage`` over
+    ``sharding=size``: ``(param, slot, gradient)`` specs.  A rank >= 2
+    tensor whose dim 0 is free and divides puts dim 0 on ``sharding``:
+    its slots at every stage, its gradient from stage 2, the parameter
+    itself at stage 3."""
+    d = tuple(getattr(p, "dist_attr", None) or ())
+    d += (None,) * (p.dim() - len(d))
+    on = (("sharding",) + d[1:] if p.dim() >= 2 and d[0] is None
+          and p.shape[0] % size == 0 else d)
+    return (on if stage == 3 else d), on, (on if stage >= 2 else d)
+
+
+def mesh_zero(device, card, cfg=None, batch=MESH_BATCH, seq=MESH_SEQ):
+    """(b) ZeRO stages 1-3 at dp=2 x sharding=2 against dp=2 alone:
+    ERNIE-3.0-base at dropout 0, fp32, AdamW, one eager step each from
+    the same weights and keys.  On the port a stage changes the recorded
+    placement, not the arithmetic (the ``sharding`` ranks of a replica
+    group share its rows), so the parameters after the step must EQUAL
+    dp=2's, and every recorded parameter, slot and gradient spec must
+    equal the reference's rule (``_zero_expected``).  Prints the counts
+    on ``sharding``; returns each step's wall (ms) by stage, None for
+    dp=2 alone."""
+    import torch
+
+    from paddle_infer_tpu_torch.models.ernie import ErnieConfig
+
+    base = cfg or ErnieConfig.from_preset("ernie-3.0-base")
+    cfg = ErnieConfig(**dict(vars(base), hidden_dropout_prob=0.0,
+                             attention_probs_dropout_prob=0.0))
+    data = [torch.from_numpy(a).to(device)
+            for a in pretrain_batch(cfg.vocab_size, batch, seq)]
+    ref, walls = None, {}
+    for stage in (None, 1, 2, 3):
+        n = 2 if stage is None else 4
+        deg = dict(dp_degree=2) if stage is None else dict(
+            dp_degree=2, sharding_degree=2)
+        step = _pretrain_step(device, cfg, _mesh_init(device, n, stage=stage,
+                                                      **deg))
+        step.keys.seed(5)
+        with eager():
+            t = time.perf_counter()
+            float(step(*data))
+            walls[stage] = ms = (time.perf_counter() - t) * 1e3
+        params = {k: p.detach().clone() for k, p in step.params.items()}
+        if stage is None:
+            ref = params
+        else:
+            bad = [k for k in ref if not torch.equal(params[k], ref[k])]
+            wrong = [k for k, p in step.params.items()
+                     if (step.param_specs[k], step.grad_specs[k])
+                     != _zero_expected(p, stage)[::2]
+                     or {v for v in step.opt_specs[k].values() if v}
+                     != {_zero_expected(p, stage)[1]}]
+            w = "ernie.layers.0.mlp.fc1.weight"
+            on = [sum("sharding" in v for v in specs) for specs in (
+                step.param_specs.values(),
+                [v for sl in step.opt_specs.values() for v in sl.values()],
+                step.grad_specs.values())]
+            print(f"[mesh_train b] stage {stage} dp=2 x sharding=2 ({card}) "
+                  f"fp32 {batch}x{seq}, one eager step: {ms:.2f} ms (dp=2 "
+                  f"alone {walls[None]:.2f}); params EQUAL dp=2 alone: "
+                  f"{not bad}; recorded specs equal the reference's rules: "
+                  f"{not wrong} (on sharding: params {on[0]}, slots "
+                  f"{on[1]}, gradients {on[2]}); fc1.weight param/slots/"
+                  f"grad {step.param_specs[w]} {step.opt_specs[w]} "
+                  f"{step.grad_specs[w]}", flush=True)
+            if bad or wrong:
+                raise AssertionError(
+                    f"mesh_train b: stage {stage} parameters off dp=2 alone "
+                    f"{bad[:4]}, specs off the rules {wrong[:4]}")
+        del step
+        free_memory()
+    return walls
+
+
+def mesh_pipeline(device, card, layers=PIPE_LAYERS, micro=PIPE_MICRO,
+                  batch=MESH_BATCH, seq=MESH_SEQ, hidden=768, heads=12,
+                  ffn=3072, reps=PIPE_REPS):
+    """(c) ``PipelineStack`` at pp=2: ``layers`` ERNIE-3.0-base blocks,
+    ``micro`` micro-batches, fp32, against the same stack applied in
+    sequence (the loss the output's product with a fixed random
+    cotangent); loss and every gradient within 1e-4 of its max-abs, for
+    interleave 1 and 2; prints each forward + backward's p50."""
+    import torch
+
+    from paddle_infer_tpu_torch.models.transformer_block import \
+        ParallelTransformerLayer
+    from paddle_infer_tpu_torch.parallel import (LayerDesc, PipelineStack,
+                                                 topology)
+
+    g = torch.Generator(device=device).manual_seed(0)
+    x = torch.randn(batch, seq, hidden, generator=g, device=device)
+    # a fixed cotangent: a post-LN block's output is normalized, so the
+    # mean of its squares would be a constant with no gradient
+    co = torch.randn(batch, seq, hidden, generator=g, device=device)
+    stack = PipelineStack(LayerDesc(
+        ParallelTransformerLayer, hidden, heads, ffn, dropout=0.0,
+        device=device), num_layers=layers, micro_batches=micro)
+    stack.eval()
+
+    def fwd_bwd():
+        for p in stack.parameters():
+            p.grad = None
+        loss = (stack(x) * co).mean()
+        loss.backward()
+        return float(loss.detach()), {n: p.grad.clone()
+                                      for n, p in stack.named_parameters()}
+
+    seq_run = fwd_bwd()
+    t_seq = _ms(device, fwd_bwd, reps)
+    res = {}
+    for il in (1, 2):
+        stack.interleave = il
+        topology.set_current_mesh(topology.create_hybrid_mesh(
+            pp=2, devices=[device] * 2))
+        try:
+            pp_run = fwd_bwd()
+            t_pp = _ms(device, fwd_bwd, reps)
+        finally:
+            topology.set_current_mesh(None)
+        rel = abs(pp_run[0] - seq_run[0]) / abs(seq_run[0])
+        worst = max(float((pp_run[1][n] - seq_run[1][n]).abs().max())
+                    / max(float(seq_run[1][n].abs().max()), 1e-30)
+                    for n in seq_run[1])
+        print(f"[mesh_train c] pipeline pp=2 interleave={il} ({card}) "
+              f"{layers} blocks {hidden}/{heads}/{ffn} fp32 {batch}x{seq}, "
+              f"{micro} micro-batches: fwd+bwd ms p50 pipelined={t_pp:.2f} "
+              f"sequential={t_seq:.2f}; loss rel err {rel:.3e}, worst grad "
+              f"err over max-abs {worst:.3e} (tol 1e-4)", flush=True)
+        if not (rel <= 1e-4 and worst <= 1e-4):
+            raise AssertionError(f"mesh_train c: interleave {il} off the "
+                                 "sequential stack")
+        res[il] = t_pp
+        del pp_run
+    del stack, seq_run
+    free_memory()
+    return res
+
+
+def mesh_sep(device, card, shape=SEP_SHAPE, reps=5):
+    """(d) ring and Ulysses attention at sep=2, causal, bf16, forward
+    and backward, against unsplit ``sdpa`` (the flash kernels) on the
+    same inputs, within the bf16 limit; Ulysses launches each flash
+    kernel once per shard."""
+    import torch
+
+    from paddle_infer_tpu_torch.ops.attention import sdpa
+    from paddle_infer_tpu_torch.parallel import (ring_attention, topology,
+                                                 ulysses_attention)
+
+    B, H, S, D = shape["B"], shape["H"], shape["S"], shape["D"]
+    g = torch.Generator(device=device).manual_seed(4)
+    mk = lambda: (torch.randn(B, S, H, D, generator=g, device=device)
+                  * 0.5).to(torch.bfloat16)
+    q, k, v, do = mk(), mk(), mk(), mk()
+    mesh = topology.create_hybrid_mesh(sep=2, devices=[device] * 2)
+
+    def run(fn):
+        ts = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        out = fn(*ts)
+        out.backward(do)
+        return [out.detach()] + [t.grad for t in ts]
+
+    fns = {"unsplit": lambda a, b, c: sdpa(a, b, c, is_causal=True),
+           "ring": lambda a, b, c: ring_attention(a, b, c, mesh=mesh,
+                                                  is_causal=True),
+           "ulysses": lambda a, b, c: ulysses_attention(a, b, c, mesh=mesh,
+                                                        is_causal=True)}
+    want = run(fns["unsplit"])
+    res = {}
+    for name in ("ring", "ulysses"):
+        t0 = _flash_launches()
+        got = run(fns[name])
+        launches = _flash_launches(t0)
+        err = max(float((a.float() - b.float()).abs().max())
+                  / max(float(b.float().abs().max()), 1.0)
+                  for a, b in zip(got, want))
+        ms = _ms(device, lambda: run(fns[name]), reps)
+        res[name] = ms
+        res[f"{name} launches"] = launches
+        print(f"[mesh_train d] {name} sep=2 ({card}) causal bf16 B={B} "
+              f"H={H} S={S} D={D}: fwd+bwd ms={ms:.3f} (unsplit flash "
+              f"{_ms(device, lambda: run(fns['unsplit']), reps):.3f}"
+              f"); out/dq/dk/dv max err over max(max-abs, 1) {err:.3e} (tol "
+              f"{TOL['bf16']}); flash launches {launches}", flush=True)
+        if not err <= TOL["bf16"]:
+            raise AssertionError(f"mesh_train d: {name} off unsplit sdpa")
+        if name == "ulysses" and device.type == "cuda" and launches != {
+                "flash_fwd": 2, "flash_dkdv": 2, "flash_dq": 2}:
+            raise AssertionError(f"mesh_train d: ulysses launches "
+                                 f"{launches}, want each once per shard")
+    return res
+
+
+def mesh_moe(device, card, config=None, batch=MOE_TRAIN_BATCH,
+             seq=MOE_TRAIN_SEQ, warmup=MOE_EP_WARMUP, steps=MOE_EP_STEPS):
+    """(e) ``gpt-moe-6.7b-8e`` at 1 layer, ep=2 on ``device`` repeated,
+    O2 bf16 AdamW: the first step's loss and gradients within the O2
+    limits of the ep=1 step on the same weights and keys, then
+    ``warmup + steps`` graph steps (one capture, none after)."""
+    import torch
+
+    from paddle_infer_tpu_torch.models import GPTMoEForCausalLM
+    from paddle_infer_tpu_torch.observability import get_compile_log
+    from paddle_infer_tpu_torch.optimizer import AdamW
+    from paddle_infer_tpu_torch.parallel import FleetTrainStep
+
+    config = config or moe_config(MOE_TRAIN_LAYERS)
+    rng = np.random.RandomState(0)
+    ids = torch.from_numpy(rng.randint(0, config.vocab_size, (batch, seq))
+                           .astype(np.int64)).to(device)
+
+    def build(ep, lr):
+        model = GPTMoEForCausalLM(config, device=device, seed=0)
+        model.train()
+        st = _mesh_init(device, ep, amp=True, ep_degree=ep)
+        return FleetTrainStep(model, _moe_lm_loss, AdamW(
+            learning_rate=lr, weight_decay=0.01,
+            apply_decay_param_fun=no_decay), strategy=st)
+
+    firsts = []
+    for ep in (1, 2):
+        step = build(ep, 0.0)
+        with eager():
+            firsts.append(_first_step(step, (ids, ids)))
+        del step
+        free_memory()
+    _grads_close("mesh_train e parity", firsts[0], firsts[1], O2_LOSS_TOL,
+                 O2_GRAD_TOL)
+    del firsts
+    free_memory()
+    log = get_compile_log()
+    log.reset()
+    step = build(2, MOE_TRAIN_LR)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    losses, ms = [], []
+    for i in range(warmup + steps):
+        t = time.perf_counter()
+        losses.append(float(step(ids, ids)))
+        ms.append((time.perf_counter() - t) * 1e3)
+    routing = _moe_routing(step.model, ids)
+    peak = torch.cuda.max_memory_allocated() / 1e9 \
+        if device.type == "cuda" else 0.0
+    caps = len(log.events("train-step"))
+    post = log.summary()["post_warmup_compiles"]
+    p50 = float(np.median(ms[warmup:]))
+    print(f"[mesh_train e] gpt-moe-6.7b-8e x{config.num_hidden_layers} ep=2 "
+          f"on one card ({card}) {batch}x{seq} O2 bf16 AdamW: step_ms_p50="
+          f"{p50:.2f} losses " + " ".join(f"{x:.4f}" for x in losses)
+          + f" routed={[r for r, _ in routing]} dropped="
+          f"{[d for _, d in routing]} captures={caps} post_warmup={post} "
+          f"peak_gb={peak:.2f}", flush=True)
+    if caps != 1 or post or not all(np.isfinite(losses)):
+        raise AssertionError(f"mesh_train e: captures {caps}, post {post}, "
+                             f"losses {losses}")
+    step.release_graphs()
+    del step
+    free_memory()
+    return {"step_ms_p50": p50}
+
+
+def mesh_train_phase(device, card):
+    """Phase 11.8, ``[mesh_train]``: the flash kernels at the per-shard
+    shapes against their plain versions, then (a) dp x mp, (b) ZeRO,
+    (c) pp, (d) sep and (e) ep training, every mesh over ``device``
+    repeated.  Returns the kernel records and the launches."""
+    fres = flash_kernels_phase(device, shapes=MESH_FLASH_SHAPES,
+                               runs=MESH_FLASH_RUNS,
+                               timed_runs=MESH_FLASH_RUNS)
+    lap("mesh_train kernels")
+    t0 = _flash_launches()
+    a = mesh_ernie(device, card)
+    lap("mesh_train a")
+    launches = {"mesh_train a": a["launches"]}
+    mesh_zero(device, card)
+    lap("mesh_train b")
+    mesh_pipeline(device, card)
+    lap("mesh_train c")
+    t1 = _flash_launches()
+    # (d)'s line counts one Ulysses forward and backward; its unsplit
+    # reference and the timed repeats count nowhere
+    launches["mesh_train d"] = mesh_sep(device, card)["ulysses launches"]
+    d_all = _flash_launches(t1)
+    lap("mesh_train d")
+    t2 = _flash_launches()
+    mesh_moe(device, card)
+    launches["mesh_train e"] = _flash_launches(t2)
+    lap("mesh_train e")
+    launches["mesh_train other"] = {
+        n: v - d_all[n] - sum(r[n] for t, r in launches.items()
+                              if t != "mesh_train d")
+        for n, v in _flash_launches(t0).items()}
+    return {"kernels": fres, "launches": launches}
+
+
 # ------------------------------------------------------------------ main
 
 PHASES = ("kernels", "serve", "legacy", "sharded", "gpt", "moe", "train",
-          "hapi", "moe_train")
+          "hapi", "moe_train", "mesh_train")
 _RUN_T0 = [0.0]
 
 
@@ -7900,7 +8484,7 @@ def main(argv=None) -> int:
         free_memory()
         lap("gpt (10)")
     if "moe" in want or "sharded" in want:
-        # phase 10a: GPT-MoE (8 of gpt3-6.7b's layers, 8 experts), GPT
+        # phase 10a: GPT-MoE (4 of gpt3-6.7b's layers, 8 experts), GPT
         # freed; the sharded phase's ep=2 run (d) on its model after (a)
         mres = moe_phase(device, card, ep_run=(
             (lambda m, st, prompts, max_new: sharded_ep_run(
@@ -7963,6 +8547,20 @@ def main(argv=None) -> int:
         del mtres
         free_memory()
         lap("moe_train (11.7)")
+    if "mesh_train" in want:
+        # phase 11.8: hybrid-parallel training on meshes over the card
+        # repeated (dp x mp, ZeRO, pp, sep, ep), the flash kernels held
+        # to their plain versions at the per-shard shapes first
+        xres = mesh_train_phase(device, card)
+        for (tag, kind, p), rec in xres["kernels"].items():
+            for name, r in rec.items():
+                kres[name][f"{tag}/{kind}/dropout{p}"] = r
+        for tag, got in xres["launches"].items():
+            for name, n in got.items():
+                by_run[name][tag] = n
+        del xres
+        free_memory()
+        lap("mesh_train (11.8)")
 
     # phase 12: the kernels line, the card line, the result line
     launches = {name: sum(runs.values()) for name, runs in by_run.items()}

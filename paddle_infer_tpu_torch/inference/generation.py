@@ -31,9 +31,9 @@ mesh): the engine places every stamped parameter by its ``dist_attr``
 a whole copy where an axis does not divide a dim) into a ``Placement``
 of per-shard slices, keeps head-sharded page pools (each mp shard a
 ``[P, H/mp, page, D]`` pool on its device, int8 scale rows included)
-and runs every model step under ``_MeshContext``, which makes the mesh,
-the placement and the engine's ``quantized_allreduce`` current for the
-step: the layers then run per shard and the paged kernels launch once
+and runs every model step under ``topology.mesh_scope``, which makes the
+mesh, the placement and the engine's ``quantized_allreduce`` current for
+the step: the layers then run per shard and the paged kernels launch once
 per shard over its heads and its replica group's rows.  Sharding is
 placement, not shape: a program key and its graph are the same on every
 mesh.
@@ -110,6 +110,9 @@ def _version(t):
         return None
 
 
+_LORA_POOLS = (".lora_a", ".lora_b", ".lora_scale")
+
+
 def split_layers(mesh) -> bool:
     """True when a mesh runs the layers per shard: an mp split or
     replica groups (an ep-only mesh splits the expert stacks alone)."""
@@ -118,25 +121,36 @@ def split_layers(mesh) -> bool:
 
 
 class Placement:
-    """One engine's parameters placed on its mesh: the per-shard slices
-    of every tensor-parallel layer (``nn.layers.LinearShards`` /
+    """A model's parameters placed on its mesh: the per-shard slices of
+    every tensor-parallel layer (``nn.layers.LinearShards`` /
     ``EmbeddingShards``, looked up by module) and of every expert stack
     split over ``ep`` (looked up by tensor), plus the per-parameter
-    record ``shard_report`` counts.  Made once per parameter snapshot;
-    the source tensors are held so a lookup by identity stays valid, with
-    their version counters, so a tensor written in place since
-    (``load_state_dict``) makes the placement ``stale()``."""
+    record of ``named`` that ``shard_report`` counts.
 
-    def __init__(self, model, mesh, named):
+    Serving makes one per parameter snapshot: the slices are copied once
+    and the source tensors held, so a lookup by identity stays valid,
+    with their version counters, so a tensor written in place since
+    (``load_state_dict``) makes the placement ``stale()``.  Training
+    (``parallel.FleetTrainStep``) makes one with ``live=True``: every
+    shard slices the CURRENT parameters at each call, so autograd
+    reaches the whole parameter through each shard's slice, and an
+    expert stack is split by its shape (the AMP rule may hand the
+    experts a cast copy).  Pipeline templates
+    (``PipelineStack._template``) are walked too."""
+
+    def __init__(self, model, mesh, named=(), live=False):
         from ..nn import layers as NL
         from ..parallel.moe import ep_stacks
         from ..quantization.int8 import Int8Linear
         from ..serving.adapters.layer import LoRAServingLinear
-        from ..serving.sharded.mesh import ShardedConfigError
 
         self.mesh = mesh
+        self.live = live
         self.record = {}
-        self._versions = [(t, _version(t)) for _, t in named]
+        # the LoRA pools are read live by every shard (an upload writes
+        # them in place and changes no placement)
+        self._versions = [(t, _version(t)) for n, t in named
+                          if not n.endswith(_LORA_POOLS)]
         for n, t in named:
             fell_back = []
             spec = serving_param_spec(t, getattr(t, "dist_attr", None), mesh,
@@ -146,26 +160,28 @@ class Placement:
                               else "replicated")
         self._by_module = {}
         self._by_tensor = {}
-        self._held = []
+        modules = list(_walk(model))
+        self._held = list(modules)
         split = split_layers(mesh)
+        # a LoRA wrapper's shards slice its base layer: the base gets
+        # none of its own
+        wrapped = {id(m.inner) for m in modules
+                   if isinstance(m, LoRAServingLinear)}
         with torch.no_grad():
-            for lname, m in model.named_modules():
-                if split and isinstance(m, (LoRAServingLinear, Int8Linear)):
-                    raise ShardedConfigError(
-                        f"{type(m).__name__} ({lname}) cannot serve on an "
-                        "mp / dp mesh yet: only plain and weight-only "
-                        "tensor-parallel layers split per shard")
+            for m in modules:
                 if split and isinstance(m, NL.VocabParallelEmbedding):
-                    self._by_module[id(m)] = NL.EmbeddingShards(m, mesh)
-                elif split and (isinstance(m, NL.ColumnParallelLinear)
-                                or hasattr(m, "_mp_kind")):
-                    sh = NL.linear_shards(m, mesh)
+                    self._by_module[id(m)] = NL.EmbeddingShards(m, mesh,
+                                                                live=live)
+                elif split and id(m) not in wrapped and (isinstance(
+                        m, (NL.ColumnParallelLinear, LoRAServingLinear,
+                            Int8Linear)) or hasattr(m, "_mp_kind")):
+                    sh = NL.linear_shards(m, mesh, live=live)
                     if sh is not None:
                         self._by_module[id(m)] = sh
-                for t, parts in ep_stacks(m, mesh):
-                    self._by_tensor[id(t)] = parts
-                    self._held.append(t)
-            self._held.extend(m for _, m in model.named_modules())
+                if not live:
+                    for t, parts in ep_stacks(m, mesh):
+                        self._by_tensor[id(t)] = parts
+                        self._held.append(t)
 
     def get(self, module):
         return self._by_module.get(id(module))
@@ -177,39 +193,27 @@ class Placement:
     def ep_parts(self, t):
         """The per-ep-shard slices of an expert stack (None when it is
         not split)."""
+        if self.live:
+            from ..parallel.moe import ep_split
+
+            return ep_split(t, self.mesh)
         return self._by_tensor.get(id(t))
 
 
-class _MeshContext:
-    """Make ``mesh``, its ``placement`` and the ``quantized`` all-reduce
-    mode current on this thread for one model step, and restore the
-    previous settings on exit, so a step never inherits another
-    engine's mesh or wire format."""
-
-    def __init__(self, mesh, quantized=None, placement=None):
-        self._mesh = mesh
-        self._quant = quantized
-        self._placement = placement
-        self._prev = None
-
-    def __enter__(self):
-        from ..parallel import topology
-
-        self._prev = (topology.get_current_mesh(),
-                      topology.get_current_placement(),
-                      topology.get_quantized_allreduce())
-        if self._mesh is not None:
-            topology.set_current_mesh(self._mesh, self._placement)
-            topology.set_quantized_allreduce(self._quant)
-        return self
-
-    def __exit__(self, *exc):
-        from ..parallel import topology
-
-        mesh, placement, quant = self._prev
-        topology.set_current_mesh(mesh, placement)
-        topology.set_quantized_allreduce(quant)
-        return False
+def _walk(model):
+    """``model``'s modules, and those of every pipeline template
+    (``_template``) among them, each once."""
+    seen = set()
+    stack = [model]
+    while stack:
+        for m in stack.pop().modules():
+            if id(m) in seen:
+                continue
+            seen.add(id(m))
+            yield m
+            tpl = getattr(m, "_template", None)
+            if isinstance(tpl, torch.nn.Module):
+                stack.append(tpl)
 
 
 @dataclass
@@ -424,8 +428,10 @@ class GenerationEngine:
         return named
 
     def _mesh_ctx(self):
-        return _MeshContext(self._mesh, self._quant_allreduce,
-                            self._placement)
+        from ..parallel import topology
+
+        return topology.mesh_scope(self._mesh, self._placement,
+                                   quantized=self._quant_allreduce)
 
     def shard_report(self):
         """Placement summary for the serving snapshot: the mesh's axes

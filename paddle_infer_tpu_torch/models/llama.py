@@ -14,6 +14,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from .. import resolve_device
+from ..core.random import KeyStream
 from ..nn.layers import (ColumnParallelLinear, RMSNorm, RowParallelLinear,
                          VocabParallelEmbedding, mp_block)
 from ..parallel import topology
@@ -152,15 +153,21 @@ class LlamaForCausalLM(PretrainedMixin, nn.Module):
     """Backbone plus an untied LM head ``[hidden, vocab]``.
 
     ``device`` defaults to the card (raising without one); ``seed``
-    drives the on-device ``torch.Generator`` that fills the weights."""
+    drives the on-device ``torch.Generator`` that fills the weights.
+    Parameters require grad and the model starts in eval mode, as
+    ``GPTForCausalLM``: every serving path runs under
+    ``torch.inference_mode``, and ``FleetTrainStep`` trains it (the
+    reference's LLaMA has no dropout; ``keys``, default
+    ``KeyStream(seed)``, is the stream the step draws its key from)."""
 
     config_class = LlamaConfig
 
     def __init__(self, config: LlamaConfig, device=None,
-                 dtype=torch.float32, seed: int = 0):
+                 dtype=torch.float32, seed: int = 0, keys=None):
         super().__init__()
         device = resolve_device(device)
         self.config = config
+        self.keys = keys if keys is not None else KeyStream(seed)
         self.llama = LlamaModel(config, device=device, dtype=dtype)
         self.lm_head = ColumnParallelLinear(config.hidden_size,
                                             config.vocab_size,
@@ -172,6 +179,7 @@ class LlamaForCausalLM(PretrainedMixin, nn.Module):
             for mod in self.modules():
                 if hasattr(mod, "reset_parameters"):
                     mod.reset_parameters(gen)
+        self.requires_grad_(True)
         self.eval()
 
     def forward(self, input_ids, position_ids=None, attention_mask=None,

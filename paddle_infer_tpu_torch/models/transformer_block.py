@@ -24,7 +24,9 @@ Port of ``paddle_infer_tpu/models/transformer_block.py``:
   shard (``_forward_mesh``): each replica group's rows through every mp
   shard's heads (its QKV columns, split by head within each of q, k and
   v, its pool shard, one attention launch), the output projection's
-  partials summed in rank order.
+  partials summed in rank order.  A training mesh takes the same path
+  with live slices of the parameters, and the layer's one dropout draw
+  is offset per shard (``ops.attention.shard_seed``).
 * ``ParallelMLP`` (with its act-dropout) and ``ParallelTransformerLayer``
   in both forms: post-LN (ERNIE/BERT, the default, as in the reference)
   and pre-LN (``normalize_before=True``, GPT); with ``num_experts > 1``
@@ -49,7 +51,8 @@ from ..nn.layers import (ColumnParallelLinear, Dropout, LayerNorm,
                          mp_sum, row_groups)
 from ..ops import paged_attention as PA
 from ..ops import ragged_paged_attention as RPA
-from ..ops.attention import rope
+from .. import amp
+from ..ops.attention import rope, shard_offset, shard_seed
 from ..parallel import topology
 
 
@@ -61,8 +64,12 @@ class ParallelSelfAttention(nn.Module):
 
     def __init__(self, hidden, num_heads, dropout=0.0, causal=False,
                  rope_theta=None, num_kv_heads=None, keys=None,
-                 device=None, dtype=torch.float32):
+                 seq_parallel=None, device=None, dtype=torch.float32):
         super().__init__()
+        if seq_parallel not in (None, "ring", "ulysses"):
+            raise ValueError(f"seq_parallel {seq_parallel!r}: None, 'ring' "
+                             "or 'ulysses'")
+        self.seq_parallel = seq_parallel
         if hidden % num_heads:
             raise ValueError(f"hidden {hidden} not divisible by heads "
                              f"{num_heads}")
@@ -120,20 +127,31 @@ class ParallelSelfAttention(nn.Module):
         out = self.out_proj(out)
         return out if cache is None else (out, new_cache)
 
-    def _attend(self, q, k, v, cache, attn_mask, segment_ids):
+    def _attend(self, q, k, v, cache, attn_mask, segment_ids, seed=None):
         """Attention over ``q, k, v [b, s, h, d]`` through the cache's
-        form: ``(out [b, s, h * d], new cache or None)``."""
+        form: ``(out [b, s, h * d], new cache or None)``.  ``seed`` is a
+        mesh shard's dropout seed; without a cache and with
+        ``seq_parallel`` on a mesh whose ``sep`` splits, ring or Ulysses
+        attention over ``sep``."""
         b, s, h = q.shape[0], q.shape[1], q.shape[2]
         if cache is not None and len(cache) >= 4:
             out, new_cache = self._forward_paged(q, k, v, cache, attn_mask)
         elif cache is not None:
             out, new_cache = self._forward_static(q, k, v, cache, attn_mask)
+        elif self.seq_parallel and _sep_mesh() is not None:
+            from ..parallel import sequence_parallel as SP
+
+            fn = (SP.ring_attention if self.seq_parallel == "ring"
+                  else SP.ulysses_attention)
+            out = fn(*(amp.cast(t, "sdpa") for t in (q, k, v)),
+                     mesh=_sep_mesh(), is_causal=self.causal)
+            new_cache = None
         else:
             out = PF.scaled_dot_product_attention(
                 q, k, v, attn_mask=attn_mask,
                 dropout_p=self.dropout if self.training else 0.0,
                 is_causal=self.causal, q_segment_ids=segment_ids,
-                kv_segment_ids=segment_ids, keys=self.keys)
+                kv_segment_ids=segment_ids, keys=self.keys, seed=seed)
             new_cache = None
         return out.reshape(b, s, h * self.head_dim), new_cache
 
@@ -146,8 +164,15 @@ class ParallelSelfAttention(nn.Module):
         mesh = sq.mesh
         so = mesh_shards(self.out_proj)
         b = x.shape[0]
+        groups = row_groups(mesh, b)
+        base = None
+        if cache is None and self.training and self.dropout \
+                and not self.seq_parallel:
+            # one draw for the layer, offset per shard as the reference's
+            # _mesh_sharded_attn offsets it
+            base = PF._draw_seed(None, self.keys)
         outs = []
-        for g, rows in row_groups(mesh, b):
+        for g, rows in groups:
             per = []
             for r in range(sq.n):
                 dev = mesh.device(dp=g, mp=r)
@@ -155,14 +180,18 @@ class ParallelSelfAttention(nn.Module):
                     self.num_heads, self.num_kv_heads, None)
                 xg = _to(x[rows], dev)
                 q, k, v = self._project(
-                    sq.product(r, xg), xg.shape[0], xg.shape[1], hq, hkv,
+                    sq.product(r, xg, rows), xg.shape[0], xg.shape[1], hq, hkv,
                     kv_index, _batch_rows(position_ids, rows, b))
+                seed = None if base is None else shard_seed(
+                    base, shard_offset(g if len(groups) > 1 else None,
+                                       r if sq.n > 1 else None))
                 o, _ = self._attend(q, k, v, _shard_cache(cache, r, rows, b),
                                     _batch_rows(attn_mask, rows, b),
-                                    _batch_rows(segment_ids, rows, b))
+                                    _batch_rows(segment_ids, rows, b),
+                                    seed=seed)
                 per.append(o)
             if so is not None and so.n == sq.n:
-                y = so.finish(mp_sum([so.product(r, o)
+                y = so.finish(mp_sum([so.product(r, o, rows)
                                       for r, o in enumerate(per)]))
             else:
                 y = self.out_proj(torch.cat(
@@ -281,6 +310,12 @@ class ParallelSelfAttention(nn.Module):
         return out, (k_pages, v_pages, tables, positions + s)
 
 
+def _sep_mesh():
+    """The current mesh when its ``sep`` axis splits, else None."""
+    mesh = topology.get_current_mesh()
+    return mesh if mesh is not None and mesh.shape["sep"] > 1 else None
+
+
 def _batch_rows(t, rows, b):
     """``t``'s rows of a replica group when its dim 0 is the batch."""
     if t is None or not isinstance(t, torch.Tensor) or t.dim() == 0 \
@@ -346,7 +381,10 @@ class ParallelMLP(nn.Module):
 
     def forward(self, x):
         pl = topology.get_current_placement()
-        if pl is not None:
+        # an active act-dropout draws one mask over the whole hidden
+        # activation (global indices, as the reference's), so training
+        # with dropout gathers fc1's shards first
+        if pl is not None and not (self.training and self.dropout.p):
             s1, s2 = pl.get(self.fc1), pl.get(self.fc2)
             if s1 is not None and s2 is not None and s1.n == s2.n > 1:
                 return mp_block(x, [s1], lambda h: self.dropout(
@@ -365,14 +403,14 @@ class ParallelTransformerLayer(nn.Module):
                  normalize_before=False, causal=False,
                  layer_norm_eps=1e-12, num_experts=1, moe_gate="gshard",
                  moe_top_k=2, moe_capacity_factor=2.0, keys=None,
-                 device=None, dtype=torch.float32):
+                 seq_parallel=None, device=None, dtype=torch.float32):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
         self.normalize_before = normalize_before
         self.self_attn = ParallelSelfAttention(
             hidden, num_heads,
             dropout=attn_dropout if attn_dropout is not None else dropout,
-            causal=causal, keys=keys, **kw)
+            causal=causal, keys=keys, seq_parallel=seq_parallel, **kw)
         if int(num_experts) > 1:
             # the reference's fused_multi_transformer_moe FFN: E expert
             # MLPs behind a gate (parallel/moe.py)

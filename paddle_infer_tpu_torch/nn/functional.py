@@ -126,15 +126,15 @@ def cross_entropy(input, label, ignore_index=-100, reduction="mean",
 def scaled_dot_product_attention(q, k, v, attn_mask=None, dropout_p=0.0,
                                  is_causal=False, training=True, scale=None,
                                  q_segment_ids=None, kv_segment_ids=None,
-                                 keys=None):
+                                 keys=None, seed=None):
     """``(batch, seq, heads, head_dim)`` attention through
-    ``ops.attention.sdpa``; with dropout in training the seed is drawn
-    from ``keys``.  Padding and packing masks ride as int32
+    ``ops.attention.sdpa``; with dropout in training the seed is
+    ``seed`` (a mesh shard's, see ``ops.attention.shard_seed``), else
+    drawn from ``keys``.  Padding and packing masks ride as int32
     ``{q,kv}_segment_ids`` (the flash kernels take those); a dense
     ``attn_mask`` goes to the plain path."""
-    seed = None
     if dropout_p and training:
-        seed = _draw_seed(None, keys)
+        seed = seed if seed is not None else _draw_seed(None, keys)
     else:
         dropout_p = 0.0
     q, k, v = (amp.cast(t, "sdpa") for t in (q, k, v))

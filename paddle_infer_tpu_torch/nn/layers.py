@@ -26,7 +26,9 @@ Parameters are allocated empty on the target device in the target dtype;
 ``reset_parameters(generator)`` fills them (Xavier, as the reference
 initializers do), so a 7B model is never built on the CPU first.
 Parameters are created with ``requires_grad=False`` (serving); a
-training model turns them on (``models/ernie.py``).
+training model turns them on (``models/ernie.py``).  On a training mesh
+(a live ``inference.generation.Placement``) the same shards slice the live
+parameters at every call, so autograd reaches them.
 
 Every forward follows the O2 rule of ``amp.py`` through the port's
 functional ops, so under ``amp_scope`` float32 parameters are cast to
@@ -293,7 +295,8 @@ def mp_sum(parts):
     ``quantized_allreduce="int8"``), on the first shard's device."""
     if len(parts) == 1:
         return parts[0]
-    if topology.get_quantized_allreduce() == "int8":
+    if topology.get_quantized_allreduce() == "int8" \
+            and parts[0].dtype != torch.int32:
         return collective.quantized_psum(parts)
     return collective.sum_in_order(parts)
 
@@ -310,8 +313,8 @@ def mp_block(x, cols, act, row):
         parts = []
         for r in range(row.n):
             xg = _to(x[rows], mesh.device(dp=g, mp=r))
-            parts.append(row.product(r, act(*[c.product(r, xg)
-                                               for c in cols])))
+            parts.append(row.product(r, act(*[c.product(r, xg, rows)
+                                               for c in cols]), rows))
         outs.append(_to(row.finish(mp_sum(parts)), mesh.controller))
     return outs[0] if len(outs) == 1 else torch.cat(outs, dim=0)
 
@@ -327,31 +330,66 @@ class LinearShards:
     (row); ``n`` the shard count (1 when ``mp`` does not divide the dim:
     the layer stays whole, the reference's replicated fallback).  A
     weight-only layer's shards slice its int8 / int4 payload and scales
-    the same way and dequantize per shard.  ``heads[r]`` (a fused QKV
-    split by head) is ``(q heads, kv heads, kv index or None)``."""
+    the same way and dequantize per shard; an ``Int8Linear``'s slice its
+    int8 weight and per-channel scales, and a row shard's int32
+    accumulators are summed exactly before the one scaling.  A
+    ``LoRAServingLinear`` is sliced as its base layer, and each shard
+    adds its part of the delta read from the live pools: a column shard
+    its columns of B, a row shard the delta of its rows of A, which
+    joins the partial sum.  ``heads[r]`` (a fused QKV split by head) is
+    ``(q heads, kv heads, kv index or None)``.
 
-    def __init__(self, layer, mesh, kind, n, index, heads=None):
+    ``live=True`` (training) slices the layer's current tensors at every
+    call instead of copying them once, so autograd reaches the whole
+    parameter through each shard's slice (and a ``functional_call``
+    swap is seen)."""
+
+    def __init__(self, layer, mesh, kind, n, index, heads=None, live=False):
+        from ..serving.adapters.layer import LoRAServingLinear
+
         self.mesh = mesh
         self.kind = kind
         self.n = n
         self.index = index
         self.heads = heads
-        self.algo = getattr(layer, "algo", None)
-        self.group_size = getattr(layer, "group_size", -1)
-        self.parts = []
-        for r in range(n):
-            dev = mesh.device(mp=r)
-            self.parts.append(tuple(
-                None if t is None else t.contiguous().to(dev)
-                for t in self._slice(layer, index[r])))
+        self.lora = layer if isinstance(layer, LoRAServingLinear) else None
+        base = layer.inner if self.lora is not None else layer
+        self.layer = base if live else None
+        self.int8 = hasattr(base, "w_scale")
+        self.act_scale = getattr(base, "act_scale", 1.0)
+        self.algo = None if self.int8 else getattr(base, "algo", None)
+        self.group_size = getattr(base, "group_size", -1)
+        self._dtype = None
+        self.parts = None if live else [
+            tuple(None if t is None else _place(t, mesh.device(mp=r),
+                                                self.int8)
+                  for t in self._slice(base, index[r])) for r in range(n)]
         # a row layer's bias is whole, added once after the sum
-        self.bias = layer.bias if kind == "row" else None
+        self._bias = base.bias if kind == "row" else None
+
+    @property
+    def bias(self):
+        if self.layer is not None and self.kind == "row":
+            return self.layer.bias
+        return self._bias
+
+    def _part(self, r):
+        if self.parts is not None:
+            return self.parts[r]
+        dev = self.mesh.device(mp=r)
+        return tuple(None if t is None else _to(t, dev)
+                     for t in self._slice(self.layer, self.index[r]))
 
     def _slice(self, layer, idx):
-        """Shard tensors ``(weight, bias)`` or ``(payload, scales, bias)``;
-        a row shard carries no bias."""
+        """Shard tensors ``(weight, bias)``, ``(payload, scales, bias)``
+        or an int8 layer's ``(int8 weight, scales, bias)``; a row shard
+        carries no bias."""
         col = self.kind == "column"
         bias = None if not col or layer.bias is None else layer.bias[idx]
+        if self.int8:
+            qw, sc = layer.qweight, layer.w_scale
+            return ((qw[:, idx], sc[idx], bias) if col
+                    else (qw[idx], sc, None))
         if not hasattr(layer, "qweight"):
             return (layer.weight[:, idx] if col else layer.weight[idx],
                     bias)
@@ -371,22 +409,73 @@ class LinearShards:
                else slice(idx.start // gs, idx.stop // gs))
         return (qw[idx.start // packed:idx.stop // packed], sc[ssl], None)
 
-    def product(self, r, x):
+    def product(self, r, x, rows=slice(None)):
         """Shard r's product on its slice (its bias slice included for a
-        column layer, never for a row layer)."""
-        p = self.parts[r]
-        if self.algo is None:
-            return PF.linear(x, p[0], p[1])
-        from ..quantization.weight_only import weight_only_linear
+        column layer, never for a row layer); ``rows`` are the batch rows
+        ``x`` holds (a replica group's), which pick the LoRA slots."""
+        p = self._part(r)
+        if self.int8:
+            from ..quantization.int8 import int8_accumulate, int8_linear
 
-        return weight_only_linear(x, p[0], p[1], p[-1], algo=self.algo,
-                                  group_size=self.group_size)
+            self._dtype = x.dtype
+            if self.kind == "row" and self.n > 1 and self.lora is None:
+                # the exact int32 partial sum, scaled once in finish
+                y = int8_accumulate(x, p[0], self.act_scale)
+            else:
+                y = int8_linear(x, p[0], p[1], p[2],
+                                act_scale=self.act_scale)
+        elif self.algo is None:
+            y = PF.linear(x, p[0], p[1])
+        else:
+            from ..quantization.weight_only import weight_only_linear
+
+            y = weight_only_linear(x, p[0], p[1], p[-1], algo=self.algo,
+                                   group_size=self.group_size)
+        if self.lora is not None:
+            y = self._lora_delta(r, x, y, rows)
+        return y
+
+    def _lora_delta(self, r, x, y, rows):
+        """``y`` plus this shard's part of the LoRA delta (float32; the
+        sum is cast back to ``y``'s dtype for a column shard, after the
+        reduction for a row shard)."""
+        from ..serving.adapters import slots as lora_slots
+
+        slots = lora_slots.row_slots()
+        if slots is None:
+            return y
+        lo, dev = self.lora, y.device
+        sl = _to(slots[rows], dev).long()
+        ga = _to(lo.lora_a, dev)[sl]                 # [b, d_in, rank]
+        gb = _to(lo.lora_b, dev)[sl]                 # [b, rank, d_out]
+        if self.n > 1 and self.kind == "column":
+            gb = gb[..., self.index[r]]
+        elif self.n > 1:
+            ga = ga[:, self.index[r]]
+        delta = torch.bmm(torch.bmm(x.to(torch.float32), ga), gb)
+        out = y.to(torch.float32) + _to(lo.lora_scale, dev)[sl][
+            :, None, None] * delta
+        if self.kind == "column" or self.n == 1:
+            return out.to(y.dtype)
+        self._dtype = y.dtype
+        return out
 
     def finish(self, y):
-        """A row layer's reduced output plus its bias."""
-        if self.kind == "row" and self.bias is not None:
-            y = y + _to(self.bias, y.device).to(y.dtype)
-        return y
+        """A row layer's reduced output plus its bias (an int8 layer's
+        exact int32 sum scaled first), in the layer's output dtype."""
+        if self.kind != "row":
+            return y
+        bias = self.bias
+        if y.dtype == torch.int32:
+            p = self._part(0)
+            y = y.to(torch.float32) * (_to(p[1], y.device)
+                                       * float(self.act_scale))
+            if bias is not None:
+                y = y + _to(bias, y.device).to(torch.float32)
+            return y.to(self._dtype)
+        if bias is not None:
+            y = y + _to(bias, y.device).to(y.dtype)
+        return y if self._dtype is None else y.to(self._dtype)
 
     def forward(self, x):
         """The whole layer over ``x [b, ..., in]`` on the mesh's
@@ -398,38 +487,50 @@ class LinearShards:
         for g, rows in row_groups(mesh, x.shape[0]):
             xg = x[rows]
             if self.n == 1:
-                y = self.product(0, _to(xg, mesh.device(dp=g)))
+                y = self.product(0, _to(xg, mesh.device(dp=g)), rows)
                 if self.kind == "row":
                     y = self.finish(y)
             elif self.kind == "column":
                 y = collective.gather_in_order(
-                    [self.product(r, _to(xg, mesh.device(dp=g, mp=r)))
+                    [self.product(r, _to(xg, mesh.device(dp=g, mp=r)), rows)
                      for r in range(self.n)], dim=-1)
             else:
                 y = self.finish(mp_sum(
                     [self.product(r, _to(xg[..., self.index[r]],
-                                         mesh.device(dp=g, mp=r)))
+                                         mesh.device(dp=g, mp=r)), rows)
                      for r in range(self.n)]))
             outs.append(_to(y, ctrl))
         return outs[0] if len(outs) == 1 else torch.cat(outs, dim=0)
 
 
-def linear_shards(layer, mesh):
-    """``LinearShards`` of a column / row layer (plain or weight-only):
-    contiguous blocks of the split dim, or for a fused QKV whose heads
-    ``_qkv_heads = (hq, hkv, head_dim)`` name, each shard's query heads
-    with the key / value heads they read."""
-    kind = getattr(layer, "_mp_kind", None) if hasattr(layer, "qweight") \
-        else layer._KIND
+def _place(t, dev, int8_act=False):
+    """A serving shard's own copy of a slice on ``dev`` (an
+    ``Int8Linear``'s weight kept column-major, the layout of the card's
+    IMMA kernel)."""
+    if int8_act and t.dtype == torch.int8:
+        return t.t().contiguous().t().to(dev)
+    return t.contiguous().to(dev)
+
+
+def linear_shards(layer, mesh, live=False):
+    """``LinearShards`` of a column / row layer (plain, weight-only,
+    int8 or a LoRA wrapper of one): contiguous blocks of the split dim,
+    or for a fused QKV whose heads ``_qkv_heads = (hq, hkv, head_dim)``
+    name, each shard's query heads with the key / value heads they
+    read."""
+    src = getattr(layer, "inner", layer)
+    kind = getattr(src, "_mp_kind", None) if hasattr(src, "qweight") \
+        else getattr(src, "_KIND", None)
     if kind is None:
         return None
-    dim = layer.out_features if kind == "column" else layer.in_features
-    heads = getattr(layer, "_qkv_heads", None)
+    dim = src.out_features if kind == "column" else src.in_features
+    heads = getattr(src, "_qkv_heads", None)
+    kw = dict(live=live)
     mp = mesh.shape["mp"]
     if heads is not None:
         hq, hkv, d = heads
         if topology.axis_if_divides(mesh, "mp", hq) is None:
-            return LinearShards(layer, mesh, kind, 1, [slice(None)])
+            return LinearShards(layer, mesh, kind, 1, [slice(None)], **kw)
         hs, rep = hq // mp, hq // hkv
         index, per = [], []
         for r in range(mp):
@@ -440,18 +541,18 @@ def linear_shards(layer, mesh):
                 cols += [(base + h) * d + i for h in range(lo, hi)
                          for i in range(d)]
             index.append(torch.tensor(cols, dtype=torch.long,
-                                      device=layer_device(layer)))
+                                      device=layer_device(src)))
             kv = [(r * hs + j) // rep - lo for j in range(hs)]
             plain = kv == [j // rep for j in range(hs)] and (hi - lo) * rep \
                 == hs
             per.append((hs, hi - lo, None if plain else torch.tensor(
                 kv, dtype=torch.long, device=mesh.device(mp=r))))
-        return LinearShards(layer, mesh, kind, mp, index, heads=per)
+        return LinearShards(layer, mesh, kind, mp, index, heads=per, **kw)
     if topology.axis_if_divides(mesh, "mp", dim) is None:
-        return LinearShards(layer, mesh, kind, 1, [slice(None)])
+        return LinearShards(layer, mesh, kind, 1, [slice(None)], **kw)
     n = dim // mp
     return LinearShards(layer, mesh, kind, mp,
-                        [slice(r * n, (r + 1) * n) for r in range(mp)])
+                        [slice(r * n, (r + 1) * n) for r in range(mp)], **kw)
 
 
 def layer_device(layer):
@@ -462,20 +563,32 @@ def layer_device(layer):
 class EmbeddingShards:
     """A vocab-parallel table's per-shard row slices: ``lookup`` sums
     the shards' masked lookups, ``tied_logits`` gathers their vocabulary
-    slices of ``x @ weight.T``."""
+    slices of ``x @ weight.T``.  ``live=True`` slices the current table
+    at every call (training: autograd reaches the table through each
+    shard's rows)."""
 
-    def __init__(self, layer, mesh):
+    def __init__(self, layer, mesh, live=False):
         self.mesh = mesh
         V = layer.weight.shape[0]
         self.n = mesh.shape["mp"] if topology.axis_if_divides(
             mesh, "mp", V) else 1
         self.rows = V // self.n
-        self.parts = [layer.weight[r * self.rows:(r + 1) * self.rows]
-                      .contiguous().to(mesh.device(mp=r))
-                      for r in range(self.n)]
+        self.layer = layer if live else None
+        self._parts = None if live else [
+            layer.weight[r * self.rows:(r + 1) * self.rows]
+            .contiguous().to(mesh.device(mp=r)) for r in range(self.n)]
+
+    @property
+    def parts(self):
+        if self._parts is not None:
+            return self._parts
+        w = self.layer.weight
+        return [_to(w[r * self.rows:(r + 1) * self.rows],
+                    self.mesh.device(mp=r)) for r in range(self.n)]
 
     def lookup(self, ids):
         mesh = self.mesh
+        tables = self.parts
         outs = []
         for g, rows in row_groups(mesh, ids.shape[0]):
             parts = []
@@ -485,7 +598,7 @@ class EmbeddingShards:
                 inside = (local >= 0) & (local < self.rows)
                 e = PF.embedding(torch.where(inside, local,
                                              torch.zeros_like(local)),
-                                 self.parts[r])
+                                 tables[r])
                 parts.append(e * inside[..., None].to(e.dtype))
             outs.append(_to(collective.sum_in_order(parts),
                             mesh.controller))
@@ -493,10 +606,11 @@ class EmbeddingShards:
 
     def tied_logits(self, x):
         mesh = self.mesh
+        tables = self.parts
         outs = []
         for g, rows in row_groups(mesh, x.shape[0]):
             parts = [torch.matmul(_to(x[rows], mesh.device(dp=g, mp=r)),
-                                  self.parts[r].t())
+                                  tables[r].t())
                      for r in range(self.n)]
             outs.append(_to(collective.gather_in_order(parts, dim=-1),
                             mesh.controller))

@@ -2,8 +2,21 @@
 
 Ports of ``paddle_infer_tpu/ops/attention.py``: ``rope`` (``_rope``),
 ``sdpa`` with its choice of implementation (``_sdpa``,
-``_attn_impl_choice``), the plain attention ``_xla_sdpa`` and
-``_seed_from_key``.
+``_attn_impl_choice``), the plain attention ``_xla_sdpa``,
+``_seed_from_key`` and the per-shard dropout seed of the mesh path
+``_mesh_sharded_attn`` (``shard_offset``, ``shard_seed``).
+
+On a mesh, attention is head- and batch-local: heads split over ``mp``
+and batch over ``dp`` where they divide, and each shard runs the
+unmodified flash kernels (4-6) on its slice; the port's one mesh path is
+``models/transformer_block.ParallelSelfAttention._forward_mesh``, which
+splits the projections per shard and calls ``sdpa`` on each shard's
+heads and rows.  The kernels' dropout hash keys LOCAL (batch, head)
+coordinates, so each shard's seed is offset by its mesh position, ``seed
++ off * 0x9E3779B9`` with ``off = dp_index * 4096 + mp_index`` over the
+axes that split (``shard_seed``), exactly as the reference offsets it;
+without that every shard would draw the same mask for its local heads
+and rows.
 """
 from __future__ import annotations
 
@@ -86,6 +99,30 @@ def _attn_impl_choice(q, k, mask):
             or q.shape[-1] not in FA.HEAD_DIMS):
         return "xla"
     return "flash"
+
+
+# the reference's per-shard seed stride (the 32-bit golden ratio) and
+# the dp coordinate's weight in the shard offset
+_SEED_STRIDE = 0x9E3779B9
+_DP_WEIGHT = 4096
+
+
+def shard_offset(dp_index=None, mp_index=None) -> int:
+    """A shard's offset over the axes that split (None: the axis does
+    not split)."""
+    off = 0
+    for i in (dp_index, mp_index):
+        if i is not None:
+            off = off * _DP_WEIGHT + int(i)
+    return off
+
+
+def shard_seed(seed, offset: int):
+    """``seed + offset * 0x9E3779B9`` in uint32 arithmetic (``seed`` a
+    0-d int64 tensor holding a uint32, as ``seed_from_key`` returns)."""
+    if seed is None or not offset:
+        return seed
+    return (seed + (int(offset) * _SEED_STRIDE & 0xFFFFFFFF)) & 0xFFFFFFFF
 
 
 def sdpa(q, k, v, mask=None, key=None, q_segment_ids=None,

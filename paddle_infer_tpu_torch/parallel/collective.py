@@ -16,8 +16,13 @@ float32 scale a block; with a block count the group size divides, each
 rank dequantizes and sums its 1/r of the blocks, re-encodes the sum and
 the reduced shards are gathered (two stages), otherwise the full gather
 is dequantized and summed (the exact-shape path).  ``CollectiveLedger``
-/ ``LEDGER`` tally the analytic wire bytes by op and dtype.  Plain
-PyTorch throughout: none of this is a Pallas kernel in the reference.
+/ ``LEDGER`` tally the analytic wire bytes by op and dtype.
+
+Training: every verb differentiates through its transpose (see the API
+section), so autograd flows back through the sharded values of
+``parallel/mp_layers.py``, ``pipeline.py``, ``sequence_parallel.py``
+and ``moe.py``.  Plain PyTorch throughout: none of this is a Pallas
+kernel in the reference.
 """
 from __future__ import annotations
 
@@ -71,11 +76,17 @@ class Group:
 
 
 def _default_group() -> Group:
+    """The current mesh's ``mp`` axis (a serving step), else the hybrid
+    group's ``dp`` axis (the reference's default under ``fleet.init``)."""
     mesh = topology.get_current_mesh()
-    if mesh is None:
-        raise RuntimeError("no communication group: set_current_mesh "
-                           "first, or pass group= explicitly")
-    return Group(mesh, "mp")
+    if mesh is not None:
+        return Group(mesh, "mp")
+    hcg = topology.get_hybrid_communicate_group()
+    if hcg is None:
+        raise RuntimeError("no communication group: call fleet.init / "
+                           "set_current_mesh first, or pass group= "
+                           "explicitly")
+    return Group(hcg.mesh, "dp")
 
 
 def _check(parts, group):
@@ -273,7 +284,61 @@ def _nbytes(t):
     return t.numel() * t.element_size()
 
 
+# ------------------------------------------------------------ autograd
+
+class _Verb(torch.autograd.Function):
+    """A collective with its transpose as the backward: ``fwd`` maps the
+    list of per-rank inputs to the per-rank outputs, ``bwd`` the list of
+    per-rank output cotangents to the per-rank input cotangents."""
+
+    @staticmethod
+    def forward(ctx, fwd, bwd, *parts):
+        ctx.bwd = bwd
+        outs = []
+        seen = {id(p) for p in parts}
+        for o in fwd(list(parts)):
+            # every output its own tensor: autograd keeps one cotangent
+            # per rank
+            if id(o) in seen or o._base is not None:
+                o = o.clone()
+            seen.add(id(o))
+            outs.append(o)
+        return tuple(outs)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        return (None, None) + tuple(ctx.bwd(list(grads)))
+
+
+def _run(fwd, bwd, parts):
+    """``fwd(parts)``, differentiable through ``bwd`` when a part needs a
+    gradient."""
+    if torch.is_grad_enabled() and any(p.requires_grad for p in parts):
+        return list(_Verb.apply(fwd, bwd, *parts))
+    return fwd(parts)
+
+
+def _like(values, parts):
+    """``values[i]`` moved to ``parts[i]``'s device."""
+    return [v if v.device == p.device else v.to(p.device)
+            for v, p in zip(values, parts)]
+
+
+def _zeros(parts):
+    return [torch.zeros_like(p) for p in parts]
+
+
 # ------------------------------------------------------------------- API
+#
+# Every verb takes and returns a sharded value (one tensor per rank of
+# the group, in rank order) and differentiates through its transpose,
+# the reference's VJP of the same verb: all_reduce's cotangents are
+# all-reduced (a cotangent only one rank holds, as a replicated result
+# used once has, reaches every rank's contribution unchanged: the
+# identity), all_gather <-> reduce_scatter, alltoall <-> alltoall,
+# ppermute <-> the inverse permutation, broadcast <-> the sum onto the
+# source, reduce and p2p_transfer <-> their adjoint copies.  Sums run in
+# rank order on the first rank's device.
 
 def all_reduce(parts, op: str = ReduceOp.SUM, group: Optional[Group] = None,
                sync_op: bool = True, quantized: Optional[str] = None,
@@ -281,14 +346,20 @@ def all_reduce(parts, op: str = ReduceOp.SUM, group: Optional[Group] = None,
     """Reduce the per-rank contributions ``parts`` over the group axis;
     every rank gets the result.  ``quantized="int8"`` sends the SUM over
     the blockwise-int8 wire format (``quantized_psum``): approximate
-    within ``quantization_error_bound``, about 4x fewer bytes."""
+    within ``quantization_error_bound``, about 4x fewer bytes (no
+    gradient)."""
     group = group or _default_group()
     parts = _check(parts, group)
     if quantized is None:
-        out = _reduce(parts, op)
         _record_wire("all_reduce", _nbytes(parts[0]), parts[0].dtype,
                      group, 2.0 * _ring(group))
-        return _fanout(out, parts)
+        if op not in (ReduceOp.SUM, ReduceOp.AVG):
+            return _fanout(_reduce(parts, op), parts)
+
+        def bwd(gs):
+            return _fanout(_reduce(gs, op), parts)
+
+        return _run(lambda ps: _fanout(_reduce(ps, op), ps), bwd, parts)
     if quantized != "int8":
         raise ValueError(f"unsupported quantized wire format {quantized!r}; "
                          "only 'int8' is implemented")
@@ -308,10 +379,19 @@ def all_gather(parts, group: Optional[Group] = None, axis: int = 0):
     """Concatenate the shards along ``axis``; every rank gets the whole."""
     group = group or _default_group()
     parts = _check(parts, group)
-    dev = parts[0].device
-    out = torch.cat([p.to(dev) for p in parts], dim=axis)
-    _record_wire("all_gather", _nbytes(out), out.dtype, group, _ring(group))
-    return _fanout(out, parts)
+
+    def fwd(ps):
+        return _fanout(gather_in_order(ps, dim=axis), ps)
+
+    def bwd(gs):
+        sizes = [p.shape[axis] for p in parts]
+        return _like(torch.split(_reduce(gs, ReduceOp.SUM), sizes,
+                                 dim=axis), parts)
+
+    out = _run(fwd, bwd, parts)
+    _record_wire("all_gather", _nbytes(out[0]), out[0].dtype, group,
+                 _ring(group))
+    return out
 
 
 def reduce_scatter(parts, op: str = ReduceOp.SUM,
@@ -320,11 +400,18 @@ def reduce_scatter(parts, op: str = ReduceOp.SUM,
     group's slices of dim 0."""
     group = group or _default_group()
     parts = _check(parts, group)
-    red = _reduce(parts, op)
-    chunks = torch.chunk(red, len(parts), dim=0)
+
+    def fwd(ps):
+        return _like(torch.chunk(_reduce(ps, op), len(ps), dim=0), ps)
+
+    def bwd(gs):
+        return _fanout(gather_in_order(gs, dim=0), parts)
+
     _record_wire("reduce_scatter", _nbytes(parts[0]), parts[0].dtype,
                  group, _ring(group))
-    return [c.to(p.device) for c, p in zip(chunks, parts)]
+    if op != ReduceOp.SUM:
+        return fwd(parts)
+    return _run(fwd, bwd, parts)
 
 
 def broadcast(parts, src: int = 0, group: Optional[Group] = None,
@@ -334,19 +421,141 @@ def broadcast(parts, src: int = 0, group: Optional[Group] = None,
     parts = _check(parts, group)
     total = sum(_nbytes(p) for p in parts)
     _record_wire("broadcast", total, parts[0].dtype, group, _ring(group))
-    return [parts[src].to(p.device) for p in parts]
+
+    def bwd(gs):
+        out = _zeros(parts)
+        out[src] = _reduce(gs, ReduceOp.SUM).to(parts[src].device)
+        return out
+
+    return _run(lambda ps: [ps[src].to(p.device) for p in ps], bwd, parts)
+
+
+def reduce(parts, dst: int = 0, op: str = ReduceOp.SUM,
+           group: Optional[Group] = None):
+    """Rank ``dst`` gets the reduction, every other rank keeps its
+    shard."""
+    group = group or _default_group()
+    parts = _check(parts, group)
+
+    def fwd(ps):
+        out = list(ps)
+        out[dst] = _reduce(ps, op).to(ps[dst].device)
+        return out
+
+    def bwd(gs):
+        gd = gs[dst]
+        return [gd.to(p.device) if i == dst else gs[i] + gd.to(p.device)
+                for i, p in enumerate(parts)]
+
+    if op != ReduceOp.SUM:
+        return fwd(parts)
+    return _run(fwd, bwd, parts)
 
 
 def alltoall(parts, group: Optional[Group] = None):
     """Pairwise chunk exchange: each rank's dim 0 splits into ``r``
     chunks and rank j receives chunk j of every rank, in rank order
-    (the transport under MoE's ``global_scatter`` / ``global_gather``)."""
+    (the transport under MoE's ``global_scatter`` / ``global_gather``
+    and Ulysses attention)."""
     group = group or _default_group()
     parts = _check(parts, group)
-    r = len(parts)
-    chunks = [torch.chunk(p, r, dim=0) for p in parts]
-    return [torch.cat([chunks[i][j].to(parts[j].device) for i in range(r)])
-            for j in range(r)]
+
+    def fwd(ps):
+        r = len(ps)
+        chunks = [torch.chunk(p, r, dim=0) for p in ps]
+        return [torch.cat([chunks[i][j].to(ps[j].device) for i in range(r)])
+                for j in range(r)]
+
+    return _run(fwd, fwd, parts)
+
+
+def ppermute(parts, perm, group: Optional[Group] = None):
+    """Rank ``d`` gets rank ``s``'s shard for each pair ``(s, d)`` of
+    ``perm``; a rank no pair sends to gets zeros (the reference's
+    ``ppermute``)."""
+    group = group or _default_group()
+    parts = _check(parts, group)
+    perm = [(int(s), int(d)) for s, d in perm]
+
+    def move(ps, pairs):
+        out = _zeros(ps)
+        for s, d in pairs:
+            out[d] = ps[s].to(ps[d].device)
+        return out
+
+    return _run(lambda ps: move(ps, perm),
+                lambda gs: move(gs, [(d, s) for s, d in perm]), parts)
+
+
+def p2p_transfer(parts, src: int, dst: int, group: Optional[Group] = None):
+    """A single ``src`` -> ``dst`` transfer: rank ``dst`` gets rank
+    ``src``'s shard, every other rank keeps its own (a matched send /
+    recv pair)."""
+    group = group or _default_group()
+    parts = _check(parts, group)
+    src, dst = int(src), int(dst)
+
+    def fwd(ps):
+        out = list(ps)
+        out[dst] = ps[src].to(ps[dst].device)
+        return out
+
+    def bwd(gs):
+        if src == dst:
+            return list(gs)
+        out = list(gs)
+        out[src] = gs[src] + gs[dst].to(parts[src].device)
+        out[dst] = torch.zeros_like(gs[dst])
+        return out
+
+    return _run(fwd, bwd, parts)
+
+
+def barrier(group: Optional[Group] = None):
+    """A tiny all-reduce over the group (the reference's barrier)."""
+    group = group or _default_group()
+    dev = group.mesh.controller
+    all_reduce([torch.zeros((), device=dev)] * group.nranks, group=group)
+
+
+def new_group(ranks=None, axis: Union[str, Sequence[str], None] = None
+              ) -> Group:
+    """A registered group over a mesh axis of the current hybrid group's
+    (or this thread's) mesh; ``ranks`` must be one whole axis's peer set
+    (the reference takes rank lists, a mesh groups by axis)."""
+    mesh = topology.active_mesh()
+    if mesh is None:
+        raise RuntimeError("fleet.init / set_current_mesh must run first")
+    if axis is None:
+        axis = mesh.axis_names[0] if ranks is None else _axis_for_ranks(
+            mesh, ranks)
+    group = Group(mesh, axis)
+    group.id = len(_GROUP_REGISTRY) + 1
+    _GROUP_REGISTRY[group.id] = group
+    return group
+
+
+def _axis_for_ranks(mesh, ranks):
+    topo = topology.CommunicateTopology(
+        list(mesh.axis_names), [mesh.shape[a] for a in mesh.axis_names])
+    for name in mesh.axis_names:
+        if sorted(ranks) in [sorted(g) for g in topo.get_comm_list(name)]:
+            return name
+    raise ValueError(f"ranks {ranks} do not form a mesh-axis group")
+
+
+# group registry (the reference's gid -> Group; gid 0 is the world)
+_GROUP_REGISTRY: Dict[int, Group] = {}
+
+
+def get_group(gid: int = 0) -> Group:
+    if gid == 0:
+        g = _default_group()
+        g.id = 0
+        return g
+    if gid not in _GROUP_REGISTRY:
+        raise ValueError(f"no group with id {gid}")
+    return _GROUP_REGISTRY[gid]
 
 
 # ------------------------------------------- row-parallel matmul

@@ -61,9 +61,11 @@ the AMP rule every float operand is cast as the reference's dispatcher
 casts the ``fused_moe`` op's (all of them to the low dtype at O2; the
 router still scores in float32).  Parameters are created frozen, as
 every layer of the port; a training model turns them on
-(``GPTForCausalLM``).  The expert-parallel all-to-alls have no backward
-yet: a mesh trains nothing until the mesh training (ROADMAP.md §1 step
-4).
+(``GPTForCausalLM``).  On a training mesh with ``ep > 1``
+(``FleetTrainStep``) the step's placement slices the live expert stacks
+per ep shard, and the two all-to-alls differentiate through each
+other: ``global_scatter``'s gradient is ``global_gather`` of the
+shards' gradients and the reverse, the reference's ``_a2a_grad``.
 """
 from __future__ import annotations
 
@@ -315,11 +317,24 @@ def _ep_degree(mesh, num_experts) -> int:
         mesh, "ep", num_experts) else 1)
 
 
+def ep_split(t, mesh):
+    """Shard e's experts ``e·E/ep .. (e+1)·E/ep - 1`` of an expert-major
+    stack ``t`` on its device, for each e (None when ``ep`` does not
+    split dim 0)."""
+    if t.dim() == 0:
+        return None
+    ep = _ep_degree(mesh, t.shape[0])
+    if ep == 1:
+        return None
+    n = t.shape[0] // ep
+    return [t[e * n:(e + 1) * n].contiguous().to(mesh.device(ep=e))
+            for e in range(ep)]
+
+
 def ep_stacks(module, mesh):
     """``[(tensor, per-shard slices)]`` of ``module``'s own expert stacks
-    (``dist_attr`` ``("ep", ...)``) on ``mesh``: shard e holds experts
-    ``e·E/ep .. (e+1)·E/ep - 1`` on its device.  Empty when ``ep`` does
-    not split them."""
+    (``dist_attr`` ``("ep", ...)``) on ``mesh`` (``ep_split``).  Empty
+    when ``ep`` does not split them."""
     out = []
     tensors = list(module.named_parameters(recurse=False)) + list(
         module.named_buffers(recurse=False))
@@ -327,36 +342,75 @@ def ep_stacks(module, mesh):
         attr = getattr(t, "dist_attr", None)
         if t is None or not attr or attr[0] != "ep":
             continue
-        ep = _ep_degree(mesh, t.shape[0])
-        if ep == 1:
-            continue
-        n = t.shape[0] // ep
-        out.append((t, [t[e * n:(e + 1) * n].contiguous().to(
-            mesh.device(ep=e)) for e in range(ep)]))
+        parts = ep_split(t, mesh)
+        if parts is not None:
+            out.append((t, parts))
     return out
+
+
+def _split_experts(x, mesh, ep):
+    n = x.shape[0] // ep
+    return [x[e * n:(e + 1) * n].to(mesh.device(ep=e)) for e in range(ep)]
+
+
+def _join_experts(parts, mesh):
+    return torch.cat([p.to(mesh.controller) for p in parts], dim=0)
+
+
+class _GlobalScatter(torch.autograd.Function):
+    """Token -> expert all-to-all; its transpose is ``global_gather``
+    (the reference's ``_a2a_grad``)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, ep):
+        ctx.mesh = mesh
+        return tuple(p.clone() if p._base is not None or p is x else p
+                     for p in _split_experts(x, mesh, ep))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        return _join_experts(grads, ctx.mesh), None, None
+
+
+class _GlobalGather(torch.autograd.Function):
+    """Expert -> token all-to-all; its transpose is ``global_scatter``."""
+
+    @staticmethod
+    def forward(ctx, mesh, *parts):
+        ctx.mesh, ctx.ep = mesh, len(parts)
+        return _join_experts(parts, mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (None,) + tuple(_split_experts(g, ctx.mesh, ctx.ep))
 
 
 def global_scatter(x):
     """Token -> expert all-to-all (the reference's ``global_scatter``):
     the expert-major buffer ``[E, C, d]`` split on its expert dim, shard
     e's experts moved to shard e's device.  Off a mesh (or with ``ep``
-    not splitting E) the buffer itself, as one shard."""
+    not splitting E) the buffer itself, as one shard.  Differentiable:
+    the gradient is ``global_gather`` of the shards' gradients."""
     mesh = topology.get_current_mesh()
     ep = 1 if mesh is None else _ep_degree(mesh, x.shape[0])
     if ep == 1:
         return [x]
-    n = x.shape[0] // ep
-    return [x[e * n:(e + 1) * n].to(mesh.device(ep=e)) for e in range(ep)]
+    if torch.is_grad_enabled() and x.requires_grad:
+        return list(_GlobalScatter.apply(x, mesh, ep))
+    return _split_experts(x, mesh, ep)
 
 
 def global_gather(parts):
     """Expert -> token all-to-all (the reference's ``global_gather``):
     the shards' expert outputs back in expert order on the mesh's
-    controller device."""
+    controller device.  Differentiable: the gradient is
+    ``global_scatter`` of the output's gradient."""
     if len(parts) == 1:
         return parts[0]
-    dev = topology.get_current_mesh().controller
-    return torch.cat([p.to(dev) for p in parts], dim=0)
+    mesh = topology.get_current_mesh()
+    if torch.is_grad_enabled() and any(p.requires_grad for p in parts):
+        return _GlobalGather.apply(mesh, *parts)
+    return _join_experts(parts, mesh)
 
 
 def ep_ffn(ffn, expert_in, *stacks):

@@ -11,7 +11,10 @@ zeros to fit, which leaves every sum exact.  Its tensor-core kernel
 takes the weight column-major (the "tn" layout): ``Int8Linear`` keeps
 its ``[in, out]`` payload in that layout, as a row-major weight falls
 to a kernel several times slower.  On the CPU the product is an int32
-matmul.  A float32 product would not do: at K = 4096 the sums pass
+matmul.  On an mp serving mesh the int8 weight and per-channel scales
+split as the source layer's shards split, each shard's product runs on
+its slice, and a row layer's int32 partial sums add exactly before the
+one scaling.  A float32 product would not do: at K = 4096 the sums pass
 2^24 (127 · 127 · 4096 ≈ 6.6e7).
 """
 from __future__ import annotations
@@ -91,6 +94,11 @@ class Int8Linear(nn.Module):
         lay.w_scale = scale
         if linear.bias is not None:
             lay.bias = linear.bias.detach()
+        # on an mp mesh the int8 weight and its scales split as the
+        # source layer's weight splits (nn.layers.LinearShards)
+        lay._mp_kind = getattr(linear, "_KIND", None)
+        if hasattr(linear, "_qkv_heads"):
+            lay._qkv_heads = linear._qkv_heads
         return lay
 
     def forward(self, x):

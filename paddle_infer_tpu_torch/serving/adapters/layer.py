@@ -14,6 +14,14 @@ adapter a row runs is data and no graph is captured again.
 Slot 0 is the identity adapter: its rows stay zero, so rows without an
 adapter take the same gather.
 
+On an mp or mp x dp serving mesh the engine's placement slices the
+wrapper as its base layer (``nn.layers.LinearShards``): a column
+target's shard adds its columns of B's delta, a row target's shard the
+delta of its rows of A, which joins the partial sum before the
+rank-order reduction (the reference shards the pools with the base
+weight, ``dist_attr``).  The shards read the pools at run time, so an
+upload reaches every shard's slice in place.
+
 Dtypes.  The reference adds ``y + scale * delta`` under jnp promotion,
 which turns a bf16 projection's output into float32.  Here the delta is
 computed in float32 (``x`` cast to float32, as jnp promotes it), added
@@ -108,6 +116,15 @@ class LoRAServingLinear(nn.Module):
             (self.slots, self.rank, d_out), dtype=torch.float32, device=dev))
         self.register_buffer("lora_scale", torch.zeros(
             (self.slots,), dtype=torch.float32, device=dev))
+        # the pools split with their base weight on an mp mesh: a column
+        # target's B by its output dim, a row target's A by its input
+        # dim (each shard's delta then joins its partial sum)
+        kind = (getattr(inner, "_mp_kind", None) if hasattr(inner, "qweight")
+                else getattr(inner, "_KIND", None))
+        if kind == "column":
+            self.lora_b.dist_attr = (None, None, "mp")
+        elif kind == "row":
+            self.lora_a.dist_attr = (None, "mp", None)
 
     def forward(self, x):
         y = self.inner(x)

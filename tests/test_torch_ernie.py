@@ -347,16 +347,13 @@ def test_head_first_step_grads_match_jax(head):
 
 
 def test_unported_strategy_raises():
-    st = DistributedStrategy()
-    st.hybrid_configs = dict(st.hybrid_configs, mp_degree=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        fleet.init(strategy=st, devices=["cpu"])
-    st = DistributedStrategy()
-    st.sharding = True
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        fleet.init(strategy=st, devices=["cpu"])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        DistributedStrategy(pipeline_configs={})
+    for knob in ("localsgd", "dgc"):
+        st = DistributedStrategy()
+        setattr(st, knob, True)
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            fleet.init(strategy=st, devices=["cpu"])
+    with pytest.raises(NotImplementedError, match="not a knob"):
+        DistributedStrategy(fuse_all_reduce_ops=True)
 
 
 def test_training_without_keys_raises():

@@ -877,9 +877,10 @@ def test_chip_smoke_sharded_phase_on_cpu(monkeypatch):
     gate but the launch counts and the card-only kernel and
     ``quantized_psum`` timings): mp=2, mp=2 x dp=2 and the int8 wire on
     graphs and eager with their ledgers against the ring model, warm =
-    cold and speculative = plain at mp=2, ``generate`` per mesh; then
-    the MoE phase's serve run and the ep=2 run with its routing EQUAL
-    to ep=1's; and the phase argument."""
+    cold and speculative = plain at mp=2, ``generate`` per mesh, LoRA and
+    int8 activations at mp=2 against their one-device runs; then the MoE
+    phase's serve run and the ep=2 run with its routing EQUAL to ep=1's;
+    and the phase argument."""
     import os
 
     monkeypatch.syspath_prepend(os.path.dirname(os.path.dirname(
@@ -913,7 +914,8 @@ def test_chip_smoke_sharded_phase_on_cpu(monkeypatch):
             model, cpu, "cpu", prompt_lens=(20, 9, 3, 12, 5, 7, 2, 1),
             max_new=6, spec_lens=(16, 12, 9, 8, 6, 5, 4, 3))
         assert {"mp2", "mp2dp2", "mp2 int8-wire", "prefix warm",
-                "spec ngram", "generate mp2"} <= set(runs)
+                "spec ngram", "generate mp2", "lora mp2",
+                "int8 mp2"} <= set(runs)
         moe = chip_smoke.moe_phase(
             cpu, "cpu", config=MoEConfig(num_experts=4, **GPT_DIMS),
             dtype=torch.float32, prompt_lens=(20, 9, 3, 12, 5, 7, 2, 1),
