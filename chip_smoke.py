@@ -2,7 +2,7 @@
 """Drive the PyTorch port (``paddle_infer_tpu_torch``) on one NVIDIA card.
 
     python3 chip_smoke.py [kernels] [serve] [legacy] [sharded] [gpt] [moe]
-                          [train] [hapi] [moe_train] [mesh_train]
+                          [train] [hapi] [moe_train] [mesh_train] [dist]
 
 With no argument every phase runs (the driver's run).  Named phases
 run alone, after card and build: ``kernels`` is phase 3, ``serve``
@@ -11,8 +11,8 @@ its own ragged serve run), ``sharded`` phase 9s (always on its own
 4-layer LLaMA-7B, with its own one-device serve run to compare against,
 and the ep run (d) after the MoE phase's serve run (a)), ``gpt`` 10,
 ``moe`` 10a, ``train`` 11 and 11.5, ``hapi`` 11.6, ``moe_train``
-11.7, ``mesh_train`` 11.8; the kernels line (12) needs ``kernels`` and
-``train``.
+11.7, ``mesh_train`` 11.8, ``dist`` 11.9; the kernels line (12) needs
+``kernels`` and ``train``.  ``--help`` prints this.
 
 Phases, in order; any failed check raises and the script exits non-zero.
 Every serving and training step runs as a replay of one CUDA graph per
@@ -24,10 +24,11 @@ per replay, so the launch checks stay exact.
 
 1. card — name and power limit (``nvidia-smi``), TF32 off for matmul
    and cuDNN;
-2. build — the CUDA kernels (one ``nvcc`` per source, in parallel) and
-   the native KV block pool, from the checkout's sources; ptxas's
-   registers and spills per kernel, and the decode / verify split
-   (``kSplitPages``);
+2. build — the CUDA kernels (every translation unit of ``ops/_build.py``
+   ``PARTS`` in its own ``nvcc``, all at once, each one's seconds
+   printed) and the native KV block pool, from the checkout's sources,
+   while the serve model is built; ptxas's registers and spills per
+   kernel, and the decode / verify split (``kSplitPages``);
 3. kernels — every kernel against its plain PyTorch version at the
    serving shapes (B=8, H=32, D=128, page 16, 128 pages per row,
    contexts over 1..2048; the ragged kernel at C=512 with decode, chunk
@@ -177,7 +178,13 @@ per replay, so the launch checks stay exact.
    hop from ``prefill0`` to ``decode1``, the ``router`` / ``fleet``
    sections and ``router_*`` families, no capture after warm-up, the
    kernels once per layer per replica step, ``/admin/drain`` answering
-   the summed counts and ``/admin/resume`` serving again;
+   the summed counts and ``/admin/resume`` serving again.  The first
+   server is launched (the model saved) before phase 8a and loads its
+   weights and runs its warm-up step (about 12 s) while 8a's first runs
+   go; each later server loads while the one before it serves its
+   round.  So 8a's first park / resume walls and each server round's
+   TTFT, tokens/s, step p50, planner error and body latency are taken
+   beside another process's weight upload and warm-up on the same card;
 8d. sched — the SLO scheduler in process on the same model: one seeded
    bursty trace of the default tenants (``tools/loadgen.py``, seed 0,
    6 s at 6 requests/s, burstiness 4, vocab 32000: more new tokens a
@@ -399,6 +406,24 @@ per replay, so the launch checks stay exact.
    D=64, causal bf16) within 2e-2 of unsplit ``sdpa``, Ulysses' flash
    kernels once per shard; (e) ``gpt-moe-6.7b-8e`` x1 at ep=2, its first
    step within the O2 limits of ep=1, then 2 + 5 graph steps;
+11.9. dist — ``distributed/`` and the meta-optimizers on one card: (a)
+   LocalSGD, ERNIE-3.0-base pretraining 32 x 512, dropout 0.1, O2,
+   AdamW, dp=2 replicas on the card, ``k_steps`` 4, 2 + 8 graph steps
+   then 3 eager steps on the same keys (EQUAL; replicas EQUAL after
+   each sync step and apart between; one capture; flash kernels once
+   per layer per replica); (b) DGC on the same model, Momentum 0.9,
+   sparsity 0.999, rampup 1 (graph EQUAL eager; the 30.72 M-element
+   word embedding's ``dgc_compress`` on the card EQUAL to the CPU's);
+   (c) the mesh_train cell's step at dp=2 x mp=2 saved after 2 steps
+   and loaded into itself, a dp=4 step and a one-device step (state
+   EQUAL; the next 2 losses without dropout EQUAL to the uninterrupted
+   dp=2 x mp=2 run's on the same mesh, within the O2 limit on the
+   others); (d) a 4,194,304 x 64 fp32 sparse table over 4
+   shards, 20 pushes of 65,536 Zipf(1.1) ids, adagrad and adam (EQUAL
+   to one shard and across two runs); (e) ``launch.spawn`` of two gloo
+   ranks on the card running the reference's MLP dp job (EQUAL ranks,
+   within 1e-5 of one process over 8 devices) and an
+   ``ElasticLauncher`` relaunch after exit 101;
 12. the kernels line (one JSON object; every kernel's launches summed
     over the runs in ``launches_by_run``, those of phases 9a–9c and the
     sharded runs' per-shard launches among them; its records at the
@@ -419,6 +444,7 @@ import re
 import statistics
 import subprocess
 import sys
+import threading
 import time
 import warnings
 
@@ -2701,11 +2727,11 @@ def stop_server(proc):
         proc.wait(timeout=60)
 
 
-def start_server(model_dir, log_path, *args):
-    """``python -m paddle_infer_tpu_torch.tools.serve`` over ``model_dir``
-    on the card, on a free port, its output to ``log_path``.  Returns
-    ``(url, process, seconds until /health answered)``; stops it and
-    raises if it exits or never answers."""
+def launch_server(model_dir, log_path, *args):
+    """Start ``python -m paddle_infer_tpu_torch.tools.serve`` over
+    ``model_dir`` on the card, on a free port, its output to
+    ``log_path``, and return at once: a handle for ``await_server``, so
+    the server loads its model while the caller works."""
     import os
     import socket
 
@@ -2716,23 +2742,32 @@ def start_server(model_dir, log_path, *args):
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join(
         p for p in (root, env.get("PYTHONPATH")) if p)
+    t0 = time.perf_counter()
     with open(log_path, "w") as log:
         proc = subprocess.Popen(
             [sys.executable, "-m", "paddle_infer_tpu_torch.tools.serve",
              "--model_dir", model_dir, "--port", str(port), *args],
             cwd=root, env=env, stdout=log, stderr=subprocess.STDOUT)
-    url = f"http://127.0.0.1:{port}"
-    t0 = time.perf_counter()
-    while time.perf_counter() - t0 < HTTP_WAIT_S and proc.poll() is None:
+    return {"url": f"http://127.0.0.1:{port}", "proc": proc, "t0": t0,
+            "log": log_path}
+
+
+def await_server(handle):
+    """Wait for a launched server's ``/health``.  Returns ``(url,
+    process, seconds from its launch until /health answered)``; stops
+    it and raises if it exits or never answers."""
+    url, proc = handle["url"], handle["proc"]
+    while time.perf_counter() - handle["t0"] < HTTP_WAIT_S \
+            and proc.poll() is None:
         try:
             if _http(url, "/health", timeout=5)[0] == 200:
-                return url, proc, time.perf_counter() - t0
+                return url, proc, time.perf_counter() - handle["t0"]
         except OSError:
             pass
-        time.sleep(0.5)
+        time.sleep(0.25)
     stop_server(proc)
     raise AssertionError(f"server did not come up (exit "
-                         f"{proc.returncode}):\n{_tail(log_path)}")
+                         f"{proc.returncode}):\n{_tail(handle['log'])}")
 
 
 def _generate_posts(url, prompts, max_new, rids=None):
@@ -2865,8 +2900,42 @@ def _step_count(snap):
     return sum(by.get(k, 0) for k in STEP_KINDS)
 
 
+def http_launch(model, server_args=HTTP_ARGS):
+    """Save the serve model with ``save_pretrained`` into a temporary
+    directory and launch the http phase's first server over it, so its
+    model load overlaps the phases before ``http_phase``; returns what
+    ``http_phase(pre=...)`` takes."""
+    import os
+    import shutil
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="pit_http_")
+    d = os.path.join(tmp, "model")
+    free_gb = shutil.disk_usage(tmp).free / 1e9
+    t0 = time.perf_counter()
+    model.save_pretrained(d)
+    save_s = time.perf_counter() - t0
+    nbytes = os.path.getsize(os.path.join(d, "model.pits"))
+    print(f"[http] save_pretrained {nbytes / 1e9:.3f} GB in "
+          f"{save_s:.2f}s ({free_gb:.0f} GB free in the temporary "
+          "directory before)", flush=True)
+    log_path = os.path.join(tmp, "server.log")
+    return {"tmp": tmp, "d": d, "save_s": save_s, "log": log_path,
+            "handle": launch_server(d, log_path, *server_args)}
+
+
+def http_release(pre):
+    """Stop ``http_launch``'s server if it still runs and remove its
+    directory."""
+    import shutil
+
+    if pre["handle"]["proc"].poll() is None:
+        stop_server(pre["handle"]["proc"])
+    shutil.rmtree(pre["tmp"], ignore_errors=True)
+
+
 def http_phase(model, device, card, prompt_lens=PROMPT_LENS,
-               max_new=MAX_NEW, server_args=HTTP_ARGS):
+               max_new=MAX_NEW, server_args=HTTP_ARGS, pre=None):
     """The port's entry point as a user starts it: the serve model saved
     with ``save_pretrained`` into a temporary directory, served by
     ``python -m paddle_infer_tpu_torch.tools.serve`` on the card (its own
@@ -2880,175 +2949,211 @@ def http_phase(model, device, card, prompt_lens=PROMPT_LENS,
     no capture followed the server's warm-up step, and ``/metrics``
     scraped through the ``/generate`` round left no failed step, failed
     request, replay or restart.  Returns the launches and the numbers."""
+    L = model.config.num_hidden_layers
+    pre = pre or http_launch(model, server_args)
+    # each server loads its model while other work runs: the first while
+    # the phases before this one and the in-process reference run serve,
+    # the next three each while the server before them answers (two
+    # servers at most, each about 13.5 GB of weights beside the
+    # in-process model's)
+    launched = [pre["handle"]["proc"]]
+
+    def launch(handle):
+        launched.append(handle["proc"])
+        return handle
+
+    try:
+        return _http_servers(model, device, card, pre, prompt_lens, max_new,
+                             server_args, L, launch)
+    finally:
+        for proc in launched:
+            if proc.poll() is None:
+                stop_server(proc)
+        http_release(pre)
+
+
+def _http_servers(model, device, card, pre, prompt_lens, max_new,
+                  server_args, L, launch):
+    """``http_phase``'s four servers over ``pre``'s saved directory, the
+    first already launched, the others each launched through ``launch``
+    before the work it overlaps."""
     import os
-    import shutil
-    import tempfile
 
     from paddle_infer_tpu_torch.observability import (family_names,
                                                       validate_exposition)
     from paddle_infer_tpu_torch.serving import adapter_layer_spec
 
-    L = model.config.num_hidden_layers
+    d, tmp, save_s, log_path = pre["d"], pre["tmp"], pre["save_s"], \
+        pre["log"]
+    pending = pre["handle"]
+    t0 = time.perf_counter()
     ref = serve(model, device, prompt_lens=prompt_lens, max_new=max_new,
                 sampled=())
+    ref_s = time.perf_counter() - t0
     prompts = ref["prompts"]
-    with tempfile.TemporaryDirectory() as tmp:
-        d = os.path.join(tmp, "model")
-        free_gb = shutil.disk_usage(tmp).free / 1e9
-        t0 = time.perf_counter()
-        model.save_pretrained(d)
-        save_s = time.perf_counter() - t0
-        nbytes = os.path.getsize(os.path.join(d, "model.pits"))
-        print(f"[http] save_pretrained {nbytes / 1e9:.3f} GB in "
-              f"{save_s:.2f}s ({free_gb:.0f} GB free in the temporary "
-              "directory before)", flush=True)
-        log_path = os.path.join(tmp, "server.log")
-        url, proc, up_s = start_server(d, log_path, *server_args)
-        try:
-            log = _tail(log_path)
-            load = re.search(r"loaded \S+ in ([0-9.]+)s", log)
-            warm = re.search(r"warm-up step ([0-9.]+)s before listening "
-                             r"\(step watchdog ([0-9.]+)s\)", log)
-            if warm is None:
-                raise AssertionError(f"http: no warm-up line in the "
-                                     f"server's log:\n{log}")
-            warm_s, watchdog_s = float(warm.group(1)), float(warm.group(2))
-            print(f"[http] server answered /health {up_s:.1f}s after its "
-                  f"start (load_pretrained "
-                  f"{load.group(1) if load else '?'}s, warm-up step "
-                  f"{warm_s:.3f}s before listening)", flush=True)
-            before = _http_json(url, "/metrics")
-            # the round runs under a scraper, as a Prometheus server
-            # polling on its own schedule would: no step may fail
-            (gen, gen_s), scrapes = _scraped(
-                url, lambda: _generate_posts(url, prompts, max_new))
-            ttft_first = _http_json(url, "/metrics")["ttft_s"]["p50_recent"]
-            for i, (a, b) in enumerate(zip(gen, ref["streams"])):
-                if a != b:
-                    raise AssertionError(
-                        f"http: /generate of prompt {i} differs from the "
-                        f"in-process run:\n{a}\n{b}")
-            streams, rids = _stream_posts(url, prompts, max_new)
-            ttft_second = float(np.median([_trace_ttft(url, r)
-                                           for r in rids]))
-            for i, (a, b) in enumerate(zip(streams, gen)):
-                if a != b:
-                    raise AssertionError(
-                        f"http: /generate_stream of prompt {i} does not "
-                        f"concatenate to /generate:\n{a}\n{b}")
-            after = _http_json(url, "/metrics")
-            code, hdrs, raw = _http(url, "/metrics", accept="text/plain")
-            text = raw.decode()
-            fams = family_names(text)
-            bad = validate_exposition(text)
-            if code != 200 or bad:
-                raise AssertionError(f"http: exposition {code}: {bad[:5]}")
-            for prefix in ("sched_", "steplog_"):
-                if not any(f.startswith(prefix) for f in fams):
-                    raise AssertionError(f"http: no {prefix}* family")
-            recs = [r for r in _http_json(url, "/steps?limit=4096")["steps"]
-                    if r["kind"] in STEP_KINDS]
-            if not recs or any(r["planned_tokens"] < 1
-                               or r["planned_chunk_cap"] < 1 for r in recs):
-                raise AssertionError("http: step records without the "
-                                     "planner's fields")
-            predicted = [r for r in recs if r["predicted_wall_s"] > 0]
-            if not predicted:
-                raise AssertionError("http: no step record carries a "
-                                     "predicted wall")
-            steps = _step_count(after) - _step_count(before)
-            launches = {n: after["kernel_launches"][n]
-                        - before["kernel_launches"][n]
-                        for n in ("paged_decode", "ragged_paged_attention")}
-            counted = {"steps": steps, "launches": launches}
-            _check_decode_launches(counted, L, "http (server process)")
-            _check_ragged_launches(counted, L, "http (server process)")
-            res, comp = after["resilience"], after["compile"]
-            if res["watchdog_trips"] or comp["post_warmup_decode_compiles"]:
+    url, proc, up_s = await_server(pending)
+    struct_log = os.path.join(tmp, "server-structured.log")
+    nxt = launch(launch_server(d, struct_log,
+                               *structured_server_args(server_args)))
+    try:
+        log = _tail(log_path)
+        load = re.search(r"loaded \S+ in ([0-9.]+)s", log)
+        warm = re.search(r"warm-up step ([0-9.]+)s before listening "
+                         r"\(step watchdog ([0-9.]+)s\)", log)
+        if warm is None:
+            raise AssertionError(f"http: no warm-up line in the "
+                                 f"server's log:\n{log}")
+        warm_s, watchdog_s = float(warm.group(1)), float(warm.group(2))
+        print(f"[http] server answered /health {up_s:.1f}s after its "
+              f"launch (load_pretrained "
+              f"{load.group(1) if load else '?'}s, warm-up step "
+              f"{warm_s:.3f}s before listening; launched before phase 8a, "
+              f"the in-process reference run {ref_s:.1f}s)", flush=True)
+        before = _http_json(url, "/metrics")
+        # the round runs under a scraper, as a Prometheus server
+        # polling on its own schedule would: no step may fail
+        (gen, gen_s), scrapes = _scraped(
+            url, lambda: _generate_posts(url, prompts, max_new))
+        ttft_first = _http_json(url, "/metrics")["ttft_s"]["p50_recent"]
+        for i, (a, b) in enumerate(zip(gen, ref["streams"])):
+            if a != b:
                 raise AssertionError(
-                    f"http: watchdog_trips {res['watchdog_trips']}, "
-                    f"post-warm-up captures "
-                    f"{comp['post_warmup_decode_compiles']}")
-            faults = {"failed requests": after["counters"]["failed"],
-                      "failed steps": sum(
-                          r["failed"] for r in _http_json(
-                              url, "/steps?limit=4096")["steps"]),
-                      "replays": res["request_retries"],
-                      "restarts": res["engine_restarts"],
-                      "loop exceptions": res["loop_exceptions"]}
-            if any(faults.values()):
-                raise AssertionError(f"http: after the scraped round "
-                                     f"{faults}")
-            # the reference's health, drain and resume codes
-            want = [("/healthz", None, 200), ("/readyz", None, 200),
-                    ("/admin/drain", {}, 200), ("/readyz", None, 503),
-                    ("/healthz", None, 200), ("/generate",
-                                              {"ids": [[1, 2, 3]],
-                                               "max_new_tokens": 2}, 503),
-                    ("/admin/resume", {}, 200), ("/readyz", None, 200)]
-            got = []
-            for path, body, _ in want:
-                c, h, _ = _http(url, path, body)
-                got.append(c)
-                if c == 503 and int(h.get("Retry-After", 0)) < 1:
-                    raise AssertionError(f"http: {path} 503 without "
-                                         "Retry-After")
-            if got != [c for _, _, c in want]:
-                raise AssertionError(f"http: health / drain / resume "
-                                     f"codes {got}")
-            gen_tokens = sum(len(t) for t in gen)
-            pred = np.asarray([r["predicted_wall_s"] for r in predicted])
-            wall = np.asarray([r["wall_s"] for r in predicted])
-            out = {
-                "save_s": save_s, "up_s": up_s, "gen_s": gen_s,
-                "steps": steps, "launches": launches,
-                "ttft_p50_s": after["ttft_s"]["p50_recent"],
-                "ttft_p50_first_round_s": ttft_first,
-                "ttft_p50_second_round_s": ttft_second,
-                "warm_up_s": warm_s, "watchdog_s": watchdog_s,
-                "first_step_s": recs[0]["wall_s"], "scrapes": scrapes,
-                "step_p50_ms": after["decode_step_ms"]["p50_recent"],
-                "tokens_per_s": gen_tokens / gen_s,
-                "server_tokens_per_s": after["tokens_per_second"],
-                "planner_err": float(np.median(np.abs(pred - wall) / wall)),
-                "captures": comp["compile_count"]}
-            print(f"[http] {card}: /generate of {len(gen)} prompts EQUAL "
-                  f"to the in-process run, /generate_stream EQUAL; steps="
-                  f"{steps} generate_wall_s={gen_s:.3f} tokens_per_s="
-                  f"{out['tokens_per_s']:.2f} (server's 30 s window "
-                  f"{out['server_tokens_per_s']:.2f}) ttft_p50_s="
-                  f"{out['ttft_p50_s']:.4f} (/generate round "
-                  f"{ttft_first:.4f}, streams round {ttft_second:.4f}) "
-                  f"warm_up_step_s={warm_s:.3f} first_served_step_s="
-                  f"{out['first_step_s']:.3f} (step watchdog "
-                  f"{watchdog_s:.1f}s) metrics_scrapes={scrapes} "
-                  f"failed=0 replays=0 step_p50_ms="
-                  f"{out['step_p50_ms']:.2f} launches={launches} "
-                  f"captures={out['captures']} watchdog_trips=0 "
-                  f"post_warmup_captures=0 health/drain/resume {got} "
-                  f"families={len(fams)} planner |pred-wall|/wall p50 "
-                  f"{out['planner_err']:.4f} over {len(predicted)} steps",
-                  flush=True)
-        except BaseException:
-            print(f"[http] server log:\n{_tail(log_path)}", flush=True)
-            raise
-        finally:
-            stop_server(proc)
-        out["structured"] = structured_server_run(
-            d, os.path.join(tmp, "server-structured.log"), server_args,
-            model.config.vocab_size, card)
-        out["lora"] = lora_server_run(
-            d, os.path.join(tmp, "server-lora.log"),
-            os.path.join(tmp, "adapters"), server_args,
-            adapter_layer_spec(model), model.config.vocab_size, card)
-        out["fleet"] = fleet_server_run(
-            d, os.path.join(tmp, "server-fleet.log"), server_args, prompts,
-            max_new, ref["streams"], L, card)
-        return out
+                    f"http: /generate of prompt {i} differs from the "
+                    f"in-process run:\n{a}\n{b}")
+        streams, rids = _stream_posts(url, prompts, max_new)
+        ttft_second = float(np.median([_trace_ttft(url, r)
+                                       for r in rids]))
+        for i, (a, b) in enumerate(zip(streams, gen)):
+            if a != b:
+                raise AssertionError(
+                    f"http: /generate_stream of prompt {i} does not "
+                    f"concatenate to /generate:\n{a}\n{b}")
+        after = _http_json(url, "/metrics")
+        code, hdrs, raw = _http(url, "/metrics", accept="text/plain")
+        text = raw.decode()
+        fams = family_names(text)
+        bad = validate_exposition(text)
+        if code != 200 or bad:
+            raise AssertionError(f"http: exposition {code}: {bad[:5]}")
+        for prefix in ("sched_", "steplog_"):
+            if not any(f.startswith(prefix) for f in fams):
+                raise AssertionError(f"http: no {prefix}* family")
+        recs = [r for r in _http_json(url, "/steps?limit=4096")["steps"]
+                if r["kind"] in STEP_KINDS]
+        if not recs or any(r["planned_tokens"] < 1
+                           or r["planned_chunk_cap"] < 1 for r in recs):
+            raise AssertionError("http: step records without the "
+                                 "planner's fields")
+        predicted = [r for r in recs if r["predicted_wall_s"] > 0]
+        if not predicted:
+            raise AssertionError("http: no step record carries a "
+                                 "predicted wall")
+        steps = _step_count(after) - _step_count(before)
+        launches = {n: after["kernel_launches"][n]
+                    - before["kernel_launches"][n]
+                    for n in ("paged_decode", "ragged_paged_attention")}
+        counted = {"steps": steps, "launches": launches}
+        _check_decode_launches(counted, L, "http (server process)")
+        _check_ragged_launches(counted, L, "http (server process)")
+        res, comp = after["resilience"], after["compile"]
+        if res["watchdog_trips"] or comp["post_warmup_decode_compiles"]:
+            raise AssertionError(
+                f"http: watchdog_trips {res['watchdog_trips']}, "
+                f"post-warm-up captures "
+                f"{comp['post_warmup_decode_compiles']}")
+        faults = {"failed requests": after["counters"]["failed"],
+                  "failed steps": sum(
+                      r["failed"] for r in _http_json(
+                          url, "/steps?limit=4096")["steps"]),
+                  "replays": res["request_retries"],
+                  "restarts": res["engine_restarts"],
+                  "loop exceptions": res["loop_exceptions"]}
+        if any(faults.values()):
+            raise AssertionError(f"http: after the scraped round "
+                                 f"{faults}")
+        # the reference's health, drain and resume codes
+        want = [("/healthz", None, 200), ("/readyz", None, 200),
+                ("/admin/drain", {}, 200), ("/readyz", None, 503),
+                ("/healthz", None, 200), ("/generate",
+                                          {"ids": [[1, 2, 3]],
+                                           "max_new_tokens": 2}, 503),
+                ("/admin/resume", {}, 200), ("/readyz", None, 200)]
+        got = []
+        for path, body, _ in want:
+            c, h, _ = _http(url, path, body)
+            got.append(c)
+            if c == 503 and int(h.get("Retry-After", 0)) < 1:
+                raise AssertionError(f"http: {path} 503 without "
+                                     "Retry-After")
+        if got != [c for _, _, c in want]:
+            raise AssertionError(f"http: health / drain / resume "
+                                 f"codes {got}")
+        gen_tokens = sum(len(t) for t in gen)
+        pred = np.asarray([r["predicted_wall_s"] for r in predicted])
+        wall = np.asarray([r["wall_s"] for r in predicted])
+        out = {
+            "save_s": save_s, "up_s": up_s, "gen_s": gen_s,
+            "steps": steps, "launches": launches,
+            "ttft_p50_s": after["ttft_s"]["p50_recent"],
+            "ttft_p50_first_round_s": ttft_first,
+            "ttft_p50_second_round_s": ttft_second,
+            "warm_up_s": warm_s, "watchdog_s": watchdog_s,
+            "first_step_s": recs[0]["wall_s"], "scrapes": scrapes,
+            "step_p50_ms": after["decode_step_ms"]["p50_recent"],
+            "tokens_per_s": gen_tokens / gen_s,
+            "server_tokens_per_s": after["tokens_per_second"],
+            "planner_err": float(np.median(np.abs(pred - wall) / wall)),
+            "captures": comp["compile_count"]}
+        print(f"[http] {card}: /generate of {len(gen)} prompts EQUAL "
+              f"to the in-process run, /generate_stream EQUAL; steps="
+              f"{steps} generate_wall_s={gen_s:.3f} tokens_per_s="
+              f"{out['tokens_per_s']:.2f} (server's 30 s window "
+              f"{out['server_tokens_per_s']:.2f}) ttft_p50_s="
+              f"{out['ttft_p50_s']:.4f} (/generate round "
+              f"{ttft_first:.4f}, streams round {ttft_second:.4f}) "
+              f"warm_up_step_s={warm_s:.3f} first_served_step_s="
+              f"{out['first_step_s']:.3f} (step watchdog "
+              f"{watchdog_s:.1f}s) metrics_scrapes={scrapes} "
+              f"failed=0 replays=0 step_p50_ms="
+              f"{out['step_p50_ms']:.2f} launches={launches} "
+              f"captures={out['captures']} watchdog_trips=0 "
+              f"post_warmup_captures=0 health/drain/resume {got} "
+              f"families={len(fams)} planner |pred-wall|/wall p50 "
+              f"{out['planner_err']:.4f} over {len(predicted)} steps",
+              flush=True)
+    except BaseException:
+        print(f"[http] server log:\n{_tail(log_path)}", flush=True)
+        raise
+    finally:
+        stop_server(proc)
+    spec = adapter_layer_spec(model)
+    lora_dir = os.path.join(tmp, "adapters")
+    lora_log = os.path.join(tmp, "server-lora.log")
+    lora_handle, made = lora_server_launch(d, lora_log, lora_dir,
+                                           server_args, spec)
+    launch(lora_handle)
+    out["structured"] = structured_server_run(
+        d, struct_log, server_args, model.config.vocab_size, card,
+        pending=nxt)
+    fleet_log = os.path.join(tmp, "server-fleet.log")
+    fleet_next = launch(launch_server(d, fleet_log,
+                                      *fleet_server_args(server_args)))
+    out["lora"] = lora_server_run(
+        d, lora_log, lora_dir, server_args, spec, model.config.vocab_size,
+        card, pending=(lora_handle, made))
+    out["fleet"] = fleet_server_run(
+        d, fleet_log, server_args, prompts, max_new, ref["streams"], L,
+        card, pending=fleet_next)
+    return out
+
+
+def structured_server_args(server_args):
+    return (*server_args, "--kv_host_pages", str(TIER_HOST_PAGES),
+            "--structured")
 
 
 def structured_server_run(model_dir, log_path, server_args, vocab_size,
-                          card):
+                          card, pending=None):
     """The same directory served again with ``--kv_host_pages
     TIER_HOST_PAGES --structured``: a tool-call grammar body answered
     with tokens that decode (demo vocabulary) into conforming text, a
@@ -3063,9 +3168,8 @@ def structured_server_run(model_dir, log_path, server_args, vocab_size,
                                                            default_vocab)
     from paddle_infer_tpu_torch.tools.loadgen import TOOL_CALL_GRAMMAR
 
-    url, proc, up_s = start_server(
-        model_dir, log_path, *server_args, "--kv_host_pages",
-        str(TIER_HOST_PAGES), "--structured")
+    url, proc, up_s = await_server(pending or launch_server(
+        model_dir, log_path, *structured_server_args(server_args)))
     try:
         vocab = default_vocab(vocab_size)
         prompt = serve_prompts(vocab_size)[3]
@@ -3544,8 +3648,13 @@ def fleet_phase(model, device, card, serve_st, prefix_cold, server=None):
         free_memory()
 
 
+def fleet_server_args(server_args):
+    return (*server_args, "--fleet_roles", "prefill,decode",
+            "--enable_prefix_cache")
+
+
 def fleet_server_run(model_dir, log_path, server_args, prompts, max_new,
-                     want, L, card):
+                     want, L, card, pending=None):
     """The same directory served with ``--fleet_roles prefill,decode
     --enable_prefix_cache``: the serve prompts posted greedy, one body
     each, EQUAL to ``want`` (the in-process single core's greedy run);
@@ -3558,9 +3667,8 @@ def fleet_server_run(model_dir, log_path, server_args, prompts, max_new,
     from paddle_infer_tpu_torch.observability import (family_names,
                                                       validate_exposition)
 
-    url, proc, up_s = start_server(
-        model_dir, log_path, *server_args, "--fleet_roles", "prefill,decode",
-        "--enable_prefix_cache")
+    url, proc, up_s = await_server(pending or launch_server(
+        model_dir, log_path, *fleet_server_args(server_args)))
     try:
         before = _http_json(url, "/metrics")
         rids = [None] * len(prompts)
@@ -4203,20 +4311,12 @@ def adapters_phase(model, device, card, bf16_serve):
     return runs
 
 
-def lora_server_run(model_dir, log_path, adapter_dir, server_args, spec,
-                    vocab_size, card):
-    """The same directory served with ``--weight_only int8 --adapter_dir``
-    (the 4 adapters of ``LORA_SERVER_IDS``, written as ``.npz``
-    checkpoints here): a body bound to ``l0`` answered (its tokens
-    checked in process by ``weight_only_phase``), its id echoed, an
-    unknown id answered 400 with ``UnknownAdapterError``, and
-    ``/metrics`` carrying the ``weight_only`` and ``adapters`` sections
-    and their families (valid exposition).  Returns what the in-process
-    check needs."""
+def lora_server_launch(model_dir, log_path, adapter_dir, server_args,
+                       spec):
+    """Write the ``.npz`` adapters of ``LORA_SERVER_IDS`` into
+    ``adapter_dir`` and launch the LoRA server over them; returns
+    ``(handle, made)``."""
     import os
-
-    from paddle_infer_tpu_torch.observability import (family_names,
-                                                      validate_exposition)
 
     made = lora_adapters(spec, LORA_SERVER_IDS, 300)
     os.makedirs(adapter_dir, exist_ok=True)
@@ -4225,10 +4325,30 @@ def lora_server_run(model_dir, log_path, adapter_dir, server_args, spec,
                  scale=np.float32(sc),
                  **{f"{p}.{k}": v for p, (a, b) in f.items()
                     for k, v in (("a", a), ("b", b))})
-    url, proc, up_s = start_server(
+    return launch_server(
         model_dir, log_path, *server_args, "--weight_only", "int8",
         "--adapter_dir", adapter_dir, "--adapter_rank", str(LORA_RANK),
-        "--adapter_slots", str(LORA_SLOTS))
+        "--adapter_slots", str(LORA_SLOTS)), made
+
+
+def lora_server_run(model_dir, log_path, adapter_dir, server_args, spec,
+                    vocab_size, card, pending=None):
+    """The same directory served with ``--weight_only int8 --adapter_dir``
+    (the 4 adapters of ``LORA_SERVER_IDS``, written as ``.npz``
+    checkpoints here): a body bound to ``l0`` answered (its tokens
+    checked in process by ``weight_only_phase``), its id echoed, an
+    unknown id answered 400 with ``UnknownAdapterError``, and
+    ``/metrics`` carrying the ``weight_only`` and ``adapters`` sections
+    and their families (valid exposition).  Returns what the in-process
+    check needs."""
+    from paddle_infer_tpu_torch.observability import (family_names,
+                                                      validate_exposition)
+
+    if pending is None:
+        pending = lora_server_launch(model_dir, log_path, adapter_dir,
+                                     server_args, spec)
+    handle, made = pending
+    url, proc, up_s = await_server(handle)
     try:
         prompt = serve_prompts(vocab_size)[LORA_SERVER_PROMPT]
         t0 = time.perf_counter()
@@ -7472,6 +7592,21 @@ def profile_hapi(hm, batches, steps=2):
     return dict(prof, split_ms=med)
 
 
+def prestart_loader_server():
+    """Start the fork server that phase 11.6's ``DataLoader`` workers
+    fork from (this process holds a CUDA context, so the loader uses
+    ``forkserver``), with the loader's own preload: the server imports
+    torch and the port once, now, while the kernels build."""
+    import multiprocessing as mp
+    from multiprocessing import forkserver
+
+    from paddle_infer_tpu_torch.io import worker
+
+    mp.get_context("forkserver").set_forkserver_preload(
+        ["__main__", worker.__name__])
+    forkserver.ensure_running()
+
+
 def hapi_phase(device, card, cfg=None, train_rows=HAPI_TRAIN_ROWS,
                eval_rows=HAPI_EVAL_ROWS, batch=HAPI_BATCH, seq=HAPI_SEQ,
                epochs=HAPI_EPOCHS, workers=HAPI_WORKERS,
@@ -8348,10 +8483,658 @@ def mesh_train_phase(device, card):
     return {"kernels": fres, "launches": launches}
 
 
+# ------------------------------------------------------ phase 11.9: dist
+
+DIST_BATCH, DIST_SEQ = 32, 512        # (a)-(c): the ERNIE-3.0-base cell
+DIST_WARMUP, DIST_STEPS, DIST_EAGER = 2, 8, 3
+DIST_K = 4                            # (a) LocalSGD's k_steps
+DIST_RESUMED = 2                      # (c): steps after the save, per layout
+DGC_SPARSITY, DGC_RAMPUP = 0.999, 1   # (b)
+DGC_EMBED = "ernie.embeddings.word_embeddings.weight"
+TABLE_ROWS, TABLE_DIM, TABLE_SHARDS = 4_194_304, 64, 4    # (d): 1 GiB
+TABLE_PUSHES, TABLE_IDS, TABLE_ZIPF = 20, 65_536, 1.1
+DIST_MLP_BATCHES = 3                  # (e): the reference's MLP dp job
+
+
+def _replica_params_equal(step):
+    ps = step.replica_params
+    import torch
+
+    return all(torch.equal(ps[0][n], p[n]) for p in ps[1:] for n in ps[0])
+
+
+def _clone_tree(tree):
+    if isinstance(tree, dict):
+        return {k: _clone_tree(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_clone_tree(v) for v in tree]
+    return tree.detach().clone()
+
+
+def _copy_tree(dst, src):
+    import torch
+
+    with torch.no_grad():
+        if isinstance(dst, dict):
+            for k in dst:
+                _copy_tree(dst[k], src[k])
+        elif isinstance(dst, list):
+            for a, b in zip(dst, src):
+                _copy_tree(a, b)
+        else:
+            dst.copy_(src)
+
+
+def _trees_equal(a, b):
+    import torch
+
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(_trees_equal(a[k], b[k])
+                                            for k in a)
+    if isinstance(a, list):
+        return len(a) == len(b) and all(_trees_equal(x, y)
+                                        for x, y in zip(a, b))
+    return torch.equal(a, b)
+
+
+def _meta_run(step, data, state, n_steps, warmup, k=None, on_step=None):
+    """``n_steps`` of a meta-optimizer step from ``state`` (its tensors
+    copied in place, the key stream and step count reset); returns the
+    losses, the host walls, the flash launches after warm-up and what
+    ``on_step`` recorded."""
+    import torch
+
+    from paddle_infer_tpu_torch.observability import get_compile_log
+
+    tensors, key = state
+    _copy_tree(step._dist_tensors(), tensors)
+    step.keys.key = key.clone()
+    step._step_count = 0
+    log = get_compile_log()
+    log.reset()
+    losses, ms, seen, t0 = [], [], [], None
+    for i in range(n_steps):
+        if i == warmup:
+            t0 = _flash_launches()
+        _sync(step.device)
+        t = time.perf_counter()
+        loss = step(*data)
+        _sync(step.device)
+        ms.append((time.perf_counter() - t) * 1e3)
+        losses.append(float(loss))
+        if on_step is not None:
+            seen.append(on_step(i))
+    return {"losses": losses, "ms": ms, "seen": seen,
+            "launches": _flash_launches(t0) if t0 is not None else
+            {n: 0 for n in ("flash_fwd", "flash_dkdv", "flash_dq")},
+            "captures": len(log.events("train-step")),
+            "post_warm": log.summary()["post_warmup_compiles"]}
+
+
+def dist_localsgd(device, card, cfg, batch=DIST_BATCH, seq=DIST_SEQ,
+                  warmup=DIST_WARMUP, steps=DIST_STEPS,
+                  eager_steps=DIST_EAGER, k=DIST_K, launches_per_step=None):
+    """(a) LocalSGD over dp=2 replicas on ``device`` repeated, ERNIE
+    pretraining (masked LM + NSP), dropout 0.1, O2 bf16, AdamW,
+    ``k_steps`` 4: ``warmup`` + ``steps`` graph steps, then
+    ``eager_steps`` eager steps from the same state and keys.  Raises
+    unless the eager losses and replicas EQUAL the graph run's, the
+    replicas are EQUAL after each sync step and apart between, one
+    capture and none after warm-up, and each flash kernel ran once per
+    layer per replica a step."""
+    import torch
+
+    from paddle_infer_tpu_torch.models.ernie import ErnieForPretraining
+    from paddle_infer_tpu_torch.optimizer import AdamW
+    from paddle_infer_tpu_torch.parallel import LocalSGDTrainStep
+
+    cuda = device.type == "cuda"
+    L = cfg.num_hidden_layers
+    data = [torch.from_numpy(a).to(device)
+            for a in pretrain_batch(cfg.vocab_size, batch, seq)]
+    model = ErnieForPretraining(cfg, device=device, seed=0)
+    model.train()
+    st = _mesh_init(device, 2, amp=True, dp_degree=2)
+    step = LocalSGDTrainStep(model, _pretrain_loss, AdamW(
+        learning_rate=1e-4, weight_decay=0.01,
+        apply_decay_param_fun=no_decay), strategy=st, k_steps=k)
+    step._dist_tensors = lambda: [step.replica_params, step.replica_state]
+    model.keys.seed(3)
+    state = (_clone_tree(step._dist_tensors()), model.keys.key.clone())
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    kept = {}
+
+    def seen(i):
+        if i + 1 == eager_steps:
+            kept["graph"] = _clone_tree(step.replica_params)
+        return _replica_params_equal(step)
+
+    g = _meta_run(step, data, state, warmup + steps, warmup, on_step=seen)
+    peak = torch.cuda.max_memory_allocated() / 1e9 if cuda else 0.0
+    step.release_graphs()
+    with eager():
+        e = _meta_run(step, data, state, eager_steps, eager_steps)
+    same = (g["losses"][:eager_steps] == e["losses"]
+            and _trees_equal(kept["graph"], step.replica_params))
+    syncs = [i for i in range(warmup + steps) if (i + 1) % k == 0]
+    equal_ok = all(g["seen"][i] == (i in syncs)
+                   for i in range(warmup + steps))
+    sync_ms = [g["ms"][i] for i in syncs if i >= warmup]
+    local_ms = [g["ms"][i] for i in range(warmup, warmup + steps)
+                if i not in syncs]
+    per = launches_per_step if launches_per_step is not None else (
+        2 * L if cuda else 0)
+    print(f"[dist a] LocalSGD ernie dp=2 replicas on one card ({card}) "
+          f"{batch}x{seq} O2 bf16 AdamW dropout 0.1 k_steps={k}: "
+          f"local_step_ms_p50={np.median(local_ms):.2f} sync_step_ms_p50="
+          f"{np.median(sync_ms):.2f} (host clock, the card synchronized; "
+          f"{len(local_ms)} local, {len(sync_ms)} sync steps) losses "
+          + " ".join(f"{x:.4f}" for x in g["losses"])
+          + f" replicas_equal_by_step={g['seen']} graph_vs_eager_equal="
+          f"{same} (first {eager_steps} steps) captures={g['captures']} "
+          f"post_warmup={g['post_warm']} flash launches a step "
+          f"{ {n: v / steps for n, v in g['launches'].items()} } "
+          f"({L} layers x 2 replicas) peak_gb={peak:.2f}", flush=True)
+    if not same:
+        raise AssertionError("dist a: graph run differs from eager")
+    if not equal_ok:
+        raise AssertionError(f"dist a: replicas equal by step {g['seen']}, "
+                             f"want equal exactly after steps {syncs}")
+    if g["captures"] != 1 or g["post_warm"]:
+        raise AssertionError(f"dist a: {g['captures']} captures, "
+                             f"{g['post_warm']} after warm-up")
+    if not all(np.isfinite(g["losses"])):
+        raise AssertionError(f"dist a: losses {g['losses']}")
+    _check_flash_launches("dist a", g["launches"], steps, _per_step(per))
+    launches = {n: v + e["launches"][n] for n, v in g["launches"].items()}
+    del step, model, state, kept
+    free_memory()
+    return {"local_ms_p50": float(np.median(local_ms)),
+            "sync_ms_p50": float(np.median(sync_ms)), "peak_gb": peak,
+            "launches": launches}
+
+
+def dist_dgc(device, card, cfg, batch=DIST_BATCH, seq=DIST_SEQ,
+             warmup=DIST_WARMUP, steps=DIST_STEPS, eager_steps=DIST_EAGER,
+             launches_per_step=None):
+    """(b) DGC over dp=2 replicas, the same model, Momentum 0.9,
+    sparsity 0.999, rampup_begin_step 1: ``warmup`` + ``steps`` graph
+    steps, then ``eager_steps`` eager ones from the same state and keys,
+    EQUAL; the word embedding's ``dgc_compress`` on the card EQUAL to
+    the same function on the CPU on the same tensors (its 30.72 M
+    elements are past ``torch.quantile``'s 2**24)."""
+    import torch
+
+    from paddle_infer_tpu_torch.core.random import fold_in
+    from paddle_infer_tpu_torch.models.ernie import ErnieForPretraining
+    from paddle_infer_tpu_torch.parallel import DGCTrainStep
+    from paddle_infer_tpu_torch.parallel.meta_optimizers import (
+        dgc_compress, dgc_threshold)
+
+    cuda = device.type == "cuda"
+    L = cfg.num_hidden_layers
+    data = [torch.from_numpy(a).to(device)
+            for a in pretrain_batch(cfg.vocab_size, batch, seq)]
+    model = ErnieForPretraining(cfg, device=device, seed=0)
+    model.train()
+    st = _mesh_init(device, 2, amp=True, dp_degree=2)
+    step = DGCTrainStep(model, _pretrain_loss, learning_rate=1e-3,
+                        momentum=0.9, sparsity=DGC_SPARSITY,
+                        rampup_begin_step=DGC_RAMPUP, strategy=st)
+    step._dist_tensors = lambda: [step.params, step.residuals]
+    model.keys.seed(4)
+    state = (_clone_tree(step._dist_tensors()), model.keys.key.clone())
+    kept = {}
+
+    def seen(i):
+        if i + 1 == eager_steps:
+            kept["graph"] = _clone_tree(step._dist_tensors())
+        return step.last_sent_fraction
+
+    g = _meta_run(step, data, state, warmup + steps, warmup, on_step=seen)
+    step.release_graphs()
+    with eager():
+        e = _meta_run(step, data, state, eager_steps, eager_steps)
+        same = (g["losses"][:eager_steps] == e["losses"]
+                and _trees_equal(kept["graph"], step._dist_tensors()))
+        # the threshold alone: every tensor of both replicas, one step's
+        v = step.residuals["v"]
+        flats = [v[n][r].abs().reshape(-1) for n in v for r in range(2)]
+        thr_ms = _ms(device, lambda: [dgc_threshold(f, DGC_SPARSITY)
+                                      for f in flats], reps=3)
+        del flats
+        # the word embedding's compression on the card and on the CPU
+        name = DGC_EMBED
+        _, grads = step._replica_grads(
+            step.params, fold_in(step.keys.key.to(device), 0),
+            step._rows(data, 0))
+        gv = grads[name].float()
+        u, w = step.residuals["u"][name][0], v[name][0]
+        dev_out = dgc_compress(gv, u, w, 0.9, DGC_SPARSITY)
+        cpu_out = dgc_compress(gv.cpu(), u.cpu(), w.cpu(), 0.9, DGC_SPARSITY)
+        mask_equal = all(torch.equal(a.cpu(), b)
+                         for a, b in zip(dev_out, cpu_out))
+        n_embed = gv.numel()
+        del grads, gv, dev_out, cpu_out
+    per = launches_per_step if launches_per_step is not None else (
+        2 * L if cuda else 0)
+    print(f"[dist b] DGC ernie dp=2 replicas on one card ({card}) "
+          f"{batch}x{seq} O2 bf16 Momentum 0.9 sparsity {DGC_SPARSITY} "
+          f"rampup_begin_step {DGC_RAMPUP}: step_ms_p50="
+          f"{np.median(g['ms'][warmup:]):.2f} (host clock) threshold_ms="
+          f"{thr_ms:.3f} a step (every tensor's quantile, both replicas, "
+          f"eager) sent_fraction by step "
+          + " ".join(f"{x:.5f}" for x in g["seen"])
+          + " losses " + " ".join(f"{x:.4f}" for x in g["losses"])
+          + f" graph_vs_eager_equal={same} captures={g['captures']} "
+          f"post_warmup={g['post_warm']} word-embedding dgc_compress card "
+          f"EQUAL cpu={mask_equal} ({n_embed} elements, 2**24="
+          f"{2 ** 24})", flush=True)
+    if not same:
+        raise AssertionError("dist b: graph run differs from eager")
+    if not mask_equal:
+        raise AssertionError("dist b: the embedding's dgc_compress on the "
+                             "card differs from the CPU's")
+    if g["captures"] != 1 or g["post_warm"]:
+        raise AssertionError(f"dist b: {g['captures']} captures, "
+                             f"{g['post_warm']} after warm-up")
+    if not (all(np.isfinite(g["losses"])) and g["seen"][0] == 1.0
+            and max(g["seen"][DGC_RAMPUP:]) < 0.01):
+        raise AssertionError(f"dist b: losses {g['losses']} sent "
+                             f"{g['seen']}")
+    _check_flash_launches("dist b", g["launches"], steps, _per_step(per))
+    launches = {n: v + e["launches"][n] for n, v in g["launches"].items()}
+    del step, model, state, kept
+    free_memory()
+    return {"step_ms_p50": float(np.median(g["ms"][warmup:])),
+            "threshold_ms": thr_ms, "sent": g["seen"][-1],
+            "launches": launches}
+
+
+def _train_state(step):
+    return {"params": dict(step.params), "opt": step.opt_state}
+
+
+def dist_checkpoint(device, card, cfg, batch=DIST_BATCH, seq=DIST_SEQ,
+                    resumed=DIST_RESUMED):
+    """(c) The mesh_train cell's step (ERNIE, dp=2 x mp=2, O2, AdamW)
+    after 2 steps: ``save_train_state``, then ``resumed`` more steps
+    uninterrupted, and ``load_train_state`` into the same step, a dp=4
+    step and a one-device step, each stepped ``resumed`` times from the
+    loaded state.  Raises unless every parameter and slot is EQUAL to
+    the saved state, the same-mesh losses EQUAL to the uninterrupted
+    ones, and the other layouts' losses EQUAL to them or within the O2
+    limit ``O2_LOSS_TOL`` (mesh_train (a)'s parity limit: their
+    products split otherwise, so their bits may differ).  The steps
+    after the save run without dropout (eval mode), since each layout
+    offsets the dropout seed by its own shards; every loss after the
+    first reads an update made from the loaded slots and step count
+    (eager steps throughout)."""
+    import os
+    import tempfile
+
+    import torch
+
+    from paddle_infer_tpu_torch.distributed.checkpoint import (
+        load_train_state, save_train_state)
+
+    data = [torch.from_numpy(a).to(device)
+            for a in pretrain_batch(cfg.vocab_size, batch, seq)]
+
+    def losses(step):
+        step.model.eval()
+        return [float(step(*data)) for _ in range(resumed)]
+
+    def resume(step, ck):
+        t = time.perf_counter()
+        load_train_state(step, ck)
+        _sync(device)
+        return {"load_s": time.perf_counter() - t,
+                "equal": _trees_equal(_train_state(step), saved),
+                "loss": losses(step)}
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp, eager():
+        ck = os.path.join(tmp, "ck")
+        src = _pretrain_step(device, cfg, _mesh_init(
+            device, 4, amp=True, dp_degree=2, mp_degree=2))
+        src.model.train()
+        src.keys.seed(5)
+        for _ in range(2):
+            src(*data)
+        _sync(device)
+        t = time.perf_counter()
+        save_train_state(src, ck)
+        save_s = time.perf_counter() - t
+        gb = sum(os.path.getsize(os.path.join(ck, f))
+                 for f in os.listdir(ck)) / 1e9
+        saved = _clone_tree(_train_state(src))
+        want = losses(src)
+        out["dp2 x mp2"] = resume(src, ck)
+        del src
+        free_memory()
+        for tag, n, deg in (("dp4", 4, dict(dp_degree=4)),
+                            ("one device", 1, {})):
+            dst = _pretrain_step(device, cfg, _mesh_init(device, n, amp=True,
+                                                         **deg), seed=1)
+            out[tag] = resume(dst, ck)
+            del dst
+            free_memory()
+    for r in out.values():
+        r["rel"] = max(abs(a - b) / abs(b) for a, b in zip(r["loss"], want))
+    print(f"[dist c] ernie dp=2 x mp=2 O2 AdamW after 2 steps ({card}): "
+          f"save_train_state {gb:.3f} GB in {save_s:.2f}s; the "
+          f"uninterrupted dp2 x mp2 run's next {resumed} losses without "
+          f"dropout {', '.join(f'{v:.6f}' for v in want)}; "
+          + "; ".join(f"{tag}: load {r['load_s']:.2f}s, parameters and "
+                      f"slots EQUAL={r['equal']}, losses "
+                      f"{', '.join(f'{v:.6f}' for v in r['loss'])} EQUAL="
+                      f"{r['loss'] == want} rel={r['rel']:.3e}"
+                      for tag, r in out.items())
+          + f" (dp2 x mp2 must be EQUAL, the others within {O2_LOSS_TOL})",
+          flush=True)
+    bad = [tag for tag, r in out.items()
+           if not r["equal"] or not (
+               r["loss"] == want if tag == "dp2 x mp2"
+               else r["rel"] <= O2_LOSS_TOL)]
+    if bad:
+        raise AssertionError(f"dist c: resumed state or losses differ at "
+                             f"{bad}")
+    return {"gb": gb, "save_s": save_s,
+            "load_s": {tag: r["load_s"] for tag, r in out.items()},
+            "rel": {tag: r["rel"] for tag, r in out.items()}}
+
+
+def _table_state(t):
+    import torch
+
+    def whole(blocks):
+        return torch.cat(blocks)[:t.num_rows]
+
+    out = [whole(t.table)]
+    out += [whole(s) for s in (t.slot0, t.slot1) if s is not None]
+    return out
+
+
+def dist_table(device, card, rows=TABLE_ROWS, dim=TABLE_DIM,
+               shards=TABLE_SHARDS, pushes=TABLE_PUSHES, n_ids=TABLE_IDS):
+    """(d) The parameter server's table, ``rows`` x ``dim`` fp32 over
+    ``shards`` shards of the card, ``pushes`` pushes of ``n_ids``
+    Zipf(1.1) ids (duplicates abound), adagrad and adam.  Raises unless
+    the table and slots after the run are EQUAL to a one-shard table's
+    and two runs are EQUAL."""
+    import torch
+
+    from paddle_infer_tpu_torch.parallel import topology
+    from paddle_infer_tpu_torch.parallel.sparse_table import \
+        ShardedSparseTable
+
+    rng = np.random.RandomState(9)
+    batches = []
+    uniq = []
+    for _ in range(pushes):
+        ids = ((rng.zipf(TABLE_ZIPF, n_ids) - 1) % rows).astype(np.int64)
+        uniq.append(len(np.unique(ids)))
+        batches.append((torch.from_numpy(ids).to(device),
+                        torch.from_numpy(rng.randn(n_ids, dim).astype(
+                            np.float32)).to(device)))
+    mesh = topology.create_hybrid_mesh(sharding=shards,
+                                       devices=[device] * shards)
+    res = {}
+    for opt in ("adagrad", "adam"):
+        states, push_ms, pull_ms = [], [], []
+        for axis in ("sharding", "sharding", False):
+            t = ShardedSparseTable(rows, dim, optimizer=opt, lr=0.05, seed=3,
+                                   mesh=mesh, axis=axis)
+            for ids, g in batches:
+                _sync(device)
+                t0 = time.perf_counter()
+                t.push_sparse(ids, g)
+                _sync(device)
+                t1 = time.perf_counter()
+                t.pull_sparse(ids)
+                _sync(device)
+                if axis:
+                    push_ms.append((t1 - t0) * 1e3)
+                    pull_ms.append((time.perf_counter() - t1) * 1e3)
+            states.append(_table_state(t))
+            del t
+        twice = all(torch.equal(a, b) for a, b in zip(states[0], states[1]))
+        one = all(torch.equal(a, b) for a, b in zip(states[0], states[2]))
+        res[opt] = {"push_ms": float(np.median(push_ms)),
+                    "pull_ms": float(np.median(pull_ms)),
+                    "twice": twice, "one_shard": one}
+        del states
+        free_memory()
+    print(f"[dist d] sparse table {rows} x {dim} fp32 "
+          f"({rows * dim * 4 / 2 ** 30:.2f} GiB) over {shards} shards of "
+          f"one card ({card}), {pushes} pushes of {n_ids} Zipf"
+          f"({TABLE_ZIPF}) ids, unique ids a batch p50 "
+          f"{int(np.median(uniq))} (min {min(uniq)}): "
+          + "; ".join(f"{opt}: push_ms_p50={r['push_ms']:.3f} pull_ms_p50="
+                      f"{r['pull_ms']:.3f} (host clock, synchronized) two "
+                      f"runs EQUAL={r['twice']} EQUAL one shard="
+                      f"{r['one_shard']}" for opt, r in res.items()),
+          flush=True)
+    bad = [opt for opt, r in res.items()
+           if not (r["twice"] and r["one_shard"])]
+    if bad:
+        raise AssertionError(f"dist d: {bad} not EQUAL across runs / "
+                             "shard counts")
+    return {"unique_p50": int(np.median(uniq)), **res}
+
+
+def dist_mlp(state, device):
+    """The reference's ``tests/dist_worker.py`` MLP (16 -> 32 gelu ->
+    8) on ``device`` with the weights of ``state``."""
+    import torch
+
+    from paddle_infer_tpu_torch import nn as tnn
+    from paddle_infer_tpu_torch.core.random import KeyStream
+
+    class MLP(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.fc1 = tnn.Linear(16, 32, device=device)
+            self.fc2 = tnn.Linear(32, 8, device=device)
+            self.keys = KeyStream(0)
+
+        def forward(self, x):
+            return self.fc2(torch.nn.functional.gelu(self.fc1(x)))
+
+    m = MLP()
+    with torch.no_grad():
+        for n, p in m.named_parameters():
+            p.copy_(torch.from_numpy(state[n]))
+    m.requires_grad_(True)
+    return m
+
+
+def _mse(m, x, y):
+    d = m(x) - y
+    return (d * d).mean()
+
+
+def dist_mlp_job(state, batches, device, n_devices, local=None):
+    """Three AdamW steps at dp=8 through ``FleetTrainStep`` over
+    ``device`` repeated ``n_devices`` times (this process's share of a
+    job); returns the losses."""
+    import torch
+
+    from paddle_infer_tpu_torch.optimizer import AdamW
+    from paddle_infer_tpu_torch.parallel import (DistributedStrategy,
+                                                 FleetTrainStep, fleet)
+
+    model = dist_mlp(state, device)
+    st = DistributedStrategy()
+    st.hybrid_configs = dict(st.hybrid_configs, dp_degree=8)
+    fleet.init(strategy=st, devices=[device] * n_devices)
+    step = FleetTrainStep(model, _mse, AdamW(learning_rate=1e-2),
+                          strategy=st)
+    losses = []
+    for x, y in batches:
+        if local is not None:
+            x, y = x[local], y[local]
+        losses.append(float(step(torch.from_numpy(x).to(device),
+                                 torch.from_numpy(y).to(device))))
+    return losses
+
+
+def dist_rank_worker(out_dir, state, batches, device_name, t_launch):
+    """One rank of (e): joins the job over gloo on ``device_name``, feeds
+    its half of every batch, writes its losses and start latency."""
+    import os
+
+    started = time.time() - t_launch
+    import torch
+
+    from paddle_infer_tpu_torch.distributed import env
+
+    torch.set_num_threads(1)
+    backend = env.init_parallel_env(backend="gloo")
+    rank = env.get_rank()
+    device = torch.device(device_name)
+    losses = dist_mlp_job(state, batches, device, 4,
+                          local=slice(4 * rank, 4 * rank + 4))
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump({"losses": losses, "backend": backend,
+                   "start_s": started, "world": env.get_world_size()}, f)
+    env.shutdown()
+
+
+def dist_flaky_worker(out_dir):
+    """Exits 101 on its first attempt (a relaunch request)."""
+    import os
+
+    attempt = int(os.environ["PTI_ATTEMPT"])
+    with open(os.path.join(out_dir, f"attempt{attempt}"), "w") as f:
+        f.write(str(os.getpid()))
+    if attempt == 1:
+        sys.exit(101)
+
+
+def dist_processes(device, card):
+    """(e) ``launch.spawn`` of two ranks on the card over gloo (given
+    explicitly: NCCL refuses two ranks on one device) running the
+    reference's MLP dp job, each feeding half of every batch; then
+    ``ElasticLauncher`` relaunching a worker that exits 101.  Raises
+    unless both ranks' losses are EQUAL and within 1e-5 of one process
+    over the same global batch, and the job ends after 1 restart with a
+    new pid."""
+    import os
+    import socket
+    import tempfile
+
+    from paddle_infer_tpu_torch.distributed import launch
+    from paddle_infer_tpu_torch.distributed.elastic import (ElasticLauncher,
+                                                            resolve_start_method)
+
+    rng = np.random.RandomState(42)
+    state = {"fc1.weight": rng.randn(16, 32).astype(np.float32) * 0.25,
+             "fc1.bias": np.zeros(32, np.float32),
+             "fc2.weight": rng.randn(32, 8).astype(np.float32) * 0.18,
+             "fc2.bias": np.zeros(8, np.float32)}
+    rng = np.random.RandomState(7)
+    batches = [(rng.randn(8, 16).astype(np.float32),
+                rng.randn(8, 8).astype(np.float32))
+               for _ in range(DIST_MLP_BATCHES)]
+    single = dist_mlp_job(state, batches, device, 8)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    method = resolve_start_method(None)
+    elastic = {}
+
+    def relaunch(tmp):
+        t = time.perf_counter()
+        try:
+            elastic["stats"] = ElasticLauncher(nprocs=1, max_restarts=2).run(
+                dist_flaky_worker, (tmp,))
+        except BaseException as exc:     # raised below, on this thread
+            elastic["error"] = exc
+        elastic["s"] = time.perf_counter() - t
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # the elastic relaunch runs beside the two-rank job
+        watcher = threading.Thread(target=relaunch, args=(tmp,))
+        watcher.start()
+        t0 = time.perf_counter()
+        try:
+            launch.spawn(dist_rank_worker, (tmp, state, batches,
+                                            str(device), time.time()),
+                         nprocs=2, coordinator_port=port)
+        finally:
+            watcher.join()
+        job_s = time.perf_counter() - t0
+        if "error" in elastic:
+            raise elastic["error"]
+        stats, elastic_s = elastic["stats"], elastic["s"]
+        ranks = []
+        for r in (0, 1):
+            with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+    rel = max(abs(a - b) / abs(b) for a, b in zip(ranks[0]["losses"],
+                                                   single))
+    print(f"[dist e] two ranks on one card ({card}) over "
+          f"{ranks[0]['backend']} (world {ranks[0]['world']}): losses "
+          + " ".join(f"{x:.6f}" for x in ranks[0]["losses"])
+          + f" ranks EQUAL={ranks[0]['losses'] == ranks[1]['losses']}, "
+          f"one process over 8 devices "
+          + " ".join(f"{x:.6f}" for x in single)
+          + f" (max rel diff {rel:.2e}); process start "
+          + ", ".join(f"rank{i} {r['start_s']:.2f}s" for i, r in
+                      enumerate(ranks))
+          + f" (spawned, to its first line), job {job_s:.1f}s; elastic "
+          f"({method}, beside the job): restarts={stats['restarts']} pids "
+          f"{stats['pids'][0]} in {elastic_s:.1f}s", flush=True)
+    if ranks[0]["backend"] != "gloo" or \
+            ranks[0]["losses"] != ranks[1]["losses"] or rel > 1e-5:
+        raise AssertionError("dist e: ranks differ from each other or from "
+                             "one process")
+    pids = stats["pids"][0]
+    if stats["restarts"] != 1 or len(pids) != 2 or pids[0] == pids[1]:
+        raise AssertionError(f"dist e: elastic relaunch {stats}")
+    return {"start_s": [r["start_s"] for r in ranks], "job_s": job_s,
+            "elastic_s": elastic_s}
+
+
+def dist_phase(device, card, cfg=None, batch=DIST_BATCH, seq=DIST_SEQ,
+               steps=DIST_STEPS, table=None, launches_per_step=None):
+    """Phase 11.9: ``distributed/`` and the meta-optimizers, (a)-(e);
+    returns the flash launches of (a) and (b) and their numbers."""
+    from paddle_infer_tpu_torch.models.ernie import ErnieConfig
+
+    cfg = cfg or ErnieConfig.from_preset("ernie-3.0-base")
+    runs = {
+        "a": lambda: dist_localsgd(device, card, cfg, batch=batch, seq=seq,
+                                   steps=steps,
+                                   launches_per_step=launches_per_step),
+        "b": lambda: dist_dgc(device, card, cfg, batch=batch, seq=seq,
+                              steps=steps,
+                              launches_per_step=launches_per_step),
+        "c": lambda: dist_checkpoint(device, card, cfg, batch=batch,
+                                     seq=seq),
+        "d": lambda: dist_table(device, card, **(table or {})),
+        "e": lambda: dist_processes(device, card)}
+    out, secs = {}, {}
+    t0 = time.perf_counter()
+    for tag, run in runs.items():
+        t = time.perf_counter()
+        out[tag] = run()
+        secs[tag] = time.perf_counter() - t
+    print(f"[dist] (a)-(e) in {time.perf_counter() - t0:.1f}s: "
+          + ", ".join(f"({k}) {v:.1f}s" for k, v in secs.items()),
+          flush=True)
+    out["launches"] = {n: out["a"]["launches"][n] + out["b"]["launches"][n]
+                       for n in out["a"]["launches"]}
+    return out
+
+
 # ------------------------------------------------------------------ main
 
 PHASES = ("kernels", "serve", "legacy", "sharded", "gpt", "moe", "train",
-          "hapi", "moe_train", "mesh_train")
+          "hapi", "moe_train", "mesh_train", "dist")
 _RUN_T0 = [0.0]
 
 
@@ -8365,6 +9148,10 @@ def main(argv=None) -> int:
     import torch
 
     argv = sys.argv[1:] if argv is None else list(argv)
+    if "--help" in argv or "-h" in argv:
+        print(__doc__)
+        print(f"phases: {', '.join(PHASES)}")
+        return 0
     unknown = [a for a in argv if a not in PHASES + ("card", "build")]
     if unknown:
         print(f"chip_smoke: unknown phases {unknown}; choose from card, "
@@ -8398,12 +9185,32 @@ def main(argv=None) -> int:
           f"matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32} "
           f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}", flush=True)
 
-    # phase 2: build
+    if "hapi" in want:
+        prestart_loader_server()
+    # phase 2: build (every nvcc unit and the native pool at once), the
+    # serve model built meanwhile
+    import concurrent.futures
+
     t0 = time.perf_counter()
-    nvcc_s = _build.build(_build.sources())
-    native.build()
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        nvcc_job = pool.submit(_build.build, _build.sources())
+        native_job = pool.submit(native.build)
+        if want & {"serve", "legacy"}:
+            model = build_llama(device)
+            torch.cuda.synchronize()
+            print(f"[serve] llama-7b built in {time.perf_counter() - t0:.1f}s "
+                  f"(beside the kernels' build): hidden "
+                  f"{model.config.hidden_size}, layers "
+                  f"{model.config.num_hidden_layers}, params "
+                  f"{sum(p.numel() for p in model.parameters()) / 1e9:.2f}B "
+                  "bf16", flush=True)
+        nvcc_s = nvcc_job.result()
+        native_job.result()
     print(f"[build] kernels {nvcc_s:.1f}s, total "
-          f"{time.perf_counter() - t0:.1f}s", flush=True)
+          f"{time.perf_counter() - t0:.1f}s; nvcc processes (all at "
+          "once): " + ", ".join(f"{k} {v:.1f}s" for k, v in
+                                sorted(_build.BUILD_TIMES.items())),
+          flush=True)
     for src, log in _build.BUILD_LOG.items():
         print_ptxas(f"[build] {src}", log)
     print(f"[build] paged decode / verify: kSplitPages={PA.split_pages()}",
@@ -8421,15 +9228,6 @@ def main(argv=None) -> int:
                 prefill_case(case), tag="p").items()})
         check_chunk_independence(device)
         lap("kernels")
-    if want & {"serve", "legacy"}:
-        t0 = time.perf_counter()
-        model = build_llama(device)
-        torch.cuda.synchronize()
-        print(f"[serve] llama-7b built in {time.perf_counter() - t0:.1f}s: "
-              f"hidden {model.config.hidden_size}, layers "
-              f"{model.config.num_hidden_layers}, params "
-              f"{sum(p.numel() for p in model.parameters()) / 1e9:.2f}B "
-              "bf16", flush=True)
     stats = lora_http = None
     if "serve" in want:
         stats, lora_http = serve_phases(model, device, card, case, by_run)
@@ -8561,6 +9359,16 @@ def main(argv=None) -> int:
         del xres
         free_memory()
         lap("mesh_train (11.8)")
+    if "dist" in want:
+        # phase 11.9: distributed/ and the meta-optimizers (LocalSGD and
+        # DGC replicas on the card, checkpoint resharding, the sparse
+        # table, processes over gloo and the elastic relaunch)
+        dres = dist_phase(device, card)
+        for name, n in dres["launches"].items():
+            by_run[name]["dist"] = n
+        del dres
+        free_memory()
+        lap("dist (11.9)")
 
     # phase 12: the kernels line, the card line, the result line
     launches = {name: sum(runs.values()) for name, runs in by_run.items()}
@@ -8685,24 +9493,31 @@ def serve_phases(model, device, card, case, by_run):
     by_run["paged_verify"]["int8 spec"] = \
         iruns["spec"]["launches"]["paged_verify"]
 
-    # phase 8a: the host KV tier (parks, supervised allocation faults,
-    # demote / promote, swap faults); phase 8b: constrained decoding
-    tres = kv_tier_phase(model, device, card, stats, iruns["serve"],
-                         pruns["cold"])
-    lap("kv_tier (8a)")
-    gres = structured_phase(model, device, card, stats)
-    lap("structured (8b)")
-    for name in ("paged_decode", "ragged_paged_attention"):
-        by_run[name].update({tag: st["launches"][name]
-                             for tag, st in tres.items()})
-        by_run[name].update({f"structured {k}": st["launches"][name]
-                             for k, st in gres.items()})
-    by_run["paged_verify"]["structured spec"] = \
-        gres["b"]["launches"]["paged_verify"]
+    # phase 8c's first server loads the saved model in its own process
+    # while phases 8a and 8b run here
+    pre = http_launch(model)
+    try:
+        # phase 8a: the host KV tier (parks, supervised allocation faults,
+        # demote / promote, swap faults); phase 8b: constrained decoding
+        tres = kv_tier_phase(model, device, card, stats, iruns["serve"],
+                             pruns["cold"])
+        lap("kv_tier (8a)")
+        gres = structured_phase(model, device, card, stats)
+        lap("structured (8b)")
+        for name in ("paged_decode", "ragged_paged_attention"):
+            by_run[name].update({tag: st["launches"][name]
+                                 for tag, st in tres.items()})
+            by_run[name].update({f"structured {k}": st["launches"][name]
+                                 for k, st in gres.items()})
+        by_run["paged_verify"]["structured spec"] = \
+            gres["b"]["launches"]["paged_verify"]
 
-    # phase 8c: the HTTP front end over a save_pretrained directory, in
-    # its own process; phase 8d: the SLO scheduler under a replayed trace
-    hres = http_phase(model, device, card)
+        # phase 8c: the HTTP front end over a save_pretrained directory,
+        # in its own process; phase 8d: the SLO scheduler under a
+        # replayed trace
+        hres = http_phase(model, device, card, pre=pre)
+    finally:
+        http_release(pre)
     lap("http (8c)")
     sres = sched_phase(model, device, card)
     lap("sched (8d)")

@@ -1,12 +1,15 @@
-"""ctypes binding to the paged-KV block allocator (``native/kv_allocator.cc``).
+"""ctypes bindings to the paged-KV block allocator
+(``native/kv_allocator.cc``) and the multi-slot data feed
+(``native/datafeed.cc``).
 
-Port of the pool half of ``paddle_infer_tpu/native/__init__.py``
-(``KVBlockPool``, with the block-level operations the prefix cache
-uses).  The C++ source is shared with the JAX package and
-read as it is; this module compiles it alone (it needs only the C++
-standard library) with ``g++ -O3 -fPIC -shared -std=c++17`` into the
-port's git-ignored build directory at first use, so a clean checkout
-builds everything from the repository's sources.
+Port of ``paddle_infer_tpu/native/__init__.py``'s ``KVBlockPool`` (with
+the block-level operations the prefix cache uses) and
+``MultiSlotDataFeed`` (the parameter server's slot datasets,
+``distributed/compat.py``).  The C++ sources are shared with the JAX
+package and read as they are; this module compiles each alone (they
+need only the C++ standard library) with ``g++ -O3 -fPIC -shared
+-std=c++17`` into the port's git-ignored build directory at first use,
+so a clean checkout builds everything from the repository's sources.
 """
 from __future__ import annotations
 
@@ -23,33 +26,36 @@ _PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 _SOURCE = os.path.join(os.path.dirname(_PKG_DIR), "native", "kv_allocator.cc")
 _LIB_PATH = os.path.join(BUILD_DIR, "libkvpool.so")
+_FEED_SOURCE = os.path.join(os.path.dirname(_PKG_DIR), "native",
+                            "datafeed.cc")
+_FEED_LIB_PATH = os.path.join(BUILD_DIR, "libdatafeed.so")
 
 _lock = threading.Lock()
 _lib = None
 
 
-def build() -> str:
-    """Compile the allocator if the library is missing or older than its
-    source; returns the library path.  The compiler writes to a temporary
-    name that is renamed into place, so concurrent processes (test
-    workers) never load a half-written file."""
-    if (os.path.exists(_LIB_PATH)
-            and os.path.getmtime(_LIB_PATH) >= os.path.getmtime(_SOURCE)):
-        return _LIB_PATH
+def build(source: str = _SOURCE, lib_path: str = _LIB_PATH) -> str:
+    """Compile ``source`` (default: the allocator) if its library is
+    missing or older than it; returns the library path.  The compiler
+    writes to a temporary name that is renamed into place, so concurrent
+    processes (test workers) never load a half-written file."""
+    if (os.path.exists(lib_path)
+            and os.path.getmtime(lib_path) >= os.path.getmtime(source)):
+        return lib_path
     os.makedirs(BUILD_DIR, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
     try:
         subprocess.run(["g++", "-O3", "-fPIC", "-shared", "-std=c++17",
-                        "-o", tmp, _SOURCE],
+                        "-pthread", "-o", tmp, source],
                        check=True, capture_output=True, text=True)
-        os.replace(tmp, _LIB_PATH)
+        os.replace(tmp, lib_path)
     except subprocess.CalledProcessError as e:
-        raise RuntimeError(f"building {_SOURCE} failed:\n{e.stderr}") from e
+        raise RuntimeError(f"building {source} failed:\n{e.stderr}") from e
     finally:
         if os.path.exists(tmp):
             os.unlink(tmp)
-    return _LIB_PATH
+    return lib_path
 
 
 def _load():
@@ -201,3 +207,112 @@ class KVBlockPool:
     def __del__(self):
         if getattr(self, "_h", None):
             self.close()
+
+
+# ------------------------------------------------------------ data feed
+_feed_lib = None
+
+
+def _load_feed():
+    global _feed_lib
+    with _lock:
+        if _feed_lib is not None:
+            return _feed_lib
+        lib = ctypes.CDLL(build(_FEED_SOURCE, _FEED_LIB_PATH))
+        c = ctypes
+        sigs = {
+            "datafeed_create": ([c.POINTER(c.c_char_p), c.c_int32,
+                                 c.POINTER(c.c_uint8), c.c_int32, c.c_int32,
+                                 c.c_int32, c.c_int32, c.c_uint64,
+                                 c.POINTER(c.c_int32)], c.c_void_p),
+            "datafeed_destroy": ([c.c_void_p], None),
+            "datafeed_size": ([c.c_void_p], c.c_int64),
+            "datafeed_reset": ([c.c_void_p, c.c_uint64], None),
+            "datafeed_next": ([c.c_void_p], c.c_int32),
+            "datafeed_slot_len": ([c.c_void_p, c.c_int32], c.c_int64),
+            "datafeed_slot_float": ([c.c_void_p, c.c_int32],
+                                    c.POINTER(c.c_float)),
+            "datafeed_slot_int": ([c.c_void_p, c.c_int32],
+                                  c.POINTER(c.c_int64)),
+            "datafeed_slot_lod": ([c.c_void_p, c.c_int32],
+                                  c.POINTER(c.c_int64)),
+            "datafeed_slot_lod_len": ([c.c_void_p, c.c_int32], c.c_int64),
+        }
+        for name, (argtypes, restype) in sigs.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = restype
+        _feed_lib = lib
+        return lib
+
+
+class MultiSlotDataFeed:
+    """Threaded multi-slot text reader (the reference's
+    ``MultiSlotDataFeed``): each line holds one ``<n> v1 ... vn`` group
+    per slot.  ``slots`` is a list of ``(name, kind)``, kind ``"float"``
+    (dense values) or ``"int"`` (int64 ids); iterating yields dicts
+    ``name -> (values ndarray, lod ndarray[batch + 1])``."""
+
+    def __init__(self, files, slots, batch_size: int = 32,
+                 num_threads: int = 4, shuffle: bool = False, seed: int = 0):
+        lib = _load_feed()
+        self._lib = lib
+        self._slots = list(slots)
+        self._epoch = 0
+        self._seed = seed
+        self._iterating = False
+        arr = (ctypes.c_char_p * len(files))(
+            *[os.fsencode(f) for f in files])
+        flags = (ctypes.c_uint8 * len(slots))(
+            *[1 if kind == "float" else 0 for _, kind in slots])
+        err = ctypes.c_int32(0)
+        self._h = lib.datafeed_create(arr, len(files), flags, len(slots),
+                                      batch_size, num_threads,
+                                      1 if shuffle else 0, seed,
+                                      ctypes.byref(err))
+        if not self._h:
+            if err.value == 1:
+                raise FileNotFoundError(
+                    f"datafeed: cannot open one of {list(files)}")
+            raise ValueError("datafeed: malformed slot record")
+
+    def __len__(self):
+        return int(self._lib.datafeed_size(self._h))
+
+    def __iter__(self):
+        # one cursor per feed: two live iterators would interleave
+        if self._iterating:
+            raise RuntimeError(
+                "MultiSlotDataFeed supports one live iterator at a time; "
+                "finish (or discard) the previous epoch's iterator first")
+        self._iterating = True
+        try:
+            self._lib.datafeed_reset(self._h, self._seed + self._epoch)
+            self._epoch += 1
+            while True:
+                if self._lib.datafeed_next(self._h) <= 0:
+                    return
+                out = {}
+                for i, (name, kind) in enumerate(self._slots):
+                    ln = self._lib.datafeed_slot_len(self._h, i)
+                    if kind == "float":
+                        ptr = self._lib.datafeed_slot_float(self._h, i)
+                        vals = np.ctypeslib.as_array(ptr, (ln,)).copy() \
+                            if ln else np.empty((0,), np.float32)
+                    else:
+                        ptr = self._lib.datafeed_slot_int(self._h, i)
+                        vals = np.ctypeslib.as_array(ptr, (ln,)).copy() \
+                            if ln else np.empty((0,), np.int64)
+                    lod_len = self._lib.datafeed_slot_lod_len(self._h, i)
+                    lod_ptr = self._lib.datafeed_slot_lod(self._h, i)
+                    lod = np.ctypeslib.as_array(lod_ptr, (lod_len,)).copy()
+                    out[name] = (vals, lod)
+                yield out
+        finally:
+            self._iterating = False
+
+    def __del__(self):
+        h = getattr(self, "_h", None)
+        if h and getattr(self, "_lib", None) is not None:
+            self._lib.datafeed_destroy(h)
+            self._h = None

@@ -4,9 +4,12 @@ Route (b) of the Hopper guide: each ``csrc/*.cu`` source is compiled by
 ``nvcc`` alone into a shared library with a plain C interface, at first
 use, into the git-ignored ``_build/`` directory of the package, and
 loaded with ctypes (``c_void_p`` for every pointer and the stream).
-Sources build in parallel, one ``nvcc`` process each.  Nothing here
-runs at import: the CPU tests import every module on a machine with no
-``nvcc`` and no card.
+Every ``nvcc`` process starts at once: one per translation unit of
+every source (the same file compiled with each of its ``PARTS``' macros
+into an object), whose objects are then linked into the source's
+library.  ``BUILD_TIMES`` holds each process's wall seconds.  Nothing
+here runs at import: the CPU tests import every module on a machine
+with no ``nvcc`` and no card.
 
 Each C entry point launches on PyTorch's current stream, allocates
 nothing and returns ``cudaGetLastError()``; ``CudaKernel.__call__``
@@ -34,8 +37,21 @@ from ..native import BUILD_DIR
 
 _CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
-NVCC_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v"]
+NVCC_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+# each source's translation units: (part name, macros);
+# flash_attention.cu holds three kernel families in three dtypes, one
+# unit each, and a unit with its C entry points; paged_attention.cu one
+# unit per entry point, the ragged kernels split by query dtype
+PARTS = {
+    "flash_attention.cu": [
+        (f"{kind}_{dt}", [f"-DPIT_FLASH_KIND={k}", f"-DPIT_FLASH_DTYPE={d}"])
+        for k, kind in enumerate(("fwd", "dkdv", "dq"))
+        for d, dt in enumerate(("f32", "bf16", "f16"))] + [
+        ("entry", ["-DPIT_FLASH_ENTRY"])],
+    "paged_attention.cu": [
+        (name, [f"-DPIT_PAGED_PART={i}"])
+        for i, name in enumerate(("decode", "verify", "ragged_f32",
+                                  "ragged_bf16", "ragged_f16"))]}
 
 _lock = threading.Lock()
 # launch counts move under their own lock: a fleet's replicas launch and
@@ -45,6 +61,9 @@ _count_lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
 # ptxas register / shared-memory report per source, from the last build
 BUILD_LOG: Dict[str, str] = {}
+# wall seconds of each nvcc process of the last build, by source (and
+# ``source:part`` for a unit, ``source:link`` for its link)
+BUILD_TIMES: Dict[str, float] = {}
 # the launch tally of the graph being captured, if any: process-wide,
 # since a captured backward launches from autograd's device thread
 _tally = None
@@ -73,11 +92,33 @@ def _lib_path(source: str) -> str:
     return os.path.join(BUILD_DIR, f"lib{stem}.so")
 
 
+def _run(key, cmd, out):
+    """Run one nvcc command; ``out[key] = (returncode, log, seconds)``."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, stdout=subprocess.PIPE,
+                          stderr=subprocess.STDOUT, text=True)
+    out[key] = (proc.returncode, proc.stdout,
+                time.perf_counter() - t0)
+
+
+def _parallel(cmds):
+    """Run ``{key: cmd}`` all at once; returns ``{key: (rc, log, s)}``."""
+    out = {}
+    threads = [threading.Thread(target=_run, args=(k, c, out))
+               for k, c in cmds.items()]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    return out
+
+
 def build(sources: List[str]) -> float:
-    """Compile every stale source in parallel; returns wall seconds."""
+    """Compile every stale source, every unit of each at once, and link
+    each source's units into its library; returns wall seconds."""
     t0 = time.perf_counter()
     os.makedirs(BUILD_DIR, exist_ok=True)
-    jobs = []
+    jobs, cmds = [], {}
     for src in sources:
         path = os.path.join(_CSRC, src)
         out = _lib_path(src)
@@ -86,20 +127,40 @@ def build(sources: List[str]) -> float:
             continue
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
-        cmd = [_nvcc(), *ARCH_FLAGS, *NVCC_FLAGS, "-o", tmp, path]
-        jobs.append((src, tmp, out,
-                     subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                      stderr=subprocess.STDOUT, text=True)))
+        objs = []
+        for name, macros in PARTS[src]:
+            obj = f"{tmp}.{name}.o"
+            objs.append(obj)
+            cmds[f"{src}:{name}"] = [_nvcc(), *ARCH_FLAGS, *NVCC_FLAGS,
+                                     *macros, "-c", "-o", obj, path]
+        jobs.append((src, tmp, out, objs))
+    done = _parallel(cmds)
     errors = []
-    for src, tmp, out, proc in jobs:
-        log, _ = proc.communicate()
-        BUILD_LOG[src] = log
-        if proc.returncode == 0:
-            os.replace(tmp, out)
+    links = {}
+    for src, tmp, out, objs in jobs:
+        keys = [k for k in done if k.startswith(src + ":")]
+        BUILD_LOG[src] = "".join(done[k][1] for k in keys)
+        for k in keys:
+            BUILD_TIMES[k] = done[k][2]
+        bad = [k for k in keys if done[k][0] != 0]
+        if bad:
+            errors.append(f"nvcc {bad} failed:\n{BUILD_LOG[src]}")
         else:
-            errors.append(f"nvcc {src} failed:\n{log}")
-            if os.path.exists(tmp):
-                os.unlink(tmp)
+            links[src + ":link"] = [_nvcc(), *ARCH_FLAGS, "-shared", "-o",
+                                    tmp, *objs]
+    linked = _parallel(links)
+    for k, (rc, log, secs) in linked.items():
+        BUILD_TIMES[k] = secs
+        if rc != 0:
+            errors.append(f"nvcc link {k} failed:\n{log}")
+    for src, tmp, out, objs in jobs:
+        if not errors:
+            os.replace(tmp, out)
+        elif os.path.exists(tmp):
+            os.unlink(tmp)
+        for obj in objs:
+            if os.path.exists(obj):
+                os.unlink(obj)
     if errors:
         raise RuntimeError("\n".join(errors))
     return time.perf_counter() - t0

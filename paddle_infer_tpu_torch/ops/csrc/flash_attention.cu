@@ -1704,13 +1704,15 @@ static_assert(DkdvLayout<64>::kBytes <= 232448 / 2 &&
                   DqLayout<256>::kBytes <= 232448,
               "a 16-bit backward block exceeds its share of shared memory");
 
-// The tensor-core kernels of element type T; they read q, k, v (and dO)
-// through tensor maps.
-template <typename T, int D>
-int launch16(int kind, int bh_count, const Args& a, cudaStream_t stream) {
+// The tensor-core kernel of family Kind and element type T; it reads q,
+// k, v (and dO) through tensor maps.  One (Kind, dtype) family per
+// function, so that a translation unit instantiates only the kernels it
+// launches (see "Translation units" below).
+template <int Kind, typename T, int D>
+int launch16(int bh_count, const Args& a, cudaStream_t stream) {
   constexpr CUtensorMapDataType ty = Elem<T>::kMap;
   CUtensorMap m[4];
-  if (kind == kFwd) {
+  if constexpr (Kind == kFwd) {
     using L = FwdLayout<D>;
     if (!make_map(&m[0], ty, a.q, bh_count, a.sq, D, L::kM) ||
         !make_map(&m[1], ty, a.k, bh_count, a.sk, D, L::kN) ||
@@ -1719,63 +1721,63 @@ int launch16(int kind, int bh_count, const Args& a, cudaStream_t stream) {
     return launch_one<flash_fwd_kernel_16bit<T, D>>(
         dim3((a.sq + L::kM - 1) / L::kM, bh_count), L::kThreads, L::kBytes,
         stream, m[0], m[1], m[2], a);
+  } else {
+    if (!make_map(&m[0], ty, a.q, bh_count, a.sq, D, kWgRows) ||
+        !make_map(&m[1], ty, a.k, bh_count, a.sk, D, kWgRows) ||
+        !make_map(&m[2], ty, a.v, bh_count, a.sk, D, kWgRows) ||
+        !make_map(&m[3], ty, a.dout, bh_count, a.sq, D, kWgRows))
+      return static_cast<int>(cudaErrorInvalidValue);
+    if constexpr (Kind == kDkdv)
+      return launch_one<flash_dkdv_kernel_16bit<T, D>>(
+          dim3((a.sk + kWgRows - 1) / kWgRows, bh_count), dkdv_threads<D>(),
+          DkdvLayout<D>::kBytes, stream, m[0], m[1], m[2], m[3], a);
+    else
+      return launch_one<flash_dq_kernel_16bit<T, D>>(
+          dim3((a.sq + kWgRows - 1) / kWgRows, bh_count), 128 + kProducer,
+          DqLayout<D>::kBytes, stream, m[0], m[1], m[2], m[3], a);
   }
-  if (!make_map(&m[0], ty, a.q, bh_count, a.sq, D, kWgRows) ||
-      !make_map(&m[1], ty, a.k, bh_count, a.sk, D, kWgRows) ||
-      !make_map(&m[2], ty, a.v, bh_count, a.sk, D, kWgRows) ||
-      !make_map(&m[3], ty, a.dout, bh_count, a.sq, D, kWgRows))
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (kind == kDkdv)
-    return launch_one<flash_dkdv_kernel_16bit<T, D>>(
-        dim3((a.sk + kWgRows - 1) / kWgRows, bh_count), dkdv_threads<D>(),
-        DkdvLayout<D>::kBytes, stream, m[0], m[1], m[2], m[3], a);
-  if (kind == kDq)
-    return launch_one<flash_dq_kernel_16bit<T, D>>(
-        dim3((a.sq + kWgRows - 1) / kWgRows, bh_count), 128 + kProducer,
-        DqLayout<D>::kBytes, stream, m[0], m[1], m[2], m[3], a);
-  return static_cast<int>(cudaErrorInvalidValue);
 }
 
-template <int D>
-int launch(int dtype, int kind, int bh_count, const Args& a,
-           cudaStream_t stream) {
-  if (dtype == kBF16) {
-    return launch16<bf16, D>(kind, bh_count, a, stream);
-  } else if (dtype == kF16) {
-    return launch16<f16, D>(kind, bh_count, a, stream);
-  } else if (dtype == kF32) {
-    constexpr int T = f32_tile<D>();
-    const int tiles = kind == kDkdv ? (a.sk + T - 1) / T : (a.sq + T - 1) / T;
-    const dim3 grid(tiles, bh_count);
-    const int mats = kind == kFwd ? 3 : 4;
-    const int vecs = kind == kDkdv ? 3 : 1;  // lse, delta, seg / seg
-    const int score_tiles = kind == kDkdv ? 2 : 1;
-    const size_t smem = mats * T * (D + 1) * 4 +
-                        score_tiles * T * (T + 1) * 4 + vecs * T * 4;
-    switch (kind) {
-      case kFwd:
-        return launch_one<flash_fwd_kernel_f32<D, T>>(grid, 4 * T, smem,
-                                                      stream, a);
-      case kDkdv:
-        return launch_one<flash_dkdv_kernel_f32<D, T>>(grid, 4 * T, smem,
-                                                       stream, a);
-      case kDq:
-        return launch_one<flash_dq_kernel_f32<D, T>>(grid, 4 * T, smem,
-                                                     stream, a);
-    }
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
+template <int Kind, int D>
+int launch_f32(int bh_count, const Args& a, cudaStream_t stream) {
+  constexpr int T = f32_tile<D>();
+  const int tiles = Kind == kDkdv ? (a.sk + T - 1) / T : (a.sq + T - 1) / T;
+  const dim3 grid(tiles, bh_count);
+  constexpr int mats = Kind == kFwd ? 3 : 4;
+  constexpr int vecs = Kind == kDkdv ? 3 : 1;  // lse, delta, seg / seg
+  constexpr int score_tiles = Kind == kDkdv ? 2 : 1;
+  const size_t smem = mats * T * (D + 1) * 4 +
+                      score_tiles * T * (T + 1) * 4 + vecs * T * 4;
+  if constexpr (Kind == kFwd)
+    return launch_one<flash_fwd_kernel_f32<D, T>>(grid, 4 * T, smem, stream,
+                                                  a);
+  else if constexpr (Kind == kDkdv)
+    return launch_one<flash_dkdv_kernel_f32<D, T>>(grid, 4 * T, smem,
+                                                   stream, a);
+  else
+    return launch_one<flash_dq_kernel_f32<D, T>>(grid, 4 * T, smem, stream,
+                                                 a);
 }
 
-int dispatch(int dtype, int kind, int D, int bh_count, const Args& a,
-             void* stream) {
+// One family: kernel Kind at element type Dtype, every head dim.
+template <int Kind, int Dtype>
+int dispatch_family(int D, int bh_count, const Args& a, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bh_count < 1 || bh_count > 65535 || a.sq < 1 || a.sk < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   switch (D) {
-    case 64: return launch<64>(dtype, kind, bh_count, a, s);
-    case 128: return launch<128>(dtype, kind, bh_count, a, s);
-    case 256: return launch<256>(dtype, kind, bh_count, a, s);
+#define PIT_FLASH_HEAD(HD)                                   \
+  case HD:                                                   \
+    if constexpr (Dtype == kBF16)                            \
+      return launch16<Kind, bf16, HD>(bh_count, a, s);       \
+    else if constexpr (Dtype == kF16)                        \
+      return launch16<Kind, f16, HD>(bh_count, a, s);        \
+    else                                                     \
+      return launch_f32<Kind, HD>(bh_count, a, s);
+    PIT_FLASH_HEAD(64)
+    PIT_FLASH_HEAD(128)
+    PIT_FLASH_HEAD(256)
+#undef PIT_FLASH_HEAD
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -1803,6 +1805,57 @@ Args make_args(const void* q, const void* k, const void* v, const void* qseg,
 }
 
 }  // namespace
+
+// Translation units.  The build compiles this file as several units in
+// parallel (ops/_build.py, PARTS), linked into one library: with
+// -DPIT_FLASH_KIND=k -DPIT_FLASH_DTYPE=t a unit holds the one family
+// (kind k, dtype t) and exports it as pit_flash_part_<k>_<t>; with
+// -DPIT_FLASH_ENTRY the unit holds only the C entry points, which call
+// the families' exports by kind and dtype.
+#define PIT_FLASH_PART_NAME(K, T) pit_flash_part_##K##_##T
+#define PIT_FLASH_PART(K, T) PIT_FLASH_PART_NAME(K, T)
+
+#if defined(PIT_FLASH_KIND) && defined(PIT_FLASH_DTYPE)
+
+extern "C" int PIT_FLASH_PART(PIT_FLASH_KIND, PIT_FLASH_DTYPE)(
+    int D, int bh_count, const void* args, void* stream) {
+  return dispatch_family<PIT_FLASH_KIND, PIT_FLASH_DTYPE>(
+      D, bh_count, *static_cast<const Args*>(args), stream);
+}
+
+#elif defined(PIT_FLASH_ENTRY)
+
+typedef int (*Family)(int, int, const void*, void*);
+
+#define PIT_FLASH_DECL(K, T)                                          \
+  extern "C" int PIT_FLASH_PART_NAME(K, T)(int D, int bh_count,       \
+                                           const void* args, void* stream);
+PIT_FLASH_DECL(0, 0)
+PIT_FLASH_DECL(0, 1)
+PIT_FLASH_DECL(0, 2)
+PIT_FLASH_DECL(1, 0)
+PIT_FLASH_DECL(1, 1)
+PIT_FLASH_DECL(1, 2)
+PIT_FLASH_DECL(2, 0)
+PIT_FLASH_DECL(2, 1)
+PIT_FLASH_DECL(2, 2)
+#undef PIT_FLASH_DECL
+
+// [kind][dtype]
+static const Family kFamilies[3][3] = {
+    {PIT_FLASH_PART_NAME(0, 0), PIT_FLASH_PART_NAME(0, 1),
+     PIT_FLASH_PART_NAME(0, 2)},
+    {PIT_FLASH_PART_NAME(1, 0), PIT_FLASH_PART_NAME(1, 1),
+     PIT_FLASH_PART_NAME(1, 2)},
+    {PIT_FLASH_PART_NAME(2, 0), PIT_FLASH_PART_NAME(2, 1),
+     PIT_FLASH_PART_NAME(2, 2)}};
+
+static int dispatch(int dtype, int kind, int D, int bh_count, const Args& a,
+                    void* stream) {
+  if (kind < 0 || kind > 2 || dtype < 0 || dtype > 2)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return kFamilies[kind][dtype](D, bh_count, &a, stream);
+}
 
 extern "C" {
 
@@ -1854,3 +1907,7 @@ const char* pit_cuda_error_string(int err) {
 }
 
 }  // extern "C"
+
+#else
+#error "flash_attention.cu builds only as ops/_build.py's PARTS units"
+#endif  // a family's unit, or the entry points

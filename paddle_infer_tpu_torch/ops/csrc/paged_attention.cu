@@ -1731,21 +1731,51 @@ int launch_ragged(const void* q, const void* k, const void* v,
 
 // Dispatch on (q dtype, page dtype): float pages match q's dtype; int8
 // pages take any float q plus [P, H] f32 scale rows for K and V.
-#define PIT_DISPATCH(LAUNCH, ...)                                         \
-  switch (qdt * 4 + kvdt) {                                               \
+#define PIT_CASES_F32(LAUNCH, ...)                                        \
     case kF32 * 4 + kF32: return LAUNCH<float, float>(__VA_ARGS__);       \
+    case kF32 * 4 + kI8: return LAUNCH<float, int8_t>(__VA_ARGS__);
+#define PIT_CASES_BF16(LAUNCH, ...)                                       \
     case kBF16 * 4 + kBF16:                                               \
       return LAUNCH<__nv_bfloat16, __nv_bfloat16>(__VA_ARGS__);           \
-    case kF16 * 4 + kF16: return LAUNCH<__half, __half>(__VA_ARGS__);     \
-    case kF32 * 4 + kI8: return LAUNCH<float, int8_t>(__VA_ARGS__);       \
     case kBF16 * 4 + kI8:                                                 \
-      return LAUNCH<__nv_bfloat16, int8_t>(__VA_ARGS__);                  \
-    case kF16 * 4 + kI8: return LAUNCH<__half, int8_t>(__VA_ARGS__);      \
+      return LAUNCH<__nv_bfloat16, int8_t>(__VA_ARGS__);
+#define PIT_CASES_F16(LAUNCH, ...)                                        \
+    case kF16 * 4 + kF16: return LAUNCH<__half, __half>(__VA_ARGS__);     \
+    case kF16 * 4 + kI8: return LAUNCH<__half, int8_t>(__VA_ARGS__);
+#define PIT_DISPATCH(LAUNCH, ...)                                         \
+  switch (qdt * 4 + kvdt) {                                               \
+    PIT_CASES_F32(LAUNCH, __VA_ARGS__)                                    \
+    PIT_CASES_BF16(LAUNCH, __VA_ARGS__)                                   \
+    PIT_CASES_F16(LAUNCH, __VA_ARGS__)                                    \
     default: return static_cast<int>(cudaErrorInvalidValue);             \
   }
 
+// Translation units.  The build compiles this file as several units in
+// parallel (ops/_build.py, PARTS), linked into one library:
+// -DPIT_PAGED_PART=0 holds decode (and the helpers), 1 verify, 2 the
+// ragged entry with its float32-query kernels, 3 and 4 the ragged kernels
+// of bf16 and f16 queries, exported as pit_ragged_part_bf16 / _f16 for
+// unit 2 to call.
+#ifndef PIT_PAGED_PART
+#error "paged_attention.cu builds only as ops/_build.py's PARTS units"
+#endif
+#define PIT_PAGED_UNIT(N) (PIT_PAGED_PART == (N))
+
 extern "C" {
 
+#define PIT_RAGGED_ARGS                                                   \
+  int qdt, int kvdt, const void *q, const void *k, const void *v,         \
+      const void *ks, const void *vs, const void *tables, const void *ctx, \
+      const void *qlens, void *out, int B, int P, int C, int H, int D,    \
+      int page, int max_pages, float scale, void *stream
+#define PIT_RAGGED_PASS                                                   \
+  qdt, kvdt, q, k, v, ks, vs, tables, ctx, qlens, out, B, P, C, H, D, page, \
+      max_pages, scale, stream
+
+int pit_ragged_part_bf16(PIT_RAGGED_ARGS);
+int pit_ragged_part_f16(PIT_RAGGED_ARGS);
+
+#if PIT_PAGED_UNIT(0)
 // Pages per decode / verify split: the wrapper sizes the workspace
 // [rows, H, ceil(max_pages / this), D + 2] float32 from it.
 int pit_paged_split_pages() { return kSplitPages; }
@@ -1760,6 +1790,12 @@ int pit_paged_decode(int qdt, int kvdt, const void* q, const void* k,
                static_cast<cudaStream_t>(stream))
 }
 
+const char* pit_cuda_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+#endif
+
+#if PIT_PAGED_UNIT(1)
 int pit_paged_verify(int qdt, int kvdt, const void* q, const void* k,
                      const void* v, const void* ks, const void* vs,
                      const void* tables, const void* lengths, void* out,
@@ -1769,21 +1805,41 @@ int pit_paged_verify(int qdt, int kvdt, const void* q, const void* k,
                W, P, H, D, page, max_pages, scale,
                static_cast<cudaStream_t>(stream))
 }
+#endif
 
-int pit_ragged_paged_attention(int qdt, int kvdt, const void* q,
-                               const void* k, const void* v, const void* ks,
-                               const void* vs, const void* tables,
-                               const void* ctx, const void* qlens,
-                               void* out, int B, int P, int C, int H, int D,
-                               int page, int max_pages, float scale,
-                               void* stream) {
-  PIT_DISPATCH(launch_ragged, q, k, v, ks, vs, tables, ctx, qlens, out, B,
-               P, C, H, D, page, max_pages, scale,
-               static_cast<cudaStream_t>(stream))
+#if PIT_PAGED_UNIT(2)
+int pit_ragged_paged_attention(PIT_RAGGED_ARGS) {
+  if (qdt == kBF16) return pit_ragged_part_bf16(PIT_RAGGED_PASS);
+  if (qdt == kF16) return pit_ragged_part_f16(PIT_RAGGED_PASS);
+  switch (qdt * 4 + kvdt) {
+    PIT_CASES_F32(launch_ragged, q, k, v, ks, vs, tables, ctx, qlens,
+                  out, B, P, C, H, D, page, max_pages, scale,
+                  static_cast<cudaStream_t>(stream))
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
+#endif
 
-const char* pit_cuda_error_string(int err) {
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
+#if PIT_PAGED_UNIT(3)
+int pit_ragged_part_bf16(PIT_RAGGED_ARGS) {
+  switch (qdt * 4 + kvdt) {
+    PIT_CASES_BF16(launch_ragged, q, k, v, ks, vs, tables, ctx, qlens,
+                   out, B, P, C, H, D, page, max_pages, scale,
+                   static_cast<cudaStream_t>(stream))
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
+#endif
+
+#if PIT_PAGED_UNIT(4)
+int pit_ragged_part_f16(PIT_RAGGED_ARGS) {
+  switch (qdt * 4 + kvdt) {
+    PIT_CASES_F16(launch_ragged, q, k, v, ks, vs, tables, ctx, qlens,
+                  out, B, P, C, H, D, page, max_pages, scale,
+                  static_cast<cudaStream_t>(stream))
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+#endif
 
 }  // extern "C"

@@ -1,8 +1,8 @@
 """The hybrid-parallel layer of the port: topology and groups, the
 collectives on sharded values, the tensor-parallel layers, fleet and
 its train step, ZeRO, pipeline and sequence parallelism, MoE and the
-named RNG states (the reference's ``parallel/__init__.py`` names, less
-the ``distributed/`` meta-optimizers of ROADMAP.md step 5)."""
+named RNG states, and the data-parallel meta-optimizers (the
+reference's ``parallel/__init__.py`` names)."""
 from .topology import (CommunicateTopology, HybridCommunicateGroup,
                        create_hybrid_mesh, get_current_mesh,
                        get_hybrid_communicate_group, set_current_mesh,
@@ -12,6 +12,8 @@ from .collective import (Group, ReduceOp, all_gather, all_reduce, alltoall,
                          reduce_scatter)
 from . import fleet
 from .fleet import DistributedStrategy, FleetTrainStep
+from .meta_optimizers import (DGCTrainStep, LocalSGDTrainStep, dgc_compress,
+                              distributed_train_step)
 from .sharding import (DygraphShardingOptimizer, GroupShardedOptimizerStage2,
                        GroupShardedStage2, GroupShardedStage3,
                        group_sharded_parallel)
@@ -58,4 +60,6 @@ __all__ = [
     "MoELayer", "switch_gate", "gshard_gate", "naive_gate",
     "GroupShardedStage2", "GroupShardedStage3",
     "GroupShardedOptimizerStage2", "DygraphShardingOptimizer",
+    "LocalSGDTrainStep", "DGCTrainStep", "dgc_compress",
+    "distributed_train_step",
 ]

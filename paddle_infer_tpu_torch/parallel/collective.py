@@ -570,3 +570,41 @@ def mp_quant_matmul(x_parts, w_parts, block: Optional[int] = None):
     block = int(block) if block else _Q8_BLOCK
     partial = [torch.matmul(x, w) for x, w in zip(x_parts, w_parts)]
     return quantized_psum(partial, block)
+
+
+# ------------------------------------------- across processes
+
+def cross_process_mean(tensors):
+    """The mean of ``tensors`` over the processes of the job's process
+    group (``distributed.init_parallel_env``), in place, summed in rank
+    order, so every rank holds the same bits: one all-gather of the
+    flattened tensors (per dtype), then ``((t_0 + t_1) + ...) / world``.
+    Gloo gathers host copies; NCCL the device tensors.  A no-op without
+    a group of more than one process.  Plain PyTorch: the reference's
+    counterpart is XLA's cross-host all-reduce."""
+    import torch.distributed as dist
+
+    if not (dist.is_available() and dist.is_initialized()) \
+            or dist.get_world_size() < 2:
+        return tensors
+    world = dist.get_world_size()
+    host = dist.get_backend() == "gloo"
+    by_dtype: Dict[torch.dtype, list] = {}
+    for t in tensors:
+        by_dtype.setdefault(t.dtype, []).append(t)
+    for group in by_dtype.values():
+        flat = torch.cat([t.detach().reshape(-1) for t in group])
+        wire = flat.cpu() if host else flat
+        gathered = [torch.empty_like(wire) for _ in range(world)]
+        dist.all_gather(gathered, wire)
+        acc = gathered[0]
+        for g in gathered[1:]:
+            acc = acc + g
+        acc = (acc / world).to(flat.device)
+        off = 0
+        with torch.no_grad():
+            for t in group:
+                n = t.numel()
+                t.copy_(acc[off:off + n].view_as(t))
+                off += n
+    return tensors

@@ -65,10 +65,30 @@ it eagerly.
 Parameters are those of ``model.named_parameters()`` that require grad,
 deduplicated as that call deduplicates them, so a tied weight appears
 once and its gradient is the sum over its uses; the step updates them in
-place, so the model always holds them.  Still refused, naming their
-ROADMAP.md step: ``localsgd`` and ``dgc`` (step 5, ``distributed/``) and
-models with buffers (step 6, BatchNorm's buffers carried through the
-step).
+place, so the model always holds them.  ``localsgd`` and ``dgc`` need
+their own step schedule: ``FleetTrainStep`` refuses them with the
+reference's ``ValueError`` and ``parallel.distributed_train_step``
+routes them (``parallel/meta_optimizers.py``).  Still refused, naming
+its ROADMAP.md step: models with buffers (step 6, BatchNorm's buffers
+carried through the step).
+
+Several processes (``distributed.init_parallel_env`` with a process
+group of ``P`` > 1): ``init`` builds a dp axis that spans them.  The
+strategy's degrees are the job's, over ``P`` times this process's
+devices; each process holds its own local mesh (``dp / P`` replica
+groups times the other axes, over ``devices``) and feeds its slice of
+every batch.  Any other axis that would span processes (``pp`` > 1, or
+a dp that ``P`` does not divide) raises ``ShardedConfigError`` naming
+ROADMAP.md step 8.  The step then averages the gradients and the loss
+over the processes in rank order (``collective.cross_process_mean``):
+every rank updates with the same bits and returns the same loss, the
+global batch's for a loss that is a mean over equal local batches (the
+reference's multi-host job; a masked-LM mean over unequal per-process
+token counts is the mean of the processes' means).  On the card the
+reduction runs outside the captured region, for gloo (which cannot be
+captured) and NCCL alike: the step is two graphs per batch signature,
+forward and backward into the gradients, then the update, with the
+reduction between them on the host's order.
 """
 from __future__ import annotations
 
@@ -87,15 +107,12 @@ from . import topology
 
 _DEGREES = ("dp_degree", "mp_degree", "pp_degree", "sharding_degree",
             "sep_degree", "ep_degree")
-# switches that stay off, and the ROADMAP.md step that ports each
-_OFF = {"localsgd": "step 5 (distributed/: LocalSGD)",
-        "dgc": "step 5 (distributed/: DGC)"}
 
 
 class DistributedStrategy:
-    """Strategy knobs the step consumes (see the module docstring).  The
-    reference's ``localsgd`` / ``dgc`` exist and must stay off; an
-    unknown knob raises."""
+    """Strategy knobs the step consumes (see the module docstring); an
+    unknown knob raises.  ``localsgd`` / ``dgc`` select the
+    meta-optimizer steps of ``distributed_train_step``."""
 
     def __init__(self, **kw):
         self.hybrid_configs: Dict[str, int] = {k: 1 for k in _DEGREES}
@@ -109,8 +126,8 @@ class DistributedStrategy:
         self.gradient_merge = False
         self.gradient_merge_configs: Dict[str, Any] = {"k_steps": 1}
         self.pipeline_configs: Dict[str, Any] = {"accumulate_steps": 1}
-        for name in _OFF:
-            setattr(self, name, False)
+        self.localsgd = False
+        self.dgc = False
         self.localsgd_configs: Dict[str, Any] = {"k_steps": 4}
         self.dgc_configs: Dict[str, Any] = {"rampup_begin_step": 0,
                                             "sparsity": 0.75}
@@ -134,11 +151,6 @@ def _check(strategy: DistributedStrategy):
     if bad:
         raise ValueError(f"hybrid degrees {bad}: each is >= 1 "
                          "(dp_degree may be -1, inferred)")
-    on = [n for n in _OFF if getattr(strategy, n, False)]
-    if on:
-        raise NotImplementedError(
-            f"strategy {on} not ported yet; see ROADMAP.md "
-            + "; ".join(_OFF[n] for n in on))
     if strategy.sharding and strategy.sharding_stage not in (1, 2, 3):
         raise ValueError(f"sharding stage {strategy.sharding_stage}: "
                          "1, 2 or 3")
@@ -173,12 +185,16 @@ def init(strategy: Optional[DistributedStrategy] = None, devices=None,
     ``devices`` (default: the card) and make it current; returns the
     ``HybridCommunicateGroup``.  ``dp_degree=-1``, or a dp of 1 that
     leaves devices over, takes dp from the device count, as in the
-    reference."""
+    reference; in a job of several processes the count is theirs
+    together and dp spans them (see the module docstring)."""
+    from ..distributed import env as denv
+
     strategy = strategy or DistributedStrategy()
     _check(strategy)
     devices = (list(devices) if devices is not None
                else [resolve_device(None)])
-    n_dev = len(devices)
+    procs, rank = denv.process_count(), denv.process_index()
+    n_dev = len(devices) * procs
     hc = strategy.hybrid_configs
     deg = {k: int(hc.get(k, 1)) for k in _DEGREES}
     others = 1
@@ -191,11 +207,19 @@ def init(strategy: Optional[DistributedStrategy] = None, devices=None,
     if prod != n_dev and deg["dp_degree"] == 1 and prod < n_dev \
             and n_dev % prod == 0:
         deg["dp_degree"] = n_dev // prod
+    if procs > 1 and (deg["pp_degree"] > 1 or deg["dp_degree"] % procs):
+        from ..serving.sharded.mesh import ShardedConfigError
+
+        raise ShardedConfigError(
+            f"degrees {deg} over {procs} processes: only dp may span "
+            "processes (pp == 1, dp a multiple of the process count); an "
+            "axis across processes' devices is ROADMAP.md step 8")
     hcg = topology.HybridCommunicateGroup(
-        dp_degree=deg["dp_degree"], mp_degree=deg["mp_degree"],
+        dp_degree=deg["dp_degree"] // procs, mp_degree=deg["mp_degree"],
         pp_degree=deg["pp_degree"], sharding_degree=deg["sharding_degree"],
         sep_degree=deg["sep_degree"], ep_degree=deg["ep_degree"],
-        devices=[resolve_device(d) for d in devices])
+        devices=[resolve_device(d) for d in devices], processes=procs,
+        process_index=rank)
     _state.strategy = strategy
     _state.hcg = hcg
     _state.device = hcg.mesh.controller
@@ -311,6 +335,12 @@ class FleetTrainStep:
         self.loss_fn = loss_fn
         self.optimizer = optimizer
         self.strategy = strategy or _state.strategy or DistributedStrategy()
+        if getattr(self.strategy, "localsgd", False) \
+                or getattr(self.strategy, "dgc", False):
+            raise ValueError(
+                "strategy.localsgd/dgc need their own step schedule — "
+                "use parallel.distributed_train_step(...) (routes to "
+                "LocalSGDTrainStep / DGCTrainStep)")
         _check(self.strategy)
         self.hcg = hcg or _state.hcg
         if self.hcg is None:
@@ -348,6 +378,7 @@ class FleetTrainStep:
             self.offload = ("no-op: the port has no host-offload path; the "
                             "optimizer slots stay on the device")
         self.k_steps = _k_steps(self.strategy)
+        self.processes = self.hcg.processes
         self.opt_state = None
         self._step_count = 0
         self._programs = ProgramCache()
@@ -390,6 +421,18 @@ class FleetTrainStep:
     def _body(self, key, lr, step, *batch):
         """The whole step on device tensors: grads from None, the
         (micro-)batches' forward and backward, the update."""
+        loss = self._grads(key, *batch)
+        self._update(lr, step)
+        return loss
+
+    def _update(self, lr, step):
+        grads = {n: p.grad for n, p in self.params.items()}
+        self.optimizer.functional_update(self.params, grads, self.opt_state,
+                                         lr=lr, step=step)
+
+    def _grads(self, key, *batch):
+        """Grads from None, then the (micro-)batches' forward and
+        backward; returns the loss."""
         for p in self.params.values():
             p.grad = None
         k = self.k_steps
@@ -406,10 +449,7 @@ class FleetTrainStep:
                 for p in self.params.values():
                     if p.grad is not None:
                         p.grad.div_(k)
-        grads = {n: p.grad for n, p in self.params.items()}
-        self._grad_sets.append(grads)
-        self.optimizer.functional_update(self.params, grads, self.opt_state,
-                                         lr=lr, step=step)
+        self._grad_sets.append({n: p.grad for n, p in self.params.items()})
         return loss
 
     def step(self, *batch):
@@ -441,9 +481,35 @@ class FleetTrainStep:
         h["step"][()] = self._step_count
         d = self._scalars.upload()
         self._grad_sets = []
-        loss = self._programs.run(
-            "train-step", self._key, lambda: self._body,
-            (d["key"], d["lr"], d["step"], *tensors), self.device)
+        if self.processes == 1:
+            loss = self._programs.run(
+                "train-step", self._key, lambda: self._body,
+                (d["key"], d["lr"], d["step"], *tensors), self.device)
+            self._settle_grads()
+            keys = (self._key,)
+        else:
+            keys = (self._key + ("grads",), self._key + ("update",))
+            loss = self._programs.run(
+                "train-step", keys[0], lambda: self._grads,
+                (d["key"], *tensors), self.device).clone()
+            self._settle_grads()
+            from .collective import cross_process_mean
+
+            cross_process_mean([p.grad for p in self.params.values()
+                                if p.grad is not None] + [loss])
+            self._programs.run("train-step", keys[1], lambda: self._update,
+                               (d["lr"], d["step"]), self.device)
+        self._grad_sets = None
+        if not self._warm:
+            # one graph per key and batch signature: a later capture at
+            # this site is a recompile
+            for key in keys:
+                get_compile_log().mark_warm("train-step", key)
+            self._warm = True
+        lr_scheduler_tick(self.optimizer)
+        return loss
+
+    def _settle_grads(self):
         if len(self._grad_sets) == 2:
             # this call ran eagerly, then captured: the parameters' grads
             # are now the graph's, so give them this call's values
@@ -451,14 +517,75 @@ class FleetTrainStep:
             for n, g in warm.items():
                 if g is not None:
                     captured[n].copy_(g)
-        self._grad_sets = None
-        if not self._warm:
-            # one graph per batch signature: a later capture at this
-            # site is a recompile
-            get_compile_log().mark_warm("train-step", self._key)
-            self._warm = True
-        lr_scheduler_tick(self.optimizer)
-        return loss
+
+    # ------------------------------------------------------------ cost
+    def _probe(self, batch):
+        """One forward and backward of ``batch`` outside the step (a
+        fixed key; the parameters, their grads and the key stream are
+        left as they were) under ``FlopCounterMode``; on the card also
+        the peak allocation above what was allocated before."""
+        from torch.utils.flop_counter import FlopCounterMode
+
+        tensors = [self._to_device(b) for b in batch]
+        saved = {n: p.grad for n, p in self.params.items()}
+        key = torch.zeros(2, dtype=torch.int64, device=self.device)
+        cuda = self.device.type == "cuda"
+        if cuda:
+            torch.cuda.synchronize(self.device)
+            base = torch.cuda.memory_allocated(self.device)
+            torch.cuda.reset_peak_memory_stats(self.device)
+        counter = FlopCounterMode(display=False)
+        try:
+            for p in self.params.values():
+                p.grad = None
+            with counter:
+                self._backward(key, tensors)
+        finally:
+            for n, p in self.params.items():
+                p.grad = saved[n]
+        temp = 0
+        if cuda:
+            torch.cuda.synchronize(self.device)
+            temp = max(torch.cuda.max_memory_allocated(self.device) - base,
+                       0)
+        if self.opt_state is None:
+            self.opt_state = self.optimizer.functional_init(self.params)
+            self._record_slot_specs()
+        arg = sum(p.numel() * p.element_size() for p in self.params.values())
+        arg += sum(a.numel() * a.element_size()
+                   for slots in self.opt_state.values()
+                   for a in slots.values() if isinstance(a, torch.Tensor))
+        batch_bytes = sum(t.numel() * t.element_size() for t in tensors
+                          if isinstance(t, torch.Tensor))
+        return {"flops": float(counter.get_total_flops()),
+                "argument_bytes": arg, "batch_bytes": batch_bytes,
+                "temp_bytes": temp}
+
+    def cost_analysis(self, *batch):
+        """The step's cost on ``batch``, the reference's ``cost_analysis()``
+        keys: ``flops`` (``FlopCounterMode`` over one forward and backward:
+        matmuls and attention, the update's elementwise work not counted)
+        and ``bytes accessed`` (the parameters, optimizer slots and batch,
+        each read once: the least the step moves)."""
+        probe = self._probe(batch)
+        return {"flops": probe["flops"],
+                "bytes accessed": float(probe["argument_bytes"]
+                                        + probe["batch_bytes"])}
+
+    def memory_analysis(self, *batch):
+        """The reference's ``memory_analysis()`` fields:
+        ``argument_size_in_bytes`` (parameters and optimizer slots),
+        ``temp_size_in_bytes`` (the card's peak allocation during one
+        forward and backward above what was allocated before it; 0 on
+        the CPU, where it is not measured) and
+        ``output_size_in_bytes`` (the float32 loss)."""
+        from types import SimpleNamespace
+
+        probe = self._probe(batch)
+        return SimpleNamespace(
+            argument_size_in_bytes=probe["argument_bytes"],
+            temp_size_in_bytes=probe["temp_bytes"],
+            output_size_in_bytes=4)
 
     def _record_slot_specs(self):
         stage = self.strategy.sharding_stage

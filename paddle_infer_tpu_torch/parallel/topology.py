@@ -112,16 +112,19 @@ def create_hybrid_mesh(dp: int = 1, mp: int = 1, pp: int = 1,
     """The hybrid mesh ``[pp, dp, sharding, sep, ep, mp]`` over
     ``devices``.  A longer device list is cut to the product of the
     degrees (a smaller job than the machine), as in the reference; a
-    shorter one raises.  ``devices=None`` takes the visible cards, or
-    ``[cpu] * n`` where no card is visible."""
+    shorter one raises.  ``devices=None`` takes the visible cards and
+    raises, as ``resolve_device(None)`` does, where none is visible: a
+    mesh on the CPU passes ``devices=["cpu"] * n``."""
     degrees = {"pp": pp, "dp": dp, "sharding": sharding, "sep": sep,
                "ep": ep, "mp": mp}
     total = 1
     for v in degrees.values():
         total *= int(v)
     if devices is None:
-        devices = (visible_devices("cuda") if torch.cuda.is_available()
-                   else [torch.device("cpu")] * total)
+        from .. import resolve_device
+
+        resolve_device(None)
+        devices = visible_devices("cuda")
     devices = [_norm_device(d) for d in devices]
     if total < len(devices):
         devices = devices[:total]
@@ -277,12 +280,19 @@ class CommunicateTopology:
 class HybridCommunicateGroup:
     """The fleet topology: the mesh over ``devices`` and the per-axis
     degree, rank and group queries.  ``PADDLE_TRAINER_ID`` sets the
-    global rank, as in the reference; otherwise it is 0."""
+    global rank, as in the reference; otherwise it is 0.
+
+    In a job of ``processes`` > 1 (``parallel.fleet.init`` after
+    ``distributed.init_parallel_env``) the mesh is this process's local
+    one and dp spans the processes: the dp world size is the local dp
+    times ``processes`` and this process's dp rank starts at
+    ``process_index`` times the local dp."""
 
     def __init__(self, dp_degree: int = 1, mp_degree: int = 1,
                  pp_degree: int = 1, sharding_degree: int = 1,
                  sep_degree: int = 1, ep_degree: int = 1,
-                 devices: Optional[Sequence] = None):
+                 devices: Optional[Sequence] = None, processes: int = 1,
+                 process_index: int = 0):
         self.mesh = create_hybrid_mesh(dp=dp_degree, mp=mp_degree,
                                        pp=pp_degree,
                                        sharding=sharding_degree,
@@ -291,7 +301,10 @@ class HybridCommunicateGroup:
         self._degrees: Dict[str, int] = dict(self.mesh.shape)
         self._topo = CommunicateTopology(
             list(HYBRID_AXES), [self._degrees[a] for a in HYBRID_AXES])
-        self.global_rank = int(os.environ.get("PADDLE_TRAINER_ID", 0))
+        self.processes = int(processes)
+        self.process_index = int(process_index)
+        self.global_rank = int(os.environ.get("PADDLE_TRAINER_ID", 0)) \
+            if self.processes == 1 else 0
         self._coord = self._topo.get_coord(self.global_rank)
 
     def get_parallel_mode(self) -> str:
@@ -318,10 +331,10 @@ class HybridCommunicateGroup:
         return Group(self.mesh, axis)
 
     def get_data_parallel_world_size(self):
-        return self._degrees["dp"]
+        return self._degrees["dp"] * self.processes
 
     def get_data_parallel_rank(self):
-        return self._rank("dp")
+        return self.process_index * self._degrees["dp"] + self._rank("dp")
 
     def get_model_parallel_world_size(self):
         return self._degrees["mp"]

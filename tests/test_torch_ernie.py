@@ -347,11 +347,17 @@ def test_head_first_step_grads_match_jax(head):
 
 
 def test_unported_strategy_raises():
+    """``localsgd`` / ``dgc`` are ported (ROADMAP.md step 5): the
+    step refuses them with the reference's ``ValueError`` naming
+    ``distributed_train_step``, which routes them."""
     for knob in ("localsgd", "dgc"):
         st = DistributedStrategy()
         setattr(st, knob, True)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            fleet.init(strategy=st, devices=["cpu"])
+        fleet.init(strategy=st, devices=["cpu"])
+        _, tm, _ = _pair()
+        with pytest.raises(ValueError, match="distributed_train_step"):
+            FleetTrainStep(tm, lambda m: m, AdamW(
+                learning_rate=LR, parameters=tm.parameters()), strategy=st)
     with pytest.raises(NotImplementedError, match="not a knob"):
         DistributedStrategy(fuse_all_reduce_ops=True)
 

@@ -207,14 +207,12 @@ def test_rng_tracker_equals_jax():
         jtopo.set_current_mesh(None)
 
 
-STEP5 = {"LocalSGDTrainStep", "DGCTrainStep", "dgc_compress",
-         "distributed_train_step"}
-
-
 def test_exports_are_the_reference_names_less_step_five():
+    """Since ROADMAP.md step 5 the port exports every name of the
+    reference's ``parallel`` package, the meta-optimizers too."""
     import paddle_infer_tpu_torch.parallel as tpar
 
-    assert set(tpar.__all__) == set(jpar.__all__) - STEP5
+    assert set(tpar.__all__) == set(jpar.__all__)
     for name in tpar.__all__:
         assert getattr(tpar, name) is not None, name
 
@@ -222,12 +220,18 @@ def test_exports_are_the_reference_names_less_step_five():
 def test_remaining_refusals_name_their_roadmap_step():
     from paddle_infer_tpu_torch.core.random import KeyStream
 
+    # step 5 is ported: the meta-optimizer switches pass fleet.init and
+    # FleetTrainStep sends them to distributed_train_step, as the
+    # reference does
     for knob in ("localsgd", "dgc"):
         st = fleet.DistributedStrategy()
         setattr(st, knob, True)
-        with pytest.raises(NotImplementedError,
-                           match=r"ROADMAP\.md step 5 \(distributed/"):
-            fleet.init(strategy=st, devices=["cpu"])
+        fleet.init(strategy=st, devices=["cpu"])
+        m = torch.nn.Linear(2, 1)
+        m.keys = KeyStream(0)
+        with pytest.raises(ValueError, match="distributed_train_step"):
+            fleet.FleetTrainStep(m, lambda m: m.weight.sum(), None,
+                                 strategy=st)
     fleet.init(strategy=fleet.DistributedStrategy(), devices=["cpu"])
 
     class WithBuffer(torch.nn.Module):
